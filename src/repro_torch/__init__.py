@@ -1,0 +1,14 @@
+"""repro_torch: the PyTorch/CUDA port of ``repro`` (dynamic model averaging,
+Kamp et al. 2018) for one NVIDIA H100.
+
+Module paths mirror ``src/repro/`` (``repro.core.sync.stages`` <->
+``repro_torch.core.sync.stages``), and each module's docstring names its
+reference. The port imports torch and numpy only — never jax and nothing
+of the ``repro`` package. Its entry points default to ``device="cuda"``
+and raise when no card is visible; pass ``device="cpu"`` to run the plain
+versions of the kernels on the CPU.
+
+This slice ports the paper's training path: m learners, the flat
+``(m, P)`` fleet plane, the nosync/periodic/continuous/dynamic
+protocols on an ideal network, and the ``sqdist_rows`` kernel.
+"""
