@@ -1,22 +1,30 @@
-"""Where a round of the PyTorch port spends its time on the card.
+"""Where the PyTorch port spends its time on the card.
 
     python3 benchmarks/torch_profile.py
 
-Runs the configuration ``chip_smoke.py`` trains — the paper's MNIST CNN at
-full width (1,199,882 weights), m = 100 learners, B = 10, sgd lr 0.1 —
-under ``periodic b=10`` and ``dynamic b=10 Δ=0.7``, warms each up for 20
-rounds, then traces 20 rounds with ``torch.profiler`` (CPU and CUDA). For
-each protocol it prints one JSON line: the wall time per round (host
-clock around work that ends in a synchronize), the device time per round
-(the union of the traced CUDA kernels' and copies' intervals), the card's
-idle share,
-the device time under each of the round's named ranges
-(``round.local_step``, ``round.optimizer``, ``round.sync``), and the
-kernels that took the most device time (summed durations; concurrent
-kernels overlap, so they can add up to more than the device time). The
-last line is the card's name
-and power limit as ``nvidia-smi`` reports them. Needs a CUDA device; it
-imports nothing of JAX.
+Training: runs the configuration ``chip_smoke.py`` trains — the paper's
+MNIST CNN at full width (1,199,882 weights), m = 100 learners, B = 10,
+sgd lr 0.1 — under ``periodic b=10`` and ``dynamic b=10 Δ=0.7``, warms
+each up for 20 rounds, then traces 20 rounds with ``torch.profiler``
+(CPU and CUDA). For each protocol it prints one JSON line: the wall time
+per round (host clock around work that ends in a synchronize), the
+device time per round (the union of the traced CUDA kernels' and copies'
+intervals), the card's idle share, the device time under each of the
+round's named ranges (``round.local_step``, ``round.optimizer``,
+``round.sync``), and the kernels that took the most device time (summed
+durations; concurrent kernels overlap, so they can add up to more than
+the device time).
+
+Serving: the cells ``chip_smoke.py`` serves — llama3-8b at full width
+and depth in bf16 — traced the same way after a warm-up: one prefill at
+B = 4, S = 2,048, 8 decode steps of a batch-4 ``ServeEngine`` after a
+32-token prompt, and one llama3-8b-swa prefill at B = 1, S = 16,384.
+For each it prints one JSON line with the wall and device time, the idle
+share, kernel launches, and the device time by kind of kernel: the
+port's attention and rmsnorm kernels, cuBLAS products, and the rest.
+
+The last line is the card's name and power limit as ``nvidia-smi``
+reports them. Needs a CUDA device; it imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -38,6 +46,8 @@ from repro_torch.core.protocol import DecentralizedLearner  # noqa: E402
 from repro_torch.data.pipeline import LearnerStreams  # noqa: E402
 from repro_torch.data.synthetic import SyntheticMNIST  # noqa: E402
 from repro_torch.models.cnn import cnn_loss, init_cnn_params  # noqa: E402
+from repro_torch.models.model import init_lm_params  # noqa: E402
+from repro_torch.serve.engine import ServeEngine, make_prefill  # noqa: E402
 
 M, B, WARM, TRACED = 100, 10, 20, 20
 RANGES = ("round.local_step", "round.optimizer", "round.sync")
@@ -100,6 +110,70 @@ def profile_protocol(name: str, proto: ProtocolConfig) -> dict:
     }
 
 
+# kernel name -> kind, first match wins
+KINDS = (("attention kernel", ("attention_kernel",)),
+         ("rmsnorm kernel", ("rmsnorm_kernel",)),
+         ("cuBLAS products", ("nvjet", "gemm", "gemv", "xmma", "cutlass",
+                              "sm90_")))
+
+
+def _trace(fn, steps: int = 1) -> dict:
+    """Trace ``fn()``: wall and device ms per step, idle share, launches
+    and device ms by kind of kernel, the heaviest kernels."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kinds = {k: 0.0 for k, _ in KINDS}
+    kinds["other"] = 0.0
+    per_kernel: dict = {}
+    for e in device:
+        us = e.time_range.end - e.time_range.start
+        per_kernel[e.name] = per_kernel.get(e.name, 0.0) + us
+        kind = next((k for k, keys in KINDS
+                     if any(key in e.name for key in keys)), "other")
+        kinds[kind] += us
+    device_us = _busy_us((e.time_range.start, e.time_range.end)
+                         for e in device)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+            "device_ms_per_step": device_us / steps / 1e3,
+            "idle_share": 1.0 - device_us / wall_us,
+            "launches_per_step": len(device) / steps,
+            "device_ms_per_step_by_kind": {
+                k: v / steps / 1e3 for k, v in kinds.items()},
+            "top_kernels_ms_per_step": [[k[:90], us / steps / 1e3]
+                                        for k, us in top]}
+
+
+def profile_serve() -> list:
+    cfg, cfg_swa = get_arch("llama3-8b"), get_arch("llama3-8b-swa")
+    params = init_lm_params(cfg, seed=0, dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g,
+                           device="cuda")
+    prefill, prefill_swa = make_prefill(cfg), make_prefill(cfg_swa)
+    prefill(params, tokens[:, :128])                    # warm-up
+    out = [{"cell": "llama3-8b prefill B=4 S=2048",
+            **_trace(lambda: prefill(params, tokens))}]
+    eng = ServeEngine(cfg, params, max_seq=48, batch=4,
+                      dtype=torch.bfloat16)
+    logits = eng.feed(tokens[:, :32])
+    eng.generate(2, first_logits=logits)                # warm-up
+    out.append({"cell": "llama3-8b decode batch 4, cache 34-41",
+                **_trace(lambda: eng.generate(8, first_logits=logits), 8)})
+    del eng
+    swa_tokens = torch.randint(0, cfg.vocab_size, (1, 16384), generator=g,
+                               device="cuda")
+    out.append({"cell": "llama3-8b-swa prefill B=1 S=16384",
+                **_trace(lambda: prefill_swa(params, swa_tokens))})
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("torch_profile.py needs a CUDA device")
@@ -107,6 +181,9 @@ def main() -> None:
             ("periodic", ProtocolConfig(kind="periodic", b=10)),
             ("dynamic", ProtocolConfig(kind="dynamic", b=10, delta=0.7))):
         print(json.dumps(profile_protocol(name, proto)), flush=True)
+    torch.cuda.empty_cache()
+    for rec in profile_serve():
+        print(json.dumps(rec), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -3,22 +3,35 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the port's CUDA kernels from
-``src/repro_torch/kernels/csrc``, holds each kernel against its plain
-PyTorch version on the card, trains the paper's MNIST CNN at full width
-(m = 100 learners, B = 10) under periodic and dynamic averaging through
-``run_protocol_training``, checks that the dynamic run went through the
-``sqdist_rows`` kernel once per checked round, and checks that a small
-dynamic run on the card makes exactly the sync decisions of the same run
-on the CPU (the path the tests hold against the JAX reference). The
-scalar ``sqdist`` kernel (behind ``divergence.sq_distance(use_kernel=True)``)
-is not on the training path, as in the reference: it is checked and
-timed, and its main-path count is 0.
+``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at once)
+and drives both of the port's paths:
 
-Each phase prints one JSON line. The last three lines are the kernel
-table, the card's name and power limit as ``nvidia-smi`` reports them,
-and ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
-those lines; without a CUDA device the script exits non-zero at once. It
-imports nothing of JAX and nothing of the JAX package.
+* training (slice 1): holds the ``sqdist_rows``/``sqdist`` kernels
+  against their plain versions on the card, trains the paper's MNIST CNN
+  at full width (m = 100 learners, B = 10) under periodic and dynamic
+  averaging through ``run_protocol_training``, checks that the dynamic
+  run went through ``sqdist_rows`` once per checked round, and that a
+  small dynamic run on the card makes exactly the sync decisions of the
+  same run on the CPU. The scalar ``sqdist`` kernel (behind
+  ``divergence.sq_distance(use_kernel=True)``) is not on the training
+  path, as in the reference: it is checked and timed, and its main-path
+  count is 0.
+* serving (slice 2): holds the ``rmsnorm``, ``flash_attention`` and
+  ``swa_attention`` kernels against their plain versions on the card in
+  f32 and bf16 (small and ragged shapes, then the serving path's own),
+  checks that the llama3-8b and llama3-8b-swa smoke configs give the
+  CPU's logits and greedy tokens on the card, then serves llama3-8b at
+  full width and depth in bf16 (prefill at B = 4, S = 2,048; a batch-4
+  ``ServeEngine`` feeding 32 prompt tokens and generating 32) and runs
+  the llama3-8b-swa prefill at B = 1, S = 16,384 through the banded
+  kernel, counting each kernel's launches on each path.
+
+Each phase prints one JSON line with its seconds. The last three lines
+are the kernel table, the card's name and power limit as ``nvidia-smi``
+reports them, and ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero before those lines; without a CUDA device the script exits
+non-zero at once. It imports nothing of JAX and nothing of the JAX
+package.
 """
 from __future__ import annotations
 
@@ -40,22 +53,48 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+import torch.nn.functional as F  # noqa: E402
+from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
+
 from repro_torch.config import ProtocolConfig, TrainConfig, get_arch  # noqa: E402
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
+from repro_torch.core.flatten import tree_leaves  # noqa: E402
 from repro_torch.core.protocol import DecentralizedLearner  # noqa: E402
 from repro_torch.data.synthetic import SyntheticMNIST  # noqa: E402
-from repro_torch.kernels import _build, ops, ref, sqdist  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _build, flash_attention, ops, ref, rmsnorm, sqdist, swa_attention,
+)
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn_params  # noqa: E402
+from repro_torch.models.model import init_lm_params  # noqa: E402
+from repro_torch.serve.engine import ServeEngine, make_prefill  # noqa: E402
 from repro_torch.train.loop import run_protocol_training  # noqa: E402
 
 P_MNIST = 1_199_882          # mnist_cnn's weights (Table 1)
 M, B, ROUNDS, CHUNK, PERIOD, DELTA = 100, 10, 60, 20, 10, 0.7
 TOL = dict(rtol=1e-5, atol=1e-6)
 
-# published peaks (NVIDIA data sheets, dense): device-memory bytes/s and
-# f32 flop/s outside the tensor cores
-PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-         "H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
+# published peaks (NVIDIA data sheets, dense): device-memory bytes/s,
+# f32 flop/s outside the tensor cores, bf16 tensor-core flop/s
+PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
+         "H100 NVL": (3.9e12, 60e12, 835e12),
+         "H100": (3.35e12, 67e12, 989e12), "H200": (4.8e12, 67e12, 989e12)}
+
+# the serving path (llama3-8b and its sliding-window variant, bf16)
+SERVE_B, SERVE_S, PROMPT, GEN = 4, 2048, 32, 32
+SWA_B, SWA_S = 1, 16_384
+# kernel vs plain on the card: f32 differs only in summation order; bf16
+# outputs may land one bf16 step apart (the same f32 value rounded once)
+LM_TOL = {("rmsnorm", torch.float32): dict(rtol=1e-5, atol=1e-6),
+          ("attention", torch.float32): dict(rtol=1e-4, atol=1e-5),
+          ("rmsnorm", torch.bfloat16): dict(rtol=2 ** -7, atol=1e-5),
+          ("attention", torch.bfloat16): dict(rtol=2 ** -7, atol=1e-5)}
+# the smoke configs on the card against the CPU, in f32: matmuls, softmax
+# and norm statistics summed in other orders through two layers
+AGREE_TOL = dict(rtol=1e-4, atol=1e-5)
+# full-width serving in bf16: the engine's prompt logits against the
+# prefill's, and the band below the window against full attention, as
+# max |diff| over max |logit| (bf16 keeps ~3 significant digits; 32 layers)
+SERVE_REL_TOL = 5e-2
 
 
 def emit(record: dict) -> None:
@@ -69,9 +108,9 @@ def peaks(name: str):
     raise ValueError(f"no published peaks for {name!r}")
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` over ``iters`` calls, after warm-up."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -148,7 +187,7 @@ def phase_kernels(gen) -> dict:
             check("sqdist", sqdist.sqdist, ref.sqdist_ref, (X, R), [m, n])
             del X, R
 
-    mem_rate, f32_rate = peaks(torch.cuda.get_device_name(0))
+    mem_rate, f32_rate, _ = peaks(torch.cuda.get_device_name(0))
     X = torch.randn((M, P_MNIST), generator=gen, device="cuda")
     r = torch.randn((P_MNIST,), generator=gen, device="cuda")
     x0 = X[0]
@@ -298,23 +337,408 @@ def phase_agree() -> dict:
                          "CPU's beyond f32 reassociation")
     return rec
 
+# ---------------------------------------------------------------------------
+# serving (slice 2)
+# ---------------------------------------------------------------------------
+def attention_work(B, Sq, Sk, H, Hkv, d, causal, window, itemsize):
+    """(bytes, flops) the attention function needs at these shapes: q, k,
+    v read once and o written once; 4 flops per kept query-key pair per
+    head dimension (q.k and p.v), counting the pairs this mask keeps."""
+    pos = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
+    hi = np.minimum(pos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(Sq)
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    nbytes = (2 * B * Sq * H * d + 2 * B * Sk * Hkv * d) * itemsize
+    return nbytes, 4 * d * pairs * B * H
+
+
+def phase_lm_kernels(gen) -> dict:
+    """rmsnorm, flash_attention(_gqa) and swa_attention against their plain
+    versions on the card, f32 and bf16, bitwise equal across two
+    launches; then timed at the serving path's shapes in bf16 beside the
+    plain version and one PyTorch call that the port never makes."""
+    checks = []
+    worst = {k: 0.0 for k in ("rmsnorm", "flash_attention", "swa_attention")}
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    def check(name, kind, kernel, plain, args, kw, label):
+        a, b = kernel(*args, **kw), kernel(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((a.float() - want.float()).abs().max())
+        worst[name] = max(worst[name], err)
+        repeat = bool(torch.equal(a, b))
+        ok = repeat and bool(torch.allclose(
+            a.float(), want.float(), **LM_TOL[kind, args[0].dtype]))
+        checks.append({"kernel": name, "inputs": label,
+                       "dtype": str(args[0].dtype).split(".")[1],
+                       "max_abs_err": err, "bitwise_repeat": repeat,
+                       "ok": ok})
+        if not ok:
+            emit({"phase": "lm_kernels", "failed": checks[-1]})
+            raise SystemExit(f"kernel {name} disagrees: {checks[-1]}")
+
+    def norm(shape, dt, label=None):
+        x, s = randn(shape, dt), randn(shape[-1:], dt)
+        check("rmsnorm", "rmsnorm", rmsnorm.rmsnorm, ref.rmsnorm_ref,
+              (x, s, 1e-5), {}, label or list(shape))
+        return x, s
+
+    def attn(B, Sq, Sk, H, Hkv, d, causal, window, dt, label=None):
+        q, k, v = (randn((B, Sq, H, d), dt), randn((B, Sk, Hkv, d), dt),
+                   randn((B, Sk, Hkv, d), dt))
+        kw = dict(causal=causal, window=window)
+        check("flash_attention", "attention",
+              flash_attention.flash_attention_gqa,
+              ref.flash_attention_gqa_ref, (q, k, v), kw,
+              label or [B, Sq, Sk, H, Hkv, d, causal, window])
+        return q, k, v
+
+    def swa(B, S, H, Hkv, d, w, dt, label=None):
+        q, k, v = (randn((B, S, H, d), dt), randn((B, S, Hkv, d), dt),
+                   randn((B, S, Hkv, d), dt))
+        check("swa_attention", "attention", swa_attention.swa_attention,
+              ref.swa_attention_ref, (q, k, v), dict(window=w),
+              label or [B, S, H, Hkv, d, w])
+        if not torch.equal(
+                swa_attention.swa_attention(q, k, v, window=w),
+                flash_attention.flash_attention_gqa(q, k, v, causal=True,
+                                                    window=w)):
+            raise SystemExit("swa_attention differs from flash_attention "
+                             "with the same window")
+        return q, k, v
+
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in [(1, 8), (130, 32), (3, 5, 256), (7, 4096),
+                      (2, 7, 14_000)]:
+            norm(shape, dt)
+        for case in [(2, 64, 64, 1, 1, 32, True, 0),
+                     (2, 100, 100, 4, 2, 64, True, 0),
+                     (1, 24, 130, 8, 2, 128, True, 0),
+                     (2, 96, 96, 4, 1, 128, True, 24),
+                     (1, 40, 70, 2, 2, 32, False, 0),       # ROADMAP C1
+                     (1, 70, 70, 2, 1, 64, False, 16)]:
+            attn(*case, dt)
+        for case in [(2, 64, 1, 1, 32, 16), (1, 256, 4, 2, 128, 64),
+                     (1, 1024, 8, 2, 128, 256)]:
+            swa(*case, dt)
+
+    # the serving path's own tensors, bf16: checked, then timed
+    bf = torch.bfloat16
+    mem_rate, f32_rate, bf16_rate = peaks(torch.cuda.get_device_name(0))
+    D, H, Hkv, hd, w = 4096, 32, 8, 128, 8192
+    x, s = norm((SERVE_B, SERVE_S, D), bf, "serve (4, 2048, 4096)")
+    q, k, v = attn(SERVE_B, SERVE_S, SERVE_S, H, Hkv, hd, True, 0, bf,
+                   "serve prefill (4, 2048, 32/8, 128)")
+    qs, ks, vs = swa(SWA_B, SWA_S, H, Hkv, hd, w, bf,
+                     "swa prefill (1, 16384, 32/8, 128), w 8192")
+    # one PyTorch call each, as yardsticks: (B, H, S, d) layouts and, for
+    # the band, kv heads expanded and a boolean mask, made before timing
+    qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    qsT = qs.transpose(1, 2).contiguous()
+    ksT, vsT = (t.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                .contiguous() for t in (ks, vs))
+    i = torch.arange(SWA_S, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+
+    def swa_library():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qsT, ksT, vsT,
+                                                  attn_mask=band)
+
+    n_norm = x.numel()
+    norm_bytes = 2 * n_norm * 2 + D * 2
+    f_bytes, f_ops = attention_work(SERVE_B, SERVE_S, SERVE_S, H, Hkv, hd,
+                                    True, 0, 2)
+    s_bytes, s_ops = attention_work(SWA_B, SWA_S, SWA_S, H, Hkv, hd, True,
+                                    w, 2)
+    timed = {
+        "rmsnorm": (
+            [SERVE_B, SERVE_S, D], norm_bytes, 4 * n_norm, f32_rate, 20,
+            lambda: rmsnorm.rmsnorm(x, s, 1e-5),
+            lambda: ref.rmsnorm_ref(x, s, 1e-5),
+            lambda: F.rms_norm(x, (D,), weight=s, eps=1e-5),
+            "F.rms_norm"),
+        "flash_attention": (
+            [SERVE_B, SERVE_S, H, Hkv, hd], f_bytes, f_ops, bf16_rate, 5,
+            lambda: flash_attention.flash_attention_gqa(q, k, v),
+            lambda: ref.flash_attention_gqa_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(
+                qT, kT, vT, is_causal=True, enable_gqa=True),
+            "F.scaled_dot_product_attention(is_causal=True, "
+            "enable_gqa=True)"),
+        "swa_attention": (
+            [SWA_B, SWA_S, H, Hkv, hd, w], s_bytes, s_ops, bf16_rate, 3,
+            lambda: swa_attention.swa_attention(qs, ks, vs, window=w),
+            lambda: ref.swa_attention_ref(qs, ks, vs, window=w),
+            swa_library,
+            "F.scaled_dot_product_attention(attn_mask=band), efficient "
+            "backend, kv heads expanded"),
+    }
+    table = {}
+    for name, (shape, nbytes, nops, rate, iters, kernel, plain, library,
+               lib_name) in timed.items():
+        t_bytes, t_ops = nbytes / mem_rate * 1e3, nops / rate * 1e3
+        table[name] = {
+            "shape": shape, "dtype": "bfloat16",
+            "max_abs_err": worst[name],
+            "ms": cuda_ms(kernel, iters, 1),
+            "plain_ms": cuda_ms(plain, iters, 1),
+            "library_ms": cuda_ms(library, iters, 1),
+            "library": lib_name,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": nops}
+    emit({"phase": "lm_kernels", "checks": len(checks),
+          "all_ok": all(c["ok"] for c in checks),
+          "tolerances": {f"{k[0]} {str(k[1]).split('.')[1]}": v
+                         for k, v in LM_TOL.items()},
+          "timed": table,
+          "peaks": {"bytes_per_s": mem_rate, "f32_flops": f32_rate,
+                    "bf16_flops": bf16_rate}})
+    return table
+
+
+def phase_lm_agree() -> dict:
+    """The llama3-8b and llama3-8b-swa smoke configs in f32, from the same
+    numpy weights, on the CPU and on the card: prefill logits within
+    AGREE_TOL, and a ServeEngine's 16 greedy tokens identical. The swa
+    prompts take the banded path (S = 2w) and the masked one (S < 2w)."""
+    out = {}
+    for name, cases in (("llama3-8b", [(24, "flash_attention")]),
+                        ("llama3-8b-swa", [(32, "swa_attention"),
+                                           (24, "flash_attention")])):
+        cfg = get_arch(name, smoke=True)
+        weights = params_to_numpy(init_lm_params(cfg, seed=5, device="cpu"))
+        params = {dev: params_from_numpy(weights, device=dev)
+                  for dev in ("cpu", "cuda")}
+        rng = np.random.default_rng(6)
+        rec = {}
+        for S, path in cases:
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, S)))
+            want = make_prefill(cfg)(params["cpu"], toks)
+            ops.reset_launches()
+            got = make_prefill(cfg)(params["cuda"], toks.cuda())
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            err = float((got.cpu() - want).abs().max())
+            rec[f"prefill S={S}"] = {"max_abs_err": err,
+                                     "launches": launches}
+            if launches[path] != cfg.num_layers or launches["rmsnorm"] != (
+                    2 * cfg.num_layers + 1):
+                raise SystemExit(f"{name} S={S}: the card's prefill did not "
+                                 f"take the {path} path: {launches}")
+            if not torch.allclose(got.cpu(), want, **AGREE_TOL):
+                raise SystemExit(f"{name} S={S}: the card's prefill logits "
+                                 f"differ from the CPU's by {err}")
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 5)))
+        tokens = {}
+        for dev in ("cpu", "cuda"):
+            eng = ServeEngine(cfg, params[dev], max_seq=32, batch=2,
+                              device=dev)
+            logits = eng.feed(prompt)
+            tokens[dev] = eng.generate(16, first_logits=logits).cpu()
+        rec["greedy_tokens_equal"] = bool(torch.equal(tokens["cpu"],
+                                                      tokens["cuda"]))
+        out[name] = rec
+        if not rec["greedy_tokens_equal"]:
+            raise SystemExit(f"{name}: greedy tokens differ on the card: "
+                             f"{tokens}")
+    emit({"phase": "lm_agree", "tolerance": AGREE_TOL, "configs": out})
+    return out
+
+
+def _timed(fn):
+    """(result, ms by CUDA events, wall s) of ``fn()``, synchronized."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), time.perf_counter() - t0
+
+
+def phase_serve() -> dict:
+    """The serving path at full width and depth, bf16, weights drawn on the
+    card: llama3-8b prefill at (4, 2048), a batch-4 engine feeding 32
+    prompt tokens and generating 32, then the llama3-8b-swa prefill at
+    (1, 16384) over the same weights (the same backbone)."""
+    cfg, cfg_swa = get_arch("llama3-8b"), get_arch("llama3-8b-swa")
+    L, bf = cfg.num_layers, torch.bfloat16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms, _ = _timed(lambda: init_lm_params(cfg, seed=0, dtype=bf,
+                                                       device="cuda"))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    if n_params != cfg.param_count() + cfg.d_model:     # + final_norm
+        raise SystemExit(f"llama3-8b has {n_params} weights, not "
+                         f"{cfg.param_count() + cfg.d_model}")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S),
+                           generator=g, device="cuda")
+    prefill = make_prefill(cfg)
+    prefill(params, tokens[:, :128])                    # warm-up
+    launches = {}
+
+    ops.reset_launches()
+    logits, prefill_ms, _ = _timed(lambda: prefill(params, tokens))
+    launches["prefill"] = dict(ops.LAUNCHES)
+    if tuple(logits.shape) != (SERVE_B, SERVE_S, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise SystemExit(f"prefill logits {tuple(logits.shape)} are not "
+                         f"finite or not of the expected shape")
+    at_prompt = logits[:, PROMPT - 1].float()
+    head_2k = logits[0].clone()
+    del logits
+    torch.cuda.synchronize()
+
+    eng = ServeEngine(cfg, params, max_seq=PROMPT + GEN + 1, batch=SERVE_B,
+                      dtype=bf, device="cuda")
+    ops.reset_launches()
+    first, feed_ms, _ = _timed(lambda: eng.feed(tokens[:, :PROMPT]))
+    launches["feed"] = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    generated, gen_ms, gen_wall = _timed(
+        lambda: eng.generate(GEN, first_logits=first))
+    launches["generate"] = dict(ops.LAUNCHES)
+    main_launches = {k: launches["prefill"][k] + launches["feed"][k]
+                     + launches["generate"][k] for k in ops.LAUNCHES}
+
+    # the engine's logits at the last prompt position against the
+    # prefill's: bf16 through 32 layers, and the decode attention (plain
+    # _sdpa) rounds scores and probabilities to bf16 where the prefill
+    # kernel keeps them in f32
+    diff = (first.float() - at_prompt).abs().max()
+    scale = at_prompt.abs().max()
+    rel = float(diff / scale)
+    pick_e, pick_p = first.float().argmax(-1), at_prompt.argmax(-1)
+    # a differing pick is accepted only as a near tie: the engine's pick
+    # sits within the same bound of the prefill's maximum
+    gap = (at_prompt.max(-1).values
+           - at_prompt.gather(1, pick_e[:, None])[:, 0])
+    near_tie = bool((gap <= 2 * diff).all())
+    agree = int((pick_e == pick_p).sum())
+    del eng, first
+
+    if (launches["prefill"]["flash_attention"] != L
+            or launches["prefill"]["rmsnorm"] != 2 * L + 1
+            or launches["feed"]["rmsnorm"] != PROMPT * (2 * L + 1)
+            or launches["generate"]["rmsnorm"] != GEN * (2 * L + 1)
+            or launches["feed"]["flash_attention"]
+            or launches["generate"]["flash_attention"]):
+        raise SystemExit(f"serving launches: {launches}")
+    if rel > SERVE_REL_TOL or not (agree == SERVE_B or near_tie):
+        raise SystemExit(f"the engine's prompt logits differ from the "
+                         f"prefill's: rel {rel}, argmax {pick_e.tolist()} "
+                         f"vs {pick_p.tolist()}")
+    if tuple(generated.shape) != (SERVE_B, GEN) or not bool(
+            ((generated >= 0) & (generated < cfg.vocab_size)).all()):
+        raise SystemExit(f"generated {tuple(generated.shape)} tokens out of "
+                         f"range")
+
+    # the sliding-window variant over the same weights, through the band
+    swa_tokens = torch.randint(0, cfg.vocab_size, (SWA_B, SWA_S),
+                               generator=g, device="cuda")
+    swa_tokens[0, :SERVE_S] = tokens[0]
+    ops.reset_launches()
+    swa_logits, swa_ms, _ = _timed(
+        lambda: make_prefill(cfg_swa)(params, swa_tokens))
+    launches["swa_prefill"] = dict(ops.LAUNCHES)
+    if (launches["swa_prefill"]["swa_attention"] != L
+            or launches["swa_prefill"]["flash_attention"]
+            or launches["swa_prefill"]["rmsnorm"] != 2 * L + 1):
+        raise SystemExit(f"swa prefill launches: {launches['swa_prefill']}")
+    if tuple(swa_logits.shape) != (SWA_B, SWA_S, cfg.vocab_size) or not bool(
+            torch.isfinite(swa_logits).all()):
+        raise SystemExit("swa prefill logits are not finite or not of the "
+                         "expected shape")
+    # below the window the band keeps every earlier key, so the first
+    # 2,048 positions must repeat the full-attention prefill of the same
+    # tokens (bf16, other matmul shapes)
+    swa_rel = float((swa_logits[0, :SERVE_S].float() - head_2k.float())
+                    .abs().max() / head_2k.float().abs().max())
+    if swa_rel > SERVE_REL_TOL:
+        raise SystemExit(f"swa prefill below the window differs from the "
+                         f"full prefill: rel {swa_rel}")
+    del swa_logits, head_2k
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"phase": "serve", "arch": cfg.name, "layers": L, "cut": None,
+           "dtype": "bfloat16",
+           "params": n_params, "weights_bytes": weight_bytes,
+           "init_ms": init_ms,
+           "prefill": {"batch": SERVE_B, "seq": SERVE_S, "ms": prefill_ms,
+                       "tokens_per_s": SERVE_B * SERVE_S / prefill_ms * 1e3},
+           "engine": {"batch": SERVE_B, "prompt": PROMPT, "generated": GEN,
+                      "feed_ms_per_step": feed_ms / PROMPT,
+                      "decode_ms_per_step": gen_ms / GEN,
+                      "decode_wall_s": gen_wall,
+                      "step_bytes_bound_ms": weight_bytes / peaks(
+                          torch.cuda.get_device_name(0))[0] * 1e3,
+                      "prompt_logits_rel_err": rel,
+                      "tolerance_rel": SERVE_REL_TOL,
+                      "argmax_agree": f"{agree}/{SERVE_B}",
+                      "pick_gaps": gap.tolist(),
+                      "max_abs_diff": float(diff), "near_tie": near_tie},
+           "swa_prefill": {"arch": cfg_swa.name, "batch": SWA_B,
+                           "seq": SWA_S, "window": cfg_swa.sliding_window,
+                           "ms": swa_ms,
+                           "tokens_per_s": SWA_B * SWA_S / swa_ms * 1e3,
+                           "below_window_rel_err": swa_rel},
+           "peak_memory_bytes": peak, "launches": launches}
+    emit(rec)
+    del params
+    torch.cuda.empty_cache()
+    return {"main": main_launches, "swa": launches["swa_prefill"]}
+
 
 def main() -> None:
-    env = phase_env()
-    phase_build()
+    seconds = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    env = run("env", phase_env)
+    run("build", phase_build)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    table = phase_kernels(gen)
-    phase_agree()
-    launches = phase_train()
-    source = "src/repro_torch/kernels/csrc/sqdist.cu"
+    table = run("kernels", phase_kernels, gen)
+    run("agree", phase_agree)
+    launches = run("train", phase_train)
+    torch.cuda.empty_cache()
+    lm_table = run("lm_kernels", phase_lm_kernels, gen)
+    run("lm_agree", phase_lm_agree)
+    serve = run("serve", phase_serve)
+    emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
+    csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
-        {"name": "sqdist_rows", "route": "cuda", "source": source,
+        {"name": "sqdist_rows", "route": "cuda", "source": csrc + "sqdist.cu",
          "replaces": "src/repro/kernels/sqdist.py:81",
          "launches": launches["sqdist_rows"], **table["sqdist_rows"]},
-        {"name": "sqdist", "route": "cuda", "source": source,
+        {"name": "sqdist", "route": "cuda", "source": csrc + "sqdist.cu",
          "replaces": "src/repro/kernels/sqdist.py:41",
          "launches": launches["sqdist"], **table["sqdist"]},
+        {"name": "rmsnorm", "route": "cuda", "source": csrc + "rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:25",
+         "launches": serve["main"]["rmsnorm"], **lm_table["rmsnorm"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": csrc + "attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:77",
+         "launches": serve["main"]["flash_attention"],
+         **lm_table["flash_attention"]},
+        {"name": "swa_attention", "route": "cuda",
+         "source": csrc + "attention.cu",
+         "replaces": "src/repro/kernels/swa_attention.py:64",
+         "launches": serve["swa"]["swa_attention"],
+         **lm_table["swa_attention"]},
     ]
     emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)

@@ -8,7 +8,10 @@ of the ``repro`` package. Its entry points default to ``device="cuda"``
 and raise when no card is visible; pass ``device="cpu"`` to run the plain
 versions of the kernels on the CPU.
 
-This slice ports the paper's training path: m learners, the flat
+Slice 1 ported the paper's training path: m learners, the flat
 ``(m, P)`` fleet plane, the nosync/periodic/continuous/dynamic
-protocols on an ideal network, and the ``sqdist_rows`` kernel.
+protocols on an ideal network, and the ``sqdist_rows`` kernel. Slice 2
+ported serving the dense GQA decoder LM (llama3-8b and its
+sliding-window variant: ``serve.engine`` over ``models.model``) and the
+``rmsnorm``, ``flash_attention`` and ``swa_attention`` kernels.
 """

@@ -1,10 +1,18 @@
 """Configuration for the port — its own copy of what the slice needs from
 ``repro.config``.
 
-``ModelConfig`` keeps the fields of the paper's CNN/MLP families,
-``TrainConfig`` the optimizer settings and ``ProtocolConfig`` the sync
-protocol. ``ProtocolConfig`` validates exactly as the reference does (the
-same ``ValueError``s for a bad period, fraction, threshold, augmentation,
+``ModelConfig`` keeps the fields of the paper's CNN/MLP families and of
+the dense decoder LM (``repro/config.py:69-100``: GQA, optional QKV bias,
+optional sliding window, text modality), with ``resolved_head_dim`` and
+``param_count()``. Setting ``moe``, ``mla`` or ``ssm``, an SSM or hybrid
+``block_type``, or a vision/audio ``modality`` raises
+``NotImplementedError`` naming the ROADMAP item that ports it; the
+reference's ``moe_layer_period`` and ``scan_layers`` have no port (the
+port's layer loop is a Python loop). ``TrainConfig`` keeps the optimizer
+settings and ``ProtocolConfig`` the sync protocol.
+
+``ProtocolConfig`` validates exactly as the reference does (the same
+``ValueError``s for a bad period, fraction, threshold, augmentation,
 payload size or layout) by resolving its preset through
 ``repro_torch.core.sync.spec``. It departs from the reference in three
 ways: ``layout`` defaults to ``"flat"`` (the only layout of this slice),
@@ -18,17 +26,109 @@ from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
 
+BLOCK_ATTN = "attn"
+BLOCK_SSM = "ssm"
+BLOCK_HYBRID = "hybrid"
+
+ATTN_FULL = "full"
+ATTN_SLIDING = "sliding"
+
+MODALITY_TEXT = "text"
+MODALITY_VISION = "vision"
+MODALITY_AUDIO = "audio"
+
+# what this port does not run yet, and the ROADMAP Queue A item that ports it
+NOT_PORTED_LM = {
+    "ssm": "Mamba2 and its ssd_scan kernel (ROADMAP Queue A 22)",
+    "moe": "mixture-of-experts FFNs (ROADMAP Queue A 23)",
+    "mla": "multi-head latent attention (ROADMAP Queue A 23)",
+    BLOCK_HYBRID: "hybrid attention + SSM blocks (ROADMAP Queue A 23)",
+    MODALITY_VISION: "the vision modality (ROADMAP Queue A 23)",
+    MODALITY_AUDIO: "the audio modality (ROADMAP Queue A 23)",
+}
+
+
 @dataclass(frozen=True)
 class ModelConfig:
-    """One of the paper's models: a ``cnn_spec`` of layer descriptors over
-    per-example ``input_shape`` (see ``repro_torch.models.cnn``)."""
+    """One model: the paper's CNN/MLP (a ``cnn_spec`` of layer descriptors
+    over per-example ``input_shape``, see ``repro_torch.models.cnn``) or
+    the dense decoder LM (``num_layers`` blocks of GQA attention and a
+    SwiGLU FFN, see ``repro_torch.models.model``)."""
     name: str
-    family: str                                     # "cnn" (CNN or MLP)
+    family: str                           # dense | cnn
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0                     # 0 -> d_model // num_heads
+    block_type: str = BLOCK_ATTN
+    attn_type: str = ATTN_FULL            # full | sliding
+    sliding_window: int = 4096
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    modality: str = MODALITY_TEXT
+    moe: Any = None                       # not ported: raises when set
+    mla: Any = None
+    ssm: Any = None
+    # CNN-only fields (the paper's MNIST / deep-driving nets)
     cnn_spec: Optional[Tuple[Any, ...]] = None
     input_shape: Optional[Tuple[int, ...]] = None   # per example
     num_outputs: int = 0
     dtype: str = "float32"
     source: str = ""                                # citation
+
+    def __post_init__(self):
+        for name in ("moe", "mla", "ssm"):
+            if getattr(self, name) is not None:
+                raise NotImplementedError(
+                    f"{name}= is not ported yet: {NOT_PORTED_LM[name]}")
+        if self.block_type == BLOCK_SSM:
+            raise NotImplementedError(
+                f"block_type='ssm' is not ported yet: {NOT_PORTED_LM['ssm']}")
+        if self.block_type == BLOCK_HYBRID:
+            raise NotImplementedError(
+                f"block_type='hybrid' is not ported yet: "
+                f"{NOT_PORTED_LM[BLOCK_HYBRID]}")
+        if self.block_type != BLOCK_ATTN:
+            raise ValueError(f"unknown block_type {self.block_type!r}")
+        if self.modality in (MODALITY_VISION, MODALITY_AUDIO):
+            raise NotImplementedError(
+                f"modality={self.modality!r} is not ported yet: "
+                f"{NOT_PORTED_LM[self.modality]}")
+        if self.modality != MODALITY_TEXT:
+            raise ValueError(f"unknown modality {self.modality!r}")
+        if self.attn_type not in (ATTN_FULL, ATTN_SLIDING):
+            raise ValueError(f"unknown attn_type {self.attn_type!r}")
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        if self.num_heads:
+            return self.d_model // self.num_heads
+        return 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count of the LM (embedding + blocks + head),
+        as ``repro.config.ModelConfig.param_count`` counts a dense GQA
+        decoder; -1 for the CNN family (count the tree instead)."""
+        if self.family == "cnn":
+            return -1
+        d, hd = self.d_model, self.resolved_head_dim
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        per_layer = 2 * d                                   # norms
+        per_layer += d * self.num_heads * hd                # q
+        per_layer += 2 * d * self.num_kv_heads * hd         # k, v
+        per_layer += self.num_heads * hd * d                # o
+        if self.qkv_bias:
+            per_layer += (self.num_heads + 2 * self.num_kv_heads) * hd
+        if self.d_ff:
+            per_layer += 3 * d * self.d_ff                  # swiglu
+        return n + self.num_layers * per_layer
 
 
 @dataclass(frozen=True)

@@ -1,3 +1,8 @@
-"""The paper's model configurations — the counterpart of ``repro.configs``
-(this slice ports the paper's own models only)."""
-from repro_torch.configs import paper_models  # noqa: F401  (registers)
+"""Model configurations — the counterpart of ``repro.configs`` (the
+paper's own models and the dense llama3-8b family so far); importing
+this package registers them."""
+from repro_torch.configs import (  # noqa: F401  (registers)
+    llama3_8b,
+    llama3_8b_swa,
+    paper_models,
+)

@@ -2,7 +2,9 @@
 
 The reference's parameter tree, as ``jax.tree.map(np.asarray, params)``
 gives it (for the paper's models ``{"layers": [{"b": ..., "w": ...},
-{}, ...]}``), becomes the port's tree of tensors with the same structure
+{}, ...]}``; for the LM ``{"embed", "blocks": {...}, "final_norm",
+"lm_head"}`` with L-leading block leaves, and likewise its KV cache),
+becomes the port's tree of tensors with the same structure
 and the same bytes, and back. Leaves keep their layout (conv weights
 HWIO), so ``fleet_adapter(tree).ravel_model(tree)`` is the plane row the
 reference's ``FleetAdapter.ravel_model`` gives. No jax is needed: the
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.flatten import tree_map
+from repro_torch.device import resolve_device
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -37,9 +40,12 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def params_from_numpy(tree, device="cpu"):
-    """The reference's numpy parameter tree -> the port's tensor tree."""
-    return tree_map(lambda a: _to_tensor(a, device), tree)
+def params_from_numpy(tree, device="cuda"):
+    """The reference's numpy parameter tree (or any numpy tree: an LM's
+    KV cache with its int32 ring-buffer tags too) -> the port's tensor
+    tree on ``device``, the card unless the caller asks for the CPU."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _to_tensor(a, dev), tree)
 
 
 def params_to_numpy(tree):

@@ -30,15 +30,27 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 # library name -> its source files under csrc/
-SOURCES = {"sqdist": ("sqdist.cu",)}
+SOURCES = {"sqdist": ("sqdist.cu",), "rmsnorm": ("rmsnorm.cu",),
+           "attention": ("attention.cu",)}
 
 # library name -> the C functions it exports: (restype, argtypes)
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+_ERR = {"repro_cuda_error_string": (ctypes.c_char_p, [_I])}
 SIGNATURES = {
     "sqdist": {
         "repro_sqdist_rows": (_I, [_I, _P, _P, _P, _P, _LL, _LL, _LL, _I,
                                    _P]),
-        "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
+        **_ERR,
+    },
+    "rmsnorm": {
+        "repro_rmsnorm": (_I, [_I, _P, _P, _P, _LL, _I, _F, _P]),
+        **_ERR,
+    },
+    "attention": {
+        "repro_attention": (_I, [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _F, _P]),
+        **_ERR,
     },
 }
 

@@ -1,22 +1,29 @@
 """Public kernel entry points — the counterpart of ``repro.kernels.ops``.
 
 Dispatch is by the device of the tensors: a CUDA tensor launches the
-hand-written kernel (``repro_torch.kernels.sqdist``), a CPU tensor runs
-the plain version (``repro_torch.kernels.ref``). There is no fallback: a
-kernel that fails to build or launch raises.
+hand-written kernel (``repro_torch.kernels.sqdist``, ``.rmsnorm``,
+``.flash_attention``, ``.swa_attention``), a CPU tensor runs the plain
+version (``repro_torch.kernels.ref``). There is no fallback: a kernel
+that fails to build or launch raises.
 
-``LAUNCHES`` counts kernel launches by entry point, so a run can show
-that its main path went through the kernels; ``reset_launches`` zeroes
-it. Plain-version calls are not counted.
+``LAUNCHES`` counts kernel launches by kernel, so a run can show that
+its main path went through the kernels; ``reset_launches`` zeroes it.
+``flash_attention`` and its GQA front end ``flash_attention_gqa`` launch
+the same kernel and count under ``"flash_attention"``. Plain-version
+calls are not counted.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import sqdist as _sqdist
+from repro_torch.kernels import swa_attention as _swa
 
-LAUNCHES = {"sqdist_rows": 0, "sqdist": 0}
+LAUNCHES = {"sqdist_rows": 0, "sqdist": 0, "rmsnorm": 0,
+            "flash_attention": 0, "swa_attention": 0}
 
 
 def reset_launches() -> None:
@@ -24,10 +31,14 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
 def sqdist_rows(X: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Batched local condition over the flat fleet plane:
     ``(m, P) x (P,) -> (m,)`` row-wise squared distances in f32."""
-    if X.device.type == "cpu" and r.device.type == "cpu":
+    if _on_cpu(X, r):
         return ref.sqdist_rows_ref(X, r)
     out = _sqdist.sqdist_rows(X, r)
     LAUNCHES["sqdist_rows"] += 1
@@ -36,8 +47,56 @@ def sqdist_rows(X: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 def sqdist(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """``||x - r||^2`` over flattened same-shape inputs, in f32."""
-    if x.device.type == "cpu" and r.device.type == "cpu":
+    if _on_cpu(x, r):
         return ref.sqdist_ref(x, r)
     out = _sqdist.sqdist(x, r)
     LAUNCHES["sqdist"] += 1
+    return out
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
+            eps: float = 1e-5) -> torch.Tensor:
+    """Row-wise RMS norm over the last axis: f32 statistics, x's dtype."""
+    if _on_cpu(x, scale):
+        return ref.rmsnorm_ref(x, scale, eps)
+    out = _rmsnorm.rmsnorm(x, scale, eps)
+    LAUNCHES["rmsnorm"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
+    """Masked softmax attention, q (B, Sq, d), k/v (B, Sk, d); the causal
+    diagonal is right-aligned."""
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale)
+    out = _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                 scale=scale)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        scale: float | None = None) -> torch.Tensor:
+    """GQA front end: q (B, S, H, d), k/v (B, S, Hkv, d)."""
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_gqa_ref(q, k, v, causal=causal,
+                                           window=window, scale=scale)
+    out = _flash.flash_attention_gqa(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int, scale: float | None = None) -> torch.Tensor:
+    """Causal banded sliding-window attention, ``S % window == 0``:
+    q, k, v (B, S, d) or q (B, S, H, d), k/v (B, S, Hkv, d)."""
+    if _on_cpu(q, k, v):
+        return ref.swa_attention_ref(q, k, v, window=window, scale=scale)
+    out = _swa.swa_attention(q, k, v, window=window, scale=scale)
+    LAUNCHES["swa_attention"] += 1
     return out

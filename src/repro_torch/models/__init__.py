@@ -1,2 +1,2 @@
-"""The paper's models — the counterpart of ``repro.models`` (this slice
-ports the CNN/MLP families only)."""
+"""The models — the counterpart of ``repro.models`` (so far the paper's
+CNN/MLP families and the dense GQA decoder LM)."""

@@ -44,7 +44,7 @@ def _case(name, smoke, batch):
     jbatch = src.sample(k2, batch)
     np_params = jax.tree.map(np.asarray, jparams)
     np_batch = jax.tree.map(np.asarray, jbatch)
-    params = params_from_numpy(np_params)
+    params = params_from_numpy(np_params, device="cpu")
     tbatch = {k: torch.from_numpy(v.copy()) for k, v in np_batch.items()}
     return jcfg, cfg, jparams, jbatch, params, tbatch
 

@@ -5,15 +5,18 @@ imports no jax, so it runs on a machine with the card and without jax:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-(``--noconftest``: tests/conftest.py imports jax.) Both sides accumulate
-in f32 in different orders: rtol 1e-5, atol 1e-6.
+(``--noconftest``: tests/conftest.py imports jax.) For the squared
+distances both sides accumulate in f32 in different orders: rtol 1e-5,
+atol 1e-6; the LM kernels' tolerances stand above their tests.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from repro_torch.kernels import ops, ref, sqdist  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    flash_attention, ops, ref, rmsnorm, sqdist, swa_attention,
+)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -55,7 +58,8 @@ def test_ops_counts_kernel_launches_only():
     ops.sqdist_rows(X, r)
     ops.sqdist(X[0], r)
     ops.sqdist_rows(X.cpu(), r.cpu())
-    assert ops.LAUNCHES == {"sqdist_rows": 1, "sqdist": 1}
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0),
+                            "sqdist_rows": 1, "sqdist": 1}
 
 
 @pytest.mark.cuda
@@ -70,3 +74,115 @@ def test_kernel_rejects_what_it_does_not_take():
         sqdist.sqdist_rows(X, torch.randn(9, device="cuda"))
     with pytest.raises(ValueError, match="one CUDA device"):
         sqdist.sqdist_rows(X, torch.randn(10))
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm and attention (the decoder LM's kernels). Both sides keep f32
+# statistics and accumulators and differ only in summation order: f32
+# rmsnorm rtol 1e-5 / atol 1e-6, f32 attention rtol 1e-4 / atol 1e-5;
+# bf16 outputs may land one bf16 step apart: rtol 2^-7 / atol 1e-5.
+# ---------------------------------------------------------------------------
+
+LM_TOL = {("norm", "float32"): dict(rtol=1e-5, atol=1e-6),
+          ("attn", "float32"): dict(rtol=1e-4, atol=1e-5),
+          ("norm", "bfloat16"): dict(rtol=2 ** -7, atol=1e-5),
+          ("attn", "bfloat16"): dict(rtol=2 ** -7, atol=1e-5)}
+
+
+def _randn(shape, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=gen, device="cuda").to(DTYPES[dtype])
+
+
+def _same_twice(fn, *args, **kw):
+    a, b = fn(*args, **kw), fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(1, 8), (130, 32), (3, 5, 256),
+                                   (4, 4096), (2, 7, 14_000)])
+def test_rmsnorm_kernel_matches_plain(shape, dtype):
+    _need_card()
+    x = _randn(shape, dtype, sum(shape))
+    s = _randn(shape[-1:], dtype, 1)
+    got = _same_twice(rmsnorm.rmsnorm, x, s, 1e-5)
+    torch.testing.assert_close(got, ref.rmsnorm_ref(x, s, 1e-5),
+                               **LM_TOL["norm", dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,d,causal,window", [
+    (2, 64, 64, 1, 1, 32, True, 0), (2, 100, 100, 4, 2, 64, True, 0),
+    (1, 24, 130, 8, 2, 128, True, 0), (1, 1, 77, 8, 8, 128, True, 0),
+    (2, 96, 96, 4, 1, 128, True, 24), (1, 40, 70, 2, 2, 32, False, 0),
+    (1, 70, 70, 2, 1, 64, False, 16), (4, 256, 256, 32, 8, 128, True, 0)])
+def test_attention_kernel_matches_plain(B, Sq, Sk, H, Hkv, d, causal, window,
+                                        dtype):
+    """GQA, ragged Sq < Sk, the window, and the non-causal ragged case
+    (ROADMAP C1), all against the plain version."""
+    _need_card()
+    seed = B + Sq + Sk + H + d + window
+    q = _randn((B, Sq, H, d), dtype, seed)
+    k = _randn((B, Sk, Hkv, d), dtype, seed + 1)
+    v = _randn((B, Sk, Hkv, d), dtype, seed + 2)
+    got = _same_twice(flash_attention.flash_attention_gqa, q, k, v,
+                      causal=causal, window=window)
+    want = ref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, **LM_TOL["attn", dtype])
+    if H == 1:
+        flat = flash_attention.flash_attention(
+            q[:, :, 0], k[:, :, 0], v[:, :, 0], causal=causal, window=window)
+        assert torch.equal(flat, got[:, :, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,S,H,Hkv,w", [(2, 64, 1, 1, 16), (1, 256, 4, 2, 64),
+                                         (1, 1024, 8, 2, 256)])
+def test_swa_kernel_matches_plain_and_flash_with_window(B, S, H, Hkv, w,
+                                                        dtype):
+    _need_card()
+    q = _randn((B, S, H, 128), dtype, S)
+    k = _randn((B, S, Hkv, 128), dtype, S + 1)
+    v = _randn((B, S, Hkv, 128), dtype, S + 2)
+    got = _same_twice(swa_attention.swa_attention, q, k, v, window=w)
+    torch.testing.assert_close(got, ref.swa_attention_ref(q, k, v, window=w),
+                               **LM_TOL["attn", dtype])
+    assert torch.equal(got, flash_attention.flash_attention_gqa(
+        q, k, v, causal=True, window=w))
+
+
+@pytest.mark.cuda
+def test_lm_kernels_count_launches_and_reject_what_they_do_not_take():
+    _need_card()
+    x = _randn((4, 64), "float32", 0)
+    q = _randn((1, 32, 4, 32), "float32", 1)
+    kv = _randn((1, 32, 2, 32), "float32", 2)
+    ops.reset_launches()
+    ops.rmsnorm(x, x[0])
+    ops.flash_attention_gqa(q, kv, kv)
+    ops.flash_attention(q[:, :, 0].contiguous(), kv[:, :, 0].contiguous(),
+                        kv[:, :, 0].contiguous())
+    ops.swa_attention(q, kv, kv, window=16)
+    ops.rmsnorm(x.cpu(), x[0].cpu())
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0), "rmsnorm": 1,
+                            "flash_attention": 2, "swa_attention": 1}
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rmsnorm.rmsnorm(x.half(), x[0].half())
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm.rmsnorm(x[:, ::2], x[0, ::2].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q[:, :, 0], kv[:, :, 0], kv[:, :, 0])
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention.flash_attention_gqa(q[..., :16].contiguous(),
+                                            kv[..., :16].contiguous(),
+                                            kv[..., :16].contiguous())
+    with pytest.raises(ValueError, match="multiple of"):
+        flash_attention.flash_attention_gqa(q[:, :, :3].contiguous(), kv, kv)
+    with pytest.raises(ValueError, match="multiple of the window"):
+        swa_attention.swa_attention(q, kv, kv, window=24)

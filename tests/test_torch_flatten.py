@@ -40,7 +40,8 @@ def _ref_fleet(name, smoke, m=3):
 def test_plane_layout_equals_reference(name, smoke):
     stacked, np_stacked = _ref_fleet(name, smoke)
     want = jflatten.fleet_adapter(stacked)
-    model = params_from_numpy(jax.tree.map(lambda x: x[0], np_stacked))
+    model = params_from_numpy(jax.tree.map(lambda x: x[0], np_stacked),
+                              device="cpu")
     got = flatten.fleet_adapter(model)
     assert got.offsets == want.offsets
     assert got.sizes == want.sizes
@@ -53,7 +54,8 @@ def test_mnist_cnn_plane_offsets():
     """Table 1's 1,199,882 weights; each layer's b before its w."""
     _, np_stacked = _ref_fleet("mnist_cnn", False, m=1)
     ad = flatten.fleet_adapter(
-        params_from_numpy(jax.tree.map(lambda x: x[0], np_stacked)))
+        params_from_numpy(jax.tree.map(lambda x: x[0], np_stacked),
+                          device="cpu"))
     assert ad.offsets == (0, 32, 320, 384, 18816, 18944, 1198592, 1198602)
     assert ad.P == 1_199_882
     assert ad.shapes[:2] == ((32,), (3, 3, 1, 32))      # b, then HWIO w
@@ -63,18 +65,18 @@ def test_mnist_cnn_plane_offsets():
 def test_plane_equals_reference_ravel_bitwise(name, smoke):
     stacked, np_stacked = _ref_fleet(name, smoke)
     want = np.asarray(jflatten.fleet_adapter(stacked).ravel(stacked))
-    fleet = params_from_numpy(np_stacked)
+    fleet = params_from_numpy(np_stacked, device="cpu")
     ad = flatten.fleet_adapter(jax.tree.map(lambda x: x[0], fleet))
     X = ad.ravel(fleet)
     np.testing.assert_array_equal(X.numpy(), want)
     row = ad.ravel_model(params_from_numpy(
-        jax.tree.map(lambda x: x[1], np_stacked)))
+        jax.tree.map(lambda x: x[1], np_stacked), device="cpu"))
     np.testing.assert_array_equal(row.numpy(), want[1])
 
 
 def test_unravel_views_alias_the_plane():
     _, np_stacked = _ref_fleet("mnist_cnn", True)
-    fleet = params_from_numpy(np_stacked)
+    fleet = params_from_numpy(np_stacked, device="cpu")
     ad = flatten.fleet_adapter(jax.tree.map(lambda x: x[0], fleet))
     X = ad.ravel(fleet)
     views = ad.unravel(X)
@@ -88,7 +90,7 @@ def test_unravel_views_alias_the_plane():
 @pytest.mark.parametrize("name,smoke", MODELS)
 def test_weights_round_trip_bitwise(name, smoke):
     _, np_stacked = _ref_fleet(name, smoke)
-    back = params_to_numpy(params_from_numpy(np_stacked))
+    back = params_to_numpy(params_from_numpy(np_stacked, device="cpu"))
     assert jax.tree.structure(back) == jax.tree.structure(np_stacked)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(np_stacked)):
         assert a.dtype == b.dtype
@@ -114,7 +116,7 @@ def test_mixed_dtypes_promote_and_round_trip():
     jtree = {"a": jax.random.normal(k1, (2, 5), jnp.bfloat16),
              "b": jax.random.normal(k2, (2, 3), jnp.float32)}
     np_tree = jax.tree.map(np.asarray, jtree)
-    fleet = params_from_numpy(np_tree)
+    fleet = params_from_numpy(np_tree, device="cpu")
     assert fleet["a"].dtype == torch.bfloat16
     ad = flatten.fleet_adapter(jax.tree.map(lambda x: x[0], fleet))
     assert ad.plane_dtype == torch.float32

@@ -10,16 +10,20 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from repro_torch.config import ProtocolConfig, get_arch  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.protocol import DecentralizedLearner  # noqa: E402
 from repro_torch.data.synthetic import SyntheticMNIST  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.models.cnn import cnn_loss, init_cnn_params  # noqa: E402
+from repro_torch.models.model import init_lm_params  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.train.loop import run_protocol_training  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -87,6 +91,19 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         resolve_device("cuda:0")
     dl = DecentralizedLearner(*args, device="cpu")
     assert dl.X.device.type == "cpu"
+    tree = {"w": np.ones((2, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(tree)
+    assert params_from_numpy(tree, device="cpu")["w"].device.type == "cpu"
+    lm = get_arch("llama3-8b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_lm_params(lm)
+    params = init_lm_params(lm, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(lm, params, max_seq=4, batch=1)
+    eng = ServeEngine(lm, params, max_seq=4, batch=1, device="cpu")
+    assert eng.cache["attn"]["k"].device.type == "cpu"
 
 
 def test_run_protocol_training_raises_without_a_card():

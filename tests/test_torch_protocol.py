@@ -100,8 +100,9 @@ def test_slice_matches_reference(case, monkeypatch):
 
     cfg = get_arch(name, smoke=smoke)
     dl = DecentralizedLearner(
-        lambda p, b: cnn_loss(cfg, p, b), lambda g: params_from_numpy(init),
-        m, ProtocolConfig(**kw),
+        lambda p, b: cnn_loss(cfg, p, b),
+        lambda g: params_from_numpy(init, device="cpu"), m,
+        ProtocolConfig(**kw),
         TrainConfig(optimizer="sgd", learning_rate=0.05),
         sample_weights=(torch.tensor(WEIGHTS, dtype=torch.float32)
                         if weighted else None),
@@ -140,7 +141,7 @@ def test_step_loop_equals_run_chunk():
     for chunked in (True, False):
         dl = DecentralizedLearner(
             lambda p, b: cnn_loss(cfg, p, b),
-            lambda g: params_from_numpy(init), 6,
+            lambda g: params_from_numpy(init, device="cpu"), 6,
             ProtocolConfig(kind="dynamic", b=2, delta=0.5),
             TrainConfig(optimizer="sgd", learning_rate=0.05), device="cpu")
         tb = {k: torch.from_numpy(v.copy()) for k, v in batches.items()}
