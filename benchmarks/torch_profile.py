@@ -21,7 +21,10 @@ B = 4, S = 2,048, 8 decode steps of a batch-4 ``ServeEngine`` after a
 32-token prompt, and one llama3-8b-swa prefill at B = 1, S = 16,384.
 For each it prints one JSON line with the wall and device time, the idle
 share, kernel launches, and the device time by kind of kernel: the
-port's attention and rmsnorm kernels, cuBLAS products, and the rest.
+port's attention, ssd_scan and rmsnorm kernels, cuBLAS products, and the
+rest. Then the Mamba2 cells, mamba2-2.7b at full width and depth in bf16
+(what ``chip_smoke.py`` serves): one prefill at B = 4, S = 2,048 and 8
+decode steps of a batch-4 ``ServeEngine`` after a 32-token prompt.
 
 The last line is the card's name and power limit as ``nvidia-smi``
 reports them. Needs a CUDA device; it imports nothing of JAX.
@@ -112,6 +115,7 @@ def profile_protocol(name: str, proto: ProtocolConfig) -> dict:
 
 # kernel name -> kind, first match wins
 KINDS = (("attention kernel", ("attention_kernel",)),
+         ("ssd_scan kernel", ("ssd_scan_kernel",)),
          ("rmsnorm kernel", ("rmsnorm_kernel",)),
          ("cuBLAS products", ("nvjet", "gemm", "gemv", "xmma", "cutlass",
                               "sm90_")))
@@ -174,6 +178,25 @@ def profile_serve() -> list:
     return out
 
 
+def profile_ssm_serve() -> list:
+    cfg = get_arch("mamba2-2.7b")
+    params = init_lm_params(cfg, seed=0, dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g,
+                           device="cuda")
+    prefill = make_prefill(cfg)
+    prefill(params, tokens[:, :128])                    # warm-up
+    out = [{"cell": "mamba2-2.7b prefill B=4 S=2048",
+            **_trace(lambda: prefill(params, tokens))}]
+    eng = ServeEngine(cfg, params, max_seq=48, batch=4,
+                      dtype=torch.bfloat16)
+    logits = eng.feed(tokens[:, :32])
+    eng.generate(2, first_logits=logits)                # warm-up
+    out.append({"cell": "mamba2-2.7b decode batch 4, after 34 tokens",
+                **_trace(lambda: eng.generate(8, first_logits=logits), 8)})
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("torch_profile.py needs a CUDA device")
@@ -183,6 +206,9 @@ def main() -> None:
         print(json.dumps(profile_protocol(name, proto)), flush=True)
     torch.cuda.empty_cache()
     for rec in profile_serve():
+        print(json.dumps(rec), flush=True)
+    torch.cuda.empty_cache()
+    for rec in profile_ssm_serve():
         print(json.dumps(rec), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

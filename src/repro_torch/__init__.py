@@ -13,5 +13,8 @@ Slice 1 ported the paper's training path: m learners, the flat
 protocols on an ideal network, and the ``sqdist_rows`` kernel. Slice 2
 ported serving the dense GQA decoder LM (llama3-8b and its
 sliding-window variant: ``serve.engine`` over ``models.model``) and the
-``rmsnorm``, ``flash_attention`` and ``swa_attention`` kernels.
+``rmsnorm``, ``flash_attention`` and ``swa_attention`` kernels. Slice 3
+ported serving the Mamba2 SSM decoder (mamba2-2.7b: ``models.mamba`` and
+the SSM block, the same engine over O(1) SSM and conv states) and the
+``ssd_scan`` kernel, the last of the reference's TPU kernels.
 """

@@ -1,15 +1,16 @@
 """Configuration for the port — its own copy of what the slice needs from
 ``repro.config``.
 
-``ModelConfig`` keeps the fields of the paper's CNN/MLP families and of
+``ModelConfig`` keeps the fields of the paper's CNN/MLP families, of
 the dense decoder LM (``repro/config.py:69-100``: GQA, optional QKV bias,
-optional sliding window, text modality), with ``resolved_head_dim`` and
-``param_count()``. Setting ``moe``, ``mla`` or ``ssm``, an SSM or hybrid
-``block_type``, or a vision/audio ``modality`` raises
-``NotImplementedError`` naming the ROADMAP item that ports it; the
-reference's ``moe_layer_period`` and ``scan_layers`` have no port (the
-port's layer loop is a Python loop). ``TrainConfig`` keeps the optimizer
-settings and ``ProtocolConfig`` the sync protocol.
+optional sliding window, text modality) and of the Mamba2 SSM decoder
+(``ssm=SSMConfig(...)`` with ``block_type="ssm"``, ``repro/config.py:58``),
+with ``resolved_head_dim``, ``is_attention_free`` and ``param_count()``.
+Setting ``moe`` or ``mla``, a hybrid ``block_type``, or a vision/audio
+``modality`` raises ``NotImplementedError`` naming the ROADMAP item that
+ports it; the reference's ``moe_layer_period`` and ``scan_layers`` have
+no port (the port's layer loop is a Python loop). ``TrainConfig`` keeps
+the optimizer settings and ``ProtocolConfig`` the sync protocol.
 
 ``ProtocolConfig`` validates exactly as the reference does (the same
 ``ValueError``s for a bad period, fraction, threshold, augmentation,
@@ -39,7 +40,6 @@ MODALITY_AUDIO = "audio"
 
 # what this port does not run yet, and the ROADMAP Queue A item that ports it
 NOT_PORTED_LM = {
-    "ssm": "Mamba2 and its ssd_scan kernel (ROADMAP Queue A 22)",
     "moe": "mixture-of-experts FFNs (ROADMAP Queue A 23)",
     "mla": "multi-head latent attention (ROADMAP Queue A 23)",
     BLOCK_HYBRID: "hybrid attention + SSM blocks (ROADMAP Queue A 23)",
@@ -49,13 +49,26 @@ NOT_PORTED_LM = {
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD settings (``repro.config.SSMConfig``, field for
+    field)."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 64
+    ngroups: int = 1
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """One model: the paper's CNN/MLP (a ``cnn_spec`` of layer descriptors
-    over per-example ``input_shape``, see ``repro_torch.models.cnn``) or
-    the dense decoder LM (``num_layers`` blocks of GQA attention and a
-    SwiGLU FFN, see ``repro_torch.models.model``)."""
+    over per-example ``input_shape``, see ``repro_torch.models.cnn``), the
+    dense decoder LM (``num_layers`` blocks of GQA attention and a SwiGLU
+    FFN) or the Mamba2 decoder (``num_layers`` SSM blocks, no FFN); see
+    ``repro_torch.models.model``."""
     name: str
-    family: str                           # dense | cnn
+    family: str                           # dense | ssm | cnn
     num_layers: int = 0
     d_model: int = 0
     num_heads: int = 0
@@ -73,7 +86,7 @@ class ModelConfig:
     modality: str = MODALITY_TEXT
     moe: Any = None                       # not ported: raises when set
     mla: Any = None
-    ssm: Any = None
+    ssm: Optional[SSMConfig] = None
     # CNN-only fields (the paper's MNIST / deep-driving nets)
     cnn_spec: Optional[Tuple[Any, ...]] = None
     input_shape: Optional[Tuple[int, ...]] = None   # per example
@@ -82,18 +95,19 @@ class ModelConfig:
     source: str = ""                                # citation
 
     def __post_init__(self):
-        for name in ("moe", "mla", "ssm"):
+        for name in ("moe", "mla"):
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"{name}= is not ported yet: {NOT_PORTED_LM[name]}")
-        if self.block_type == BLOCK_SSM:
-            raise NotImplementedError(
-                f"block_type='ssm' is not ported yet: {NOT_PORTED_LM['ssm']}")
+        if self.ssm is not None and not isinstance(self.ssm, SSMConfig):
+            raise TypeError(f"ssm= takes an SSMConfig, got {self.ssm!r}")
+        if self.block_type == BLOCK_SSM and self.ssm is None:
+            raise ValueError("block_type='ssm' needs ssm=SSMConfig(...)")
         if self.block_type == BLOCK_HYBRID:
             raise NotImplementedError(
                 f"block_type='hybrid' is not ported yet: "
                 f"{NOT_PORTED_LM[BLOCK_HYBRID]}")
-        if self.block_type != BLOCK_ATTN:
+        if self.block_type not in (BLOCK_ATTN, BLOCK_SSM):
             raise ValueError(f"unknown block_type {self.block_type!r}")
         if self.modality in (MODALITY_VISION, MODALITY_AUDIO):
             raise NotImplementedError(
@@ -112,20 +126,42 @@ class ModelConfig:
             return self.d_model // self.num_heads
         return 0
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.block_type == BLOCK_SSM
+
     def param_count(self) -> int:
         """Analytic parameter count of the LM (embedding + blocks + head),
-        as ``repro.config.ModelConfig.param_count`` counts a dense GQA
-        decoder; -1 for the CNN family (count the tree instead)."""
+        as ``repro.config.ModelConfig.param_count`` counts a dense GQA or
+        an SSM decoder, term for term; -1 for the CNN family (count the
+        tree instead).
+
+        Like the reference's, the count leaves out ``final_norm`` (d).
+        For an SSM block it counts two norms where the block has one
+        (``norm_mix``: there is no FFN) and leaves out ``dt_bias`` (H)
+        and ``out_norm`` (d_inner), so the tree holds
+        ``L * (H + d_inner - d) + d`` more weights than this: 171,520 for
+        mamba2-2.7b (2,830,780,416 counted, 2,830,951,936 held)."""
         if self.family == "cnn":
             return -1
         d, hd = self.d_model, self.resolved_head_dim
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         per_layer = 2 * d                                   # norms
-        per_layer += d * self.num_heads * hd                # q
-        per_layer += 2 * d * self.num_kv_heads * hd         # k, v
-        per_layer += self.num_heads * hd * d                # o
-        if self.qkv_bias:
-            per_layer += (self.num_heads + 2 * self.num_kv_heads) * hd
+        if self.block_type == BLOCK_ATTN:
+            per_layer += d * self.num_heads * hd            # q
+            per_layer += 2 * d * self.num_kv_heads * hd     # k, v
+            per_layer += self.num_heads * hd * d            # o
+            if self.qkv_bias:
+                per_layer += (self.num_heads + 2 * self.num_kv_heads) * hd
+        if self.block_type == BLOCK_SSM:
+            s = self.ssm
+            d_in = s.expand * d
+            nheads = d_in // s.head_dim
+            per_layer += d * 2 * d_in                       # in proj (x, z)
+            per_layer += d * (2 * s.ngroups * s.d_state + nheads)  # B, C, dt
+            per_layer += s.d_conv * (d_in + 2 * s.ngroups * s.d_state)
+            per_layer += nheads * 2                         # A_log, D
+            per_layer += d_in * d                           # out proj
         if self.d_ff:
             per_layer += 3 * d * self.d_ff                  # swiglu
         return n + self.num_layers * per_layer

@@ -3,7 +3,8 @@
 The reference's parameter tree, as ``jax.tree.map(np.asarray, params)``
 gives it (for the paper's models ``{"layers": [{"b": ..., "w": ...},
 {}, ...]}``; for the LM ``{"embed", "blocks": {...}, "final_norm",
-"lm_head"}`` with L-leading block leaves, and likewise its KV cache),
+"lm_head"}`` with L-leading block leaves, and likewise its KV cache or
+its SSM and conv states),
 becomes the port's tree of tensors with the same structure
 and the same bytes, and back. Leaves keep their layout (conv weights
 HWIO), so ``fleet_adapter(tree).ravel_model(tree)`` is the plane row the

@@ -2,9 +2,9 @@
 
 Dispatch is by the device of the tensors: a CUDA tensor launches the
 hand-written kernel (``repro_torch.kernels.sqdist``, ``.rmsnorm``,
-``.flash_attention``, ``.swa_attention``), a CPU tensor runs the plain
-version (``repro_torch.kernels.ref``). There is no fallback: a kernel
-that fails to build or launch raises.
+``.flash_attention``, ``.swa_attention``, ``.ssd_scan``), a CPU tensor
+runs the plain version (``repro_torch.kernels.ref``). There is no
+fallback: a kernel that fails to build or launch raises.
 
 ``LAUNCHES`` counts kernel launches by kernel, so a run can show that
 its main path went through the kernels; ``reset_launches`` zeroes it.
@@ -15,15 +15,17 @@ calls are not counted.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import sqdist as _sqdist
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import swa_attention as _swa
 
 LAUNCHES = {"sqdist_rows": 0, "sqdist": 0, "rmsnorm": 0,
-            "flash_attention": 0, "swa_attention": 0}
+            "flash_attention": 0, "swa_attention": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -100,3 +102,30 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = _swa.swa_attention(q, k, v, window=window, scale=scale)
     LAUNCHES["swa_attention"] += 1
     return out
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 64):
+    """Chunked SSD over (BH, S, *) layouts; pads S to a chunk multiple with
+    zeros (dt = 0 there, so the padded steps leave the state untouched)
+    and slices y back. b and c are (BH / R, S, N): head bh reads row
+    ``bh // R`` (b and c per head, R = 1, is the reference's layout).
+    Returns (y (BH, S, P) in x's dtype, h (BH, P, N) in f32)."""
+    S = x.shape[1]
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        dt = F.pad(dt, (0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+    if _on_cpu(x, dt, a, b, c):
+        R = x.shape[0] // b.shape[0]
+        if R > 1:
+            b, c = b.repeat_interleave(R, dim=0), c.repeat_interleave(R, dim=0)
+        y, h = ref.ssd_scan_ref(x, dt, a, b, c, chunk=chunk)
+    else:
+        y, h = _ssd.ssd_scan(x, dt, a, b, c, chunk=chunk)
+        LAUNCHES["ssd_scan"] += 1
+    if pad:
+        y = y[:, :S]
+    return y, h

@@ -3,8 +3,7 @@
 
 They are the correctness references: the CPU runs them in place of the
 kernels, and ``chip_smoke.py`` holds each kernel against them on the
-card. Only the oracles of ported kernels live here; the SSD scan's comes
-with its kernel.
+card.
 
 Departure from the reference: ``flash_attention_ref`` computes the
 scores a slice of the batch axis at a time, so that a long sequence
@@ -117,3 +116,30 @@ def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        scale=scale)
     return flash_attention_ref(q, k, v, causal=True, window=window,
                                scale=scale)
+
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, *, chunk: int = 0):
+    """Sequential (non-chunked) SSD reference.
+
+    x: (BH, S, P) inputs; dt: (BH, S) step sizes (>0); a: (BH,) negative
+    decay rates; b, c: (BH, S, N). Returns (y (BH, S, P) in x's dtype,
+    h (BH, P, N) in f32), in f32 throughout:
+        h_t = exp(dt_t * a) h_{t-1} + dt_t * x_t b_t^T,   y_t = h_t c_t
+    (y_t[p] = sum_n h_t[p, n] c_t[n]). ``chunk`` is ignored, as in the
+    reference.
+    """
+    del chunk
+    xf, dtf, af, bf, cf = (t.float() for t in (x, dt, a, b, c))
+    BH, S, P = xf.shape
+    h = torch.zeros((BH, P, bf.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        dtt = dtf[:, t, None, None]
+        h = torch.exp(dtt * af[:, None, None]) * h + dtt * (
+            xf[:, t, :, None] * bf[:, t, None, :])
+        ys.append(torch.bmm(h, cf[:, t, :, None])[..., 0])     # (BH, P)
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((BH, 0, P))
+    return y.to(x.dtype), h

@@ -5,11 +5,11 @@ Parameters are plain dicts of tensors; initializers draw from an explicit
 of the paper's models and what the dense decoder LM needs: the embedding
 init, RMS norm (through ``repro_torch.kernels.ops.rmsnorm``, the
 hand-written kernel on the card), rotary position embedding and the
-SwiGLU FFN. The dense products are ``torch.matmul`` on the reference's
+SwiGLU FFN; the Mamba2 slice adds the depthwise causal conv and its
+decode step. The dense products are ``torch.matmul`` on the reference's
 ``(d_in, d_out)`` layout, as the reference leaves them to XLA; FSDP's
 ``gather_weight`` and ``constrain`` are identities on one device and have
-no port. The layer norm, plain MLP and the Mamba causal conv come with
-their slices.
+no port. The layer norm and plain MLP come with their slices.
 """
 from __future__ import annotations
 
@@ -80,3 +80,34 @@ def swiglu_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     g = torch.matmul(x, params["w_gate"])
     u = torch.matmul(x, params["w_up"])
     return torch.matmul(F.silu(g) * u, params["w_down"])
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. x: (B, S, C), w: (K, C) -> (B, S, C).
+
+    ``out[:, t] = sum_k xp[:, t + k] * w[k]`` over the left-padded input,
+    as the reference's loop of K multiply-adds in x's dtype (so bf16
+    rounds after each step as it does there; ``F.conv1d`` would
+    accumulate otherwise)."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for k in range(K):
+        out = out + xp[:, k:k + S, :] * w[k]
+    return out
+
+
+def causal_conv1d_update(conv_state: torch.Tensor, x_t: torch.Tensor,
+                         w: torch.Tensor):
+    """One decode step. conv_state: (B, K-1, C), x_t: (B, C) ->
+    (y_t (B, C), new_state (B, K-1, C)).
+
+    Departure: the reference contracts the window with an einsum; here it
+    is ``causal_conv1d``'s loop of K multiply-adds in x's dtype, so that in
+    bf16 a decode step rounds exactly as the prefill does at the same
+    position (in f32 the two forms differ only in the last bits)."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)     # (B, K, C)
+    y = torch.zeros_like(x_t)
+    for k in range(w.shape[0]):
+        y = y + window[:, k] * w[k]
+    return y, window[:, 1:, :]

@@ -3,7 +3,12 @@ counterpart of ``repro.models.model`` for the text modality.
 
 The parameter tree is the reference's: plain dicts, with every leaf of
 ``blocks`` stacked on a leading L axis, so ``repro_torch.convert`` carries
-weights across unchanged. The reference's ``lax.scan`` over layers is a
+weights across unchanged. The blocks are dense attention blocks
+(``{"norm_mix", "attn", "norm_ffn", "ffn"}``) or Mamba2 SSM blocks
+(``{"norm_mix", "ssm"}``); the decode cache is a KV cache per attention
+block, or per SSM block the SSM state ``(B, H, P, N)`` in f32 and the conv
+state ``(B, d_conv - 1, C)`` in the model's dtype (``max_seq`` unused
+there, as in the reference). The reference's ``lax.scan`` over layers is a
 Python loop over the views ``blocks[...][i]``; ``constrain`` and
 ``gather_weight`` are identities on one device and have no port.
 
@@ -82,7 +87,8 @@ def lm_apply(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
 
 def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int,
                   dtype=torch.float32, device="cuda") -> dict:
-    """Stacked (L-leading) cache tree, on ``device``."""
+    """Stacked (L-leading) cache tree, on ``device``: KV caches, or SSM
+    and conv states."""
     dev = resolve_device(device)
     one = blk.block_cache_init(cfg, batch, max_seq, dtype, dev)
     return tree_map(lambda a: a[None].repeat(

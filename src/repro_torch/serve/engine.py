@@ -1,10 +1,14 @@
-"""Serving: prefill + batched decode against the KV cache — the
+"""Serving: prefill + batched decode against KV / SSM-state caches — the
 counterpart of ``repro.serve.engine``.
 
 ``make_prefill`` is the full forward (logits for every position);
 ``make_decode_step`` one new token for a batch of requests. The
 ``ServeEngine`` is the minimal batched-request loop: ``feed`` a prompt
 through decode, then ``generate`` greedily or by temperature sampling.
+
+An attention model decodes against its KV cache; a Mamba2 model carries
+O(1) state per layer (the SSM and conv states), so its step costs the
+same at any position and ``max_seq`` does not bound it.
 
 Departures from the reference: PyTorch runs eagerly, so there is no
 ``jit`` (each decode step launches its operations from Python); the

@@ -14,8 +14,10 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+import torch.nn.functional as F  # noqa: E402
+
 from repro_torch.kernels import (  # noqa: E402
-    flash_attention, ops, ref, rmsnorm, sqdist, swa_attention,
+    flash_attention, ops, ref, rmsnorm, sqdist, ssd_scan, swa_attention,
 )
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -186,3 +188,77 @@ def test_lm_kernels_count_launches_and_reject_what_they_do_not_take():
         flash_attention.flash_attention_gqa(q[:, :, :3].contiguous(), kv, kv)
     with pytest.raises(ValueError, match="multiple of the window"):
         swa_attention.swa_attention(q, kv, kv, window=24)
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan (Mamba2's chunked SSD) against the sequential plain version, at
+# the JAX package's own tolerances for this kernel
+# (tests/test_kernels.py:181-182): the chunked and sequential forms sum and
+# exponentiate in other orders; in bf16 y is rounded once at the end.
+# ---------------------------------------------------------------------------
+
+SSD_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
+           "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+
+
+def _ssd_inputs(BH, S, P, N, dtype, seed, R=1, strong=False):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x, dt, a = rn(BH, S, P), F.softplus(rn(BH, S)), -torch.exp(rn(BH))
+    if strong:
+        dt, a = dt * 30 + 5, a * 20
+    b, c = rn(BH // R, S, N), rn(BH // R, S, N)
+    t = DTYPES[dtype]
+    return x.to(t), dt.to(t), a, b.to(t), c.to(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("BH,S,P,N,chunk,R,strong", [
+    (3, 64, 8, 4, 16, 1, False), (3, 100, 8, 4, 32, 1, False),
+    (3, 8, 8, 4, 8, 1, False), (3, 37, 8, 4, 8, 1, False),
+    (4, 200, 64, 128, 64, 1, False), (6, 77, 64, 32, 16, 1, False),
+    (16, 96, 64, 128, 64, 8, False), (5, 128, 64, 128, 64, 1, True),
+    (4, 100, 64, 128, 32, 2, True)])
+def test_ssd_scan_kernel_matches_plain(BH, S, P, N, chunk, R, strong, dtype):
+    """Ragged S through ops.ssd_scan (padded), chunks 8 to 64, grouped B
+    and C (R heads per row), strong decay; bitwise repeatable."""
+    _need_card()
+    x, dt, a, b, c = _ssd_inputs(BH, S, P, N, dtype, BH + S + N, R, strong)
+    y, h = ops.ssd_scan(x, dt, a, b, c, chunk=chunk)
+    y2, h2 = ops.ssd_scan(x, dt, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    yr, hr = ref.ssd_scan_ref(x, dt, a, b.repeat_interleave(R, 0),
+                              c.repeat_interleave(R, 0))
+    assert y.dtype == x.dtype and h.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    torch.testing.assert_close(y.float(), yr.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(h, hr, **SSD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_counts_launches_and_rejects_what_it_does_not_take():
+    _need_card()
+    x, dt, a, b, c = _ssd_inputs(2, 32, 8, 4, "float32", 0)
+    ops.reset_launches()
+    ops.ssd_scan(x, dt, a, b, c, chunk=16)
+    ops.ssd_scan(x, dt, a, b, c, chunk=8)
+    ops.ssd_scan(x.cpu(), dt.cpu(), a.cpu(), b.cpu(), c.cpu(), chunk=16)
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0), "ssd_scan": 2}
+    with pytest.raises(ValueError, match="chunk multiple"):
+        ssd_scan.ssd_scan(x, dt, a, b, c, chunk=64)
+    with pytest.raises(ValueError, match="chunks"):
+        ssd_scan.ssd_scan(x, dt, a, b, c, chunk=4)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan.ssd_scan(x, dt, a.double(), b, c, chunk=8)
+    with pytest.raises(TypeError, match="alike"):
+        ssd_scan.ssd_scan(x, dt.bfloat16(), a, b, c, chunk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2),
+                          dt, a, b, c, chunk=8)
+    with pytest.raises(ValueError, match="P <= 64"):
+        big = torch.zeros(2, 32, 65, device="cuda")
+        ssd_scan.ssd_scan(big, dt, a, b, c, chunk=8)

@@ -106,6 +106,18 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     assert eng.cache["attn"]["k"].device.type == "cpu"
 
 
+def test_ssm_entry_points_default_to_the_card_and_raise_without_one():
+    _need_no_card()
+    cfg = get_arch("mamba2-2.7b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_lm_params(cfg)
+    params = init_lm_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, params, max_seq=4, batch=1)
+    eng = ServeEngine(cfg, params, max_seq=4, batch=1, device="cpu")
+    assert eng.cache["ssm"]["ssm"].device.type == "cpu"
+
+
 def test_run_protocol_training_raises_without_a_card():
     _need_no_card()
     cfg = get_arch("mnist_cnn", smoke=True)

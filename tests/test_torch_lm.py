@@ -259,8 +259,6 @@ def test_init_lm_params_has_the_reference_tree():
 @pytest.mark.parametrize("field,value,what", [
     ("moe", object(), "Queue A 23"),
     ("mla", object(), "Queue A 23"),
-    ("ssm", object(), "Queue A 22"),
-    ("block_type", config.BLOCK_SSM, "Queue A 22"),
     ("block_type", config.BLOCK_HYBRID, "Queue A 23"),
     ("modality", config.MODALITY_VISION, "Queue A 23"),
     ("modality", config.MODALITY_AUDIO, "Queue A 23"),
@@ -269,3 +267,17 @@ def test_unported_families_raise(field, value, what):
     with pytest.raises(NotImplementedError, match=what):
         dataclasses.replace(get_arch("llama3-8b", smoke=True),
                             **{field: value})
+
+
+@pytest.mark.parametrize("fields", [
+    {"ssm": config.SSMConfig()},
+    {"ssm": config.SSMConfig(), "block_type": config.BLOCK_SSM},
+])
+def test_ssm_fields_are_accepted(fields):
+    """Mamba2 is ported (ROADMAP Queue A 22): ``ssm=`` and
+    ``block_type="ssm"`` no longer raise. As in the reference, ``ssm`` on
+    an attention block is carried and unused."""
+    cfg = dataclasses.replace(get_arch("llama3-8b", smoke=True), **fields)
+    assert cfg.ssm == config.SSMConfig()
+    assert cfg.is_attention_free == (cfg.block_type == config.BLOCK_SSM)
+    assert "ssm" not in config.NOT_PORTED_LM
