@@ -113,7 +113,9 @@ def profile_protocol(name: str, proto: ProtocolConfig) -> dict:
     }
 
 
-# kernel name -> kind, first match wins
+# kernel name -> kind, first match wins: "attention_kernel" names both
+# attention programs (attention_kernel, attention_kernel_sm90) before
+# "sm90_" claims cuBLAS's own kernels
 KINDS = (("attention kernel", ("attention_kernel",)),
          ("ssd_scan kernel", ("ssd_scan_kernel",)),
          ("rmsnorm kernel", ("rmsnorm_kernel",)),

@@ -25,6 +25,11 @@ and drives both of the port's paths:
   ``ServeEngine`` feeding 32 prompt tokens and generating 32) and runs
   the llama3-8b-swa prefill at B = 1, S = 16,384 through the banded
   kernel, counting each kernel's launches on each path.
+* attention on the tensor cores (slice 4): bf16 attention runs the
+  TMA-fed ``wgmma`` program (``attention_sm90.cu``), f32 the CUDA-core
+  one (``attention.cu``); the serving checks above cover both, with the
+  bf16 program's edges (ragged tiles, Sq = 1, Sk = 129, a one-tile
+  window, head dims 32 and 64, more (batch, head) pairs than SMs).
 * Mamba2 serving (slice 3): holds the ``ssd_scan`` kernel against the
   sequential plain version on the card (small and ragged S, chunks 8 to
   64, f32 and bf16, strong decay, grouped B and C, bitwise repeats, then
@@ -47,6 +52,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -105,6 +111,20 @@ AGREE_TOL = dict(rtol=1e-4, atol=1e-5)
 # prefill's, and the band below the window against full attention, as
 # max |diff| over max |logit| (bf16 keeps ~3 significant digits; 32 layers)
 SERVE_REL_TOL = 5e-2
+# the edges of the bf16 tensor-core attention program (128-row query tiles
+# of two 64-row halves, 64-key tiles, TMA zero-fill past Sq and Sk, a 1-D
+# grid): ragged Sq and Sk, Sq = 1, Sk = 129, a window of one key tile, head
+# dims 32 and 64, B * H above the card's 132 SMs. (B, Sq, Sk, H, Hkv, d,
+# causal, window), checked in f32 and bf16 like the cases before them
+ATTN_EDGES = [(2, 100, 200, 4, 2, 128, True, 0),
+              (1, 300, 300, 8, 2, 128, True, 0),
+              (3, 1, 300, 8, 2, 128, True, 0), (2, 1, 77, 4, 4, 64, False, 0),
+              (1, 129, 129, 4, 2, 128, True, 0),
+              (2, 40, 129, 4, 1, 64, False, 0),
+              (1, 256, 256, 4, 2, 128, True, 64),
+              (2, 200, 200, 4, 2, 32, True, 0),
+              (2, 200, 200, 4, 2, 64, True, 48),
+              (5, 130, 130, 32, 8, 64, True, 0)]
 # ssd_scan against the sequential plain version: the JAX package's own
 # tolerances for this kernel (tests/test_kernels.py:181-182)
 SSM_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-3),
@@ -166,14 +186,32 @@ def phase_env() -> dict:
     return rec
 
 
+def ptxas_line(line: str) -> str:
+    """A line of ``-Xptxas=-v``, a function's mangled name cut to the
+    kernel's own name and its template arguments."""
+    line = line.strip()
+    mangled = re.search(r"_ZN?(\w+)", line)
+    if "entry function" not in line or not mangled:
+        return line
+    name, at = mangled.group(1), 0     # a run of <length><identifier>
+    while (size := re.match(r"\d+", name[at:])) is not None:
+        at += len(size.group())
+        ident, at = name[at:at + int(size.group())], at + int(size.group())
+        if "kernel" in ident:
+            args = re.match(r"I\w*?E", name[at:])
+            return "entry " + ident + (args.group() if args else "")
+    return line
+
+
 def phase_build() -> dict:
     t0 = time.perf_counter()
     built = _build.build_all()
     rec = {"phase": "build", "seconds": time.perf_counter() - t0,
            "built": {n: r["seconds"] for n, r in built.items()},
-           "ptxas": [line.strip() for r in built.values()
+           "ptxas": [ptxas_line(line) for r in built.values()
                      for line in r["log"].splitlines()
-                     if "registers" in line or "spill" in line]}
+                     if "entry function" in line or "registers" in line
+                     or "spill" in line or "Performance Loss" in line]}
     for name in _build.SOURCES:
         _build.library(name)
     emit(rec)
@@ -384,10 +422,15 @@ def attention_work(B, Sq, Sk, H, Hkv, d, causal, window, itemsize):
 def phase_lm_kernels(gen) -> dict:
     """rmsnorm, flash_attention(_gqa) and swa_attention against their plain
     versions on the card, f32 and bf16, bitwise equal across two
-    launches; then timed at the serving path's shapes in bf16 beside the
-    plain version and one PyTorch call that the port never makes."""
+    launches, attention also at the edges of its bf16 program
+    (``ATTN_EDGES``); then timed at the serving path's shapes in bf16,
+    and flash_attention also in f32 (the CUDA-core program), beside the
+    plain version and one PyTorch call that the port never makes. Each
+    attention check and time names the program that ran."""
     checks = []
-    worst = {k: 0.0 for k in ("rmsnorm", "flash_attention", "swa_attention")}
+    # the largest error of each kernel, over both dtypes and by dtype
+    worst = {k: 0.0 for k in ("rmsnorm", "flash_attention", "swa_attention",
+                              "flash_attention f32")}
 
     def randn(shape, dt):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -398,6 +441,8 @@ def phase_lm_kernels(gen) -> dict:
         torch.cuda.synchronize()
         err = float((a.float() - want.float()).abs().max())
         worst[name] = max(worst[name], err)
+        if name == "flash_attention" and args[0].dtype == torch.float32:
+            worst[name + " f32"] = max(worst[name + " f32"], err)
         repeat = bool(torch.equal(a, b))
         ok = repeat and bool(torch.allclose(
             a.float(), want.float(), **LM_TOL[kind, args[0].dtype]))
@@ -405,6 +450,8 @@ def phase_lm_kernels(gen) -> dict:
                        "dtype": str(args[0].dtype).split(".")[1],
                        "max_abs_err": err, "bitwise_repeat": repeat,
                        "ok": ok})
+        if kind == "attention":
+            checks[-1]["program"] = flash_attention.program(args[0].dtype)
         if not ok:
             emit({"phase": "lm_kernels", "failed": checks[-1]})
             raise SystemExit(f"kernel {name} disagrees: {checks[-1]}")
@@ -448,7 +495,8 @@ def phase_lm_kernels(gen) -> dict:
                      (1, 24, 130, 8, 2, 128, True, 0),
                      (2, 96, 96, 4, 1, 128, True, 24),
                      (1, 40, 70, 2, 2, 32, False, 0),       # ROADMAP C1
-                     (1, 70, 70, 2, 1, 64, False, 16)]:
+                     (1, 70, 70, 2, 1, 64, False, 16),
+                     *ATTN_EDGES]:
             attn(*case, dt)
         for case in [(2, 64, 1, 1, 32, 16), (1, 256, 4, 2, 128, 64),
                      (1, 1024, 8, 2, 128, 256)]:
@@ -463,6 +511,9 @@ def phase_lm_kernels(gen) -> dict:
                    "serve prefill (4, 2048, 32/8, 128)")
     qs, ks, vs = swa(SWA_B, SWA_S, H, Hkv, hd, w, bf,
                      "swa prefill (1, 16384, 32/8, 128), w 8192")
+    f32 = torch.float32
+    qf, kf, vf = attn(SERVE_B, SERVE_S, SERVE_S, H, Hkv, hd, True, 0, f32,
+                      "serve prefill shape in f32 (4, 2048, 32/8, 128)")
     # one PyTorch call each, as yardsticks: (B, H, S, d) layouts and, for
     # the band, kv heads expanded and a boolean mask, made before timing
     qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -506,12 +557,24 @@ def phase_lm_kernels(gen) -> dict:
             "F.scaled_dot_product_attention(attn_mask=band), efficient "
             "backend, kv heads expanded"),
     }
+    # the f32 program at the same shape: its bound is the f32 rate of the
+    # CUDA cores (the tensor cores take f32 only as TF32)
+    qfT, kfT, vfT = (t.transpose(1, 2).contiguous() for t in (qf, kf, vf))
+    timed["flash_attention f32"] = (
+        [SERVE_B, SERVE_S, H, Hkv, hd], 2 * f_bytes, f_ops, f32_rate, 3,
+        lambda: flash_attention.flash_attention_gqa(qf, kf, vf),
+        lambda: ref.flash_attention_gqa_ref(qf, kf, vf),
+        lambda: F.scaled_dot_product_attention(
+            qfT, kfT, vfT, is_causal=True, enable_gqa=True),
+        "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True), "
+        "f32")
     table = {}
     for name, (shape, nbytes, nops, rate, iters, kernel, plain, library,
                lib_name) in timed.items():
         t_bytes, t_ops = nbytes / mem_rate * 1e3, nops / rate * 1e3
+        dt = f32 if name.endswith("f32") else bf
         table[name] = {
-            "shape": shape, "dtype": "bfloat16",
+            "shape": shape, "dtype": str(dt).split(".")[1],
             "max_abs_err": worst[name],
             "ms": cuda_ms(kernel, iters, 1),
             "plain_ms": cuda_ms(plain, iters, 1),
@@ -520,6 +583,9 @@ def phase_lm_kernels(gen) -> dict:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": nops}
+        if name != "rmsnorm":
+            table[name]["program"] = flash_attention.program(dt)
+    table["flash_attention"]["f32"] = table.pop("flash_attention f32")
     emit({"phase": "lm_kernels", "checks": len(checks),
           "all_ok": all(c["ok"] for c in checks),
           "tolerances": {f"{k[0]} {str(k[1]).split('.')[1]}": v
@@ -1060,12 +1126,16 @@ def main() -> None:
          **lm_table["rmsnorm"], "max_abs_err": max(
              lm_table["rmsnorm"]["max_abs_err"], ssm_norm_err)},
         {"name": "flash_attention", "route": "cuda",
-         "source": csrc + "attention.cu",
+         "source": csrc + "attention_sm90.cu",
+         "sources_by_dtype": {"bfloat16": csrc + "attention_sm90.cu",
+                              "float32": csrc + "attention.cu"},
          "replaces": "src/repro/kernels/flash_attention.py:77",
          "launches": serve["main"]["flash_attention"],
          **lm_table["flash_attention"]},
         {"name": "swa_attention", "route": "cuda",
-         "source": csrc + "attention.cu",
+         "source": csrc + "attention_sm90.cu",
+         "sources_by_dtype": {"bfloat16": csrc + "attention_sm90.cu",
+                              "float32": csrc + "attention.cu"},
          "replaces": "src/repro/kernels/swa_attention.py:64",
          "launches": serve["swa"]["swa_attention"],
          **lm_table["swa_attention"]},

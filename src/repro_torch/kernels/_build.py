@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # library name -> its source files under csrc/
 SOURCES = {"sqdist": ("sqdist.cu",), "rmsnorm": ("rmsnorm.cu",),
-           "attention": ("attention.cu",), "ssd_scan": ("ssd_scan.cu",)}
+           "attention": ("attention.cu", "attention_sm90.cu"),
+           "ssd_scan": ("ssd_scan.cu",)}
 
 # library name -> the C functions it exports: (restype, argtypes)
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -48,8 +49,10 @@ SIGNATURES = {
         **_ERR,
     },
     "attention": {
-        "repro_attention": (_I, [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _F, _P]),
+        "repro_attention": (_I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _F, _P]),
+        "repro_attention_sm90": (_I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _F, _P]),
         **_ERR,
     },
     "ssd_scan": {

@@ -1,15 +1,16 @@
-// Masked online-softmax attention with grouped KV heads, for Hopper (sm_90a).
+// Masked online-softmax attention with grouped KV heads in f32, on the
+// CUDA cores (sm_90a): the f32 program. bf16 runs the tensor-core program
+// of attention_sm90.cu; the wrapper (flash_attention.py) picks one by dtype.
 //
 //   o[b, i, h, :] = softmax_j(mask(i, j) ? scale * q[b, i, h] . k[b, j, h/G]
 //                                        : -1e30) @ v[b, :, h/G, :]
 //
-// q, o (B, Sq, H, D); k, v (B, Sk, Hkv, D); G = H / Hkv; f32 or bf16 in,
-// o in q's dtype; scores, the running max and denominator and the
-// accumulator in f32. Query row i sits at position i + Sk - Sq (the causal
-// diagonal is right-aligned); key j is kept when j < Sk, j <= qpos if
-// causal, and j > qpos - window if window > 0.
+// q, o (B, Sq, H, D); k, v (B, Sk, Hkv, D); G = H / Hkv; f32 throughout.
+// Query row i sits at position i + Sk - Sq (the causal diagonal is
+// right-aligned); key j is kept when j < Sk, j <= qpos if causal, and
+// j > qpos - window if window > 0.
 //
-// Replaces two Pallas kernels:
+// Replaces, for f32, two Pallas kernels:
 //   * src/repro/kernels/flash_attention.py (flash_attention, _flash_kernel)
 //     and its GQA front end src/repro/kernels/ops.py (flash_attention_gqa);
 //   * src/repro/kernels/swa_attention.py (swa_attention, _swa_kernel), the
@@ -19,12 +20,10 @@
 //     which is what the TPU kernel's "k blocks i-1 and i" does when its
 //     block is the whole window.
 //
-// Bound: at the serving shapes (head dim 128, thousands of keys per row)
-// the arithmetic: 4 flops per query-key pair per head dimension against
-// each q, k, v, o element moved once. The card's bound is the tensor-core
-// rate; this first kernel runs the products as f32 FMAs on the CUDA cores
-// (67 TFLOP/s peak), so it sits well above that bound by design. wgmma and
-// TMA are later work.
+// Bound: the arithmetic, 4 flops per kept query-key pair per head
+// dimension. The tensor cores take f32 only as TF32, which keeps ~3
+// digits and would miss the f32 tolerance (rtol 1e-4), so the products
+// stay f32 FMAs on the CUDA cores (67 TFLOP/s peak).
 //
 // Design. A block of 128 threads owns one (batch, head) and a tile of 64
 // query rows, and loops over 64-key tiles inside the block; that loop takes
@@ -35,19 +34,18 @@
 // group form half a warp, so the row max and row sum are shuffle
 // butterflies in a fixed order and every thread of the group holds the same
 // m and l. The Q tile stays in shared memory for the whole loop; K, V and
-// the probabilities of the current tile are staged there as f32 (rows
-// padded by one float against bank conflicts): 113 KB at D = 128, so it is
-// dynamic shared memory. Tiles that lie wholly outside the causal or window
-// range of the query tile are skipped. Key positions >= Sk are masked in the
+// the probabilities of the current tile are staged there (rows padded by
+// one float against bank conflicts): 113 KB at D = 128, so it is dynamic
+// shared memory. Tiles that lie wholly outside the causal or window range
+// of the query tile are skipped. Key positions >= Sk are masked in the
 // kernel, so a ragged non-causal Sk is right (the Pallas kernel pads keys
 // with zeros and lets them into the softmax, ROADMAP C1). A masked entry
 // has p = 0 even while the row's running max is still -1e30 (as
 // flash_attention.py:61 does), so a row whose first tiles are all masked
 // accumulates nothing from them. The KV head is read as h / G; nothing is
-// repeated in memory. No atomics: a given card gives the same bits on
-// every run.
+// repeated in memory. The grid is (query tiles, B * H), so B * H is at most
+// 65535. No atomics: a given card gives the same bits on every run.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,19 +57,6 @@ constexpr int kThreads = 128;  // 8 row groups x 16 threads
 constexpr int kRows = 8;       // query rows per thread
 constexpr int kKeys = 4;       // keys per thread per tile
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // max / sum over the 16 threads of a row group (lanes that differ in bits
 // 0..3); every lane ends with the same bits
@@ -93,10 +78,11 @@ constexpr size_t smem_bytes() {
          (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int H,
+    attention_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int H,
                      int Hkv, int Sq, int Sk, int causal, int window,
                      float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
@@ -120,15 +106,15 @@ __global__ void __launch_bounds__(kThreads)
 
   const int64_t q_stride = static_cast<int64_t>(H) * D;    // per position
   const int64_t k_stride = static_cast<int64_t>(Hkv) * D;
-  const T* qb = q + (static_cast<int64_t>(b) * Sq * H + h) * D;
-  const T* kb = k + (static_cast<int64_t>(b) * Sk * Hkv + hk) * D;
-  const T* vb = v + (static_cast<int64_t>(b) * Sk * Hkv + hk) * D;
-  T* ob = o + (static_cast<int64_t>(b) * Sq * H + h) * D;
+  const float* qb = q + (static_cast<int64_t>(b) * Sq * H + h) * D;
+  const float* kb = k + (static_cast<int64_t>(b) * Sk * Hkv + hk) * D;
+  const float* vb = v + (static_cast<int64_t>(b) * Sk * Hkv + hk) * D;
+  float* ob = o + (static_cast<int64_t>(b) * Sq * H + h) * D;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int i = e / D, d = e - (e / D) * D;
     const int qi = q0 + i;
-    sQ[i * LD + d] = qi < Sq ? to_f32(qb[qi * q_stride + d]) : 0.0f;
+    sQ[i * LD + d] = qi < Sq ? qb[qi * q_stride + d] : 0.0f;
   }
 
   float m[kRows], l[kRows], acc[kRows][NU];
@@ -155,8 +141,8 @@ __global__ void __launch_bounds__(kThreads)
       const int j = e / D, d = e - (e / D) * D;
       const int kj = k0 + j;
       const bool in = kj < Sk;
-      sK[j * LD + d] = in ? to_f32(kb[kj * k_stride + d]) : 0.0f;
-      sV[j * D + d] = in ? to_f32(vb[kj * k_stride + d]) : 0.0f;
+      sK[j * LD + d] = in ? kb[kj * k_stride + d] : 0.0f;
+      sV[j * D + d] = in ? vb[kj * k_stride + d] : 0.0f;
     }
     __syncthreads();
 
@@ -227,65 +213,52 @@ __global__ void __launch_bounds__(kThreads)
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int u = 0; u < NU; ++u)
-      ob[qi * q_stride + c + 16 * u] = from_f32<T>(acc[i][u] / denom);
+      ob[qi * q_stride + c + 16 * u] = acc[i][u] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hkv, int Sq, int Sk, int causal, int window,
            float scale, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((Sq + kBQ - 1) / kBQ),
                   static_cast<unsigned>(B * H));
-  attention_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, Sq, Sk, causal,
-      window, scale);
+  attention_kernel<D><<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Sk,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_dim(int head_dim, const void* q, const void* k, const void* v,
-                 void* o, int B, int H, int Hkv, int Sq, int Sk, int causal,
-                 int window, float scale, cudaStream_t s) {
-  switch (head_dim) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,
-                           scale, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,
-                           scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,
-                            scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); head_dim one
-// of 32, 64, 128. q and o are (B, Sq, H, head_dim), k and v
-// (B, Sk, Hkv, head_dim), all contiguous, with H % Hkv == 0. Returns the
-// CUDA error code of the launch (0 = cudaSuccess).
-extern "C" int repro_attention(int dtype, int head_dim, const void* q,
-                               const void* k, const void* v, void* o, int B,
-                               int H, int Hkv, int Sq, int Sk, int causal,
-                               int window, float scale, void* stream) {
+// float32 q, k, v and o; head_dim one of 32, 64, 128. q and o are
+// (B, Sq, H, head_dim), k and v (B, Sk, Hkv, head_dim), all contiguous,
+// with H % Hkv == 0 and B * H <= 65535. Returns the CUDA error code of the
+// launch (0 = cudaSuccess).
+extern "C" int repro_attention(int head_dim, const void* q, const void* k,
+                               const void* v, void* o, int B, int H, int Hkv,
+                               int Sq, int Sk, int causal, int window,
+                               float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_dim<float>(head_dim, q, k, v, o, B, H, Hkv, Sq, Sk,
-                               causal, window, scale, s);
-  if (dtype == 1)
-    return dispatch_dim<__nv_bfloat16>(head_dim, q, k, v, o, B, H, Hkv, Sq,
-                                       Sk, causal, window, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_dim) {
+    case 32:
+      return launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, scale,
+                        s);
+    case 64:
+      return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, scale,
+                        s);
+    case 128:
+      return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,
+                         scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

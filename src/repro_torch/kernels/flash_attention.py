@@ -2,14 +2,19 @@
 ``repro.kernels.flash_attention`` and of the GQA front end
 ``repro.kernels.ops.flash_attention_gqa``.
 
-Both launch ``csrc/attention.cu``: online-softmax attention with the
-causal diagonal right-aligned (query row i at position ``i + Sk - Sq``),
-an optional sliding ``window`` and ``scale``, f32 statistics and
-accumulator, output in q's dtype. The kernel reads the GQA layout
-``q (B, Sq, H, d)``, ``k/v (B, Sk, Hkv, d)`` in place: query head h reads
-kv head ``h // (H // Hkv)``, so nothing is transposed or repeated (the
-reference folds ``(B, Hkv, G)`` into its batch axis and repeats k and
-v). ``flash_attention`` on ``(B, S, d)`` is the case H = Hkv = 1. Key
+Both launch one of two programs of the ``attention`` library, chosen
+by dtype (``PROGRAMS``): bf16 runs ``csrc/attention_sm90.cu`` (TMA-fed
+``wgmma`` on the tensor cores, p split into two bf16 terms so the
+result keeps the bf16 tolerance), f32 runs ``csrc/attention.cu`` (f32
+FMAs on the CUDA cores: the tensor cores take f32 only as TF32). A dtype
+or head dim that neither takes raises. Both compute online-softmax
+attention with the causal diagonal right-aligned (query row i at
+position ``i + Sk - Sq``), an optional sliding ``window`` and ``scale``,
+f32 statistics and accumulator, output in q's dtype. Both read the GQA
+layout ``q (B, Sq, H, d)``, ``k/v (B, Sk, Hkv, d)`` in place: query head
+h reads kv head ``h // (H // Hkv)``, so nothing is transposed or
+repeated (the reference folds ``(B, Hkv, G)`` into its batch axis and
+repeats k and v). ``flash_attention`` on ``(B, S, d)`` is the case H = Hkv = 1. Key
 positions ``>= Sk`` are masked in the kernel, so a ragged non-causal
 ``Sk`` is right, unlike the Pallas kernel (ROADMAP C1).
 
@@ -26,9 +31,16 @@ import torch
 
 from repro_torch.kernels import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (the program's name, its C entry point)
+PROGRAMS = {torch.bfloat16: ("sm90_wgmma_tma", "repro_attention_sm90"),
+            torch.float32: ("cuda_core_f32", "repro_attention")}
 HEAD_DIMS = (32, 64, 128)
-_MAX_BH = 65535                 # grid.y limit
+_MAX_BH = 65535        # the f32 program's grid.y; bf16's grid is 1-D
+
+
+def program(dtype: torch.dtype) -> str:
+    """The name of the program that runs attention in ``dtype``."""
+    return PROGRAMS[dtype][0]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -52,17 +64,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"(same batch and head dim, H a multiple of Hkv)")
     if d not in HEAD_DIMS:
         raise ValueError(f"{what} takes head dims {HEAD_DIMS}, got {d}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in PROGRAMS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"{what} takes float32 or bfloat16, q, k and v alike: got "
             f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what} needs contiguous q, k and v")
-    if min(B, Sq, Sk) < 1 or B * H > _MAX_BH or window < 0:
+    if min(B, Sq, Sk) < 1 or window < 0:
         raise ValueError(
-            f"{what}: empty input, more than {_MAX_BH} (batch, head) pairs, "
-            f"or a negative window: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"window {window}")
+            f"{what}: empty input or a negative window: q {tuple(q.shape)}, "
+            f"k {tuple(k.shape)}, window {window}")
+    if q.dtype == torch.float32 and B * H > _MAX_BH:
+        raise ValueError(
+            f"{what}: the f32 program takes at most {_MAX_BH} (batch, head) "
+            f"pairs, got {B * H}")
+    # TMA reads the bf16 tensors from 16-byte aligned addresses
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{what} needs 16-byte aligned q, k and v")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(
             f"{what} launches on the current device "
@@ -72,11 +91,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _build.library("attention")
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.repro_attention(
-        _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), B, H, Hkv, Sq, Sk, int(causal), int(window),
-        ctypes.c_float(scale), stream)
-    _build.check(lib, code, f"{what} launch")
+    name, entry = PROGRAMS[q.dtype]
+    code = getattr(lib, entry)(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv,
+        Sq, Sk, int(causal), int(window), ctypes.c_float(scale), stream)
+    _build.check(lib, code, f"{what} launch ({name})")
     return o
 
 

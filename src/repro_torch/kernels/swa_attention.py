@@ -1,8 +1,9 @@
 """The banded sliding-window attention kernel on the card — the
 counterpart of ``repro.kernels.swa_attention``.
 
-``swa_attention`` is the attention kernel of ``csrc/attention.cu`` with
-``causal=True`` and the window: its key loop reads only the 64-key tiles
+``swa_attention`` is the attention kernel of ``flash_attention.py`` (the
+tensor-core program for bf16, the CUDA-core one for f32) with
+``causal=True`` and the window: its key loop reads only the key tiles
 that overlap ``(q - window, q]``. The Pallas kernel stages a whole
 window-sized block per step (k blocks i-1 and i of query block i); at
 window 8192 that block cannot sit in a Hopper SM's shared memory, so the

@@ -142,6 +142,37 @@ def test_attention_kernel_matches_plain(B, Sq, Sk, H, Hkv, d, causal, window,
         assert torch.equal(flat, got[:, :, 0])
 
 
+# the edges of the bf16 tensor-core program (128-row query tiles of two
+# 64-row halves, 64-key tiles, TMA zero-fill past Sq and Sk, a 1-D grid):
+# ragged Sq and Sk, Sq = 1, Sk = 129, a window of one key tile, head dims
+# 32 and 64, and more (batch, head) pairs than the card has SMs
+EDGES = [(2, 100, 200, 4, 2, 128, True, 0), (1, 300, 300, 8, 2, 128, True, 0),
+         (3, 1, 300, 8, 2, 128, True, 0), (2, 1, 77, 4, 4, 64, False, 0),
+         (1, 129, 129, 4, 2, 128, True, 0), (2, 40, 129, 4, 1, 64, False, 0),
+         (1, 256, 256, 4, 2, 128, True, 64), (2, 200, 200, 4, 2, 32, True, 0),
+         (2, 200, 200, 4, 2, 64, True, 48), (5, 130, 130, 32, 8, 64, True, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,d,causal,window", EDGES)
+def test_attention_program_edges_match_plain(B, Sq, Sk, H, Hkv, d, causal,
+                                             window, dtype):
+    """bf16 through the wgmma program, f32 through the CUDA-core one, each
+    against the plain version and bitwise repeatable."""
+    _need_card()
+    assert flash_attention.program(DTYPES[dtype]) == {
+        "bfloat16": "sm90_wgmma_tma", "float32": "cuda_core_f32"}[dtype]
+    seed = 7 * B + Sq + 3 * Sk + H + d + window
+    q = _randn((B, Sq, H, d), dtype, seed)
+    k = _randn((B, Sk, Hkv, d), dtype, seed + 1)
+    v = _randn((B, Sk, Hkv, d), dtype, seed + 2)
+    got = _same_twice(flash_attention.flash_attention_gqa, q, k, v,
+                      causal=causal, window=window)
+    want = ref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, **LM_TOL["attn", dtype])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("B,S,H,Hkv,w", [(2, 64, 1, 1, 16), (1, 256, 4, 2, 64),
@@ -180,6 +211,12 @@ def test_lm_kernels_count_launches_and_reject_what_they_do_not_take():
         rmsnorm.rmsnorm(x[:, ::2], x[0, ::2].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention.flash_attention(q[:, :, 0], kv[:, :, 0], kv[:, :, 0])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention.flash_attention_gqa(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention.flash_attention_gqa(q[..., :16].bfloat16(),
+                                            kv[..., :16].bfloat16(),
+                                            kv[..., :16].bfloat16())
     with pytest.raises(ValueError, match="head dims"):
         flash_attention.flash_attention_gqa(q[..., :16].contiguous(),
                                             kv[..., :16].contiguous(),
