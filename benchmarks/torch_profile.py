@@ -28,9 +28,29 @@ decode steps of a batch-4 ``ServeEngine`` after a 32-token prompt.
 
 The last line is the card's name and power limit as ``nvidia-smi``
 reports them. Needs a CUDA device; it imports nothing of JAX.
+
+    python3 benchmarks/torch_profile.py --kernels [--src DIR]
+
+times the kernels a round of kernel work changes, from the port under
+``DIR`` (default: this checkout's ``src``), so that two trees can be
+compared in one run on one card (say, an unpacked parent commit and
+this one, in turns): ``sqdist`` at (1, 1,199,882) and ``sqdist_rows`` at
+(100, 1,199,882) f32 beside ``vector_norm``, and ``ssd_scan`` at
+mamba2-2.7b's serving tensor (320, 2048, 64, 128), chunk 64, f32, each
+as 20 back-to-back calls between CUDA events (what ``chip_smoke.py``
+reports, host time between launches included), as the host's own time
+per call by its clock, and as device time, CUDA launches and the host's
+time inside them per call from ``torch.profiler``
+(``repro_torch/kernels/_timing.py``, always this checkout's); also
+``sqdist``'s C entry point called alone, so that the wrapper's host
+time and the launches' can be told apart; then mamba2-2.7b prefills at
+B = 4, S = 2,048 in bf16 by CUDA events after a 128-token warm-up: the
+first full-size call (``first_ms``, what ``chip_smoke.py`` reports) and
+two more (``steady_ms``). One JSON line each.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -41,8 +61,26 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "..", "src"))
+KERNELS_ONLY = "--kernels" in sys.argv[1:]
+OWN_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+SRC = (sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv[1:]
+       else OWN_SRC)
+sys.path.insert(0, os.path.abspath(SRC))
+
+
+def _own_timing():
+    """The port's timing module from this checkout, whatever ``--src``
+    names, so that both trees of a comparison are timed by the same
+    code."""
+    path = os.path.join(OWN_SRC, "repro_torch", "kernels", "_timing.py")
+    spec = importlib.util.spec_from_file_location("_own_timing", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_timing = _own_timing()
 
 from repro_torch.config import ProtocolConfig, TrainConfig, get_arch  # noqa: E402
 from repro_torch.core.protocol import DecentralizedLearner  # noqa: E402
@@ -117,7 +155,7 @@ def profile_protocol(name: str, proto: ProtocolConfig) -> dict:
 # attention programs (attention_kernel, attention_kernel_sm90) before
 # "sm90_" claims cuBLAS's own kernels
 KINDS = (("attention kernel", ("attention_kernel",)),
-         ("ssd_scan kernel", ("ssd_scan_kernel",)),
+         ("ssd_scan kernel", ("ssd_scan_",)),
          ("rmsnorm kernel", ("rmsnorm_kernel",)),
          ("cuBLAS products", ("nvjet", "gemm", "gemv", "xmma", "cutlass",
                               "sm90_")))
@@ -199,9 +237,99 @@ def profile_ssm_serve() -> list:
     return out
 
 
+def _bare_sqdist(sqdist, x, r):
+    """``sqdist``'s C entry point called directly on (1, P), its buffers
+    made once: the host's cost of the ``ctypes`` call and its launches
+    without the Python wrapper. Takes both forms of
+    ``repro_sqdist_rows``: two launches, or one with the ticket
+    counters."""
+    from repro_torch.kernels import _build
+    lib = _build.library("sqdist")
+    P = x.numel()
+    S = sqdist.num_splits(1, P, sqdist._sm_count(x.device.index))
+    seg = -(-P // S)
+    S = -(-P // seg)
+    partial = torch.empty((S,), dtype=torch.float32, device=x.device)
+    out = torch.empty((1,), dtype=torch.float32, device=x.device)
+    tickets = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    args = [0, x.data_ptr(), r.data_ptr(), partial.data_ptr(),
+            out.data_ptr()]
+    if len(lib.repro_sqdist_rows.argtypes) == 11:
+        args.append(tickets.data_ptr())
+    args += [1, P, seg, S, torch.cuda.current_stream().cuda_stream]
+    _build.check(lib, lib.repro_sqdist_rows(*args), "sqdist launch")
+    torch.cuda.synchronize()
+    if not torch.equal(out[0], sqdist.sqdist(x, r)):
+        raise SystemExit("the bare sqdist call disagrees with the wrapper")
+
+    def call():
+        lib.repro_sqdist_rows(*args)
+    # the launches take raw pointers: the buffers live as long as the call
+    call.buffers = (partial, out, tickets)
+    return call
+
+
+def profile_kernels() -> list:
+    import torch.nn.functional as F
+    from repro_torch.kernels import sqdist, ssd_scan
+    g = torch.Generator(device="cuda").manual_seed(0)
+    X = torch.randn((100, 1_199_882), generator=g, device="cuda")
+    r = torch.randn((1_199_882,), generator=g, device="cuda")
+    x0 = X[0]
+    BH, S, P, N = 320, 2048, 64, 128
+    xs, dts = (torch.randn((BH, S, P), generator=g, device="cuda"),
+               F.softplus(torch.randn((BH, S), generator=g, device="cuda")))
+    a = -torch.exp(torch.randn((BH,), generator=g, device="cuda"))
+    b, c = (torch.randn((4, S, N), generator=g, device="cuda")
+            for _ in range(2))
+    cases = {
+        "sqdist (1, 1199882) f32": lambda: sqdist.sqdist(x0, r),
+        "sqdist's C entry point alone, (1, 1199882) f32":
+            _bare_sqdist(sqdist, x0, r),
+        "vector_norm(x0 - r).square()":
+            lambda: torch.linalg.vector_norm(x0 - r).square(),
+        "sqdist_rows (100, 1199882) f32": lambda: sqdist.sqdist_rows(X, r),
+        "vector_norm(X - r, dim=1).square()":
+            lambda: torch.linalg.vector_norm(X - r, dim=1).square(),
+        "ssd_scan (320, 2048, 64, 128) chunk 64 f32, 80 heads per row":
+            lambda: ssd_scan.ssd_scan(xs, dts, a, b, c, chunk=64),
+    }
+    out = []
+    for name, fn in cases.items():
+        out.append({"src": SRC, "case": name,
+                    "events_ms": _timing.cuda_ms(fn),
+                    "host_us": _timing.host_us(fn),
+                    **_timing.profile_calls(fn)})
+    del X, xs, dts, b, c
+    torch.cuda.empty_cache()
+    cfg = get_arch("mamba2-2.7b")
+    params = init_lm_params(cfg, seed=0, dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g,
+                           device="cuda")
+    prefill = make_prefill(cfg)
+    prefill(params, tokens[:, :128])                    # warm-up
+    ms = [_timing.cuda_ms(lambda: prefill(params, tokens), 1, 0)
+          for _ in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+    prefill(params, tokens)
+    torch.cuda.synchronize()
+    out.append({"src": SRC, "case": "mamba2-2.7b prefill B=4 S=2048 bf16",
+                "first_ms": ms[0], "steady_ms": ms[1:], "peak_memory_bytes":
+                torch.cuda.max_memory_allocated()})
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("torch_profile.py needs a CUDA device")
+    if KERNELS_ONLY:
+        for rec in profile_kernels():
+            print(json.dumps(rec), flush=True)
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), flush=True)
+        return
     for name, proto in (
             ("periodic", ProtocolConfig(kind="periodic", b=10)),
             ("dynamic", ProtocolConfig(kind="dynamic", b=10, delta=0.7))):

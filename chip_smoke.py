@@ -15,7 +15,9 @@ and drives both of the port's paths:
   same run on the CPU. The scalar ``sqdist`` kernel (behind
   ``divergence.sq_distance(use_kernel=True)``) is not on the training
   path, as in the reference: it is checked and timed, and its main-path
-  count is 0.
+  count is 0. Both are one CUDA launch per call (slice 5), which the
+  profiler checks, and each is timed for the device alone beside the
+  host-bound back-to-back time.
 * serving (slice 2): holds the ``rmsnorm``, ``flash_attention`` and
   ``swa_attention`` kernels against their plain versions on the card in
   f32 and bf16 (small and ragged shapes, then the serving path's own),
@@ -30,10 +32,14 @@ and drives both of the port's paths:
   one (``attention.cu``); the serving checks above cover both, with the
   bf16 program's edges (ragged tiles, Sq = 1, Sk = 129, a one-tile
   window, head dims 32 and 64, more (batch, head) pairs than SMs).
-* Mamba2 serving (slice 3): holds the ``ssd_scan`` kernel against the
+* Mamba2 serving (slice 3; the ``ssd_scan`` program redesigned for the
+  tensor cores in slice 5, three launches per call): holds the
+  ``ssd_scan`` kernel against the
   sequential plain version on the card (small and ragged S, chunks 8 to
-  64, f32 and bf16, strong decay, grouped B and C, bitwise repeats, then
-  the serving tensor, timed), checks that the mamba2-2.7b smoke config
+  64, f32 and bf16, strong decay, grouped B and C, odd P and N, bitwise
+  repeats, then the serving tensor, timed beside the bytes / TF32 bound,
+  with its launches per call and each launch's device time from the
+  profiler), checks that the mamba2-2.7b smoke config
   gives the CPU's logits and greedy tokens on the card, then serves
   mamba2-2.7b at full width and depth in bf16 (prefill at B = 4,
   S = 2,048; a batch-4 ``ServeEngine`` feeding 32 prompt tokens and
@@ -80,6 +86,7 @@ from repro_torch.kernels import (  # noqa: E402
     _build, flash_attention, ops, ref, rmsnorm, sqdist, ssd_scan,
     swa_attention,
 )
+from repro_torch.kernels._timing import cuda_ms, profile_calls  # noqa: E402
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn_params  # noqa: E402
 from repro_torch.models.model import init_lm_params  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, make_prefill  # noqa: E402
@@ -90,10 +97,11 @@ M, B, ROUNDS, CHUNK, PERIOD, DELTA = 100, 10, 60, 20, 10, 0.7
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 # published peaks (NVIDIA data sheets, dense): device-memory bytes/s,
-# f32 flop/s outside the tensor cores, bf16 tensor-core flop/s
-PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
-         "H100 NVL": (3.9e12, 60e12, 835e12),
-         "H100": (3.35e12, 67e12, 989e12), "H200": (4.8e12, 67e12, 989e12)}
+# f32 flop/s outside the tensor cores, bf16 and TF32 tensor-core flop/s
+PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12, 378e12),
+         "H100 NVL": (3.9e12, 60e12, 835e12, 418e12),
+         "H100": (3.35e12, 67e12, 989e12, 495e12),
+         "H200": (4.8e12, 67e12, 989e12, 495e12)}
 
 # the serving path (llama3-8b and its sliding-window variant, bf16)
 SERVE_B, SERVE_S, PROMPT, GEN = 4, 2048, 32, 32
@@ -155,20 +163,6 @@ def peaks(name: str):
         if all(part in name for part in key.split()):
             return PEAKS[key]
     raise ValueError(f"no published peaks for {name!r}")
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +248,7 @@ def phase_kernels(gen) -> dict:
             check("sqdist", sqdist.sqdist, ref.sqdist_ref, (X, R), [m, n])
             del X, R
 
-    mem_rate, f32_rate, _ = peaks(torch.cuda.get_device_name(0))
+    mem_rate, f32_rate = peaks(torch.cuda.get_device_name(0))[:2]
     X = torch.randn((M, P_MNIST), generator=gen, device="cuda")
     r = torch.randn((P_MNIST,), generator=gen, device="cuda")
     x0 = X[0]
@@ -277,6 +271,9 @@ def phase_kernels(gen) -> dict:
         nbytes = (m * P_MNIST + P_MNIST) * 4 + 4 * m
         nops = 3 * m * P_MNIST
         t_bytes, t_ops = nbytes / mem_rate * 1e3, nops / f32_rate * 1e3
+        # the device alone: one launch per call (the last block of a row,
+        # chosen by a ticket, sums its partials), against vector_norm's
+        dev, dev_library = profile_calls(kernel), profile_calls(library)
         table[name] = {
             "shape": [m, P_MNIST], "dtype": "float32",
             "max_abs_err": worst[name]["abs"],
@@ -284,7 +281,15 @@ def phase_kernels(gen) -> dict:
             "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": nops}
+            "bytes": nbytes, "ops": nops,
+            "device_ms": dev["device_ms"],
+            "cuda_launches_per_call": dev["cuda_launches_per_call"],
+            "library_device_ms": dev_library["device_ms"],
+            "library_cuda_launches_per_call":
+                dev_library["cuda_launches_per_call"]}
+        if dev["cuda_launches_per_call"] != 1:
+            raise SystemExit(f"{name} made {dev['cuda_launches_per_call']} "
+                             f"CUDA launches per call, not 1: {dev}")
     emit({"phase": "kernels", "checks": len(checks),
           "all_ok": all(c["ok"] for c in checks), "timed": table,
           "peaks": {"bytes_per_s": mem_rate, "f32_flops": f32_rate}})
@@ -504,7 +509,7 @@ def phase_lm_kernels(gen) -> dict:
 
     # the serving path's own tensors, bf16: checked, then timed
     bf = torch.bfloat16
-    mem_rate, f32_rate, bf16_rate = peaks(torch.cuda.get_device_name(0))
+    mem_rate, f32_rate, bf16_rate = peaks(torch.cuda.get_device_name(0))[:3]
     D, H, Hkv, hd, w = 4096, 32, 8, 128, 8192
     x, s = norm((SERVE_B, SERVE_S, D), bf, "serve (4, 2048, 4096)")
     q, k, v = attn(SERVE_B, SERVE_S, SERVE_S, H, Hkv, hd, True, 0, bf,
@@ -801,15 +806,17 @@ def ssd_work(BH, S, P, N, bc_rows, chunk, itemsize):
     (b and c as the kernel reads them, ``bc_rows`` rows), a read, y and
     the f32 state written once; the flops are the fewer of the two forms
     that compute it. The chunked form needs, per chunk of Q steps, the
-    causal triangle of C B^T and of the diagonal product, Q (Q + 1) N and
-    Q (Q + 1) P, then 2 Q N P for C h^T and 2 Q P N for the state update;
-    the sequential recurrence needs 5 P N per step (decay, the dt x b^T
-    outer product and its add, then C h)."""
+    causal triangle of C B^T once per row of b and c (the row's heads
+    share it), Q (Q + 1) N, and per head the triangle of the diagonal
+    product, Q (Q + 1) P, then 2 Q N P for C h^T and 2 Q P N for the
+    state update; the sequential recurrence needs 5 P N per step (decay,
+    the dt x b^T outer product and its add, then C h)."""
     nbytes = ((2 * BH * S * P + BH * S + 2 * bc_rows * S * N) * itemsize
               + 4 * BH + 4 * BH * P * N)
-    chunked = (chunk * (chunk + 1) * (N + P) + 4 * chunk * N * P) * (
-        S // chunk)
-    return nbytes, min(chunked, 5 * P * N * S) * BH
+    nc = S // chunk
+    chunked = (bc_rows * chunk * (chunk + 1) * N
+               + BH * (chunk * (chunk + 1) * P + 4 * chunk * N * P)) * nc
+    return nbytes, min(chunked, 5 * P * N * S * BH)
 
 
 def phase_ssm_kernels(gen) -> tuple:
@@ -817,10 +824,14 @@ def phase_ssm_kernels(gen) -> tuple:
     and bf16, bitwise equal across two launches; then the serving path's
     own tensor (B = 4, H = 80, S = 2,048, P = 64, N = 128, chunk 64, f32,
     one group), checked and timed beside its bound and the plain
-    version. No single PyTorch call computes the SSD, so there is no
-    library yardstick. Also rmsnorm against its plain version at the
-    shapes mamba2-2.7b gives it (rows of d_model 2560 and d_inner 5120,
-    in prefill and in decode)."""
+    version, with its CUDA launches per call and each launch's device
+    time from the profiler. The program (``PROGRAM``) runs its products on
+    the tensor cores in split TF32, so the bound is the larger of its
+    bytes over the memory rate and its flops over the TF32 rate; the
+    flops over the CUDA cores' f32 rate stand beside it. No single
+    PyTorch call computes the SSD, so there is no library yardstick. Also
+    rmsnorm against its plain version at the shapes mamba2-2.7b gives it
+    (rows of d_model 2560 and d_inner 5120, in prefill and in decode)."""
     checks = []
     worst = 0.0
     norm_worst = 0.0
@@ -894,6 +905,8 @@ def phase_ssm_kernels(gen) -> tuple:
         check(16, 96, 64, 128, 64, dtype, R=8)  # grouped B and C
         check(5, 128, 64, 128, 64, dtype, strong=True)
         check(4, 100, 64, 128, 32, dtype, R=2, strong=True)
+        check(3, 64, 37, 20, 16, dtype)         # zero-padded tiles
+        check(2, 64, 5, 3, 8, dtype)
 
     # the serving path's own tensor, as mamba_forward hands it over
     BH, S, P, N, Q, R = SERVE_B * 80, SERVE_S, 64, 128, 64, 80
@@ -901,20 +914,29 @@ def phase_ssm_kernels(gen) -> tuple:
                            label="serve (320, 2048, 64, 128), chunk 64, "
                                  "80 heads per group")
     br, cr = b.repeat_interleave(R, 0), c.repeat_interleave(R, 0)
-    mem_rate, f32_rate, _ = peaks(torch.cuda.get_device_name(0))
+    mem_rate, f32_rate, _, tf32_rate = peaks(torch.cuda.get_device_name(0))
     nbytes, nops = ssd_work(BH, S, P, N, BH // R, Q, 4)
-    t_bytes, t_ops = nbytes / mem_rate * 1e3, nops / f32_rate * 1e3
+    t_bytes, t_ops = nbytes / mem_rate * 1e3, nops / tf32_rate * 1e3
+    run = lambda: ssd_scan.ssd_scan(x, dt, a, b, c, chunk=Q)  # noqa: E731
+    dev = profile_calls(run, 5)
+    if dev["cuda_launches_per_call"] != ssd_scan.CUDA_LAUNCHES:
+        raise SystemExit(f"ssd_scan made {dev['cuda_launches_per_call']} "
+                         f"CUDA launches per call: {dev}")
     table = {"ssd_scan": {
         "shape": [BH, S, P, N, Q, R], "dtype": "float32",
+        "program": ssd_scan.PROGRAM,
         "max_abs_err": worst,
-        "ms": cuda_ms(lambda: ssd_scan.ssd_scan(x, dt, a, b, c, chunk=Q),
-                      10, 2),
+        "ms": cuda_ms(run, 10, 2),
         "plain_ms": cuda_ms(lambda: ref.ssd_scan_ref(x, dt, a, br, cr), 2, 1),
         "library_ms": None,
         "library": "none: no single PyTorch call computes the chunked SSD",
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes, "ops": nops}}
+        "bytes": nbytes, "ops": nops,
+        "bound_ms_f32_cuda_cores": nops / f32_rate * 1e3,
+        "device_ms": dev["device_ms"],
+        "cuda_launches_per_call": dev["cuda_launches_per_call"],
+        "launch_device_us": dev["kernels_us"]}}
     emit({"phase": "ssm_kernels", "checks": len(checks),
           "rmsnorm_max_abs_err": norm_worst,
           "rmsnorm_tolerances": {str(k[1]).split(".")[1]: v
@@ -927,7 +949,8 @@ def phase_ssm_kernels(gen) -> tuple:
                     for c in sorted(checks, key=lambda c: -c["max_abs_err"])
                     [:3]],
           "timed": table,
-          "peaks": {"bytes_per_s": mem_rate, "f32_flops": f32_rate}})
+          "peaks": {"bytes_per_s": mem_rate, "f32_flops": f32_rate,
+                    "tf32_flops": tf32_rate}})
     return table, norm_worst
 
 
@@ -1023,7 +1046,10 @@ def phase_ssm_serve() -> dict:
                          f"finite or not of the expected shape")
     at_prompt = logits[:, PROMPT - 1].float()
     del logits
-    torch.cuda.synchronize()
+    # the first full-size call above, like llama's in `serve`, pays the
+    # allocator's first requests (the kernel's scratch, the activations);
+    # a second call gives the steady cost beside it
+    _, steady_ms, _ = _timed(lambda: prefill(params, tokens))
 
     eng = ServeEngine(cfg, params, max_seq=PROMPT + GEN + 1, batch=SERVE_B,
                       dtype=bf, device="cuda")
@@ -1053,6 +1079,7 @@ def phase_ssm_serve() -> dict:
            "weights_bytes": weight_bytes, "init_ms": init_ms,
            "f32_prompt_logits": {**f32_gap, "tolerance_rel": SSM_F32_REL_TOL},
            "prefill": {"batch": SERVE_B, "seq": SERVE_S, "ms": prefill_ms,
+                       "steady_ms": steady_ms,
                        "tokens_per_s": SERVE_B * SERVE_S / prefill_ms * 1e3},
            "engine": {"batch": SERVE_B, "prompt": PROMPT, "generated": GEN,
                       "feed_ms_per_step": feed_ms / PROMPT,

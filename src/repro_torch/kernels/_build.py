@@ -40,8 +40,8 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _ERR = {"repro_cuda_error_string": (ctypes.c_char_p, [_I])}
 SIGNATURES = {
     "sqdist": {
-        "repro_sqdist_rows": (_I, [_I, _P, _P, _P, _P, _LL, _LL, _LL, _I,
-                                   _P]),
+        "repro_sqdist_rows": (_I, [_I, _P, _P, _P, _P, _P, _LL, _LL, _LL,
+                                   _I, _P]),
         **_ERR,
     },
     "rmsnorm": {
@@ -56,8 +56,9 @@ SIGNATURES = {
         **_ERR,
     },
     "ssd_scan": {
-        "repro_ssd_scan": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _P]),
+        "repro_ssd_scan": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _I, _I, _I, _I, _I, _P]),
+        "repro_ssd_scan_bt_bytes": (_I, [_I]),
         **_ERR,
     },
 }

@@ -19,6 +19,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     flash_attention, ops, ref, rmsnorm, sqdist, ssd_scan, swa_attention,
 )
+from repro_torch.kernels._timing import profile_calls  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -62,6 +63,49 @@ def test_ops_counts_kernel_launches_only():
     ops.sqdist_rows(X.cpu(), r.cpu())
     assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0),
                             "sqdist_rows": 1, "sqdist": 1}
+
+
+def _cuda_launches(fn):
+    """CUDA launches per call of ``fn`` and the names of the kernels that
+    ran, in the order they first ran."""
+    prof = profile_calls(fn, 3)
+    return prof["cuda_launches_per_call"], list(prof["kernels_us"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(1, 1_199_882), (100, 1_199_882)])
+def test_sqdist_is_one_launch_per_call(m, n):
+    """The ticket folds the partials' sum into the one kernel: one CUDA
+    launch per call, and sqdist's result is a 0-d tensor made without an
+    indexing op."""
+    _need_card()
+    X, r = _inputs(m, n, "float32")
+    R = r.expand_as(X).contiguous()
+    per_call, names = _cuda_launches(lambda: sqdist.sqdist_rows(X, r))
+    assert per_call == 1 and all("sqdist_kernel" in k for k in names)
+    per_call, names = _cuda_launches(lambda: sqdist.sqdist(X, R))
+    assert per_call == 1 and all("sqdist_kernel" in k for k in names)
+    one = sqdist.sqdist(X, R)
+    assert one.shape == () and one.dtype == torch.float32
+    torch.testing.assert_close(one, ref.sqdist_ref(X, R), **TOL)
+
+
+@pytest.mark.cuda
+def test_sqdist_tickets_reset_across_calls_and_streams():
+    """Each call leaves its row counters at 0: many calls of changing
+    shapes, on the default stream and on a side stream, all give the bits
+    of the first call of the same shape."""
+    _need_card()
+    X, r = _inputs(7, 300_001, "float32")
+    want = sqdist.sqdist_rows(X, r)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    for i in range(6):
+        with torch.cuda.stream(side if i % 2 else torch.cuda.current_stream()):
+            assert torch.equal(sqdist.sqdist_rows(X, r), want)
+            sqdist.sqdist_rows(X[:3], r)
+    torch.cuda.synchronize()
+    assert torch.equal(sqdist.sqdist_rows(X, r), want)
 
 
 @pytest.mark.cuda
@@ -258,10 +302,12 @@ def _ssd_inputs(BH, S, P, N, dtype, seed, R=1, strong=False):
     (3, 8, 8, 4, 8, 1, False), (3, 37, 8, 4, 8, 1, False),
     (4, 200, 64, 128, 64, 1, False), (6, 77, 64, 32, 16, 1, False),
     (16, 96, 64, 128, 64, 8, False), (5, 128, 64, 128, 64, 1, True),
-    (4, 100, 64, 128, 32, 2, True)])
+    (4, 100, 64, 128, 32, 2, True), (3, 64, 37, 20, 16, 1, False),
+    (2, 64, 5, 3, 8, 1, False), (160, 256, 64, 128, 64, 80, False)])
 def test_ssd_scan_kernel_matches_plain(BH, S, P, N, chunk, R, strong, dtype):
     """Ragged S through ops.ssd_scan (padded), chunks 8 to 64, grouped B
-    and C (R heads per row), strong decay; bitwise repeatable."""
+    and C (R heads per row, up to mamba2-2.7b's 80), strong decay, odd P
+    and N (zero-padded tiles); bitwise repeatable."""
     _need_card()
     x, dt, a, b, c = _ssd_inputs(BH, S, P, N, dtype, BH + S + N, R, strong)
     y, h = ops.ssd_scan(x, dt, a, b, c, chunk=chunk)
@@ -285,6 +331,12 @@ def test_ssd_scan_counts_launches_and_rejects_what_it_does_not_take():
     ops.ssd_scan(x, dt, a, b, c, chunk=8)
     ops.ssd_scan(x.cpu(), dt.cpu(), a.cpu(), b.cpu(), c.cpu(), chunk=16)
     assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0), "ssd_scan": 2}
+    # one counted call is the program's three CUDA launches
+    per_call, names = _cuda_launches(
+        lambda: ssd_scan.ssd_scan(x, dt, a, b, c, chunk=16))
+    assert per_call == 3
+    assert [n.split("::")[-1].split("<")[0] for n in names[:3]] == [
+        "ssd_scan_cbt_kernel", "ssd_scan_state_kernel", "ssd_scan_out_kernel"]
     with pytest.raises(ValueError, match="chunk multiple"):
         ssd_scan.ssd_scan(x, dt, a, b, c, chunk=64)
     with pytest.raises(ValueError, match="chunks"):
