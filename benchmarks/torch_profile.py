@@ -13,7 +13,12 @@ intervals), the card's idle share, the device time under each of the
 round's named ranges (``round.local_step``, ``round.optimizer``,
 ``round.sync``), and the kernels that took the most device time (summed
 durations; concurrent kernels overlap, so they can add up to more than
-the device time).
+the device time). Then the deep-driving cells ``chip_smoke.py`` adds
+(slice 6): deepdrive_cnn at full width (348,219 weights, 68x320x3
+frames), m = 100, B = 10, sgd lr 0.05, under ``periodic b=10`` and
+``dynamic b=2 Δ=0.3``, traced the same way, each line also giving the
+ms a round of frames takes to draw on the card (CUDA events around
+``next_chunk``, outside the trace).
 
 Serving: the cells ``chip_smoke.py`` serves — llama3-8b at full width
 and depth in bf16 — traced the same way after a warm-up: one prefill at
@@ -28,6 +33,11 @@ decode steps of a batch-4 ``ServeEngine`` after a 32-token prompt.
 
 The last line is the card's name and power limit as ``nvidia-smi``
 reports them. Needs a CUDA device; it imports nothing of JAX.
+
+    python3 benchmarks/torch_profile.py --paper
+
+traces only the training cells, the MNIST ones and the deep-driving
+ones, and skips serving.
 
     python3 benchmarks/torch_profile.py --kernels [--src DIR]
 
@@ -62,6 +72,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 KERNELS_ONLY = "--kernels" in sys.argv[1:]
+PAPER_ONLY = "--paper" in sys.argv[1:]
 OWN_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                        "src")
 SRC = (sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv[1:]
@@ -85,7 +96,7 @@ _timing = _own_timing()
 from repro_torch.config import ProtocolConfig, TrainConfig, get_arch  # noqa: E402
 from repro_torch.core.protocol import DecentralizedLearner  # noqa: E402
 from repro_torch.data.pipeline import LearnerStreams  # noqa: E402
-from repro_torch.data.synthetic import SyntheticMNIST  # noqa: E402
+from repro_torch.data.synthetic import DeepDriveStream, SyntheticMNIST  # noqa: E402
 from repro_torch.models.cnn import cnn_loss, init_cnn_params  # noqa: E402
 from repro_torch.models.model import init_lm_params  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, make_prefill  # noqa: E402
@@ -104,15 +115,19 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def profile_protocol(name: str, proto: ProtocolConfig) -> dict:
-    cfg = get_arch("mnist_cnn")
-    src = SyntheticMNIST(seed=0, image_size=28, device="cuda")
+def profile_protocol(name: str, proto: ProtocolConfig,
+                     arch: str = "mnist_cnn", lr: float = 0.1) -> dict:
+    cfg = get_arch(arch)
+    src = (DeepDriveStream(seed=1, device="cuda") if arch == "deepdrive_cnn"
+           else SyntheticMNIST(seed=0, image_size=28, device="cuda"))
     streams = LearnerStreams(src, M, batch=B, seed=0)
     dl = DecentralizedLearner(
         lambda p, b: cnn_loss(cfg, p, b), lambda g: init_cnn_params(cfg, g),
-        M, proto, TrainConfig(optimizer="sgd", learning_rate=0.1),
+        M, proto, TrainConfig(optimizer="sgd", learning_rate=lr),
         device="cuda")
     dl.run_chunk(streams.next_chunk(WARM))
+    draw = _timing.cuda_ms(lambda: streams.next_chunk(TRACED), iters=1,
+                           warmup=0)
     batches = streams.next_chunk(TRACED)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -139,7 +154,9 @@ def profile_protocol(name: str, proto: ProtocolConfig) -> dict:
         if e.device_type == DeviceType.CPU and e.name in RANGES:
             ranges[e.name] += e.device_time_total / TRACED
     return {
-        "protocol": name, "m": M, "batch": B, "rounds_traced": TRACED,
+        "protocol": name, "arch": arch, "m": M, "batch": B,
+        "rounds_traced": TRACED,
+        "draw_ms_per_round": draw / TRACED,
         "syncs_traced": dl.comm_totals["syncs"],
         "wall_ms_per_round": wall_us / TRACED / 1e3,
         "device_ms_per_round": device_us / TRACED / 1e3,
@@ -330,16 +347,24 @@ def main() -> None:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip(), flush=True)
         return
-    for name, proto in (
-            ("periodic", ProtocolConfig(kind="periodic", b=10)),
-            ("dynamic", ProtocolConfig(kind="dynamic", b=10, delta=0.7))):
-        print(json.dumps(profile_protocol(name, proto)), flush=True)
-    torch.cuda.empty_cache()
-    for rec in profile_serve():
-        print(json.dumps(rec), flush=True)
-    torch.cuda.empty_cache()
-    for rec in profile_ssm_serve():
-        print(json.dumps(rec), flush=True)
+    for name, proto, arch, lr in (
+            ("periodic", ProtocolConfig(kind="periodic", b=10), "mnist_cnn",
+             0.1),
+            ("dynamic", ProtocolConfig(kind="dynamic", b=10, delta=0.7),
+             "mnist_cnn", 0.1),
+            ("periodic", ProtocolConfig(kind="periodic", b=10),
+             "deepdrive_cnn", 0.05),
+            ("dynamic", ProtocolConfig(kind="dynamic", b=2, delta=0.3),
+             "deepdrive_cnn", 0.05)):
+        print(json.dumps(profile_protocol(name, proto, arch, lr)),
+              flush=True)
+        torch.cuda.empty_cache()
+    if not PAPER_ONLY:
+        for rec in profile_serve():
+            print(json.dumps(rec), flush=True)
+        torch.cuda.empty_cache()
+        for rec in profile_ssm_serve():
+            print(json.dumps(rec), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

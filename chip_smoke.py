@@ -46,6 +46,20 @@ and drives both of the port's paths:
   generating 32), counting launches, and holds the engine's logits from
   the O(1) recurrence against the prefill's from the chunked kernel.
 
+* the paper's other experiments (slice 6): trains the deep-driving
+  PilotNet at full width (348,219 weights, 68x320x3 frames drawn on the
+  card, m = 100, B = 10) through ``run_drift_segments`` with drifts at
+  rounds 20 and 40, under periodic and dynamic averaging, then FedAvg,
+  the random balancing augmentation from a heterogeneous init and the
+  serial baseline on the MNIST CNN; each run's ``sqdist_rows`` count is
+  exact (30 for the deep-driving dynamic run, 6 for the random one, 0
+  otherwise), and ``kernels`` holds ``sqdist_rows`` at (100, 348,219),
+  odd P, against its plain version. ``paper_agree`` runs FedAvg, the
+  random augmentation, a heterogeneous init and drift=True on the card
+  and on the CPU from the same model and batches (identical comm, ledger,
+  keys and drift rounds) and holds ``repro_torch.prng`` on the card to
+  the CPU, bit for bit.
+
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
 reports them, and ``{"ok": true, "device": {...}}``. Any failure exits
@@ -77,11 +91,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import torch.nn.functional as F  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
+from repro_torch import prng  # noqa: E402
 from repro_torch.config import ProtocolConfig, TrainConfig, get_arch  # noqa: E402
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.core.flatten import tree_leaves, tree_map  # noqa: E402
-from repro_torch.core.protocol import DecentralizedLearner  # noqa: E402
-from repro_torch.data.synthetic import SyntheticMNIST  # noqa: E402
+from repro_torch.core.protocol import DecentralizedLearner, SerialLearner  # noqa: E402
+from repro_torch.data.pipeline import LearnerStreams  # noqa: E402
+from repro_torch.data.synthetic import (  # noqa: E402
+    DeepDriveStream, GraphicalModelStream, SyntheticMNIST,
+)
 from repro_torch.kernels import (  # noqa: E402
     _build, flash_attention, ops, ref, rmsnorm, sqdist, ssd_scan,
     swa_attention,
@@ -90,9 +108,12 @@ from repro_torch.kernels._timing import cuda_ms, profile_calls  # noqa: E402
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn_params  # noqa: E402
 from repro_torch.models.model import init_lm_params  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, make_prefill  # noqa: E402
-from repro_torch.train.loop import run_protocol_training  # noqa: E402
+from repro_torch.train.loop import (  # noqa: E402
+    run_drift_segments, run_protocol_training,
+)
 
 P_MNIST = 1_199_882          # mnist_cnn's weights (Table 1)
+P_DEEPDRIVE = 348_219        # deepdrive_cnn's weights (Table 5, PilotNet)
 M, B, ROUNDS, CHUNK, PERIOD, DELTA = 100, 10, 60, 20, 10, 0.7
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -236,9 +257,11 @@ def phase_kernels(gen) -> dict:
             emit({"phase": "kernels", "failed": checks[-1]})
             raise SystemExit(f"kernel {name} disagrees: {checks[-1]}")
 
-    # sqdist flattens its inputs: (1, P_MNIST) is one whole mnist_cnn model
+    # sqdist flattens its inputs: (1, P_MNIST) is one whole mnist_cnn model;
+    # P_DEEPDRIVE is odd, so every odd row of that plane starts 4 bytes off
+    # an 8-byte boundary
     for m, n in [(1, 1), (17, 515), (1, P_MNIST), (7, P_MNIST),
-                 (100, P_MNIST)]:
+                 (100, P_MNIST), (3, P_DEEPDRIVE), (100, P_DEEPDRIVE)]:
         for dt in (torch.float32, torch.bfloat16):
             X = torch.randn((m, n), generator=gen, device="cuda").to(dt)
             r = torch.randn((n,), generator=gen, device="cuda").to(dt)
@@ -257,27 +280,37 @@ def phase_kernels(gen) -> dict:
           "timed X (100, P)")
     check("sqdist", sqdist.sqdist, ref.sqdist_ref, (x0, r),
           "timed x0 = X[0] (P,)")
+    Xd = torch.randn((M, P_DEEPDRIVE), generator=gen, device="cuda")
+    rd = torch.randn((P_DEEPDRIVE,), generator=gen, device="cuda")
+    check("sqdist_rows", sqdist.sqdist_rows, ref.sqdist_rows_ref, (Xd, rd),
+          "timed X (100, P_DEEPDRIVE)")
+    row_starts = sorted({(i * P_DEEPDRIVE * 4) % 16 for i in range(M)})
     timed = {
-        "sqdist_rows": (M, lambda: sqdist.sqdist_rows(X, r),
+        "sqdist_rows": (M, P_MNIST, lambda: sqdist.sqdist_rows(X, r),
                         lambda: ref.sqdist_rows_ref(X, r),
                         lambda: torch.linalg.vector_norm(X - r, dim=1)
                         .square()),
-        "sqdist": (1, lambda: sqdist.sqdist(x0, r),
+        "sqdist": (1, P_MNIST, lambda: sqdist.sqdist(x0, r),
                    lambda: ref.sqdist_ref(x0, r),
                    lambda: torch.linalg.vector_norm(x0 - r).square()),
+        "sqdist_rows_deepdrive": (
+            M, P_DEEPDRIVE, lambda: sqdist.sqdist_rows(Xd, rd),
+            lambda: ref.sqdist_rows_ref(Xd, rd),
+            lambda: torch.linalg.vector_norm(Xd - rd, dim=1).square()),
     }
     table = {}
-    for name, (m, kernel, plain, library) in timed.items():
-        nbytes = (m * P_MNIST + P_MNIST) * 4 + 4 * m
-        nops = 3 * m * P_MNIST
+    for name, (m, P, kernel, plain, library) in timed.items():
+        nbytes = (m * P + P) * 4 + 4 * m
+        nops = 3 * m * P
         t_bytes, t_ops = nbytes / mem_rate * 1e3, nops / f32_rate * 1e3
         # the device alone: one launch per call (the last block of a row,
         # chosen by a ticket, sums its partials), against vector_norm's
         dev, dev_library = profile_calls(kernel), profile_calls(library)
+        kernel_name = name.split("_deepdrive")[0]
         table[name] = {
-            "shape": [m, P_MNIST], "dtype": "float32",
-            "max_abs_err": worst[name]["abs"],
-            "max_rel_err": worst[name]["rel"], "ms": cuda_ms(kernel),
+            "shape": [m, P], "dtype": "float32",
+            "max_abs_err": worst[kernel_name]["abs"],
+            "max_rel_err": worst[kernel_name]["rel"], "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -290,6 +323,7 @@ def phase_kernels(gen) -> dict:
         if dev["cuda_launches_per_call"] != 1:
             raise SystemExit(f"{name} made {dev['cuda_launches_per_call']} "
                              f"CUDA launches per call, not 1: {dev}")
+    table["sqdist_rows_deepdrive"]["row_start_bytes_mod_16"] = row_starts
     emit({"phase": "kernels", "checks": len(checks),
           "all_ok": all(c["ok"] for c in checks), "timed": table,
           "peaks": {"bytes_per_s": mem_rate, "f32_flops": f32_rate}})
@@ -1113,6 +1147,294 @@ def phase_ssm_serve() -> dict:
     return main_launches
 
 
+# ---------------------------------------------------------------------------
+# the paper's other experiments (slice 6)
+# ---------------------------------------------------------------------------
+PAPER_ROUNDS, PAPER_CHUNK, DRIFTS = 60, 20, (20, 40)
+
+
+def _timed_run(fn):
+    """``fn()`` between CUDA events, with the peak memory it allocated:
+    ``(result, ms, peak_bytes)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), torch.cuda.max_memory_allocated()
+
+
+def _check_fleet_run(name, dl, P):
+    if dl.model_size != P:
+        raise SystemExit(f"{name}: {dl.model_size} weights, not {P}")
+    if not (math.isfinite(dl.cumulative_loss)
+            and np.isfinite(dl.cumulative_loss_per_learner).all()):
+        raise SystemExit(f"{name}: non-finite loss")
+    if int(dl.per_link_bytes().sum()) != dl.comm_bytes():
+        raise SystemExit(f"{name}: ledger {int(dl.per_link_bytes().sum())} "
+                         f"!= comm_bytes {dl.comm_bytes()}")
+    if not dl.X.is_cuda:
+        raise SystemExit(f"{name}: the parameter plane is on {dl.X.device}")
+
+
+def _fleet_record(dl, ms, peak, launches):
+    return {"weights": dl.model_size, "rounds": dl.rounds,
+            "ms_per_round": ms / dl.rounds, "syncs": dl.comm_totals["syncs"],
+            "full_syncs": dl.comm_totals["full_syncs"],
+            "model_up": dl.comm_totals["model_up"],
+            "comm_bytes": dl.comm_bytes(),
+            "ledger_bytes": int(dl.per_link_bytes().sum()),
+            "cumulative_loss": dl.cumulative_loss,
+            "peak_memory_bytes": peak, "sqdist_rows": launches,
+            "plane_device": str(dl.X.device)}
+
+
+def phase_paper_train() -> dict:
+    """The paper's other experiments at full width on the card: the
+    deep-driving PilotNet (deepdrive_cnn, 348,219 weights, 68x320x3
+    frames) under known drifts through run_drift_segments, FedAvg, the
+    random augmentation from a heterogeneous init, and the serial
+    baseline, each on mnist_cnn at m = 100. The sqdist_rows counts are
+    set to 0 just before each run and read just after."""
+    train = TrainConfig(optimizer="sgd", learning_rate=0.05)
+    runs, launches = {}, {}
+
+    # deep driving under drift: m = 100, B = 10, drifts at rounds 20, 40
+    dd = get_arch("deepdrive_cnn")
+    dd_loss = lambda p, b: cnn_loss(dd, p, b)           # noqa: E731
+    dd_init = lambda g: init_cnn_params(dd, g)           # noqa: E731
+    warm = DecentralizedLearner(dd_loss, dd_init, M,
+                                ProtocolConfig(kind="nosync"), train,
+                                device="cuda")           # cuDNN's choices
+    warm.run_chunk(LearnerStreams(DeepDriveStream(seed=1, device="cuda"), M,
+                                  batch=B).next_chunk(2))
+    del warm
+    dynamic = ProtocolConfig(kind="dynamic", b=2, delta=0.3)
+    for name, proto, want in (
+            ("deepdrive periodic", ProtocolConfig(kind="periodic", b=10), 0),
+            ("deepdrive drift", dynamic, PAPER_ROUNDS // 2),
+            # the same run again: its decisions must repeat to the bit
+            ("deepdrive drift repeat", dynamic, PAPER_ROUNDS // 2)):
+        src = DeepDriveStream(seed=1, device="cuda")
+        streams = LearnerStreams(src, M, batch=B, seed=0)
+        dl = DecentralizedLearner(dd_loss, dd_init, M, proto, train,
+                                  device="cuda")
+        ops.reset_launches()
+        (sync_curve, _), ms, peak = _timed_run(
+            lambda: run_drift_segments(dl, streams, src, PAPER_ROUNDS,
+                                       DRIFTS))
+        launches[name] = ops.LAUNCHES["sqdist_rows"]
+        _check_fleet_run(name, dl, P_DEEPDRIVE)
+        runs[name] = _fleet_record(dl, ms, peak, launches[name])
+        runs[name]["curvature_scale"] = src.curvature_scale
+        runs[name]["syncs_by_segment"] = [
+            int(sync_curve[e - 1] - (sync_curve[s - 1] if s else 0))
+            for s, e in zip((0,) + DRIFTS, DRIFTS + (PAPER_ROUNDS,))]
+        runs[name]["per_link_bytes"] = dl.per_link_bytes().tolist()
+        if launches[name] != want:
+            raise SystemExit(f"{name} launched sqdist_rows "
+                             f"{launches[name]} times, not {want}")
+        del dl, streams
+        torch.cuda.empty_cache()
+    if runs["deepdrive drift"]["syncs"] < 1:
+        raise SystemExit("the deepdrive dynamic run never synced")
+    again = runs.pop("deepdrive drift repeat")
+    launches.pop("deepdrive drift repeat")
+    first = runs["deepdrive drift"]
+    runs["deepdrive drift"]["repeat_ms_per_round"] = again["ms_per_round"]
+    same = ("syncs", "model_up", "comm_bytes", "cumulative_loss",
+            "per_link_bytes")
+    if any(again[k] != first[k] for k in same):
+        raise SystemExit(f"the deepdrive dynamic run did not repeat: "
+                         f"{ {k: (first[k], again[k]) for k in same} }")
+    for rec in runs.values():
+        rec.pop("per_link_bytes")
+
+    # mnist_cnn at m = 100: FedAvg, then the random augmentation from a
+    # heterogeneous init (Fig. 6.2's eps = 2; the noisy learners start at
+    # ~4x the homogeneous loss, so at half the step size)
+    cfg = get_arch("mnist_cnn")
+    loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
+    init_fn = lambda g: init_cnn_params(cfg, g)          # noqa: E731
+    src = SyntheticMNIST(seed=0, image_size=28, device="cuda")
+    mtrain = TrainConfig(optimizer="sgd", learning_rate=0.1)
+    for name, proto, eps, lr, want in (
+            ("mnist fedavg", ProtocolConfig(kind="fedavg", b=PERIOD,
+                                            fedavg_c=0.3), 0.0, 0.1, 0),
+            ("random augmentation", ProtocolConfig(
+                kind="dynamic", b=PERIOD, delta=DELTA,
+                augmentation="random"), 2.0, 0.05, PAPER_ROUNDS // PERIOD)):
+        ops.reset_launches()
+        (dl, traj), ms, peak = _timed_run(lambda: run_protocol_training(
+            loss_fn, init_fn, src, m=M, rounds=PAPER_ROUNDS, protocol=proto,
+            train=TrainConfig(optimizer="sgd", learning_rate=lr), batch=B,
+            chunk_size=PAPER_CHUNK,
+            record_every=PAPER_CHUNK, init_heterogeneity=eps,
+            device="cuda"))
+        launches[name] = ops.LAUNCHES["sqdist_rows"]
+        _check_fleet_run(name, dl, P_MNIST)
+        runs[name] = _fleet_record(dl, ms, peak, launches[name])
+        runs[name].update(init_heterogeneity=eps, learning_rate=lr)
+        if launches[name] != want:
+            raise SystemExit(f"{name} launched sqdist_rows "
+                             f"{launches[name]} times, not {want}")
+        del dl
+    fed = runs["mnist fedavg"]
+    if (fed["syncs"], fed["model_up"], fed["full_syncs"]) != (6, 180, 0):
+        raise SystemExit(f"fedavg C=0.3 at m = 100 made {fed['syncs']} "
+                         f"syncs moving {fed['model_up']} models up, not "
+                         f"6 and 180")
+    if runs["random augmentation"]["syncs"] < 1:
+        raise SystemExit("the random-augmentation run never synced")
+
+    # the serial baseline: one model sees all m * B samples of a round
+    serial = SerialLearner(loss_fn, init_fn, mtrain, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(123)
+    ops.reset_launches()
+
+    def serial_run():
+        for _ in range(PAPER_ROUNDS // PAPER_CHUNK):
+            serial.run_chunk(src.sample(gen, M * B, lead=(PAPER_CHUNK,)))
+
+    _, ms, peak = _timed_run(serial_run)
+    launches["serial"] = ops.LAUNCHES["sqdist_rows"]
+    if not math.isfinite(serial.cumulative_loss) or not serial.x.is_cuda:
+        raise SystemExit(f"serial: loss {serial.cumulative_loss} on "
+                         f"{serial.x.device}")
+    runs["serial"] = {"weights": serial.adapter.P, "rounds": PAPER_ROUNDS,
+                      "batch": M * B, "ms_per_round": ms / PAPER_ROUNDS,
+                      "cumulative_loss": serial.cumulative_loss,
+                      "peak_memory_bytes": peak, "sqdist_rows": 0}
+    if launches["serial"]:
+        raise SystemExit(f"serial launched sqdist_rows: {launches}")
+    emit({"phase": "paper_train", "m": M, "batch": B, "runs": runs})
+    return launches
+
+
+class HostDrawn:
+    """A data source drawn on the CPU from its own generator and moved to
+    ``device``, so that a run on the card and one on the CPU see the same
+    batches; drifts are the wrapped source's (its numpy stream)."""
+
+    def __init__(self, source, device, seed):
+        self.source, self.device = source, torch.device(device)
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def maybe_drift(self):
+        return self.source.maybe_drift()
+
+    def sample(self, generator, batch, lead=()):
+        out = self.source.sample(self.gen, batch, lead)
+        return {k: v.to(self.device) for k, v in out.items()}
+
+
+def phase_paper_agree() -> dict:
+    """Small runs on the card and on the CPU from the same initial model
+    and batches: FedAvg, the random augmentation, a heterogeneous init
+    and drift=True. Comm totals, the ledger and the drift rounds must be
+    identical; losses and parameters agree as in ``agree``, widened for
+    the heterogeneous init by ``prng.NORMAL_TOL``. Then ``prng`` on the
+    card against the CPU, bit for bit."""
+    cfg = get_arch("drift_mlp")
+    loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
+    init = params_to_numpy(init_cnn_params(cfg, torch.Generator()
+                                           .manual_seed(5)))
+    train = TrainConfig(optimizer="sgd", learning_rate=0.05)
+    cases = {
+        "fedavg": (ProtocolConfig(kind="fedavg", b=2, fedavg_c=0.5), 0.0,
+                   0.0),
+        "random augmentation": (ProtocolConfig(
+            kind="dynamic", b=2, delta=0.5, augmentation="random"), 0.0,
+            0.0),
+        "init_heterogeneity": (ProtocolConfig(kind="dynamic", b=2,
+                                              delta=0.5), 2.0, 0.0),
+        "drift": (ProtocolConfig(kind="dynamic", b=2, delta=0.5), 0.0,
+                  0.05),
+    }
+    report = {}
+    for name, (proto, eps, p_drift) in cases.items():
+        out = {}
+        for dev in ("cpu", "cuda"):
+            src = HostDrawn(GraphicalModelStream(
+                seed=1, drift_prob=p_drift, device="cpu"), dev, seed=7)
+            dl, traj = run_protocol_training(
+                loss_fn, lambda g: params_from_numpy(init, g.device), src,
+                m=6, rounds=40, protocol=proto, train=train, batch=10,
+                seed=3, drift=p_drift > 0, init_heterogeneity=eps,
+                chunk_size=15, device=dev)
+            out[dev] = (dl, traj)
+        (cpu, ctraj), (gpu, gtraj) = out["cpu"], out["cuda"]
+        err = float((gpu.X.cpu() - cpu.X).abs().max())
+        tol = 1e-5
+        if eps:
+            # the init noise may differ by NORMAL_TOL per unit of |z|
+            base = cpu.adapter.ravel_model(params_from_numpy(init, "cpu"))
+            scale = max(float(torch.std(x, correction=0)) for x in
+                        tree_leaves(params_from_numpy(init, "cpu")))
+            zmax = float((cpu.X - base).abs().max()) / (eps * scale)
+            tol += eps * scale * prng.NORMAL_TOL * max(1.0, zmax)
+        report[name] = {"comm_totals": gpu.comm_totals,
+                        "cpu_comm_totals": cpu.comm_totals,
+                        "drift_rounds": gtraj.drift_rounds,
+                        "cpu_drift_rounds": ctraj.drift_rounds,
+                        "loss": gpu.cumulative_loss,
+                        "cpu_loss": cpu.cumulative_loss,
+                        "param_max_abs_err": err, "param_tol": tol}
+        if (gpu.comm_totals != cpu.comm_totals
+                or not np.array_equal(gpu.per_link_bytes(),
+                                      cpu.per_link_bytes())
+                or gtraj.drift_rounds != ctraj.drift_rounds
+                or not torch.equal(gpu.sync_state.key,
+                                   cpu.sync_state.key)
+                or gpu.comm_totals["syncs"] < 1):
+            emit({"phase": "paper_agree", "failed": name, **report[name]})
+            raise SystemExit(f"{name}: the card's comm or drift rounds "
+                             f"differ from the CPU's")
+        if not (math.isclose(gpu.cumulative_loss, cpu.cumulative_loss,
+                             rel_tol=1e-5) and err <= tol):
+            emit({"phase": "paper_agree", "failed": name, **report[name]})
+            raise SystemExit(f"{name}: the card's losses or parameters "
+                             f"differ from the CPU's")
+    if not report["drift"]["drift_rounds"]:
+        raise SystemExit("the drift case drew no drift")
+
+    # prng on the card against the CPU
+    k = prng.key(2024, device="cpu")
+    keys = prng.split(k, 100, device="cpu")
+    same = {
+        "split": lambda d: prng.split(keys, 7, device=d),
+        "fold_in": lambda d: prng.fold_in(keys, 11, device=d),
+        "random_bits": lambda d: prng.random_bits(k, (8, P_DEEPDRIVE),
+                                                  device=d),
+        "uniform": lambda d: prng.uniform(keys, (1000,), -1.5, 2.0,
+                                          device=d),
+        "permutation": lambda d: torch.cat([
+            prng.permutation(keys[i], n, device=d)
+            for i, n in ((0, 100), (1, 1625), (2, 2000))]),
+    }
+    bits = {}
+    for name, fn in same.items():
+        a, b = fn("cuda"), fn("cpu")
+        bits[name] = bool(a.is_cuda and torch.equal(a.cpu(), b))
+    zc = prng.normal(keys, (P_DEEPDRIVE // 100,), device="cuda").cpu()
+    z = prng.normal(keys, (P_DEEPDRIVE // 100,), device="cpu")
+    normal_err = float(((zc - z).abs() / z.abs().clamp_min(1.0)).max())
+    rec = {"phase": "paper_agree", "cases": report, "prng_bitwise": bits,
+           "normal_max_err_per_unit": normal_err,
+           "normal_tol": prng.NORMAL_TOL}
+    emit(rec)
+    if not all(bits.values()):
+        raise SystemExit(f"prng on the card differs from the CPU: {bits}")
+    if normal_err > prng.NORMAL_TOL:
+        raise SystemExit(f"prng.normal on the card is {normal_err} from "
+                         f"the CPU's, beyond {prng.NORMAL_TOL}")
+    return rec
+
+
+
 def main() -> None:
     seconds = {}
 
@@ -1136,12 +1458,21 @@ def main() -> None:
     ssm_table, ssm_norm_err = run("ssm_kernels", phase_ssm_kernels, gen)
     run("ssm_agree", phase_ssm_agree)
     ssm = run("ssm_serve", phase_ssm_serve)
+    torch.cuda.empty_cache()
+    paper = run("paper_train", phase_paper_train)
+    run("paper_agree", phase_paper_agree)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
         {"name": "sqdist_rows", "route": "cuda", "source": csrc + "sqdist.cu",
          "replaces": "src/repro/kernels/sqdist.py:81",
-         "launches": launches["sqdist_rows"], **table["sqdist_rows"]},
+         "launches": launches["sqdist_rows"] + sum(paper.values()),
+         "launches_by_path": {"mnist dynamic": launches["sqdist_rows"],
+                              **{k: v for k, v in paper.items()
+                                 if k in ("deepdrive drift",
+                                          "random augmentation")}},
+         **table["sqdist_rows"],
+         "at_deepdrive_width": table["sqdist_rows_deepdrive"]},
         {"name": "sqdist", "route": "cuda", "source": csrc + "sqdist.cu",
          "replaces": "src/repro/kernels/sqdist.py:41",
          "launches": launches["sqdist"], **table["sqdist"]},

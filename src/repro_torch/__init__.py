@@ -16,5 +16,10 @@ sliding-window variant: ``serve.engine`` over ``models.model``) and the
 ``rmsnorm``, ``flash_attention`` and ``swa_attention`` kernels. Slice 3
 ported serving the Mamba2 SSM decoder (mamba2-2.7b: ``models.mamba`` and
 the SSM block, the same engine over O(1) SSM and conv states) and the
-``ssd_scan`` kernel, the last of the reference's TPU kernels.
+``ssd_scan`` kernel, the last of the reference's TPU kernels. Slice 6
+finished the paper's experiments: ``prng`` (jax's threefry stream, bit
+for bit), FedAvg, the random balancing augmentation, heterogeneous
+initialization, the serial baseline (``SerialLearner``), the drifting
+sources (``GraphicalModelStream``, ``DeepDriveStream``) and concept
+drift in the training loop.
 """

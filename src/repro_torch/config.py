@@ -16,10 +16,10 @@ the optimizer settings and ``ProtocolConfig`` the sync protocol.
 ``ValueError``s for a bad period, fraction, threshold, augmentation,
 payload size or layout) by resolving its preset through
 ``repro_torch.core.sync.spec``. It departs from the reference in three
-ways: ``layout`` defaults to ``"flat"`` (the only layout of this slice),
-``"tree"``/``"sharded"`` and the ``fedavg``/``gossip`` kinds raise
-``NotImplementedError`` naming the ROADMAP item that ports them, and the
-hierarchy field ``tiers`` waits for its slice.
+ways: ``layout`` defaults to ``"flat"`` (the only layout of the port),
+``"tree"``/``"sharded"`` and the ``gossip``, staleness, async and
+robust kinds raise ``NotImplementedError`` naming the ROADMAP item that
+ports them, and the hierarchy field ``tiers`` waits for its slice.
 """
 from __future__ import annotations
 

@@ -15,6 +15,10 @@ order).
 bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16) are carried by their
 bits; ``params_to_numpy`` returns them widened to float32 (exactly),
 since the port imports no ``ml_dtypes``.
+
+``key_from_numpy`` carries a raw threefry key (``np.asarray`` of a
+``jax.random.PRNGKey``: ``uint32``, shape ``(..., 2)``) into the port's
+key layout (``repro_torch.prng``).
 """
 from __future__ import annotations
 
@@ -52,3 +56,13 @@ def params_from_numpy(tree, device="cuda"):
 def params_to_numpy(tree):
     """The port's tensor tree -> a numpy tree of the same structure."""
     return tree_map(_to_numpy, tree)
+
+
+def key_from_numpy(key, device="cuda") -> torch.Tensor:
+    """A raw ``uint32`` threefry key (or batch of keys, ``(..., 2)``) ->
+    the port's int64 key tensor with the same two words, on ``device``."""
+    key = np.asarray(key)
+    if key.dtype != np.uint32 or key.shape[-1:] != (2,):
+        raise ValueError(f"a raw key is uint32 with 2 words in its last "
+                         f"axis, got {key.dtype} {key.shape}")
+    return torch.from_numpy(key.astype(np.int64)).to(resolve_device(device))

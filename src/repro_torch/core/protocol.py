@@ -22,11 +22,19 @@ transfer/message counts are host integers, and the bytes ledger prices
 them host-side in int64. ``run_chunk`` runs n rounds and then fetches the
 chunk's losses from the device in one transfer.
 
+The seed gives the reference's keys: ``split(key(seed), 3)`` of
+``repro_torch.prng`` (jax's threefry stream, bit for bit) yields the
+init-noise key of ``init_heterogeneity``, and the sync state's key is
+``key(seed)``, as in the reference. ``SerialLearner`` is the paper's
+serial baseline: one model trained on all the data.
+
 Departures from the reference: no network, async, fault, hierarchy or
-telemetry config (later slices); no ``init_heterogeneity`` (it draws from
-jax's RNG) and no ``SerialLearner`` (ROADMAP Queue A); ``init_fn`` takes a
-``torch.Generator``; ``ProtocolMetrics`` carries only what an ideal
-network produces; and the entry point runs on ``device="cuda"`` unless
+telemetry config (later slices); ``init_fn`` takes a ``torch.Generator``
+seeded with ``seed`` (the reference hands it the first of the three
+keys), so a parity test passes the reference's initial model in;
+``init_heterogeneity``'s noise is ``prng.normal``, within its stated
+tolerance of jax's; ``ProtocolMetrics`` carries only what an ideal
+network produces; and the entry points run on ``device="cuda"`` unless
 the caller asks for the CPU.
 """
 from __future__ import annotations
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch import prng
 from repro_torch.config import TrainConfig
 from repro_torch.core.flatten import fleet_adapter, tree_leaves, tree_map
 from repro_torch.core.sync.kernel import apply_staged, init_state
@@ -60,7 +69,9 @@ class DecentralizedLearner:
 
     ``loss_fn(params, batch)`` is one learner's loss; ``init_fn(generator)``
     returns the initial parameter tree, which every learner starts from
-    (the paper's homogeneous init). ``protocol`` is a ``ProtocolConfig``
+    (the paper's homogeneous init), or, with ``init_heterogeneity`` = ε >
+    0, that tree plus per-learner Gaussian noise at ε times each leaf's
+    standard deviation (Fig. 6.2). ``protocol`` is a ``ProtocolConfig``
     or a ``ProtocolSpec``."""
 
     def __init__(
@@ -71,6 +82,7 @@ class DecentralizedLearner:
         protocol,
         train: TrainConfig = TrainConfig(),
         seed: int = 0,
+        init_heterogeneity: float = 0.0,
         sample_weights: Optional[torch.Tensor] = None,
         device="cuda",
     ):
@@ -81,15 +93,23 @@ class DecentralizedLearner:
         self.train = train
         self.loss_fn = loss_fn
         self.opt = make_optimizer(train)
+        # the reference's k_init, k_noise, k_state; init_fn draws from a
+        # torch.Generator instead of k_init, and k_state goes unused there
+        _, k_noise, _ = prng.split(prng.key(seed, device="cpu"), 3,
+                                   device="cpu")
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         base = tree_map(lambda x: x.to(self.device), init_fn(gen))
         self.adapter = fleet_adapter(base)
         row = self.adapter.ravel_model(base)
-        self.X = row[None].repeat(m, 1)              # the (m, P) plane
+        if init_heterogeneity > 0.0:                 # the (m, P) plane
+            self.X = self._heterogeneous_plane(base, m, k_noise,
+                                               init_heterogeneity)
+        else:
+            self.X = row[None].repeat(m, 1)
         self.G = torch.empty_like(self.X)            # the gradient plane
         self.opt_state = self.opt.init(self.X)
-        self.sync_state = init_state(row)
+        self.sync_state = init_state(row, seed)
         self.sample_weights = (None if sample_weights is None
                                else sample_weights.to(self.device))
         self.model_size = self.adapter.P
@@ -111,6 +131,21 @@ class DecentralizedLearner:
     def params(self):
         """The fleet as a stacked (m, ...) tree of views into the plane."""
         return self.adapter.unravel(self.X)
+
+    def _heterogeneous_plane(self, base, m: int, k_noise, eps: float):
+        """The reference's heterogeneous init: learner i's leaf ``li`` (in
+        ``jax.tree.flatten`` order, which ``tree_leaves`` follows) gets
+        ``normal(fold_in(split(k_noise, m)[i], li)) * eps * (std + 1e-12)``
+        with the leaf's population std. The noise is drawn on the
+        learners' device, for all m keys at once."""
+        keys = prng.split(k_noise, m, device=self.device)
+        leaves = []
+        for li, x in enumerate(tree_leaves(base)):
+            scale = eps * (torch.std(x, correction=0) + 1e-12)
+            z = prng.normal(prng.fold_in(keys, li, device=self.device),
+                            x.shape, device=self.device)
+            leaves.append(x[None] + z.to(x.dtype) * scale)
+        return self.adapter.ravel(leaves)
 
     # ------------------------------------------------------------------
     def _round(self, batch):
@@ -206,3 +241,53 @@ class DecentralizedLearner:
     def learner_model(self, i: int):
         """Learner i's model as a parameter tree (a copy)."""
         return self.adapter.unravel_model(self.X[i].clone())
+
+
+class SerialLearner:
+    """The paper's serial baseline: one model, all the data. ``step``
+    takes one batch ``(B, ...)``; ``run_chunk`` takes n rounds of batches
+    ``(n, B, ...)``, fetches their losses in one transfer and returns the
+    (n,) losses. ``cumulative_loss`` sums the per-round losses in float64,
+    as the reference does. The model is a ``(P,)`` row that the
+    optimizer updates in place; ``params`` views it as a tree."""
+
+    def __init__(self, loss_fn, init_fn, train: TrainConfig = TrainConfig(),
+                 seed: int = 0, device="cuda"):
+        self.device = resolve_device(device)
+        self.opt = make_optimizer(train)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        base = tree_map(lambda x: x.to(self.device), init_fn(gen))
+        self.adapter = fleet_adapter(base)
+        self.x = self.adapter.ravel_model(base)
+        self.g = torch.empty_like(self.x)
+        self.opt_state = self.opt.init(self.x)
+        self.cumulative_loss = 0.0
+        self._grad_and_loss = torch.func.grad_and_value(loss_fn)
+
+    @property
+    def params(self):
+        return self.adapter.unravel_model(self.x)
+
+    def _round(self, batch) -> torch.Tensor:
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        grads, loss = self._grad_and_loss(self.params, batch)
+        torch.cat([g.reshape(-1).to(self.x.dtype)
+                   for g in tree_leaves(grads)], out=self.g)
+        self.x, self.opt_state = self.opt.update(self.x, self.g,
+                                                 self.opt_state)
+        return loss
+
+    def step(self, batch) -> torch.Tensor:
+        loss = self._round(batch)
+        self.cumulative_loss += float(loss)
+        return loss
+
+    def run_chunk(self, batches) -> torch.Tensor:
+        n = int(next(iter(batches.values())).shape[0])
+        losses = torch.stack([self._round({k: v[i] for k, v in
+                                           batches.items()})
+                              for i in range(n)])
+        self.cumulative_loss += float(
+            losses.cpu().numpy().astype(np.float64).sum())
+        return losses

@@ -4,11 +4,13 @@ the counterpart of ``repro.core.sync.kernel``.
   * ``nosync``      — trigger=never (identity)
   * ``periodic``    — sigma_b: cadence -> all-reachable -> mean -> average
   * ``continuous``  — sigma_b with b=1, same composition
+  * ``fedavg``      — cadence -> random C-fraction -> mean -> subset
+                      commit (McMahan et al.)
   * ``dynamic``     — sigma_Delta: divergence -> balancing augmentation ->
                       mean -> balancing commit (Algorithm 1 / Algorithm 2)
 
-``fedavg`` and ``gossip`` are not ported yet; asking for them raises
-``NotImplementedError`` naming their ROADMAP items. ``apply_staged``
+``gossip`` is not ported yet; asking for it raises
+``NotImplementedError`` naming its ROADMAP item. ``apply_staged``
 runs one round on the ``(m, P)`` plane (in place) and returns the full
 ``StageResult``; its ``link_msgs`` sum to ``CommRecord.messages``.
 """
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core.sync import stages  # noqa: F401  (registers stages)
 from repro_torch.core.sync.registry import (  # noqa: F401
     PROTOCOLS, CommRecord, StageResult, SyncState, register_protocol,
@@ -23,9 +26,11 @@ from repro_torch.core.sync.registry import (  # noqa: F401
 from repro_torch.core.sync.spec import ProtocolSpec, resolve_spec
 
 
-def init_state(ref_row: torch.Tensor) -> SyncState:
-    """Fresh carried state around the (P,) reference row."""
-    return SyncState(ref=ref_row.clone(), v=0, step=0)
+def init_state(ref_row: torch.Tensor, seed: int = 0) -> SyncState:
+    """Fresh carried state around the (P,) reference row, with the host
+    key ``prng.key(seed)`` (the reference's ``PRNGKey(seed)``)."""
+    return SyncState(ref=ref_row.clone(), v=0, step=0,
+                     key=prng.key(seed, device="cpu"))
 
 
 register_protocol("nosync", ProtocolSpec(name="nosync", trigger="never"))
@@ -33,6 +38,9 @@ register_protocol("periodic", ProtocolSpec(name="periodic",
                                            trigger="cadence"))
 register_protocol("continuous", ProtocolSpec(name="continuous",
                                              trigger="cadence"))
+register_protocol("fedavg", ProtocolSpec(name="fedavg", trigger="cadence",
+                                         cohort="fraction",
+                                         commit="subset"))
 register_protocol("dynamic", ProtocolSpec(name="dynamic",
                                           trigger="divergence",
                                           cohort="balanced",

@@ -17,19 +17,23 @@ Stage contracts, on the flat fleet plane:
   never-firing trigger); an optional ``condition(ctx) -> (hot, nhot,
   aux)`` marks the learners that want to sync, and the pipeline runs only
   when ``nhot > 0``.
-* **cohort** — ``fn(ctx, hot, nhot) -> CohortOut``: WHO participates.
+* **cohort** — ``fn(ctx, hot, nhot, key) -> CohortOut``: WHO
+  participates; a cohort that draws (FedAvg's fraction, the balancing
+  augmentation) splits the round's PRNG key and carries the rest
+  forward in ``CohortOut.key``.
 * **aggregate** — ``fn(ctx, cohort_out) -> (P,) row``: WHAT they agree on.
 * **commit** — ``fn(ctx, cohort_out, aggregate, hot, nhot) -> SyncOut``:
   APPLY the agreement to the plane and ACCOUNT for it.
 
 Departures from the reference: the round's control values — the gate,
-the masks, ``nhot``, the violation counter ``v``, the ``CommRecord`` and
-the per-link counts — are host values (Python ints and bools, numpy
-arrays); only the plane, the reference row and the distances live on the
-device. ``SyncState`` carries no PRNG key and no extra state, and stages
-declare no ``StageContract`` and no overlay/coordinator capabilities:
-the key comes with fedavg/random (ROADMAP A10), extra state with the
-staleness trigger, and the rest with the slices that need them.
+the masks, ``nhot``, the violation counter ``v``, the PRNG key, the
+``CommRecord`` and the per-link counts — are host values (Python ints
+and bools, numpy arrays, the key a CPU tensor of ``repro_torch.prng``);
+only the plane, the reference row and the distances live on the device.
+``SyncState`` carries no extra state, and stages declare no
+``StageContract`` and no overlay/coordinator capabilities: extra state
+comes with the staleness trigger, and the rest with the slices that
+need them.
 """
 from __future__ import annotations
 
@@ -39,10 +43,15 @@ import numpy as np
 import torch
 
 
+# ``prng.key(0)`` on the host: the key ``init_state(ref)`` starts from
+_KEY0 = torch.zeros((2,), dtype=torch.int64)
+
+
 class SyncState(NamedTuple):
     ref: torch.Tensor    # reference model r, the (P,) plane row
     v: int               # violation counter
     step: int            # round counter t
+    key: torch.Tensor = _KEY0   # (2,) host PRNG key for the cohort draws
 
 
 class CommRecord(NamedTuple):
@@ -84,13 +93,17 @@ class StageCtx(NamedTuple):
 
 
 class CohortOut(NamedTuple):
-    """A cohort's output. ``v``/``full`` are None unless the cohort manages
-    the violation counter (the balancing cohort); ``ideal`` marks the
-    ideal-network full-participation path."""
+    """A cohort's output. ``key`` is the PRNG key carried forward;
+    ``v``/``full`` are None unless the cohort manages the violation
+    counter (the balancing cohort); ``ideal`` marks the ideal-network
+    full-participation path; ``aux`` holds what downstream stages read
+    (the fraction cohort's subset size ``k``)."""
     mask: np.ndarray                     # (m,) bool participants
+    key: torch.Tensor
     v: Optional[int] = None
     full: Optional[bool] = None
     ideal: bool = False
+    aux: Optional[Dict[str, Any]] = None
 
 
 class SyncOut(NamedTuple):
@@ -98,6 +111,7 @@ class SyncOut(NamedTuple):
     params: torch.Tensor
     ref: torch.Tensor
     v: int
+    key: torch.Tensor
     rec: CommRecord
     xfers: np.ndarray
     link_msgs: np.ndarray
@@ -118,7 +132,7 @@ class TriggerStage(NamedTuple):
 
 class CohortStage(NamedTuple):
     name: str
-    fn: Callable                      # (ctx, hot, nhot) -> CohortOut
+    fn: Callable                      # (ctx, hot, nhot, key) -> CohortOut
     provides: frozenset               # labels downstream stages may need
     needs_condition: bool             # requires a conditional trigger
     params: Dict[str, Any]
@@ -241,8 +255,6 @@ def register_protocol(name: str, spec) -> None:
 
 # kinds the reference registers that later slices of the port bring
 NOT_PORTED = {
-    "fedavg": "ROADMAP Queue A 10 (fedavg needs the reference's threefry "
-              "stream, repro_torch/prng.py)",
     "gossip": "ROADMAP Queue A 13 (gossip needs the network topology)",
     "stale": "ROADMAP Queue A 14 (core/sync/staleness.py)",
     "aircomp": "ROADMAP Queue A 16 (core/sync/async_sync.py)",

@@ -178,8 +178,8 @@ def _compiled_round(spec: ProtocolSpec):
         if trigger.gate(ctx):                      # t % b == 0
             [hot, nhot, aux = trigger.condition(ctx)   # conditional
              if nhot > 0:]                             # triggers only
-                cohort -> aggregate -> commit
-        else: identity + zero accounting
+                cohort(key) -> aggregate -> commit
+        else: identity + zero accounting, the key unchanged
     """
     trig, coh, agg, com = spec.stage_records()
     p = spec.resolved_params()
@@ -190,19 +190,21 @@ def _compiled_round(spec: ProtocolSpec):
         ctx = StageCtx(params=p, flat=X, ref_flat=state.ref, state=state,
                        weights=weights, m=m, t=t,
                        reach=np.ones((m,), bool))
-        out = SyncOut(X, state.ref, state.v, CommRecord.zero(),
+        # a round whose pipeline does not run leaves the key untouched
+        out = SyncOut(X, state.ref, state.v, state.key, CommRecord.zero(),
                       _zeros_i32(m), _zeros_i32(m))
         if trig.gate(ctx):
             if trig.condition is None:
-                cout = coh.fn(ctx, ctx.reach, None)
+                cout = coh.fn(ctx, ctx.reach, None, state.key)
                 out = com.fn(ctx, cout, agg.fn(ctx, cout), ctx.reach, None)
             else:
                 hot, nhot, aux = trig.condition(ctx)
                 if nhot > 0:
                     ctx = ctx._replace(cond_aux=aux)
-                    cout = coh.fn(ctx, hot, nhot)
+                    cout = coh.fn(ctx, hot, nhot, state.key)
                     out = com.fn(ctx, cout, agg.fn(ctx, cout), hot, nhot)
-        new_state = state._replace(ref=out.ref, v=out.v, step=t)
+        new_state = state._replace(ref=out.ref, v=out.v, step=t,
+                                   key=out.key)
         return StageResult(out.params, new_state, out.rec, out.xfers,
                            out.link_msgs)
 

@@ -13,24 +13,28 @@ A round of any operator factors into
                   per-link transfer and message counts
 
 Only the plane forms are ported, and only the stages of the nosync,
-periodic, continuous and dynamic presets. On the plane the per-learner
-distances are one ``sqdist_rows`` pass, the mean one ``w @ X`` matvec
-(or a row mean), and the balancing augmentation keeps an incremental
-running sum, so each augmentation step costs O(P).
+periodic, continuous, fedavg and dynamic presets on an ideal network.
+On the plane the per-learner distances are one ``sqdist_rows`` pass,
+the mean one ``w @ X`` matvec (or a row mean), and the balancing
+augmentation keeps an incremental running sum, so each augmentation
+step costs O(P).
 
 Departures from the reference: commits write the ``(m, P)`` plane in
 place (the reference builds a new one); masks, counters and the
 augmentation priority are host values, so the augmentation loop reads
 one f32 distance back from the device per step, and its argmax runs on
-the host (ties go to the lowest index, as ``jnp.argmax``).
-``augmentation="random"`` raises ``NotImplementedError``: it needs the
-reference's threefry stream (ROADMAP Queue A 10).
+the host (ties go to the lowest index, as ``jnp.argmax``). The draws —
+FedAvg's cohort (``prng.permutation``) and the random augmentation's
+priority (``prng.uniform``) — come from the round's host key, the
+reference's threefry stream bit for bit. The availability-masked
+FedAvg cohort waits for the network slice (ROADMAP Queue A 13).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core.divergence import per_learner_sq_distance_flat
 from repro_torch.core.sync.registry import (
     CohortOut, CommRecord, StageCtx, SyncOut, carried_v, register_aggregate,
@@ -83,19 +87,32 @@ def cadence_fire(b: int, t: int) -> bool:
     return t % b == 0
 
 
+def cohort_fraction_ideal(sub: torch.Tensor, m: int, k: int) -> np.ndarray:
+    """FedAvg's cohort on an ideal network: the first k entries of a
+    random permutation of the fleet, drawn from the host key ``sub``."""
+    mask = np.zeros((m,), bool)
+    mask[prng.permutation(sub, m, device="cpu")[:k].numpy()] = True
+    return mask
+
+
 def cohort_balanced_flat(delta: float, augmentation: str, X: torch.Tensor,
-                         ref: torch.Tensor, violated: np.ndarray, weights,
-                         reach: np.ndarray, dists: np.ndarray) -> np.ndarray:
+                         ref: torch.Tensor, violated: np.ndarray,
+                         sub: torch.Tensor, weights, reach: np.ndarray,
+                         dists: np.ndarray) -> np.ndarray:
     """The balancing augmentation (Algorithm 1): grow the violator set B,
-    highest distance first, until the partial average re-enters the safe
+    highest priority first, until the partial average re-enters the safe
     zone ``||mean_B - r||^2 <= Delta`` or B covers every reachable
     learner. The running sum ``(sum_B, wsum_B)`` adds one row per step.
-    ``dists`` are the (m,) host distances the trigger already computed
-    (the priority). Returns the mask B; the aggregate stage computes the
-    mean (the reference also returns it, then discards it)."""
+    The priority is ``dists``, the (m,) host distances the trigger
+    already computed (``max_distance``), or a uniform draw from the host
+    key ``sub`` (``random``). Returns the mask B; the aggregate stage
+    computes the mean (the reference also returns it, then discards
+    it)."""
     m = X.shape[0]
     if augmentation == "all":   # jump straight to full sync
         return reach.copy()
+    prio = (prng.uniform(sub, (m,), device="cpu").numpy()
+            if augmentation == "random" else dists)
     w = (weights.to(X.dtype) if weights is not None
          else torch.ones((m,), dtype=X.dtype, device=X.device))
     w0 = _on(violated, X) * w
@@ -105,7 +122,7 @@ def cohort_balanced_flat(delta: float, augmentation: str, X: torch.Tensor,
     mask = violated.copy()
     delta32 = np.float32(delta)
     while (reach & ~mask).any() and d > delta32:
-        cand = np.where(mask | ~reach, np.float32(-np.inf), dists)
+        cand = np.where(mask | ~reach, np.float32(-np.inf), prio)
         nxt = int(np.argmax(cand))
         mask[nxt] = True
         s = s + w[nxt] * X[nxt]
@@ -148,6 +165,12 @@ def _validate_delta(params):
             f"divergence threshold delta must be > 0, got {params['delta']!r}")
 
 
+def _validate_fraction(params):
+    if not 0.0 < params["fedavg_c"] <= 1.0:
+        raise ValueError(
+            f"fedavg_c must be in (0, 1], got {params['fedavg_c']!r}")
+
+
 def _validate_balanced(params):
     if params["augmentation"] not in ("max_distance", "random", "all"):
         raise ValueError(
@@ -156,10 +179,6 @@ def _validate_balanced(params):
     if not params["delta"] > 0:
         raise ValueError(
             f"balanced cohort needs delta > 0, got {params['delta']!r}")
-    if params["augmentation"] == "random":
-        raise NotImplementedError(
-            "augmentation='random' is not ported yet: it needs the "
-            "reference's threefry stream (ROADMAP Queue A 10)")
 
 
 # ---- triggers -------------------------------------------------------------
@@ -197,28 +216,43 @@ def trigger_divergence(ctx: StageCtx) -> bool:
 # ---- cohorts --------------------------------------------------------------
 
 @register_cohort("all_reachable", provides=("full-cohort",))
-def cohort_all_stage(ctx: StageCtx, hot, nhot) -> CohortOut:
+def cohort_all_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
     """sigma_b's cohort: the whole fleet (the network is ideal)."""
-    return CohortOut(mask=ctx.reach, ideal=True)
+    return CohortOut(mask=ctx.reach, key=key, ideal=True)
+
+
+@register_cohort("fraction", provides=("subset",),
+                 params={"fedavg_c": 0.3}, validate=_validate_fraction)
+def cohort_fraction_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
+    """FedAvg's cohort: a random k-subset, ``k = max(1, round(C * m))``
+    (Python's round, half to even, as the reference's)."""
+    k = max(1, int(round(ctx.params["fedavg_c"] * ctx.m)))
+    key, sub = prng.split(key, device="cpu")
+    return CohortOut(mask=cohort_fraction_ideal(sub, ctx.m, k), key=key,
+                     aux={"k": k})
 
 
 @register_cohort("balanced", provides=("balance",), needs_condition=True,
                  params={"delta": 0.5, "augmentation": "max_distance"},
                  validate=_validate_balanced)
-def cohort_balanced_stage(ctx: StageCtx, hot, nhot) -> CohortOut:
+def cohort_balanced_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
     """sigma_Delta's cohort: coordinator balancing. Owns the violation
     counter: the hot count accumulates into ``v``, ``v >= m`` forces a
     sync of every reachable learner, and any sync covering every
-    reachable learner resets it."""
+    reachable learner resets it. It splits the key on every sync, whatever
+    the augmentation, as the reference does."""
+    key, sub = prng.split(key, device="cpu")
     v_new = ctx.state.v + nhot
     force_full = v_new >= ctx.m
     base = ctx.reach if force_full else hot
     v_reset = 0 if force_full else v_new
     mask = cohort_balanced_flat(
         ctx.params["delta"], ctx.params["augmentation"], ctx.flat,
-        ctx.ref_flat, base, ctx.weights, ctx.reach, ctx.cond_aux["dists"])
+        ctx.ref_flat, base, sub, ctx.weights, ctx.reach,
+        ctx.cond_aux["dists"])
     full = bool(np.all(mask == ctx.reach))
-    return CohortOut(mask=mask, v=0 if full else v_reset, full=full)
+    return CohortOut(mask=mask, key=key, v=0 if full else v_reset,
+                     full=full)
 
 
 # ---- aggregates -----------------------------------------------------------
@@ -243,8 +277,22 @@ def commit_average(ctx: StageCtx, cout: CohortOut, mean, hot,
     rec = CommRecord(model_up=m, model_down=m, messages=0, syncs=1,
                      full_syncs=1)
     return SyncOut(_select_commit(ctx.flat, cout.mask, mean), mean,
-                   carried_v(ctx, cout), rec, np.full((m,), 2, np.int32),
-                   zeros_i32(m))
+                   carried_v(ctx, cout), cout.key, rec,
+                   np.full((m,), 2, np.int32), zeros_i32(m))
+
+
+@register_commit("subset", needs=("subset",))
+def commit_subset(ctx: StageCtx, cout: CohortOut, mean, hot,
+                  nhot) -> SyncOut:
+    """FedAvg's commit: the subset adopts the aggregate and the reference
+    moves to it; k models go up and k come down, and the sync is full
+    only when the subset is the whole fleet."""
+    m, k = ctx.m, cout.aux["k"]
+    rec = CommRecord(model_up=k, model_down=k, messages=0, syncs=1,
+                     full_syncs=int(k == m))
+    return SyncOut(_select_commit(ctx.flat, cout.mask, mean), mean,
+                   carried_v(ctx, cout), cout.key, rec,
+                   xfers_cohort(cout.mask), zeros_i32(m))
 
 
 @register_commit("balancing", needs=("balance",), needs_condition=True)
@@ -262,5 +310,5 @@ def commit_balancing(ctx: StageCtx, cout: CohortOut, mean, hot,
     link_msgs = hot.astype(np.int32) + (mask & ~hot).astype(np.int32)
     rec = CommRecord(model_up=nsync, model_down=nsync,
                      messages=nhot + polls, syncs=1, full_syncs=int(full))
-    return SyncOut(newcfg, new_ref, carried_v(ctx, cout), rec,
+    return SyncOut(newcfg, new_ref, carried_v(ctx, cout), cout.key, rec,
                    xfers_cohort(mask), link_msgs)

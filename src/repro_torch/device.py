@@ -6,7 +6,11 @@ unless the caller asks for it with ``device="cpu"``, as the tests do.
 
 On the card, float32 convolutions and matrix products are pinned to full
 float32 (cuDNN would run convolutions in TF32 by default), so the card
-computes what the CPU tests hold the port to.
+computes what the CPU tests hold the port to, and cuDNN is held to
+deterministic algorithms: for the deep-driving CNN it would otherwise
+pick weight-gradient kernels that add with float atomics, and a run's
+sync decisions, which compare distances with Delta, would change from
+run to run.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ def resolve_device(device="cuda") -> torch.device:
                 f"visible; pass device='cpu' to run on the CPU")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
     elif dev.type != "cpu":
         raise ValueError(f"the port runs on 'cuda' or 'cpu', got {device!r}")
     return dev

@@ -15,9 +15,9 @@ Departures from the reference: PyTorch runs eagerly, so there is no
 cache is updated in place; the engine's cache lives on ``device``, the
 card unless the caller asks for the CPU. Greedy decoding is exact argmax
 (ties to the lowest index, as ``jnp.argmax``). Temperature sampling
-draws from an explicit ``torch.Generator``; its draws cannot equal
-``jax.random.categorical``'s until the port has the reference's
-threefry stream (``prng.py``, ROADMAP Queue A 10).
+draws from an explicit ``torch.Generator``; its draws do not equal
+``jax.random.categorical``'s (``repro_torch.prng`` has the reference's
+threefry stream but no ``categorical``).
 """
 from __future__ import annotations
 

@@ -5,12 +5,14 @@ Runs a ``DecentralizedLearner`` against a data source for T rounds, in
 chunks of ``chunk_size`` rounds through ``run_chunk``, and records the
 per-round cumulative loss and communication (the quantities the paper
 plots) every ``record_every`` rounds, reconstructed from each chunk's
-stacked metrics.
+stacked metrics. With ``drift=True`` and a source that can drift
+(``maybe_drift``), the source is offered a drift before every round, in
+the reference's order, and ``Trajectory.drift_rounds`` records the
+rounds where one happened. ``run_drift_segments`` runs known drift
+rounds instead, as the drift figures do.
 
-Departures: no concept drift (``drift=False`` is the only mode until the
-drifting sources are ported), no network/async/fault/telemetry configs,
-so ``Trajectory`` has no drift rounds and no simulated network time; and
-``device`` defaults to ``"cuda"``.
+Departures: no network/async/fault/telemetry configs, so ``Trajectory``
+has no simulated network time; and ``device`` defaults to ``"cuda"``.
 """
 from __future__ import annotations
 
@@ -33,12 +35,43 @@ class Trajectory:
     cumulative_loss: List[float] = field(default_factory=list)
     cumulative_bytes: List[int] = field(default_factory=list)
     syncs: List[int] = field(default_factory=list)
+    drift_rounds: List[int] = field(default_factory=list)
 
     def as_dict(self):
         return {"rounds": self.rounds,
                 "cumulative_loss": self.cumulative_loss,
                 "cumulative_bytes": self.cumulative_bytes,
-                "syncs": self.syncs}
+                "syncs": self.syncs,
+                "drift_rounds": self.drift_rounds}
+
+
+def run_drift_segments(dl, streams, source, rounds: int, drift_rounds=()):
+    """Run ``rounds`` rounds as chunks cut at KNOWN drift rounds, calling
+    ``source.force_drift()`` at each cut. Returns the per-round
+    cumulative ``(sync_curve, loss_curve)`` arrays the drift figures
+    plot, from each chunk's stacked metrics.
+
+    ``drift_rounds`` must lie strictly inside (0, rounds): a drift at
+    round 0 is just another initial concept, and one at or after the
+    last round cannot be seen."""
+    bounds = sorted(set(int(d) for d in drift_rounds))
+    if bounds and (bounds[0] <= 0 or bounds[-1] >= rounds):
+        raise ValueError(
+            f"drift_rounds must lie strictly inside (0, {rounds}): {bounds}")
+    sync_curve, loss_curve = [], []
+    for start, end in zip([0] + bounds, bounds + [rounds]):
+        if start in bounds:
+            source.force_drift()
+        metrics = dl.run_chunk(streams.next_chunk(end - start))
+        s0 = sync_curve[-1] if sync_curve else 0
+        l0 = loss_curve[-1] if loss_curve else 0.0
+        sync_curve.extend(
+            (s0 + np.cumsum(np.asarray(metrics.comm.syncs, np.int64)))
+            .tolist())
+        loss_curve.extend((l0 + np.cumsum(
+            metrics.loss_per_learner.cpu().numpy().astype(np.float64)
+            .sum(axis=1))).tolist())
+    return np.asarray(sync_curve), np.asarray(loss_curve)
 
 
 def run_protocol_training(
@@ -52,7 +85,9 @@ def run_protocol_training(
     batch: int = 10,
     seed: int = 0,
     record_every: int = 10,
+    drift: bool = False,
     batch_sizes=None,
+    init_heterogeneity: float = 0.0,
     chunk_size: int = DEFAULT_CHUNK,
     device="cuda",
 ) -> tuple:
@@ -62,6 +97,7 @@ def run_protocol_training(
                              batch_sizes=batch_sizes)
     dl = DecentralizedLearner(
         loss_fn, init_fn, m, protocol, train, seed=seed,
+        init_heterogeneity=init_heterogeneity,
         sample_weights=streams.weights, device=device)
     if streams.device != dl.device:
         raise ValueError(
@@ -70,11 +106,18 @@ def run_protocol_training(
     traj = Trajectory()
     chunk = max(1, min(chunk_size, rounds))
     t = 0
+    drifting = drift and hasattr(source, "maybe_drift")
     while t < rounds:
         n = min(chunk, rounds - t)
+
+        def on_round(i, t=t):
+            if source.maybe_drift():
+                traj.drift_rounds.append(t + i)
+
         base_loss = dl.cumulative_loss
         base_totals = dict(dl.comm_totals)
-        metrics = dl.run_chunk(streams.next_chunk(n))
+        metrics = dl.run_chunk(streams.next_chunk(
+            n, on_round=on_round if drifting else None))
         loss_cum = base_loss + np.cumsum(
             metrics.loss_per_learner.sum(dim=1).cpu().numpy()
             .astype(np.float64))

@@ -19,7 +19,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.config import TrainConfig as JTrainConfig  # noqa: E402
 from repro.config import get_arch as jget_arch  # noqa: E402
-from repro.data.synthetic import GraphicalModelStream, SyntheticMNIST  # noqa: E402
+from repro.data.synthetic import (  # noqa: E402
+    DeepDriveStream, GraphicalModelStream, SyntheticMNIST,
+)
 from repro.models import cnn as jcnn  # noqa: E402
 from repro.optim import make_optimizer as jmake_optimizer  # noqa: E402
 from repro_torch.config import TrainConfig, get_arch  # noqa: E402
@@ -29,7 +31,8 @@ from repro_torch.models import cnn  # noqa: E402
 from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 
 CASES = [("mnist_cnn", True, 8), ("drift_mlp", False, 8),
-         ("mnist_cnn", False, 4)]
+         ("mnist_cnn", False, 4), ("deepdrive_cnn", True, 2),
+         ("deepdrive_cnn", False, 2)]
 
 
 def _case(name, smoke, batch):
@@ -39,6 +42,9 @@ def _case(name, smoke, batch):
     jparams = jcnn.init_cnn_params(jcfg, k1)
     if name == "drift_mlp":
         src = GraphicalModelStream(seed=0, drift_prob=0.0)
+    elif name == "deepdrive_cnn":
+        src = DeepDriveStream(seed=0, height=jcfg.input_shape[0],
+                              width=jcfg.input_shape[1])
     else:
         src = SyntheticMNIST(seed=0, image_size=jcfg.input_shape[0])
     jbatch = src.sample(k2, batch)

@@ -7,7 +7,10 @@ imports no jax, so it runs on a machine with the card and without jax:
 
 (``--noconftest``: tests/conftest.py imports jax.) For the squared
 distances both sides accumulate in f32 in different orders: rtol 1e-5,
-atol 1e-6; the LM kernels' tolerances stand above their tests.
+atol 1e-6 (odd P included: every odd row then starts 4 bytes off an
+8-byte boundary); the LM kernels' tolerances stand above their tests.
+``repro_torch.prng`` on the card equals it on the CPU bit for bit,
+``normal`` within ``prng.NORMAL_TOL``.
 """
 import pytest
 
@@ -16,6 +19,7 @@ torch.set_num_threads(2)
 
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import prng  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     flash_attention, ops, ref, rmsnorm, sqdist, ssd_scan, swa_attention,
 )
@@ -40,7 +44,8 @@ def _inputs(m, n, dtype, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("m,n", [(1, 1), (3, 7), (17, 515), (7, 1_199_882),
-                                 (100, 1_199_882)])
+                                 (100, 1_199_882), (5, 348_219),
+                                 (100, 348_219)])
 def test_kernel_matches_plain_and_repeats_bitwise(m, n, dtype):
     _need_card()
     X, r = _inputs(m, n, dtype)
@@ -351,3 +356,27 @@ def test_ssd_scan_counts_launches_and_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="P <= 64"):
         big = torch.zeros(2, 32, 65, device="cuda")
         ssd_scan.ssd_scan(big, dt, a, b, c, chunk=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 17, 2 ** 31 + 5])
+def test_prng_on_the_card_equals_the_cpu(seed):
+    _need_card()
+    k = prng.key(seed, device="cpu")
+    keys = prng.split(k, 50, device="cpu")
+    for fn in (lambda d: prng.split(keys, 5, device=d),
+               lambda d: prng.fold_in(keys, 7, device=d),
+               lambda d: prng.random_bits(k, (33, 1001), device=d),
+               lambda d: prng.uniform(keys, (257,), device=d),
+               lambda d: prng.uniform(k, (4097,), -3.0, 0.5, device=d),
+               lambda d: prng.randint(k, (999,), -5, 12, device=d),
+               lambda d: prng.bernoulli(k, 0.3, (999,), device=d),
+               lambda d: prng.permutation(keys[1], 100, device=d),
+               lambda d: prng.permutation(keys[2], 2000, device=d)):
+        got, want = fn("cuda"), fn("cpu")
+        assert got.is_cuda and got.dtype == want.dtype
+        assert torch.equal(got.cpu(), want)
+    z_card = prng.normal(keys, (5000,), device="cuda").cpu()
+    z = prng.normal(keys, (5000,), device="cpu")
+    err = (z_card - z).abs() / z.abs().clamp_min(1.0)
+    assert float(err.max()) <= prng.NORMAL_TOL

@@ -1,6 +1,7 @@
 """The port stands apart from the JAX package.
 
-``src/repro_torch`` and ``chip_smoke.py`` import torch and numpy, never
+``src/repro_torch``, ``chip_smoke.py`` and ``examples/torch_quickstart.py``
+import torch and numpy, never
 jax and nothing of ``repro``; the port's entry points run on the card by
 default and raise, rather than fall back to the CPU, when there is none.
 """
@@ -28,7 +29,8 @@ from repro_torch.train.loop import run_protocol_training  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py"]
 
 
 def _modules():
@@ -126,6 +128,30 @@ def test_run_protocol_training_raises_without_a_card():
         run_protocol_training(lambda p, b: cnn_loss(cfg, p, b),
                               lambda g: init_cnn_params(cfg, g), src, m=2,
                               rounds=2, protocol=ProtocolConfig(kind="nosync"))
+
+
+def test_paper_entry_points_default_to_the_card_and_raise_without_one():
+    _need_no_card()
+    from repro_torch import prng
+    from repro_torch.core.protocol import SerialLearner
+    from repro_torch.data.synthetic import (
+        DeepDriveStream, GraphicalModelStream,
+    )
+    cfg = get_arch("drift_mlp")
+    for make in (GraphicalModelStream, DeepDriveStream,
+                 lambda: SerialLearner(lambda p, b: cnn_loss(cfg, p, b),
+                                       lambda g: init_cnn_params(cfg, g)),
+                 lambda: prng.key(0),
+                 lambda: prng.split(prng.key(0, device="cpu")),
+                 lambda: DecentralizedLearner(
+                     lambda p, b: cnn_loss(cfg, p, b),
+                     lambda g: init_cnn_params(cfg, g), 2,
+                     ProtocolConfig(kind="fedavg", b=2),
+                     init_heterogeneity=1.0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert GraphicalModelStream(device="cpu").W.device.type == "cpu"
+    assert prng.key(0, device="cpu").device.type == "cpu"
 
 
 def test_unknown_devices_are_rejected():

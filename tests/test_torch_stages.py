@@ -2,12 +2,14 @@
 ``apply_staged`` with ``layout="flat"``.
 
 Planes are built so each case drives one branch of the round: the
-cadence gate firing or not, the balancing augmentation (max_distance and
-all), a forced full sync at ``v >= m``, a tie in the augmentation
-priority (the lowest index must win), Algorithm 2's weights, and a
-checked round with no violator. The committed plane and reference match
-to atol 1e-6 (f32 means summed in another order); the violation counter,
-the ``CommRecord``, the per-link transfers and messages exactly. Every
+cadence gate firing or not, the balancing augmentation (max_distance,
+random and all), a forced full sync at ``v >= m``, a tie in the
+augmentation priority (the lowest index must win), Algorithm 2's
+weights, a checked round with no violator, and FedAvg's random subset
+(C = 0.3, 0.5 and the whole fleet). The committed plane and reference
+match to atol 1e-6 (f32 means summed in another order); the violation
+counter, the PRNG key, the ``CommRecord``, the per-link transfers and
+messages exactly. Every
 case also checks that no distance the round compares with Delta lies
 within 1e-4·Delta of it, so an exact mismatch cannot be a float tie.
 """
@@ -64,6 +66,18 @@ CASES = {
         dict(kind="dynamic", b=1, delta=1.0), MAXD, 1, 0, [1, 2, 3, 1, 2, 3]),
     "dynamic_quiet": (dict(kind="dynamic", b=1, delta=1.0), SMALL, 3, 0,
                       None),
+    "fedavg_fires": (dict(kind="fedavg", b=3, fedavg_c=0.5), MAXD, 0, 2,
+                     None),
+    "fedavg_waits": (dict(kind="fedavg", b=3, fedavg_c=0.5), MAXD, 0, 0,
+                     None),
+    "fedavg_weighted": (dict(kind="fedavg", b=1, fedavg_c=0.3,
+                             weighted=True), MAXD, 0, 0, [1, 2, 3, 1, 2, 3]),
+    "fedavg_whole_fleet": (dict(kind="fedavg", b=1, fedavg_c=1.0), MAXD, 0,
+                           0, None),
+    "dynamic_random": (dict(kind="dynamic", b=2, delta=1.0,
+                            augmentation="random"), MAXD, 0, 1, None),
+    "dynamic_random_quiet": (dict(kind="dynamic", b=1, delta=1.0,
+                                  augmentation="random"), SMALL, 0, 0, None),
 }
 
 
@@ -129,6 +143,8 @@ def test_flat_round_matches_reference(case, monkeypatch):
                                atol=1e-6)
     assert got.state.v == int(want.state.v)
     assert got.state.step == int(want.state.step) == step0 + 1
+    np.testing.assert_array_equal(got.state.key.numpy(),
+                                  np.asarray(want.state.rng))
     assert tuple(got.rec) == tuple(int(x) for x in want.rec)
     np.testing.assert_array_equal(got.xfers, np.asarray(want.xfers))
     np.testing.assert_array_equal(got.link_msgs, np.asarray(want.link_msgs))
@@ -155,6 +171,16 @@ def test_cases_cover_the_branches():
     assert forced.rec.full_syncs == 1 and forced.state.v == 0
     assert run("dynamic_all").rec.model_up == M
     assert run("dynamic_quiet").rec == (0, 0, 0, 0, 0)
+    fed = run("fedavg_fires")
+    assert fed.rec == (3, 3, 0, 1, 0) and sorted(fed.xfers) == [0] * 3 + [2] * 3
+    assert run("fedavg_whole_fleet").rec == (M, M, 0, 1, 1)
+    key0 = torch.zeros((2,), dtype=torch.int64)
+    # the key moves only when a cohort draws
+    assert torch.equal(run("fedavg_waits").state.key, key0)
+    assert torch.equal(run("dynamic_random_quiet").state.key, key0)
+    assert not torch.equal(fed.state.key, key0)
+    assert not torch.equal(run("dynamic_max_distance").state.key, key0)
+    assert run("dynamic_random").rec.syncs == 1
 
 
 # every kwargs set raises the same error type and message in both
@@ -187,9 +213,9 @@ def test_config_validation_matches_reference(kw):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(kind="fedavg"), "Queue A 10"),
+    (dict(kind="stale"), "Queue A 14"),
     (dict(kind="gossip"), "Queue A 13"),
-    (dict(kind="dynamic", augmentation="random"), "Queue A 10"),
+    (dict(kind="robust_dynamic"), "Queue A 17"),
     (dict(kind="periodic", layout="tree"), "Queue A 9d"),
     (dict(kind="dynamic", layout="sharded"), "Queue A 19"),
 ])
