@@ -59,6 +59,18 @@ and drives both of the port's paths:
   and on the CPU from the same model and batches (identical comm, ledger,
   keys and drift rounds) and holds ``repro_torch.prng`` on the card to
   the CPU, bit for bit.
+* the network environment (slice 7): ``net_train`` trains the MNIST CNN
+  at full width (m = 100, B = 10) inside the simulated network through
+  ``run_protocol_training(network=...)``: dynamic averaging and gossip on
+  a mobile geometric overlay at 70% availability, FedAvg and periodic
+  averaging on a ring at 60%, dynamic averaging under stragglers and
+  outages, and dynamic averaging at full availability, which must equal
+  the ``network=None`` run bit for bit; ``sqdist_rows`` runs exactly
+  once per checked round of each dynamic run (6) and never otherwise.
+  ``net_agree`` runs the network golden cases, a mobile gossip case and
+  bounded staleness on the card and on the CPU from the same model and
+  batches: comm, ledger, per-round masks, transfers and network times
+  identical, parameters within 1e-5.
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -92,10 +104,13 @@ import torch.nn.functional as F  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 from repro_torch import prng  # noqa: E402
-from repro_torch.config import ProtocolConfig, TrainConfig, get_arch  # noqa: E402
+from repro_torch.config import (  # noqa: E402
+    NetworkConfig, ProtocolConfig, TrainConfig, get_arch,
+)
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.core.flatten import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core.protocol import DecentralizedLearner, SerialLearner  # noqa: E402
+from repro_torch.core.sync import stages  # noqa: E402
 from repro_torch.data.pipeline import LearnerStreams  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     DeepDriveStream, GraphicalModelStream, SyntheticMNIST,
@@ -107,6 +122,7 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.kernels._timing import cuda_ms, profile_calls  # noqa: E402
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn_params  # noqa: E402
 from repro_torch.models.model import init_lm_params  # noqa: E402
+from repro_torch.network import availability, topology  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, make_prefill  # noqa: E402
 from repro_torch.train.loop import (  # noqa: E402
     run_drift_segments, run_protocol_training,
@@ -1434,6 +1450,185 @@ def phase_paper_agree() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the network environment (slice 7)
+# ---------------------------------------------------------------------------
+# the regimes sweep's settings (benchmarks/fig_network_regimes.py:65-68)
+# and the golden cases' ring (tests/golden_pr2_capture.py)
+NET_GEO = dict(topology="geometric", act_prob=0.7, geo_radius=0.6,
+               redraw_every=20, link_classes=("wifi", "lte"))
+NET_RING = dict(topology="ring", act_prob=0.6, link_classes=("wifi", "lte"))
+NET_OUTAGES = dict(straggler_frac=0.25, outage_every=10)
+
+
+def phase_net_train() -> dict:
+    """mnist_cnn at full width, m = 100, inside the simulated network,
+    through run_protocol_training(network=...), 60 rounds in chunks of
+    20. The sqdist_rows count is set to 0 just before each run and read
+    just after: one launch per checked round of a dynamic run, whatever
+    the masks; none under periodic, fedavg and gossip."""
+    cfg = get_arch("mnist_cnn")
+    loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
+    init_fn = lambda g: init_cnn_params(cfg, g)          # noqa: E731
+    src = SyntheticMNIST(seed=0, image_size=28, device="cuda")
+    dynamic = ProtocolConfig(kind="dynamic", b=PERIOD, delta=DELTA)
+    checked = ROUNDS // PERIOD
+    plan = (
+        ("dynamic geometric", dynamic, NetworkConfig(**NET_GEO), checked),
+        ("gossip geometric", ProtocolConfig(kind="gossip", b=PERIOD),
+         NetworkConfig(**NET_GEO), 0),
+        ("fedavg ring", ProtocolConfig(kind="fedavg", b=PERIOD,
+                                       fedavg_c=0.3),
+         NetworkConfig(**NET_RING), 0),
+        ("periodic ring", ProtocolConfig(kind="periodic", b=PERIOD),
+         NetworkConfig(**NET_RING), 0),
+        ("dynamic outages", dynamic, NetworkConfig(**NET_OUTAGES), checked),
+        ("dynamic ideal", dynamic, None, checked),
+        ("dynamic full availability", dynamic, NetworkConfig(), checked))
+    runs, launches, planes = {}, {}, {}
+    for name, proto, net, want in plan:
+        ops.reset_launches()
+        (dl, traj), ms, peak = _timed_run(lambda: run_protocol_training(
+            loss_fn, init_fn, src, m=M, rounds=ROUNDS, protocol=proto,
+            train=TrainConfig(optimizer="sgd", learning_rate=0.1), batch=B,
+            chunk_size=CHUNK, record_every=CHUNK, network=net,
+            device="cuda"))
+        launches[name] = ops.LAUNCHES["sqdist_rows"]
+        if dl.model_size != P_MNIST or not dl.X.is_cuda:
+            raise SystemExit(f"{name}: {dl.model_size} weights on "
+                             f"{dl.X.device}")
+        if not (math.isfinite(dl.cumulative_loss)
+                and np.isfinite(dl.cumulative_loss_per_learner).all()):
+            raise SystemExit(f"{name}: non-finite loss")
+        ledger = int(dl.per_link_bytes().sum())
+        if ledger != (2 if dl.spec.uses_overlay else 1) * dl.comm_bytes():
+            raise SystemExit(f"{name}: ledger {ledger} against comm_bytes "
+                             f"{dl.comm_bytes()}")
+        runs[name] = {
+            "network": None if net is None else {
+                k: v for k, v in vars(net).items()
+                if v != getattr(NetworkConfig(), k)},
+            "ms_per_round": ms / ROUNDS, "peak_memory_bytes": peak,
+            "syncs": dl.comm_totals["syncs"],
+            "full_syncs": dl.comm_totals["full_syncs"],
+            "model_up": dl.comm_totals["model_up"],
+            "comm_bytes": dl.comm_bytes(), "ledger_bytes": ledger,
+            "network_time": dl.network_time,
+            "mean_active": dl.mean_active(),
+            "cumulative_loss": dl.cumulative_loss,
+            "sqdist_rows": launches[name],
+            "trajectory_network_time": traj.network_time}
+        if launches[name] != want:
+            raise SystemExit(f"{name} launched sqdist_rows "
+                             f"{launches[name]} times, not {want}")
+        if net is not None and not net.full_availability \
+                and not dl.mean_active() < 1.0:
+            raise SystemExit(f"{name}: every learner was always reachable")
+        if name in ("dynamic ideal", "dynamic full availability"):
+            planes[name] = (dl.X, dl.per_link_bytes(), dl.comm_totals,
+                            dl.cumulative_loss)
+        del dl
+    ideal, full = planes["dynamic ideal"], planes["dynamic full availability"]
+    bitwise = (torch.equal(ideal[0], full[0])
+               and np.array_equal(ideal[1], full[1])
+               and ideal[2] == full[2] and ideal[3] == full[3])
+    # the network's own costs a chunk: drawing its masks on the host, and
+    # gossip's mixing product W @ X on the card (cuBLAS SGEMM, TF32 off)
+    geo = NetworkConfig(**NET_GEO)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        active = availability.sample_rounds(geo, M, range(CHUNK))[0]
+    masks_ms = (time.perf_counter() - t0) * 1e2
+    _, W = stages.cohort_neighborhood(M, active,
+                                      topology.adjacency(geo, M, 0))
+    W = torch.from_numpy(W).cuda()
+    mix_ms = cuda_ms(lambda: W @ ideal[0])
+    emit({"phase": "net_train", "m": M, "batch": B, "runs": runs,
+          "full_availability_bitwise": bitwise,
+          "masks_host_ms_per_chunk": masks_ms, "chunk": CHUNK,
+          "gossip_mix_ms": mix_ms,
+          "gossip_mix_gflop": 2 * M * M * P_MNIST / 1e9})
+    if not bitwise:
+        raise SystemExit("the dynamic run at full availability is not the "
+                         "network=None run bit for bit")
+    for name, rec in runs.items():
+        if rec["syncs"] < 1:
+            raise SystemExit(f"{name} never synced")
+    return launches
+
+
+def phase_net_agree() -> dict:
+    """The network golden cases (drift_mlp smoke, m = 6, 40 rounds), a
+    mobile gossip case and bounded staleness on the card and on the CPU,
+    from the same model and batches: comm, ledger, per-round masks,
+    per-link counts and network times identical; losses and parameters
+    within paper_agree's tolerances."""
+    cfg = get_arch("drift_mlp")
+    loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
+    init = params_to_numpy(init_cnn_params(cfg, torch.Generator()
+                                           .manual_seed(5)))
+    src = GraphicalModelStream(seed=1, drift_prob=0.0, device="cpu")
+    batches = src.sample(torch.Generator().manual_seed(7), 10, lead=(40, 6))
+    mobile = dict(topology="geometric", act_prob=0.7, geo_radius=0.6,
+                  redraw_every=7, link_classes=("wifi", "lte"), seed=3)
+    cases = {
+        "periodic_net": (ProtocolConfig(kind="periodic", b=3), NET_RING),
+        "fedavg_net": (ProtocolConfig(kind="fedavg", b=2, fedavg_c=0.5),
+                       NET_RING),
+        "dynamic_net": (ProtocolConfig(kind="dynamic", b=2, delta=0.5),
+                        NET_RING),
+        "gossip_net": (ProtocolConfig(kind="gossip", b=2),
+                       dict(NET_RING, act_prob=0.8)),
+        "gossip_star_fallback": (ProtocolConfig(kind="gossip", b=2), None),
+        "gossip_mobile": (ProtocolConfig(kind="gossip", b=2), mobile),
+        "stale": (ProtocolConfig(kind="stale"), NET_RING),
+    }
+    report = {}
+    for name, (proto, net) in cases.items():
+        out = {}
+        for dev in ("cpu", "cuda"):
+            dl = DecentralizedLearner(
+                loss_fn, lambda g: params_from_numpy(init, g.device), 6,
+                proto, TrainConfig(optimizer="sgd", learning_rate=0.05),
+                network=None if net is None else NetworkConfig(**net),
+                device=dev)
+            metrics = [dl.run_chunk({k: v[i:i + 20].to(dev)
+                                     for k, v in batches.items()})
+                       for i in (0, 20)]
+            out[dev] = (dl, metrics)
+        (cpu, cm), (gpu, gm) = out["cpu"], out["cuda"]
+        err = float((gpu.X.cpu() - cpu.X).abs().max())
+        same = (gpu.comm_totals == cpu.comm_totals
+                and np.array_equal(gpu.per_link_bytes(),
+                                   cpu.per_link_bytes())
+                and gpu.network_time == cpu.network_time
+                and gpu.mean_active() == cpu.mean_active()
+                and all(np.array_equal(a.num_active, b.num_active)
+                        and np.array_equal(a.link_counts, b.link_counts)
+                        and np.array_equal(a.net_time, b.net_time)
+                        for a, b in zip(gm, cm)))
+        report[name] = {"comm_totals": gpu.comm_totals,
+                        "cpu_comm_totals": cpu.comm_totals,
+                        "network_time": gpu.network_time,
+                        "cpu_network_time": cpu.network_time,
+                        "mean_active": gpu.mean_active(),
+                        "loss": gpu.cumulative_loss,
+                        "cpu_loss": cpu.cumulative_loss,
+                        "param_max_abs_err": err, "identical": same}
+        if not same or gpu.comm_totals["syncs"] < 1:
+            emit({"phase": "net_agree", "failed": name, **report[name]})
+            raise SystemExit(f"{name}: the card's comm, masks or network "
+                             f"time differ from the CPU's")
+        if not (math.isclose(gpu.cumulative_loss, cpu.cumulative_loss,
+                             rel_tol=1e-5) and err <= 1e-5):
+            emit({"phase": "net_agree", "failed": name, **report[name]})
+            raise SystemExit(f"{name}: the card's losses or parameters "
+                             f"differ from the CPU's")
+    rec = {"phase": "net_agree", "cases": report}
+    emit(rec)
+    return rec
+
+
 
 def main() -> None:
     seconds = {}
@@ -1461,16 +1656,21 @@ def main() -> None:
     torch.cuda.empty_cache()
     paper = run("paper_train", phase_paper_train)
     run("paper_agree", phase_paper_agree)
+    net = run("net_train", phase_net_train)
+    run("net_agree", phase_net_agree)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
         {"name": "sqdist_rows", "route": "cuda", "source": csrc + "sqdist.cu",
          "replaces": "src/repro/kernels/sqdist.py:81",
-         "launches": launches["sqdist_rows"] + sum(paper.values()),
+         "launches": (launches["sqdist_rows"] + sum(paper.values())
+                      + sum(net.values())),
          "launches_by_path": {"mnist dynamic": launches["sqdist_rows"],
                               **{k: v for k, v in paper.items()
                                  if k in ("deepdrive drift",
-                                          "random augmentation")}},
+                                          "random augmentation")},
+                              **{"network " + k: v for k, v in net.items()
+                                 if v}},
          **table["sqdist_rows"],
          "at_deepdrive_width": table["sqdist_rows_deepdrive"]},
         {"name": "sqdist", "route": "cuda", "source": csrc + "sqdist.cu",

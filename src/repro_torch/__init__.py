@@ -21,5 +21,8 @@ finished the paper's experiments: ``prng`` (jax's threefry stream, bit
 for bit), FedAvg, the random balancing augmentation, heterogeneous
 initialization, the serial baseline (``SerialLearner``), the drifting
 sources (``GraphicalModelStream``, ``DeepDriveStream``) and concept
-drift in the training loop.
+drift in the training loop. Slice 7 ported the network environment
+(``network``: availability masks, peer topologies, link costs) with
+availability-aware stages, the gossip preset, bounded staleness and
+``layout="tree"`` on the plane.
 """

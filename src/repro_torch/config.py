@@ -16,10 +16,17 @@ the optimizer settings and ``ProtocolConfig`` the sync protocol.
 ``ValueError``s for a bad period, fraction, threshold, augmentation,
 payload size or layout) by resolving its preset through
 ``repro_torch.core.sync.spec``. It departs from the reference in three
-ways: ``layout`` defaults to ``"flat"`` (the only layout of the port),
-``"tree"``/``"sharded"`` and the ``gossip``, staleness, async and
-robust kinds raise ``NotImplementedError`` naming the ROADMAP item that
-ports them, and the hierarchy field ``tiers`` waits for its slice.
+ways: ``layout`` defaults to ``"flat"``, and ``"tree"`` runs on the same
+``(m, P)`` plane; ``"sharded"`` and the async and robust kinds raise
+``NotImplementedError`` naming the ROADMAP item that ports them; and the
+hierarchy field ``tiers`` waits for its slice.
+
+``NetworkConfig`` is the reference's simulated network environment
+(``repro/config.py:394-500``), field for field, with the same
+validation errors and the ``full_availability`` property; the
+``TOPO_*``, ``TOPOLOGIES`` and ``LINK_CLASS_NAMES`` constants come with
+it. The other environment configs (hierarchy, async, faults, telemetry)
+wait for their slices.
 """
 from __future__ import annotations
 
@@ -185,7 +192,7 @@ class ProtocolConfig:
     augmentation: str = "max_distance"   # max_distance | random | all
     weighted: bool = False               # Algorithm 2 (unbalanced B^i)
     bytes_per_param: int = 4
-    layout: str = "flat"                 # flat (tree | sharded: later)
+    layout: str = "flat"                 # flat | tree (the same plane)
 
     def __post_init__(self):
         if self.b < 1:
@@ -200,6 +207,124 @@ class ProtocolConfig:
     def _spec(self):
         from repro_torch.core.sync.spec import resolve_spec
         return resolve_spec(self)
+
+
+# ---------------------------------------------------------------------------
+# Network environment (topology, availability, link costs)
+# ---------------------------------------------------------------------------
+
+TOPO_STAR = "star"
+TOPO_RING = "ring"
+TOPO_TORUS = "torus"
+TOPO_ERDOS_RENYI = "erdos_renyi"
+TOPO_GEOMETRIC = "geometric"
+
+TOPOLOGIES = (
+    TOPO_STAR, TOPO_RING, TOPO_TORUS, TOPO_ERDOS_RENYI, TOPO_GEOMETRIC,
+)
+
+# the link classes a config may name; ``repro_torch.network.cost`` prices
+# exactly these (it checks the two registries are in lockstep)
+LINK_CLASS_NAMES = ("wired", "wifi", "lte", "edge")
+
+
+@dataclass(frozen=True)
+class NetworkConfig:
+    """Simulated network environment for a fleet of learners
+    (``repro_torch.network``).
+
+    * **topology** — the peer overlay, an (m, m) symmetric adjacency:
+      ``star`` | ``ring`` | ``torus`` | ``erdos_renyi`` | ``geometric``;
+      ``geometric`` with ``redraw_every=k`` re-draws node positions every
+      k rounds (mobility). Coordinator protocols read only availability;
+      the overlay governs ``gossip``.
+    * **availability** — per-round (m,) active masks: i.i.d. ``act_prob``
+      dropout, a ``straggler_frac`` subset at ``straggler_act_prob``, and
+      scheduled outages (every ``outage_every`` rounds an ``outage_frac``
+      of the fleet goes dark for ``outage_length`` rounds). Unavailable
+      learners keep training but cannot communicate.
+    * **link costs** — per-learner bandwidth/latency classes assigned
+      round-robin from ``link_classes``; transfers become simulated
+      seconds a round and per-link bytes.
+    """
+    topology: str = TOPO_STAR
+    er_p: float = 0.3                    # Erdős–Rényi edge probability
+    geo_radius: float = 0.5              # geometric radius in [0,1]^2
+    redraw_every: int = 0                # >0: re-draw geometric graph
+    act_prob: float = 1.0                # Bernoulli availability
+    straggler_frac: float = 0.0          # fraction of learners straggling
+    straggler_act_prob: float = 0.5      # their (lower) availability
+    outage_every: int = 0                # 0 = no scheduled outages
+    outage_length: int = 1               # rounds an outage lasts
+    outage_frac: float = 0.25            # fraction of fleet taken down
+    link_classes: Tuple[str, ...] = ("wired",)
+    msg_bytes: int = 64                  # control-message size
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.topology not in TOPOLOGIES:
+            raise KeyError(
+                f"unknown topology {self.topology!r}; "
+                f"known: {sorted(TOPOLOGIES)}")
+        if not 0.0 <= self.er_p <= 1.0:
+            raise ValueError(
+                f"er_p is an edge probability, must be in [0, 1]: "
+                f"got {self.er_p!r}")
+        if not self.geo_radius > 0.0:
+            raise ValueError(
+                f"geo_radius must be > 0, got {self.geo_radius!r}")
+        if self.redraw_every < 0:
+            raise ValueError(
+                f"redraw_every must be >= 0 (0 = static graph), "
+                f"got {self.redraw_every!r}")
+        if self.redraw_every != 0 and self.topology != TOPO_GEOMETRIC:
+            raise ValueError(
+                f"redraw_every only applies to topology='geometric', "
+                f"got {self.topology!r}")
+        if not 0.0 < self.act_prob <= 1.0:
+            raise ValueError(
+                f"act_prob is a per-round availability probability, must "
+                f"be in (0, 1]: got {self.act_prob!r}")
+        if not 0.0 <= self.straggler_frac <= 1.0:
+            raise ValueError(
+                f"straggler_frac must be in [0, 1], "
+                f"got {self.straggler_frac!r}")
+        if not 0.0 < self.straggler_act_prob <= 1.0:
+            raise ValueError(
+                f"straggler_act_prob must be in (0, 1], "
+                f"got {self.straggler_act_prob!r}")
+        if self.outage_every < 0:
+            raise ValueError(
+                f"outage_every must be >= 0 (0 = no outages), "
+                f"got {self.outage_every!r}")
+        if self.outage_length < 1:
+            raise ValueError(
+                f"outage_length must be >= 1 round, "
+                f"got {self.outage_length!r}")
+        if self.outage_every != 0 and self.outage_length > self.outage_every:
+            raise ValueError(
+                f"outage_length ({self.outage_length}) must not exceed "
+                f"outage_every ({self.outage_every}) — that is a permanent "
+                f"blackout, not a scheduled outage")
+        if not 0.0 <= self.outage_frac <= 1.0:
+            raise ValueError(
+                f"outage_frac must be in [0, 1], got {self.outage_frac!r}")
+        if len(self.link_classes) < 1:
+            raise ValueError(
+                "link_classes must name at least one link class "
+                "(assigned round-robin over the learner index)")
+        unknown = [c for c in self.link_classes if c not in LINK_CLASS_NAMES]
+        if unknown:
+            raise KeyError(
+                f"unknown link class(es) {unknown}; "
+                f"known: {sorted(LINK_CLASS_NAMES)}")
+
+    @property
+    def full_availability(self) -> bool:
+        """True when every learner is reachable every round: the engine
+        then samples no masks (the pre-network path, bitwise)."""
+        return (self.act_prob >= 1.0 and self.straggler_frac == 0.0
+                and self.outage_every == 0)
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,5 @@
 """The decentralized learning simulator: m learners, one protocol — the
-counterpart of ``repro.core.protocol`` on an ideal network.
+counterpart of ``repro.core.protocol``.
 
 Faithful to the paper's setting (Section 2): in each round t every learner
 i observes a sample E_t^i of size B, takes one local step of the learning
@@ -22,20 +22,32 @@ transfer/message counts are host integers, and the bytes ledger prices
 them host-side in int64. ``run_chunk`` runs n rounds and then fetches the
 chunk's losses from the device in one transfer.
 
+With a ``NetworkConfig`` the rounds run inside the simulated network
+(``repro_torch.network``): the chunk's availability masks are drawn on
+the host in one batched call (only when the config is not at full
+availability — otherwise no mask exists and every stage takes its
+pre-network branch, bit for bit), the stages become availability-aware,
+a mobile overlay is re-derived per redraw window, and the link-cost
+model turns each round's transfers into simulated seconds (``net_time``,
+f32) and per-link bytes (priced at ``NetworkConfig.msg_bytes``). An
+overlay-using spec (gossip) without a network peers over ``star(m)``.
+``network=None`` is the ideal always-on star.
+
 The seed gives the reference's keys: ``split(key(seed), 3)`` of
 ``repro_torch.prng`` (jax's threefry stream, bit for bit) yields the
 init-noise key of ``init_heterogeneity``, and the sync state's key is
 ``key(seed)``, as in the reference. ``SerialLearner`` is the paper's
 serial baseline: one model trained on all the data.
 
-Departures from the reference: no network, async, fault, hierarchy or
-telemetry config (later slices); ``init_fn`` takes a ``torch.Generator``
-seeded with ``seed`` (the reference hands it the first of the three
-keys), so a parity test passes the reference's initial model in;
+Departures from the reference: no async, fault, hierarchy or telemetry
+config (later slices); ``init_fn`` takes a ``torch.Generator`` seeded
+with ``seed`` (the reference hands it the first of the three keys), so a
+parity test passes the reference's initial model in;
 ``init_heterogeneity``'s noise is ``prng.normal``, within its stated
-tolerance of jax's; ``ProtocolMetrics`` carries only what an ideal
-network produces; and the entry points run on ``device="cuda"`` unless
-the caller asks for the CPU.
+tolerance of jax's; masks, overlays and network times are host values,
+so ``ProtocolMetrics`` carries no divergence, in-flight, age or fault
+series, and ``num_active`` / ``net_time`` as host arrays; and the entry
+points run on ``device="cuda"`` unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -46,12 +58,15 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch import prng
-from repro_torch.config import TrainConfig
+from repro_torch.config import NetworkConfig, TrainConfig
 from repro_torch.core.flatten import fleet_adapter, tree_leaves, tree_map
 from repro_torch.core.sync.kernel import apply_staged, init_state
 from repro_torch.core.sync.registry import CommRecord
 from repro_torch.core.sync.spec import resolve_spec
 from repro_torch.device import resolve_device
+from repro_torch.network import availability as net_availability
+from repro_torch.network import cost as net_cost
+from repro_torch.network import topology as net_topology
 from repro_torch.optim.optimizers import make_optimizer
 
 
@@ -62,6 +77,8 @@ class ProtocolMetrics(NamedTuple):
     comm: CommRecord                 # host ints / (n,) int64 arrays
     link_xfers: np.ndarray           # (m,) int32 models per learner link
     link_counts: np.ndarray          # (m, 2) int32 [transfers, messages]
+    num_active: Any                  # int / (n,) int64 reachable learners
+    net_time: Any                    # np.float32 / (n,) simulated seconds
 
 
 class DecentralizedLearner:
@@ -72,7 +89,8 @@ class DecentralizedLearner:
     (the paper's homogeneous init), or, with ``init_heterogeneity`` = ε >
     0, that tree plus per-learner Gaussian noise at ε times each leaf's
     standard deviation (Fig. 6.2). ``protocol`` is a ``ProtocolConfig``
-    or a ``ProtocolSpec``."""
+    or a ``ProtocolSpec``; ``network`` a ``NetworkConfig`` or None (the
+    ideal always-on network)."""
 
     def __init__(
         self,
@@ -84,6 +102,7 @@ class DecentralizedLearner:
         seed: int = 0,
         init_heterogeneity: float = 0.0,
         sample_weights: Optional[torch.Tensor] = None,
+        network: Optional[NetworkConfig] = None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -109,7 +128,7 @@ class DecentralizedLearner:
             self.X = row[None].repeat(m, 1)
         self.G = torch.empty_like(self.X)            # the gradient plane
         self.opt_state = self.opt.init(self.X)
-        self.sync_state = init_state(row, seed)
+        self.sync_state = init_state(row, seed, spec=self.spec, m=m)
         self.sample_weights = (None if sample_weights is None
                                else sample_weights.to(self.device))
         self.model_size = self.adapter.P
@@ -117,14 +136,31 @@ class DecentralizedLearner:
         self._grad_and_loss = torch.func.vmap(
             torch.func.grad_and_value(loss_fn))
 
+        # network environment: link profile and peer overlay, a static
+        # one built once, a mobile one per redraw window
+        self.network = network
+        self._link_bw = self._link_lat = None
+        self._static_adj = None
+        self._mobile = False
+        if network is not None:
+            self._link_bw, self._link_lat = net_cost.link_profile(network, m)
+            self._mobile = net_topology.is_mobile(network)
+            if not self._mobile:
+                self._static_adj = net_topology.adjacency(network, m)
+        elif self.spec.uses_overlay:
+            self._static_adj = net_topology.star(m)
+        self._window_adj = (None, None)        # (window, adjacency)
+
         # cumulative counters (host-side Python ints / floats / numpy)
         self.cumulative_loss = 0.0
         self.cumulative_loss_per_learner = np.zeros((m,), np.float32)
         self.comm_totals = {k: 0 for k in CommRecord._fields}
         self.rounds = 0
+        self.network_time = 0.0                    # simulated seconds
+        self.active_rounds_total = 0               # sum of per-round |active|
         self.link_xfer_totals = np.zeros((m,), np.int64)
         self.link_bytes_totals = np.zeros((m,), np.int64)
-        self.msg_bytes = 64
+        self.msg_bytes = network.msg_bytes if network is not None else 64
         self.link_payload_bytes = np.full((m,), self.model_bytes, np.int64)
 
     @property
@@ -148,10 +184,25 @@ class DecentralizedLearner:
         return self.adapter.ravel(leaves)
 
     # ------------------------------------------------------------------
-    def _round(self, batch):
+    def _adjacency(self, t: int):
+        """The peer overlay of round ``t``: the static one, or the mobile
+        one of ``t``'s redraw window (built once per window)."""
+        if not self._mobile:
+            return self._static_adj
+        window = t // self.network.redraw_every
+        if self._window_adj[0] != window:
+            self._window_adj = (window,
+                                net_topology.adjacency(self.network,
+                                                       self.m, t))
+        return self._window_adj[1]
+
+    def _round(self, batch, active=None):
         """One round on the plane; returns (losses (m,) on the device,
         StageResult). The three layers are named ranges for
-        ``torch.profiler`` (microseconds each when none is active)."""
+        ``torch.profiler`` (microseconds each when none is active).
+        ``active`` is the round's availability mask (None: all
+        reachable)."""
+        t = self.sync_state.step                     # this round's index
         batch = {k: v.to(self.device) for k, v in batch.items()}
         with record_function("round.local_step"):
             grads, losses = self._grad_and_loss(self.params, batch)
@@ -162,22 +213,39 @@ class DecentralizedLearner:
                                                      self.opt_state)
         with record_function("round.sync"):
             res = apply_staged(self.spec, self.X, self.sync_state,
-                               self.sample_weights)
+                               self.sample_weights, active=active,
+                               adjacency=self._adjacency(t))
         self.X, self.sync_state = res.params, res.state
         return losses, res
 
     def _run(self, batches, n: int) -> ProtocolMetrics:
-        """n rounds, then ONE device-to-host transfer of the losses."""
+        """n rounds, then ONE device-to-host transfer of the losses. The
+        chunk's availability masks are drawn before its first round, in
+        one call."""
+        t0 = self.sync_state.step
+        masks = None
+        if self.network is not None and not self.network.full_availability:
+            masks = net_availability.sample_rounds(self.network, self.m,
+                                                   range(t0, t0 + n))
         losses = torch.empty((n, self.m), dtype=torch.float32,
                              device=self.device)
         comm = np.zeros((n, len(CommRecord._fields)), np.int64)
         counts = np.zeros((n, self.m, 2), np.int32)
         for i in range(n):
-            li, res = self._round({k: v[i] for k, v in batches.items()})
+            li, res = self._round({k: v[i] for k, v in batches.items()},
+                                  None if masks is None else masks[i])
             losses[i] = li
             comm[i] = res.rec
             counts[i, :, 0] = res.xfers
             counts[i, :, 1] = res.link_msgs
+        num_active = (np.full((n,), self.m, np.int64) if masks is None
+                      else masks.sum(axis=1, dtype=np.int64))
+        if self.network is not None:
+            net_time = net_cost.round_network_time(
+                counts[..., 0], counts[..., 1], self.model_bytes,
+                self._link_bw, self._link_lat)
+        else:
+            net_time = np.zeros((n,), np.float32)
         host = torch.cat([losses.sum().reshape(1), losses.sum(dim=0)]).cpu()
         host = host.numpy()
         self.rounds += n
@@ -185,13 +253,17 @@ class DecentralizedLearner:
         self.cumulative_loss_per_learner += host[1:]
         for k, total in zip(CommRecord._fields, comm.sum(axis=0)):
             self.comm_totals[k] += int(total)
+        # the chunk's network time is its f32 sum, as the reference folds it
+        self.network_time += float(np.cumsum(net_time, dtype=np.float32)[-1])
+        self.active_rounds_total += int(num_active.sum())
         self.link_xfer_totals += counts[..., 0].sum(axis=0, dtype=np.int64)
         self.link_bytes_totals += self.price_link_counts(
             counts.sum(axis=0, dtype=np.int64))
         return ProtocolMetrics(
             loss_per_learner=losses,
             comm=CommRecord(*(comm[:, j] for j in range(comm.shape[1]))),
-            link_xfers=counts[..., 0], link_counts=counts)
+            link_xfers=counts[..., 0], link_counts=counts,
+            num_active=num_active, net_time=net_time)
 
     def step(self, batches) -> ProtocolMetrics:
         """One round. ``batches``: dict with leading (m, B, ...) leaves."""
@@ -199,13 +271,14 @@ class DecentralizedLearner:
         return ProtocolMetrics(
             metrics.loss_per_learner[0],
             CommRecord(*(int(c[0]) for c in metrics.comm)),
-            metrics.link_xfers[0], metrics.link_counts[0])
+            metrics.link_xfers[0], metrics.link_counts[0],
+            int(metrics.num_active[0]), metrics.net_time[0])
 
     def run_chunk(self, batches) -> ProtocolMetrics:
         """n rounds. ``batches``: dict with leading (n, m, B, ...) leaves —
         round t of the chunk is ``batches[t]``. Returns stacked
         ``ProtocolMetrics``: ``loss_per_learner`` is (n, m), every
-        ``CommRecord`` field (n,)."""
+        ``CommRecord`` field, ``num_active`` and ``net_time`` (n,)."""
         return self._run(batches, int(next(iter(batches.values())).shape[0]))
 
     # ------------------------------------------------------------------
@@ -218,7 +291,8 @@ class DecentralizedLearner:
 
     def comm_bytes_of(self, totals, msg_bytes: Optional[int] = None) -> int:
         """Bytes for a comm-counter dict (paper's c(f) accounting);
-        ``msg_bytes`` defaults to 64 (an ideal network)."""
+        ``msg_bytes`` defaults to the configured
+        ``NetworkConfig.msg_bytes`` (64 on an ideal network)."""
         if msg_bytes is None:
             msg_bytes = self.msg_bytes
         return ((totals["model_up"] + totals["model_down"]) * self.model_bytes
@@ -230,9 +304,26 @@ class DecentralizedLearner:
 
     def per_link_bytes(self) -> np.ndarray:
         """The bytes ledger: (m,) cumulative int64 bytes each learner link
-        carried — model payloads plus the control messages it sent;
-        ``sum(per_link_bytes()) == comm_bytes()``."""
+        carried — model payloads plus the control messages it sent. For
+        the coordinator protocols ``sum(per_link_bytes()) ==
+        comm_bytes()``; under gossip every transfer occupies both
+        endpoints' links, so the sum is ``2 * comm_bytes()``."""
         return self.link_bytes_totals.copy()
+
+    def mean_active(self) -> float:
+        """Average fraction of the fleet reachable per executed round."""
+        if self.rounds == 0:
+            return 1.0
+        return self.active_rounds_total / (self.rounds * self.m)
+
+    def link_class_names(self):
+        """(m,) link-class names matching the ledger's rows, round-robin
+        over ``NetworkConfig.link_classes`` (``"ideal"`` without a
+        network)."""
+        if self.network is None:
+            return ("ideal",) * self.m
+        lc = self.network.link_classes
+        return tuple(lc[i % len(lc)] for i in range(self.m))
 
     def mean_model(self):
         """The fleet's mean model as a parameter tree."""

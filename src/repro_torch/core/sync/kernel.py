@@ -8,11 +8,16 @@ the counterpart of ``repro.core.sync.kernel``.
                       commit (McMahan et al.)
   * ``dynamic``     — sigma_Delta: divergence -> balancing augmentation ->
                       mean -> balancing commit (Algorithm 1 / Algorithm 2)
+  * ``gossip``      — cadence -> neighborhood -> M–H mix -> mix
+                      (coordinator-free, over the network topology)
+  * ``stale``       — bounded staleness (``staleness.py``)
 
-``gossip`` is not ported yet; asking for it raises
-``NotImplementedError`` naming its ROADMAP item. ``apply_staged``
-runs one round on the ``(m, P)`` plane (in place) and returns the full
-``StageResult``; its ``link_msgs`` sum to ``CommRecord.messages``.
+``apply_staged`` runs one round on the ``(m, P)`` plane (coordinator
+commits in place) and returns the full ``StageResult``; its
+``link_msgs`` sum to ``CommRecord.messages``. ``active`` is the round's
+(m,) availability mask (None: the ideal always-on network, the
+pre-network expressions bit for bit) and ``adjacency`` the (m, m) peer
+overlay a ``uses_overlay`` spec (gossip) needs.
 """
 from __future__ import annotations
 
@@ -26,11 +31,21 @@ from repro_torch.core.sync.registry import (  # noqa: F401
 from repro_torch.core.sync.spec import ProtocolSpec, resolve_spec
 
 
-def init_state(ref_row: torch.Tensor, seed: int = 0) -> SyncState:
+def init_state(ref_row: torch.Tensor, seed: int = 0, spec=None,
+               m=None) -> SyncState:
     """Fresh carried state around the (P,) reference row, with the host
-    key ``prng.key(seed)`` (the reference's ``PRNGKey(seed)``)."""
+    key ``prng.key(seed)`` (the reference's ``PRNGKey(seed)``). ``spec``
+    and ``m`` build the spec's extra carried state (the staleness
+    counters); the other presets carry none."""
+    extra = {}
+    if spec is not None and spec.extra_state:
+        if m is None:
+            raise ValueError(
+                f"spec {spec.name or spec.trigger!r} carries extra state "
+                f"{spec.extra_state} — init_state needs the fleet size m")
+        extra = spec.init_extra(m)
     return SyncState(ref=ref_row.clone(), v=0, step=0,
-                     key=prng.key(seed, device="cpu"))
+                     key=prng.key(seed, device="cpu"), extra=extra)
 
 
 register_protocol("nosync", ProtocolSpec(name="nosync", trigger="never"))
@@ -45,15 +60,22 @@ register_protocol("dynamic", ProtocolSpec(name="dynamic",
                                           trigger="divergence",
                                           cohort="balanced",
                                           commit="balancing"))
+register_protocol("gossip", ProtocolSpec(name="gossip", trigger="cadence",
+                                         cohort="neighborhood",
+                                         aggregate="mix", commit="mix"))
 
 
 def apply_staged(proto, X: torch.Tensor, state: SyncState,
-                 weights=None) -> StageResult:
+                 weights=None, active=None, adjacency=None) -> StageResult:
     """Run one round of the configured protocol (a ``ProtocolConfig`` or a
-    ``ProtocolSpec``) on the (m, P) plane ``X``, which commits update in
-    place. ``weights`` (the B^i) are dropped unless the spec says
-    ``weighted``."""
+    ``ProtocolSpec``) on the (m, P) plane ``X``, which coordinator
+    commits update in place. ``weights`` (the B^i) are dropped unless the
+    spec says ``weighted``."""
     spec = resolve_spec(proto)
     if not spec.param("weighted"):
         weights = None
-    return spec.compile()(X, state, weights)
+    return spec.compile()(X, state, weights, active=active,
+                          adjacency=adjacency)
+
+
+from repro_torch.core.sync import staleness  # noqa: E402,F401  ("stale")

@@ -14,29 +14,33 @@ specs under a protocol name (``kernel.py``).
 Stage contracts, on the flat fleet plane:
 
 * **trigger** — ``gate(ctx) -> bool`` every round (``False`` for a
-  never-firing trigger); an optional ``condition(ctx) -> (hot, nhot,
-  aux)`` marks the learners that want to sync, and the pipeline runs only
-  when ``nhot > 0``.
+  never-firing trigger); an optional ``condition(ctx) -> (hot, nhot[,
+  aux])`` marks the learners that want to sync, and the pipeline runs
+  only when ``nhot > 0``. A trigger owns its extra carried state
+  (``SyncState.extra``): ``init_extra(params, m)``, ``commit_extra(ctx,
+  mask)`` after a sync (``mask`` is the committed cohort) and
+  ``skip_extra(ctx)`` in any round without one.
 * **cohort** — ``fn(ctx, hot, nhot, key) -> CohortOut``: WHO
   participates; a cohort that draws (FedAvg's fraction, the balancing
   augmentation) splits the round's PRNG key and carries the rest
-  forward in ``CohortOut.key``.
+  forward in ``CohortOut.key``. It declares ``uses_overlay`` (it needs
+  the peer adjacency) and ``uses_coordinator`` (star traffic to a hub).
 * **aggregate** — ``fn(ctx, cohort_out) -> (P,) row``: WHAT they agree on.
 * **commit** — ``fn(ctx, cohort_out, aggregate, hot, nhot) -> SyncOut``:
   APPLY the agreement to the plane and ACCOUNT for it.
 
 Departures from the reference: the round's control values — the gate,
-the masks, ``nhot``, the violation counter ``v``, the PRNG key, the
+the masks (availability, cohort, adjacency), ``nhot``, the violation
+counter ``v``, the PRNG key, the extra carried state, the
 ``CommRecord`` and the per-link counts — are host values (Python ints
 and bools, numpy arrays, the key a CPU tensor of ``repro_torch.prng``);
 only the plane, the reference row and the distances live on the device.
-``SyncState`` carries no extra state, and stages declare no
-``StageContract`` and no overlay/coordinator capabilities: extra state
-comes with the staleness trigger, and the rest with the slices that
-need them.
+Stages declare no ``StageContract`` (the contract checker is ROADMAP
+Queue A 20).
 """
 from __future__ import annotations
 
+from types import MappingProxyType
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -45,6 +49,8 @@ import torch
 
 # ``prng.key(0)`` on the host: the key ``init_state(ref)`` starts from
 _KEY0 = torch.zeros((2,), dtype=torch.int64)
+# the carried state of a trigger that declares none (read-only: shared)
+_NO_EXTRA = MappingProxyType({})
 
 
 class SyncState(NamedTuple):
@@ -52,6 +58,8 @@ class SyncState(NamedTuple):
     v: int               # violation counter
     step: int            # round counter t
     key: torch.Tensor = _KEY0   # (2,) host PRNG key for the cohort draws
+    extra: Any = _NO_EXTRA   # trigger-declared carried state: name ->
+    #   (m,) host array (the staleness counters); empty for the others
 
 
 class CommRecord(NamedTuple):
@@ -80,7 +88,10 @@ class StageResult(NamedTuple):
 class StageCtx(NamedTuple):
     """One round's inputs, shared by every stage. ``cond_aux`` carries what
     a conditional trigger computed beyond (hot, nhot) — the divergence
-    trigger's (m,) distances, reused as the balancing priority."""
+    trigger's (m,) distances, reused as the balancing priority.
+    ``active`` is the round's availability mask (None on an ideal
+    network, which keeps the pre-network expressions) and ``reach`` the
+    same mask with None read as all True."""
     params: Dict[str, Any]               # the spec's resolved params
     flat: torch.Tensor                   # (m, P) plane
     ref_flat: torch.Tensor               # (P,) reference row
@@ -88,8 +99,10 @@ class StageCtx(NamedTuple):
     weights: Optional[torch.Tensor]      # Algorithm-2 B^i weights or None
     m: int
     t: int                               # this round's index (step + 1)
-    reach: np.ndarray                    # (m,) bool, all True (ideal net)
+    reach: np.ndarray                    # (m,) bool; all True if ideal
     cond_aux: Any = None
+    active: Optional[np.ndarray] = None  # (m,) reachability, None = ideal
+    adjacency: Optional[np.ndarray] = None   # (m, m) peer overlay or None
 
 
 class CohortOut(NamedTuple):
@@ -97,7 +110,8 @@ class CohortOut(NamedTuple):
     ``v``/``full`` are None unless the cohort manages the violation
     counter (the balancing cohort); ``ideal`` marks the ideal-network
     full-participation path; ``aux`` holds what downstream stages read
-    (the fraction cohort's subset size ``k``)."""
+    (the fraction cohort's subset size ``k``, the neighborhood's active
+    overlay ``A`` and mixing matrix ``W``)."""
     mask: np.ndarray                     # (m,) bool participants
     key: torch.Tensor
     v: Optional[int] = None
@@ -122,10 +136,25 @@ def carried_v(ctx: StageCtx, cout: CohortOut) -> int:
     return ctx.state.v if cout.v is None else cout.v
 
 
+def _default_init_extra(params, m):
+    return {}
+
+
+def _default_commit_extra(ctx, mask):
+    return ctx.state.extra
+
+
+def _default_skip_extra(ctx):
+    return ctx.state.extra
+
+
 class TriggerStage(NamedTuple):
     name: str
     gate: Callable                    # ctx -> bool
-    condition: Optional[Callable]     # ctx -> (hot, nhot, aux); None = always
+    condition: Optional[Callable]     # ctx -> (hot, nhot[, aux]); None = always
+    init_extra: Callable              # (params, m) -> dict of host arrays
+    commit_extra: Callable            # (ctx, mask) -> dict
+    skip_extra: Callable              # ctx -> dict
     params: Dict[str, Any]
     validate: Optional[Callable]
 
@@ -134,6 +163,8 @@ class CohortStage(NamedTuple):
     name: str
     fn: Callable                      # (ctx, hot, nhot, key) -> CohortOut
     provides: frozenset               # labels downstream stages may need
+    uses_overlay: bool                # needs the peer adjacency matrix
+    uses_coordinator: bool            # star traffic to a hub
     needs_condition: bool             # requires a conditional trigger
     params: Dict[str, Any]
     validate: Optional[Callable]
@@ -171,23 +202,32 @@ def _enter(registry: Dict[str, Any], slot: str, name: str, record) -> None:
 
 
 def register_trigger(name: str, *, condition: Optional[Callable] = None,
+                     init_extra: Optional[Callable] = None,
+                     commit_extra: Optional[Callable] = None,
+                     skip_extra: Optional[Callable] = None,
                      params: Optional[Dict[str, Any]] = None,
                      validate: Optional[Callable] = None):
     """Register the decorated function as trigger ``name``'s gate."""
     def deco(gate: Callable) -> Callable:
         _enter(TRIGGERS, "trigger", name, TriggerStage(
             name=name, gate=gate, condition=condition,
+            init_extra=init_extra or _default_init_extra,
+            commit_extra=commit_extra or _default_commit_extra,
+            skip_extra=skip_extra or _default_skip_extra,
             params=dict(params or {}), validate=validate))
         return gate
     return deco
 
 
-def register_cohort(name: str, *, provides=(), needs_condition: bool = False,
+def register_cohort(name: str, *, provides=(), uses_overlay: bool = False,
+                    uses_coordinator: bool = True,
+                    needs_condition: bool = False,
                     params: Optional[Dict[str, Any]] = None,
                     validate: Optional[Callable] = None):
     def deco(fn: Callable) -> Callable:
         _enter(COHORTS, "cohort", name, CohortStage(
             name=name, fn=fn, provides=frozenset(provides),
+            uses_overlay=uses_overlay, uses_coordinator=uses_coordinator,
             needs_condition=needs_condition, params=dict(params or {}),
             validate=validate))
         return fn
@@ -255,8 +295,6 @@ def register_protocol(name: str, spec) -> None:
 
 # kinds the reference registers that later slices of the port bring
 NOT_PORTED = {
-    "gossip": "ROADMAP Queue A 13 (gossip needs the network topology)",
-    "stale": "ROADMAP Queue A 14 (core/sync/staleness.py)",
     "aircomp": "ROADMAP Queue A 16 (core/sync/async_sync.py)",
     "async_periodic": "ROADMAP Queue A 16 (core/sync/async_sync.py)",
     "async_dynamic": "ROADMAP Queue A 16 (core/sync/async_sync.py)",

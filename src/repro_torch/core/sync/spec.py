@@ -14,15 +14,19 @@ Departures from the reference: the round runs eagerly, and its control
 flow is host Python: the gate ``t % b == 0`` is decided on the host (the
 round counter is a host integer), and a conditional trigger's
 ``nhot > 0`` is read back from the device once per checked round. The
-plane is the only layout: ``layout`` defaults to ``"flat"``, and
-``"tree"``/``"sharded"`` raise ``NotImplementedError``.
+plane is the only arithmetic: ``layout`` defaults to ``"flat"``, and
+``"tree"`` (the reference's default) runs on the same ``(m, P)`` plane —
+the reference holds its tree layout to its flat one (comm exact,
+parameters within rtol 2e-4, ``tests/test_flatten.py``), so a tree spec
+here gives the flat results; ``"sharded"`` raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -35,11 +39,9 @@ from repro_torch.core.sync.registry import (
 GLOBAL_PARAMS: Dict[str, Any] = {"weighted": False, "bytes_per_param": 4,
                                  "layout": "flat"}
 
-# the reference's layouts; only "flat" is ported
+# the reference's layouts; "tree" and "flat" both run on the plane
 LAYOUTS = ("tree", "flat", "sharded")
 NOT_PORTED_LAYOUTS = {
-    "tree": "ROADMAP Queue A 9d (the port keeps the fleet in one (m, P) "
-            "plane; the per-leaf tree arithmetic is not ported)",
     "sharded": "ROADMAP Queue A 19 (core/shard.py, the row-sharded plane)",
 }
 
@@ -115,6 +117,29 @@ class ProtocolSpec:
     def bytes_per_param(self) -> int:
         return self.param("bytes_per_param")
 
+    # ---- capabilities (the engine wires these, not kind strings) -----
+    @property
+    def uses_overlay(self) -> bool:
+        """The cohort needs the peer adjacency (gossip)."""
+        return registry.get_cohort(self.cohort).uses_overlay
+
+    @property
+    def uses_coordinator(self) -> bool:
+        """The cohort runs star traffic to a coordinator hub."""
+        return registry.get_cohort(self.cohort).uses_coordinator
+
+    @property
+    def extra_state(self) -> Tuple[str, ...]:
+        """Names of the extra carried-state arrays the trigger threads
+        through ``SyncState.extra``."""
+        trig = registry.get_trigger(self.trigger)
+        return tuple(sorted(trig.init_extra(self.resolved_params(), 1)))
+
+    def init_extra(self, m: int) -> Dict[str, Any]:
+        """Initial extra carried state for an m-learner fleet."""
+        trig = registry.get_trigger(self.trigger)
+        return trig.init_extra(self.resolved_params(), m)
+
     # ---- construction-time validation --------------------------------
     def _validate(self) -> None:
         trig, coh, agg, com = self.stage_records()   # KeyError on unknowns
@@ -176,35 +201,51 @@ def _compiled_round(spec: ProtocolSpec):
     skeleton with host control flow:
 
         if trigger.gate(ctx):                      # t % b == 0
-            [hot, nhot, aux = trigger.condition(ctx)   # conditional
-             if nhot > 0:]                             # triggers only
+            [hot, nhot[, aux] = trigger.condition(ctx)   # conditional
+             if nhot > 0:]                               # triggers only
                 cohort(key) -> aggregate -> commit
-        else: identity + zero accounting, the key unchanged
-    """
+                extra = trigger.commit_extra(ctx, cohort mask)
+        else: identity + zero accounting, the key unchanged,
+              extra = trigger.skip_extra(ctx)
+
+    ``active`` is the round's (m,) availability mask (None: the ideal
+    network) and ``adjacency`` the (m, m) peer overlay of a spec that
+    ``uses_overlay``."""
     trig, coh, agg, com = spec.stage_records()
     p = spec.resolved_params()
 
-    def round_fn(X, state, weights=None) -> StageResult:
+    def round_fn(X, state, weights=None, active: Optional[np.ndarray] = None,
+                 adjacency: Optional[np.ndarray] = None) -> StageResult:
         m = X.shape[0]
         t = state.step + 1
+        reach = np.ones((m,), bool) if active is None else active
         ctx = StageCtx(params=p, flat=X, ref_flat=state.ref, state=state,
-                       weights=weights, m=m, t=t,
-                       reach=np.ones((m,), bool))
+                       weights=weights, m=m, t=t, reach=reach,
+                       active=active, adjacency=adjacency)
+
+        def pipeline(ctx, hot, nhot):
+            cout = coh.fn(ctx, hot, nhot, state.key)
+            out = com.fn(ctx, cout, agg.fn(ctx, cout), hot, nhot)
+            return out, trig.commit_extra(ctx, cout.mask)
+
         # a round whose pipeline does not run leaves the key untouched
-        out = SyncOut(X, state.ref, state.v, state.key, CommRecord.zero(),
-                      _zeros_i32(m), _zeros_i32(m))
+        out = None
         if trig.gate(ctx):
             if trig.condition is None:
-                cout = coh.fn(ctx, ctx.reach, None, state.key)
-                out = com.fn(ctx, cout, agg.fn(ctx, cout), ctx.reach, None)
+                out, extra = pipeline(ctx, reach, None)
             else:
-                hot, nhot, aux = trig.condition(ctx)
+                cond = trig.condition(ctx)
+                hot, nhot = cond[0], cond[1]
                 if nhot > 0:
-                    ctx = ctx._replace(cond_aux=aux)
-                    cout = coh.fn(ctx, hot, nhot, state.key)
-                    out = com.fn(ctx, cout, agg.fn(ctx, cout), hot, nhot)
+                    if len(cond) > 2:    # condition extras -> downstream
+                        ctx = ctx._replace(cond_aux=cond[2])
+                    out, extra = pipeline(ctx, hot, nhot)
+        if out is None:
+            out = SyncOut(X, state.ref, state.v, state.key,
+                          CommRecord.zero(), _zeros_i32(m), _zeros_i32(m))
+            extra = trig.skip_extra(ctx)
         new_state = state._replace(ref=out.ref, v=out.v, step=t,
-                                   key=out.key)
+                                   key=out.key, extra=extra)
         return StageResult(out.params, new_state, out.rec, out.xfers,
                            out.link_msgs)
 

@@ -4,30 +4,36 @@
 A round of any operator factors into
 
 * **trigger**   — should the sync machinery run at all? (cadence
-                  ``t % b``, or sigma_Delta's divergence condition)
-* **cohort**    — WHO participates: everyone, or the balancing
-                  augmentation's growing set
-* **aggregate** — WHAT they agree on: the (weighted) cohort mean
-* **commit**    — APPLY and ACCOUNT: cohort rows adopt the mean,
+                  ``t % b``, sigma_Delta's divergence condition, or the
+                  bounded-staleness counters of ``staleness.py``)
+* **cohort**    — WHO participates: everyone reachable, a random
+                  C-fraction, the balancing augmentation's growing set,
+                  or a neighborhood mixing matrix — all availability-masked
+* **aggregate** — WHAT they agree on: the (weighted) cohort mean, or one
+                  Metropolis–Hastings mixing step
+* **commit**    — APPLY and ACCOUNT: cohort rows adopt the aggregate,
                   reference / violation-counter updates, ``CommRecord``,
                   per-link transfer and message counts
 
-Only the plane forms are ported, and only the stages of the nosync,
-periodic, continuous, fedavg and dynamic presets on an ideal network.
-On the plane the per-learner distances are one ``sqdist_rows`` pass,
-the mean one ``w @ X`` matvec (or a row mean), and the balancing
+Only the plane forms are ported. On the plane the per-learner distances
+are one ``sqdist_rows`` pass, the mean one ``w @ X`` matvec (or a row
+mean), gossip's mixing step one ``W @ X`` product, and the balancing
 augmentation keeps an incremental running sum, so each augmentation
-step costs O(P).
+step costs O(P). Every stage has the reference's two branches: the
+ideal network (``ctx.active is None``), whose expressions are those of
+the pre-network engine, bit for bit, and the availability-masked one.
 
 Departures from the reference: commits write the ``(m, P)`` plane in
 place (the reference builds a new one); masks, counters and the
 augmentation priority are host values, so the augmentation loop reads
 one f32 distance back from the device per step, and its argmax runs on
 the host (ties go to the lowest index, as ``jnp.argmax``). The draws —
-FedAvg's cohort (``prng.permutation``) and the random augmentation's
-priority (``prng.uniform``) — come from the round's host key, the
-reference's threefry stream bit for bit. The availability-masked
-FedAvg cohort waits for the network slice (ROADMAP Queue A 13).
+FedAvg's cohort (``prng.permutation``, or under availability a rank of
+``prng.uniform`` draws) and the random augmentation's priority
+(``prng.uniform``) — come from the round's host key, the reference's
+threefry stream bit for bit. Gossip's active overlay and f32 mixing
+matrix are built on the host (m × m) and the product ``W @ X`` runs
+where the plane lives.
 """
 from __future__ import annotations
 
@@ -87,12 +93,49 @@ def cadence_fire(b: int, t: int) -> bool:
     return t % b == 0
 
 
+def cohort_all(m: int, active) -> np.ndarray:
+    """sigma_b's cohort: every reachable learner."""
+    return np.ones((m,), bool) if active is None else active
+
+
 def cohort_fraction_ideal(sub: torch.Tensor, m: int, k: int) -> np.ndarray:
     """FedAvg's cohort on an ideal network: the first k entries of a
     random permutation of the fleet, drawn from the host key ``sub``."""
     mask = np.zeros((m,), bool)
     mask[prng.permutation(sub, m, device="cpu")[:k].numpy()] = True
     return mask
+
+
+def cohort_fraction_masked(sub: torch.Tensor, m: int, k: int,
+                           active: np.ndarray) -> np.ndarray:
+    """FedAvg's cohort under availability: rank the reachable learners by
+    a fresh uniform draw and take the top min(k, |active|). The ranks are
+    ``argsort(argsort(where(active, r, -inf)))`` with stable sorts, as
+    ``jnp.argsort``'s, so the ties among the -inf rows rank by index."""
+    r = prng.uniform(sub, (m,), device="cpu").numpy()
+    keyed = np.where(active, r, np.float32(-np.inf))
+    ranks = np.argsort(np.argsort(keyed, kind="stable"), kind="stable")
+    return (ranks >= m - min(k, int(active.sum()))) & active
+
+
+def cohort_neighborhood(m: int, active, adjacency: np.ndarray):
+    """Gossip's cohort: the availability-masked peer overlay ``A`` and its
+    Metropolis–Hastings mixing matrix, in f32,
+        W_ij = 1 / (1 + max(deg_i, deg_j))   for active edges i~j
+        W_ii = 1 - sum_j W_ij,
+    doubly stochastic for a symmetric overlay, so the fleet mean is
+    kept. An unreachable or isolated learner has W row e_i and keeps its
+    model. Returns host ``(A, W)``."""
+    act = cohort_all(m, active)
+    A = (np.asarray(adjacency, bool) & act[None, :] & act[:, None]
+         & ~np.eye(m, dtype=bool))
+    deg = A.sum(axis=1).astype(np.float32)
+    W = np.where(A, np.float32(1.0) / (np.float32(1.0)
+                                       + np.maximum(deg[:, None],
+                                                    deg[None, :])),
+                 np.float32(0.0))
+    W = W + np.diag(np.float32(1.0) - W.sum(axis=1, dtype=np.float32))
+    return A, W
 
 
 def cohort_balanced_flat(delta: float, augmentation: str, X: torch.Tensor,
@@ -146,6 +189,12 @@ def xfers_cohort(mask: np.ndarray) -> np.ndarray:
     """Coordinator-link transfer counts: each cohort member's link carries
     its model up and the aggregate back down (2 per member)."""
     return mask.astype(np.int32) * 2
+
+
+def xfers_neighborhood(A: np.ndarray) -> np.ndarray:
+    """Gossip transfer counts: every exchanged model occupies the links of
+    both endpoints, so ``sum(xfers) == 2 * (model_up + model_down)``."""
+    return (2 * A.sum(axis=1)).astype(np.int32)
 
 
 # ===========================================================================
@@ -217,19 +266,25 @@ def trigger_divergence(ctx: StageCtx) -> bool:
 
 @register_cohort("all_reachable", provides=("full-cohort",))
 def cohort_all_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
-    """sigma_b's cohort: the whole fleet (the network is ideal)."""
-    return CohortOut(mask=ctx.reach, key=key, ideal=True)
+    """sigma_b's cohort: every reachable learner; on the ideal network the
+    whole fleet (``ideal=True`` keeps the pre-network expressions)."""
+    return CohortOut(mask=cohort_all(ctx.m, ctx.active), key=key,
+                     ideal=ctx.active is None)
 
 
 @register_cohort("fraction", provides=("subset",),
                  params={"fedavg_c": 0.3}, validate=_validate_fraction)
 def cohort_fraction_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
     """FedAvg's cohort: a random k-subset, ``k = max(1, round(C * m))``
-    (Python's round, half to even, as the reference's)."""
+    (Python's round, half to even, as the reference's), drawn from the
+    reachable learners under availability masks."""
     k = max(1, int(round(ctx.params["fedavg_c"] * ctx.m)))
     key, sub = prng.split(key, device="cpu")
-    return CohortOut(mask=cohort_fraction_ideal(sub, ctx.m, k), key=key,
-                     aux={"k": k})
+    if ctx.active is None:
+        mask = cohort_fraction_ideal(sub, ctx.m, k)
+    else:
+        mask = cohort_fraction_masked(sub, ctx.m, k, ctx.active)
+    return CohortOut(mask=mask, key=key, aux={"k": k})
 
 
 @register_cohort("balanced", provides=("balance",), needs_condition=True,
@@ -246,13 +301,31 @@ def cohort_balanced_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
     force_full = v_new >= ctx.m
     base = ctx.reach if force_full else hot
     v_reset = 0 if force_full else v_new
+    dists = (ctx.cond_aux or {}).get("dists")
+    if dists is None and ctx.params["augmentation"] == "max_distance":
+        # a trigger without distances (staleness): one monitoring pass
+        dists = per_learner_sq_distance_flat(ctx.flat, ctx.ref_flat)
+        dists = dists.cpu().numpy()
     mask = cohort_balanced_flat(
         ctx.params["delta"], ctx.params["augmentation"], ctx.flat,
-        ctx.ref_flat, base, sub, ctx.weights, ctx.reach,
-        ctx.cond_aux["dists"])
+        ctx.ref_flat, base, sub, ctx.weights, ctx.reach, dists)
     full = bool(np.all(mask == ctx.reach))
     return CohortOut(mask=mask, key=key, v=0 if full else v_reset,
                      full=full)
+
+
+@register_cohort("neighborhood", provides=("mixing",), uses_overlay=True,
+                 uses_coordinator=False)
+def cohort_neighborhood_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
+    """Gossip's cohort: the availability-masked peer overlay and its
+    Metropolis–Hastings mixing matrix. No coordinator."""
+    if ctx.adjacency is None:
+        raise ValueError(
+            "gossip needs an adjacency matrix — configure a NetworkConfig "
+            "topology (the engine passes it through)")
+    A, W = cohort_neighborhood(ctx.m, ctx.active, ctx.adjacency)
+    return CohortOut(mask=cohort_all(ctx.m, ctx.active), key=key,
+                     aux={"A": A, "W": W})
 
 
 # ---- aggregates -----------------------------------------------------------
@@ -266,31 +339,59 @@ def aggregate_mean_stage(ctx: StageCtx, cout: CohortOut) -> torch.Tensor:
     return flat_aggregate_mean(ctx.flat, cout.mask, ctx.weights)
 
 
+@register_aggregate("mix", needs=("mixing",))
+def aggregate_mix_stage(ctx: StageCtx, cout: CohortOut) -> torch.Tensor:
+    """One Metropolis–Hastings mixing step over the neighborhood: one
+    ``W @ X`` product on the plane, a new (m, P) plane."""
+    W = torch.from_numpy(cout.aux["W"]).to(device=ctx.flat.device,
+                                           dtype=ctx.flat.dtype)
+    return W @ ctx.flat
+
+
 # ---- commits --------------------------------------------------------------
 
 @register_commit("average", needs=("full-cohort",))
 def commit_average(ctx: StageCtx, cout: CohortOut, mean, hot,
                    nhot) -> SyncOut:
-    """sigma_b's commit: every learner adopts the aggregate and the
-    reference moves to it; each learner's link carries 2 models."""
+    """sigma_b's commit: every cohort member adopts the aggregate. On the
+    ideal network that is every learner, each link carrying 2 models;
+    under availability the reference moves only when somebody was
+    averaged, and the sync covers every reachable learner."""
     m = ctx.m
-    rec = CommRecord(model_up=m, model_down=m, messages=0, syncs=1,
-                     full_syncs=1)
-    return SyncOut(_select_commit(ctx.flat, cout.mask, mean), mean,
+    if cout.ideal:
+        rec = CommRecord(model_up=m, model_down=m, messages=0, syncs=1,
+                         full_syncs=1)
+        return SyncOut(_select_commit(ctx.flat, cout.mask, mean), mean,
+                       carried_v(ctx, cout), cout.key, rec,
+                       np.full((m,), 2, np.int32), zeros_i32(m))
+    nsync = int(cout.mask.sum())
+    rec = CommRecord(model_up=nsync, model_down=nsync, messages=0,
+                     syncs=int(nsync > 0), full_syncs=int(nsync > 0))
+    return SyncOut(_select_commit(ctx.flat, cout.mask, mean),
+                   mean if nsync > 0 else ctx.ref_flat,
                    carried_v(ctx, cout), cout.key, rec,
-                   np.full((m,), 2, np.int32), zeros_i32(m))
+                   xfers_cohort(cout.mask), zeros_i32(m))
 
 
 @register_commit("subset", needs=("subset",))
 def commit_subset(ctx: StageCtx, cout: CohortOut, mean, hot,
                   nhot) -> SyncOut:
     """FedAvg's commit: the subset adopts the aggregate and the reference
-    moves to it; k models go up and k come down, and the sync is full
-    only when the subset is the whole fleet."""
-    m, k = ctx.m, cout.aux["k"]
-    rec = CommRecord(model_up=k, model_down=k, messages=0, syncs=1,
-                     full_syncs=int(k == m))
-    return SyncOut(_select_commit(ctx.flat, cout.mask, mean), mean,
+    moves to it; a sync is full when the subset covered every reachable
+    learner (on the ideal network: when k is the whole fleet)."""
+    m = ctx.m
+    newcfg = _select_commit(ctx.flat, cout.mask, mean)
+    if ctx.active is None:
+        k = cout.aux["k"]
+        rec = CommRecord(model_up=k, model_down=k, messages=0, syncs=1,
+                         full_syncs=int(k == m))
+        return SyncOut(newcfg, mean, carried_v(ctx, cout), cout.key, rec,
+                       xfers_cohort(cout.mask), zeros_i32(m))
+    nsel = int(cout.mask.sum())
+    rec = CommRecord(
+        model_up=nsel, model_down=nsel, messages=0, syncs=int(nsel > 0),
+        full_syncs=int(nsel > 0 and nsel == int(ctx.active.sum())))
+    return SyncOut(newcfg, mean if nsel > 0 else ctx.ref_flat,
                    carried_v(ctx, cout), cout.key, rec,
                    xfers_cohort(cout.mask), zeros_i32(m))
 
@@ -312,3 +413,21 @@ def commit_balancing(ctx: StageCtx, cout: CohortOut, mean, hot,
                      messages=nhot + polls, syncs=1, full_syncs=int(full))
     return SyncOut(newcfg, new_ref, carried_v(ctx, cout), cout.key, rec,
                    xfers_cohort(mask), link_msgs)
+
+
+@register_commit("mix", needs=("mixing",))
+def commit_mix(ctx: StageCtx, cout: CohortOut, mixed, hot, nhot) -> SyncOut:
+    """Gossip's commit: every learner adopts its mixing-row combination;
+    transfers occupy both endpoints' links; the reference never moves
+    (there is no coordinator to hold one)."""
+    A = cout.aux["A"]
+    edges = int(A.sum())                       # directed count = 2E
+    up = edges // 2
+    na = int(cout.mask.sum())
+    rec = CommRecord(
+        model_up=up, model_down=edges - up, messages=0,
+        syncs=int(edges > 0),
+        # "all reachable averaged": the active subgraph is complete
+        full_syncs=int(edges > 0 and edges == na * (na - 1)))
+    return SyncOut(mixed, ctx.ref_flat, carried_v(ctx, cout), cout.key,
+                   rec, xfers_neighborhood(A), zeros_i32(ctx.m))

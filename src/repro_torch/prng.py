@@ -107,13 +107,15 @@ def split(key, num: int = 2, device="cuda") -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def fold_in(key, data: int, device="cuda") -> torch.Tensor:
+def fold_in(key, data, device="cuda") -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: the cipher of the counter pair
-    ``threefry_seed(uint32(data)) = (0, data)``."""
+    ``threefry_seed(uint32(data)) = (0, data)``. ``data`` is an int, or a
+    sequence of ints that broadcasts against the key batch (one key
+    folded with n values gives n keys, as n calls would)."""
     dev = resolve_device(device)
     k1, k2 = _key_words(key, dev, 0)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    b1, b2 = threefry2x32(k1, k2, zero, zero + (int(data) & _M32))
+    d = torch.as_tensor(np.asarray(data, np.int64), device=dev) & _M32
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
     return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
 

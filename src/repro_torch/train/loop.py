@@ -9,19 +9,21 @@ stacked metrics. With ``drift=True`` and a source that can drift
 (``maybe_drift``), the source is offered a drift before every round, in
 the reference's order, and ``Trajectory.drift_rounds`` records the
 rounds where one happened. ``run_drift_segments`` runs known drift
-rounds instead, as the drift figures do.
+rounds instead, as the drift figures do. With ``network=`` the learners
+run inside the simulated network, and ``Trajectory.network_time``
+records the cumulative simulated seconds.
 
-Departures: no network/async/fault/telemetry configs, so ``Trajectory``
-has no simulated network time; and ``device`` defaults to ``"cuda"``.
+Departures: no async/fault/telemetry configs; ``device`` defaults to
+``"cuda"``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 
-from repro_torch.config import TrainConfig
+from repro_torch.config import NetworkConfig, TrainConfig
 from repro_torch.core.protocol import DecentralizedLearner
 from repro_torch.core.sync.registry import CommRecord
 from repro_torch.data.pipeline import LearnerStreams
@@ -35,6 +37,7 @@ class Trajectory:
     cumulative_loss: List[float] = field(default_factory=list)
     cumulative_bytes: List[int] = field(default_factory=list)
     syncs: List[int] = field(default_factory=list)
+    network_time: List[float] = field(default_factory=list)
     drift_rounds: List[int] = field(default_factory=list)
 
     def as_dict(self):
@@ -42,6 +45,7 @@ class Trajectory:
                 "cumulative_loss": self.cumulative_loss,
                 "cumulative_bytes": self.cumulative_bytes,
                 "syncs": self.syncs,
+                "network_time": self.network_time,
                 "drift_rounds": self.drift_rounds}
 
 
@@ -89,16 +93,18 @@ def run_protocol_training(
     batch_sizes=None,
     init_heterogeneity: float = 0.0,
     chunk_size: int = DEFAULT_CHUNK,
+    network: Optional[NetworkConfig] = None,
     device="cuda",
 ) -> tuple:
     """Returns (learner, trajectory). The data source must live on the
-    learner's device."""
+    learner's device; ``network`` runs the fleet inside the simulated
+    network environment."""
     streams = LearnerStreams(source, m, batch=batch, seed=seed,
                              batch_sizes=batch_sizes)
     dl = DecentralizedLearner(
         loss_fn, init_fn, m, protocol, train, seed=seed,
         init_heterogeneity=init_heterogeneity,
-        sample_weights=streams.weights, device=device)
+        sample_weights=streams.weights, network=network, device=device)
     if streams.device != dl.device:
         raise ValueError(
             f"the data source is on {streams.device}, the learners on "
@@ -116,6 +122,7 @@ def run_protocol_training(
 
         base_loss = dl.cumulative_loss
         base_totals = dict(dl.comm_totals)
+        base_net_time = dl.network_time
         metrics = dl.run_chunk(streams.next_chunk(
             n, on_round=on_round if drifting else None))
         loss_cum = base_loss + np.cumsum(
@@ -124,6 +131,8 @@ def run_protocol_training(
         comm_cum = {k: base_totals[k] + np.cumsum(
             np.asarray(getattr(metrics.comm, k), np.int64))
             for k in CommRecord._fields}
+        net_cum = base_net_time + np.cumsum(
+            np.asarray(metrics.net_time, np.float64))
         for i in range(n):
             g = t + i
             if (g + 1) % record_every == 0 or g == rounds - 1:
@@ -132,5 +141,6 @@ def run_protocol_training(
                 traj.cumulative_bytes.append(dl.comm_bytes_of(
                     {k: int(v[i]) for k, v in comm_cum.items()}))
                 traj.syncs.append(int(comm_cum["syncs"][i]))
+                traj.network_time.append(float(net_cum[i]))
         t += n
     return dl, traj

@@ -380,3 +380,74 @@ def test_prng_on_the_card_equals_the_cpu(seed):
     z = prng.normal(keys, (5000,), device="cpu")
     err = (z_card - z).abs() / z.abs().clamp_min(1.0)
     assert float(err.max()) <= prng.NORMAL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dynamic", "stale"])
+def test_masked_round_on_the_card_equals_the_cpu(kind):
+    """One availability-masked sync round at m = 100 on the card and on
+    the CPU: the same comm record, per-link counts, counter and key."""
+    _need_card()
+    import numpy as np
+    from repro_torch.config import NetworkConfig, ProtocolConfig
+    from repro_torch.core.sync import kernel
+    from repro_torch.core.sync.registry import SyncState
+    from repro_torch.device import resolve_device
+    from repro_torch.network import availability
+
+    resolve_device("cuda")
+    m, P = 100, 20_011
+    gen = torch.Generator().manual_seed(11)
+    ref = torch.randn((P,), generator=gen)
+    scale = torch.linspace(0.0, 0.4, m)[:, None]
+    X = ref + scale * torch.randn((m, P), generator=gen) / P ** 0.5
+    active = availability.sample(NetworkConfig(act_prob=0.6), m, 3)
+    proto = ProtocolConfig(kind=kind, b=1, delta=0.05)
+    extra = ({"staleness": np.arange(m, dtype=np.int32) % 7}
+             if kind == "stale" else {})
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = SyncState(ref=ref.to(dev), v=0, step=0, extra=dict(extra))
+        out[dev] = kernel.apply_staged(proto, X.clone().to(dev), state,
+                                       active=active.copy())
+    cpu, card = out["cpu"], out["cuda"]
+    assert card.params.is_cuda and card.rec.syncs == 1
+    assert card.rec == cpu.rec and card.state.v == cpu.state.v
+    assert (card.xfers == cpu.xfers).all()
+    assert (card.link_msgs == cpu.link_msgs).all()
+    assert torch.equal(card.state.key, cpu.state.key)
+    for k in cpu.state.extra:
+        assert (card.state.extra[k] == cpu.state.extra[k]).all()
+    torch.testing.assert_close(card.params.cpu(), cpu.params, **TOL)
+
+
+@pytest.mark.cuda
+def test_gossip_mixing_on_the_card_is_f32_close_to_the_cpu():
+    """Gossip's ``W @ X`` on the card (cuBLAS SGEMM, TF32 off) at
+    mnist_cnn's width, against the CPU's product."""
+    _need_card()
+    import numpy as np
+    from repro_torch.config import NetworkConfig
+    from repro_torch.core.sync import stages
+    from repro_torch.core.sync.registry import CohortOut, StageCtx
+    from repro_torch.device import resolve_device
+    from repro_torch.network import availability, topology
+
+    resolve_device("cuda")
+    m, P = 100, 1_199_882
+    net = NetworkConfig(topology="geometric", geo_radius=0.6, act_prob=0.7)
+    active = availability.sample(net, m, 0)
+    A, W = stages.cohort_neighborhood(m, active, topology.adjacency(net, m))
+    X = torch.randn((m, P), generator=torch.Generator().manual_seed(2))
+    cout = CohortOut(mask=active, key=prng.key(0, device="cpu"),
+                     aux={"A": A, "W": W})
+    mixed = {}
+    for dev in ("cpu", "cuda"):
+        ctx = StageCtx(params={}, flat=X.to(dev), ref_flat=None, state=None,
+                       weights=None, m=m, t=1, reach=active, active=active)
+        mixed[dev] = stages.aggregate_mix_stage(ctx, cout)
+    assert mixed["cuda"].is_cuda and A.any()
+    torch.testing.assert_close(mixed["cuda"].cpu(), mixed["cpu"], **TOL)
+    # a dark learner's row is e_i: its model passes through bit for bit
+    dark = int(np.flatnonzero(~active)[0])
+    assert torch.equal(mixed["cuda"][dark].cpu(), X[dark])

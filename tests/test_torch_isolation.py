@@ -1,6 +1,7 @@
 """The port stands apart from the JAX package.
 
-``src/repro_torch``, ``chip_smoke.py`` and ``examples/torch_quickstart.py``
+``src/repro_torch``, ``chip_smoke.py`` and the port's examples
+(``examples/torch_quickstart.py``, ``examples/torch_network_regimes.py``)
 import torch and numpy, never
 jax and nothing of ``repro``; the port's entry points run on the card by
 default and raise, rather than fall back to the CPU, when there is none.
@@ -30,7 +31,8 @@ from repro_torch.train.loop import run_protocol_training  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
+    ROOT / "examples" / "torch_network_regimes.py"]
 
 
 def _modules():

@@ -213,10 +213,10 @@ def test_config_validation_matches_reference(kw):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(kind="stale"), "Queue A 14"),
-    (dict(kind="gossip"), "Queue A 13"),
+    (dict(kind="aircomp"), "Queue A 16"),
+    (dict(kind="async_dynamic"), "Queue A 16"),
     (dict(kind="robust_dynamic"), "Queue A 17"),
-    (dict(kind="periodic", layout="tree"), "Queue A 9d"),
+    (dict(kind="robust_periodic"), "Queue A 17"),
     (dict(kind="dynamic", layout="sharded"), "Queue A 19"),
 ])
 def test_unported_options_raise_not_implemented(kw, what):
