@@ -258,8 +258,8 @@ def _bare_sqdist(sqdist, x, r):
     """``sqdist``'s C entry point called directly on (1, P), its buffers
     made once: the host's cost of the ``ctypes`` call and its launches
     without the Python wrapper. Takes both forms of
-    ``repro_sqdist_rows``: two launches, or one with the ticket
-    counters."""
+    ``repro_sqdist_rows``: two launches, one with the ticket counters,
+    or that with the reference rows' group size (1 here)."""
     from repro_torch.kernels import _build
     lib = _build.library("sqdist")
     P = x.numel()
@@ -271,9 +271,11 @@ def _bare_sqdist(sqdist, x, r):
     tickets = torch.zeros((1,), dtype=torch.int32, device=x.device)
     args = [0, x.data_ptr(), r.data_ptr(), partial.data_ptr(),
             out.data_ptr()]
-    if len(lib.repro_sqdist_rows.argtypes) == 11:
+    nargs = len(lib.repro_sqdist_rows.argtypes)
+    if nargs >= 11:
         args.append(tickets.data_ptr())
-    args += [1, P, seg, S, torch.cuda.current_stream().cuda_stream]
+    args += [1, P, seg, S] + ([1] if nargs == 12 else [])
+    args.append(torch.cuda.current_stream().cuda_stream)
     _build.check(lib, lib.repro_sqdist_rows(*args), "sqdist launch")
     torch.cuda.synchronize()
     if not torch.equal(out[0], sqdist.sqdist(x, r)):

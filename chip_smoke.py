@@ -71,6 +71,23 @@ and drives both of the port's paths:
   bounded staleness on the card and on the CPU from the same model and
   batches: comm, ledger, per-round masks, transfers and network times
   identical, parameters within 1e-5.
+* checkpoints, the hierarchy and the async timeline (slice 8):
+  ``kernels`` also holds the grouped ``sqdist_rows`` (every row against
+  its cluster's reference row, one launch) against its plain version and
+  checks that one group is the ungrouped call bit for bit; ``tier_train``
+  trains the MNIST CNN at full width (m = 100, B = 10) under the
+  hierarchy of 10 clusters (on an ideal network, and in the ring at 60%
+  with a 2-byte backhaul) and on the event-driven timeline (dynamic
+  averaging with lte exchanges 2 rounds in flight; periodic averaging at
+  k = 0, which must equal the synchronous run bit for bit; aircomp),
+  each with its ``sqdist_rows`` launches split by shape and matched to
+  the prediction (6 grouped and 6 inter-tier launches for the
+  hierarchy's dynamic run, one per gated round for the async one), then
+  saves the hierarchy and the async run after round 20, restores each
+  into a fresh learner and runs it on: bit for bit the uninterrupted
+  run. ``tier_agree`` runs the hierarchy sweep's and the async bench's
+  settings on the card and on the CPU (integers identical, parameters
+  within 1e-5) and continues a card checkpoint on the CPU.
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -104,13 +121,16 @@ import torch.nn.functional as F  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 from repro_torch import prng  # noqa: E402
+from repro_torch.checkpoint import io  # noqa: E402
 from repro_torch.config import (  # noqa: E402
-    NetworkConfig, ProtocolConfig, TrainConfig, get_arch,
+    AsyncConfig, HierarchyConfig, NetworkConfig, ProtocolConfig, TrainConfig,
+    get_arch,
 )
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.core.flatten import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core.protocol import DecentralizedLearner, SerialLearner  # noqa: E402
 from repro_torch.core.sync import stages  # noqa: E402
+from repro_torch.core.sync.spec import resolve_spec  # noqa: E402
 from repro_torch.data.pipeline import LearnerStreams  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     DeepDriveStream, GraphicalModelStream, SyntheticMNIST,
@@ -131,6 +151,7 @@ from repro_torch.train.loop import (  # noqa: E402
 P_MNIST = 1_199_882          # mnist_cnn's weights (Table 1)
 P_DEEPDRIVE = 348_219        # deepdrive_cnn's weights (Table 5, PilotNet)
 M, B, ROUNDS, CHUNK, PERIOD, DELTA = 100, 10, 60, 20, 10, 0.7
+TIER_G = 10                  # tier_train's clusters of 10 learners
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 # published peaks (NVIDIA data sheets, dense): device-memory bytes/s,
@@ -287,10 +308,30 @@ def phase_kernels(gen) -> dict:
             check("sqdist", sqdist.sqdist, ref.sqdist_ref, (X, R), [m, n])
             del X, R
 
+    # the grouped form (a hierarchy's intra tier): row i against its
+    # cluster's reference R[i // k], g clusters of k rows, odd P included
+    for g, k, n in [(2, 3, 7), (10, 10, 515), (10, 10, P_DEEPDRIVE),
+                    (10, 1, P_MNIST), (4, 25, P_MNIST)]:
+        for dt in (torch.float32, torch.bfloat16):
+            X = torch.randn((g * k, n), generator=gen, device="cuda").to(dt)
+            R = torch.randn((g, n), generator=gen, device="cuda").to(dt)
+            check("sqdist_rows", sqdist.sqdist_rows, ref.sqdist_rows_ref,
+                  (X, R), [g * k, n, f"g={g}"])
+            del X, R
+
     mem_rate, f32_rate = peaks(torch.cuda.get_device_name(0))[:2]
     X = torch.randn((M, P_MNIST), generator=gen, device="cuda")
     r = torch.randn((P_MNIST,), generator=gen, device="cuda")
     x0 = X[0]
+    # g = 1 is today's call, bit for bit
+    if not torch.equal(sqdist.sqdist_rows(X, r[None]),
+                       sqdist.sqdist_rows(X, r)):
+        raise SystemExit("grouped sqdist_rows with g = 1 is not the "
+                         "ungrouped call bit for bit")
+    G = TIER_G
+    Rg = torch.randn((G, P_MNIST), generator=gen, device="cuda")
+    check("sqdist_rows", sqdist.sqdist_rows, ref.sqdist_rows_ref, (X, Rg),
+          f"timed X (100, P), R ({G}, P)")
     # the timed inputs themselves, checked as the shapes above
     check("sqdist_rows", sqdist.sqdist_rows, ref.sqdist_rows_ref, (X, r),
           "timed X (100, P)")
@@ -313,16 +354,22 @@ def phase_kernels(gen) -> dict:
             M, P_DEEPDRIVE, lambda: sqdist.sqdist_rows(Xd, rd),
             lambda: ref.sqdist_rows_ref(Xd, rd),
             lambda: torch.linalg.vector_norm(Xd - rd, dim=1).square()),
+        "sqdist_rows_grouped": (
+            M, P_MNIST, lambda: sqdist.sqdist_rows(X, Rg),
+            lambda: ref.sqdist_rows_ref(X, Rg),
+            lambda: torch.linalg.vector_norm(
+                X.view(G, M // G, P_MNIST) - Rg[:, None], dim=2).square()),
     }
     table = {}
     for name, (m, P, kernel, plain, library) in timed.items():
-        nbytes = (m * P + P) * 4 + 4 * m
+        refs = G if name.endswith("grouped") else 1
+        nbytes = (m * P + refs * P) * 4 + 4 * m
         nops = 3 * m * P
         t_bytes, t_ops = nbytes / mem_rate * 1e3, nops / f32_rate * 1e3
         # the device alone: one launch per call (the last block of a row,
         # chosen by a ticket, sums its partials), against vector_norm's
         dev, dev_library = profile_calls(kernel), profile_calls(library)
-        kernel_name = name.split("_deepdrive")[0]
+        kernel_name = name.split("_deepdrive")[0].split("_grouped")[0]
         table[name] = {
             "shape": [m, P], "dtype": "float32",
             "max_abs_err": worst[kernel_name]["abs"],
@@ -340,6 +387,7 @@ def phase_kernels(gen) -> dict:
             raise SystemExit(f"{name} made {dev['cuda_launches_per_call']} "
                              f"CUDA launches per call, not 1: {dev}")
     table["sqdist_rows_deepdrive"]["row_start_bytes_mod_16"] = row_starts
+    table["sqdist_rows_grouped"]["groups"] = G
     emit({"phase": "kernels", "checks": len(checks),
           "all_ok": all(c["ok"] for c in checks), "timed": table,
           "peaks": {"bytes_per_s": mem_rate, "f32_flops": f32_rate}})
@@ -1630,6 +1678,346 @@ def phase_net_agree() -> dict:
 
 
 
+# the hierarchy and async cells: fig_hierarchy's 2x ratio of inter to
+# intra Delta (benchmarks/fig_hierarchy.py), the net phases' ring at 60%,
+# and a wifi/lte fleet whose lte exchanges of mnist_cnn's 4,799,528-byte
+# payload fly 2 rounds at a 1 s budget (0 at 3 s)
+ASYNC_NET = dict(link_classes=("wifi", "lte"))
+TIER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "tier_ckpt")
+
+
+def _tiers(intra: dict, inter: dict, link_class="wired") -> ProtocolConfig:
+    return ProtocolConfig(**intra, tiers=HierarchyConfig(
+        num_clusters=TIER_G, inter=ProtocolConfig(**inter),
+        link_class=link_class))
+
+
+def _ledger_balance(dl) -> dict:
+    """The ledger against the paper's c(f), as the reference's tests hold
+    it (tests/test_sync_kernel.py:367-420, tests/test_async.py): the
+    per-link sums are comm_bytes(); under a periodic inter tier the
+    aggregator rows are whole models at the inter payload (the quantized
+    backhaul's case); under aircomp every member link
+    carries one frame a sync, so the ledger is its transfers priced."""
+    ledger = dl.per_link_bytes()
+    out = {"ledger_bytes": int(ledger.sum()), "comm_bytes": dl.comm_bytes()}
+    if dl.spec.commit == "aircomp":
+        out["balanced"] = (
+            out["ledger_bytes"] == int(dl.link_xfer_totals.sum())
+            * dl.model_bytes and dl.comm_bytes()
+            == 2 * dl.comm_totals["syncs"] * dl.model_bytes)
+    else:
+        out["balanced"] = out["ledger_bytes"] == dl.comm_bytes()
+    if dl.tiers is not None:
+        out["uplink_bytes"] = int(ledger[dl.m:].sum())
+        if dl.tiers.inter.kind == "periodic":   # no control messages:
+            # the uplinks carry whole models at the inter payload
+            out["balanced"] &= out["uplink_bytes"] % dl.inter_model_bytes == 0
+    return out
+
+
+def _run_chunks(dl, streams, chunks):
+    """Drive ``dl`` over ``chunks`` chunk lengths of ``streams``; returns
+    the per-round (in flight, gate fired) series."""
+    inflight, checked = [], []
+    for n in chunks:
+        metrics = dl.run_chunk(streams.next_chunk(n))
+        inflight += metrics.num_inflight.tolist()
+        checked += metrics.checked.tolist()
+    return inflight, checked
+
+
+def _state_equal(a, b) -> bool:
+    """Two sync states (flat or hierarchical) equal to the bit: reference
+    rows, counters, steps, keys and every carried array."""
+    if hasattr(a, "intra"):
+        return _state_equal(a.intra, b.intra) and _state_equal(a.inter,
+                                                               b.inter)
+    return (torch.equal(a.ref, b.ref) and np.array_equal(a.v, b.v)
+            and a.step == b.step and torch.equal(a.key, b.key)
+            and sorted(a.extra) == sorted(b.extra)
+            and all(np.array_equal(a.extra[k], b.extra[k]) for k in a.extra))
+
+
+def _same_run(a, b) -> bool:
+    return (torch.equal(a.X, b.X) and a.opt_state.step == b.opt_state.step
+            and _state_equal(a.sync_state, b.sync_state)
+            and a.comm_totals == b.comm_totals
+            and np.array_equal(a.per_link_bytes(), b.per_link_bytes())
+            and a.network_time == b.network_time
+            and a.cumulative_loss == b.cumulative_loss)
+
+
+def phase_tier_train() -> dict:
+    """mnist_cnn at full width, m = 100, B = 10, sgd lr 0.1, 60 rounds in
+    chunks of 20, seed 0, under the hierarchy (H1 on an ideal network,
+    H2 in the ring at 60% with a quantized backhaul) and the async
+    timeline (A1 with flights, A2 and A3 at k = 0, A3 over the air).
+    The sqdist_rows counts are zeroed before each run and read after it,
+    split by shape; H1 and A1 are also saved after chunk 1, restored into
+    a fresh engine and run on, and must equal their uninterrupted runs
+    bit for bit."""
+    cfg = get_arch("mnist_cnn")
+    loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
+    init_fn = lambda g: init_cnn_params(cfg, g)          # noqa: E731
+    src = SyntheticMNIST(seed=0, image_size=28, device="cuda")
+    train = TrainConfig(optimizer="sgd", learning_rate=0.1)
+    dyn = dict(kind="dynamic", b=PERIOD, delta=DELTA)
+    per = dict(kind="periodic", b=PERIOD)
+    checked = ROUNDS // PERIOD
+    grouped, inter_shape = (M, P_MNIST, TIER_G), (TIER_G, P_MNIST, 1)
+    flat_shape = (M, P_MNIST, 1)
+    plan = {   # name -> (protocol, network, AsyncConfig, predicted launches)
+        "H1": (_tiers(dyn, dict(kind="dynamic", b=PERIOD, delta=2 * DELTA)),
+               None, None, {grouped: checked, inter_shape: checked}),
+        "H2": (_tiers(per, dict(kind="periodic", b=2 * PERIOD,
+                                bytes_per_param=2)),
+               NetworkConfig(**NET_RING), None, {}),
+        "A1": (ProtocolConfig(**dyn), NetworkConfig(**ASYNC_NET),
+               AsyncConfig(round_budget=1.0, max_delay=8), None),
+        "A2 sync": (ProtocolConfig(**per), NetworkConfig(**ASYNC_NET), None,
+                    {}),
+        "A2": (ProtocolConfig(**per), NetworkConfig(**ASYNC_NET),
+               AsyncConfig(round_budget=3.0), {}),
+        "A3": (ProtocolConfig(**per), NetworkConfig(**ASYNC_NET),
+               AsyncConfig(round_budget=3.0, aircomp=True, snr_db=20.0), {}),
+    }
+
+    def engine(proto, net, an):
+        streams = LearnerStreams(src, M, batch=B, seed=0)
+        return DecentralizedLearner(loss_fn, init_fn, M, proto, train,
+                                    seed=0, network=net, async_net=an,
+                                    device="cuda"), streams
+
+    runs, done, counts = {}, {}, {}
+    for name, (proto, net, an, want) in plan.items():
+        held = torch.cuda.memory_allocated()     # earlier runs kept alive
+        ops.reset_launches()
+        if name == "A1":     # per-round timeline: the chunks by hand
+            dl, streams = engine(proto, net, an)
+            (series, ms, peak) = _timed_run(lambda: _run_chunks(
+                dl, streams, [CHUNK] * (ROUNDS // CHUNK)))
+            inflight, gated = series
+            want = {flat_shape: int(sum(gated))}
+        else:
+            (dl, _), ms, peak = _timed_run(lambda: run_protocol_training(
+                loss_fn, init_fn, src, m=M, rounds=ROUNDS, protocol=proto,
+                train=train, batch=B, chunk_size=CHUNK, record_every=CHUNK,
+                network=net, async_net=an, device="cuda"))
+        counts[name] = {str(k): v for k, v in ops.ROWS_LAUNCHES.items()}
+        if dict(ops.ROWS_LAUNCHES) != want:
+            raise SystemExit(f"{name}: sqdist_rows launches "
+                             f"{counts[name]}, predicted "
+                             f"{ {str(k): v for k, v in want.items()} }")
+        if dl.model_size != P_MNIST or not dl.X.is_cuda:
+            raise SystemExit(f"{name}: {dl.model_size} weights on "
+                             f"{dl.X.device}")
+        if not (math.isfinite(dl.cumulative_loss)
+                and np.isfinite(dl.cumulative_loss_per_learner).all()):
+            raise SystemExit(f"{name}: non-finite loss")
+        balance = _ledger_balance(dl)
+        if not balance["balanced"]:
+            raise SystemExit(f"{name}: the ledger does not balance: "
+                             f"{balance}")
+        runs[name] = {
+            "ms_per_round": ms / ROUNDS, "peak_memory_bytes": peak - held,
+            "held_before_bytes": held, "syncs": dl.comm_totals["syncs"],
+            "full_syncs": dl.comm_totals["full_syncs"],
+            "model_up": dl.comm_totals["model_up"], **balance,
+            "network_time": dl.network_time,
+            "mean_active": dl.mean_active(),
+            "cumulative_loss": dl.cumulative_loss,
+            "sqdist_rows": counts[name], "links": dl.num_links}
+        if name == "A1":
+            runs[name]["mean_inflight"] = float(np.mean(inflight))
+            runs[name]["inflight_per_round"] = inflight
+            runs[name]["gated_rounds"] = [i + 1 for i, g in enumerate(gated)
+                                          if g]
+        if name in ("H1", "A1", "A2 sync", "A2"):
+            done[name] = dl
+        else:
+            del dl
+    a2, a2s = done.pop("A2"), done.pop("A2 sync")
+    a2_bitwise = (torch.equal(a2.X, a2s.X) and a2.comm_totals
+                  == a2s.comm_totals and np.array_equal(
+                      a2.per_link_bytes(), a2s.per_link_bytes())
+                  and a2.network_time == a2s.network_time
+                  and a2.cumulative_loss == a2s.cumulative_loss)
+    del a2, a2s
+    # every learner ticks at rounds 10, 20, ..., 60 unless in flight, and
+    # the wifi half never flies
+    if not set(range(PERIOD, ROUNDS + 1, PERIOD)) <= set(
+            runs["A1"]["gated_rounds"]):
+        raise SystemExit(f"A1's gate missed a cadence round: "
+                         f"{runs['A1']['gated_rounds']}")
+
+    # resume: chunk 1, save, a fresh engine restores and runs to round 60
+    resumed = {}
+    for name in ("H1", "A1"):
+        proto, net, an, _ = plan[name]
+        first, streams = engine(proto, net, an)
+        first.run_chunk(streams.next_chunk(CHUNK))
+        path = os.path.join(TIER_DIR, name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        io.save_protocol_state(path, first.params, first.opt_state,
+                               first.sync_state, protocol=proto,
+                               counters=first.counters_state())
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(f"{path}.{part}")
+                     for part in ("params.npz", "opt.npz", "sync.npz",
+                                  "spec.json", "counters.json"))
+        del first
+        second, streams = engine(proto, net, an)
+        t0 = time.perf_counter()
+        loaded = io.load_protocol_state(path, device="cuda")
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        second.restore_state(*loaded)
+        second.restore_counters(io.load_counters(path))
+        del loaded
+        streams.next_chunk(CHUNK)            # replay the consumed data
+        _run_chunks(second, streams, [CHUNK] * (ROUNDS // CHUNK - 1))
+        same = _same_run(second, done[name])
+        resumed[name] = {"write_s": write_s, "read_s": read_s,
+                         "bytes": nbytes, "bitwise": same,
+                         "spec_restored": io.load_protocol_spec(path)
+                         == resolve_spec(proto)}
+        del second, done[name]
+    rec = {"phase": "tier_train", "m": M, "batch": B, "clusters": TIER_G,
+           "runs": runs, "a2_equals_sync_bitwise": a2_bitwise,
+           "resume": resumed}
+    emit(rec)
+    if not a2_bitwise:
+        raise SystemExit("A2 (k = 0 everywhere) is not the synchronous "
+                         "periodic run bit for bit")
+    for name, r in resumed.items():
+        if not (r["bitwise"] and r["spec_restored"]):
+            raise SystemExit(f"{name}: the resumed run is not the "
+                             f"uninterrupted one bit for bit: {r}")
+    for name, r in runs.items():
+        if r["syncs"] < 1:
+            raise SystemExit(f"{name} never synced")
+    if not runs["A1"]["mean_inflight"] > 0:
+        raise SystemExit("A1: no exchange was ever in flight")
+    return {k: sum(v.values()) for k, v in counts.items()}
+
+
+def phase_tier_agree() -> dict:
+    """The hierarchy sweep's settings (benchmarks/fig_hierarchy.py:
+    drift_mlp smoke, m = 12, g in {3, 4}, intra dynamic b = 2 Delta =
+    0.3, inter Delta in {0.3, 0.6}; one in the ring at 60%) and the async
+    bench's presets (benchmarks/async_bench.py: m = 8 on lte/edge links,
+    async periodic and dynamic, aircomp at 20 dB) on the card and on the
+    CPU from the same model and batches: comm, ledger, per-round link
+    counts, in-flight counts and network time identical, parameters
+    within 1e-5. Then a checkpoint written on the card after chunk 1
+    is continued on the CPU: the same integers as the card's own run."""
+    cfg = get_arch("drift_mlp", smoke=True)
+    loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
+    init = params_to_numpy(init_cnn_params(cfg, torch.Generator()
+                                           .manual_seed(5)))
+    src = GraphicalModelStream(seed=1, drift_prob=0.0, device="cpu")
+    edge = dict(link_classes=("lte", "edge"))
+    sweep = dict(kind="dynamic", b=2, delta=0.3)
+
+    def hier(g, inter_delta):
+        return ProtocolConfig(**sweep, tiers=HierarchyConfig(
+            num_clusters=g, inter=ProtocolConfig(kind="dynamic", b=2,
+                                                 delta=inter_delta)))
+
+    cases = {   # name -> (m, protocol, network, AsyncConfig)
+        "hier g3 inter 0.3": (12, hier(3, 0.3), None, None),
+        "hier g3 inter 0.6": (12, hier(3, 0.6), None, None),
+        "hier g4 inter 0.3": (12, hier(4, 0.3), None, None),
+        "hier g4 inter 0.6": (12, hier(4, 0.6), None, None),
+        "hier g3 ring": (12, hier(3, 0.6), NET_RING, None),
+        "async periodic": (8, ProtocolConfig(kind="periodic", b=2), edge,
+                           AsyncConfig(round_budget=1.0,
+                                       payload_bytes=100_000)),
+        "async dynamic": (8, ProtocolConfig(kind="dynamic", b=2, delta=0.5),
+                          edge, AsyncConfig(round_budget=0.25,
+                                            payload_bytes=100_000)),
+        "aircomp": (8, ProtocolConfig(kind="periodic", b=2), edge,
+                    AsyncConfig(round_budget=60.0, aircomp=True,
+                                snr_db=20.0)),
+    }
+    report = {}
+    for name, (m, proto, net, an) in cases.items():
+        batches = src.sample(torch.Generator().manual_seed(7), 10,
+                             lead=(40, m))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            dl = DecentralizedLearner(
+                loss_fn, lambda g: params_from_numpy(init, g.device), m,
+                proto, TrainConfig(optimizer="sgd", learning_rate=0.05),
+                network=None if net is None else NetworkConfig(**net),
+                async_net=an, device=dev)
+            metrics = [dl.run_chunk({k: v[i:i + 20].to(dev)
+                                     for k, v in batches.items()})
+                       for i in (0, 20)]
+            out[dev] = (dl, metrics)
+            if name == "hier g3 ring" and dev == "cuda":
+                ckpt = os.path.join(TIER_DIR, "agree")
+                resume = DecentralizedLearner(
+                    loss_fn, lambda g: params_from_numpy(init, g.device), m,
+                    proto, TrainConfig(optimizer="sgd", learning_rate=0.05),
+                    network=NetworkConfig(**net), device="cuda")
+                resume.run_chunk({k: v[:20].to("cuda")
+                                  for k, v in batches.items()})
+                io.save_protocol_state(ckpt, resume.params, resume.opt_state,
+                                       resume.sync_state, protocol=proto,
+                                       counters=resume.counters_state())
+        (cpu, cm), (gpu, gm) = out["cpu"], out["cuda"]
+        err = float((gpu.X.cpu() - cpu.X).abs().max())
+        same = (gpu.comm_totals == cpu.comm_totals
+                and np.array_equal(gpu.per_link_bytes(),
+                                   cpu.per_link_bytes())
+                and gpu.network_time == cpu.network_time
+                and all(np.array_equal(a.link_counts, b.link_counts)
+                        and np.array_equal(a.num_inflight, b.num_inflight)
+                        and np.array_equal(a.net_time, b.net_time)
+                        for a, b in zip(gm, cm)))
+        report[name] = {"comm_totals": gpu.comm_totals,
+                        "cpu_comm_totals": cpu.comm_totals,
+                        "links": gpu.num_links,
+                        "network_time": gpu.network_time,
+                        "inflight": np.concatenate(
+                            [x.num_inflight for x in gm]).tolist(),
+                        "param_max_abs_err": err, "identical": same}
+        if not same or gpu.comm_totals["syncs"] < 1:
+            emit({"phase": "tier_agree", "failed": name, **report[name]})
+            raise SystemExit(f"{name}: the card's comm, ledger, flights or "
+                             f"network time differ from the CPU's")
+        if err > 1e-5:
+            emit({"phase": "tier_agree", "failed": name, **report[name]})
+            raise SystemExit(f"{name}: the card's parameters differ from "
+                             f"the CPU's by {err}")
+        if name == "hier g3 ring":
+            # the card's checkpoint, continued on the CPU port
+            cont = DecentralizedLearner(
+                loss_fn, lambda g: params_from_numpy(init, g.device), m,
+                proto, TrainConfig(optimizer="sgd", learning_rate=0.05),
+                network=NetworkConfig(**net), device="cpu")
+            cont.restore_state(*io.load_protocol_state(ckpt, device="cpu"))
+            cont.restore_counters(io.load_counters(ckpt))
+            cont.run_chunk({k: v[20:40] for k, v in batches.items()})
+            cross = (cont.comm_totals == gpu.comm_totals
+                     and np.array_equal(cont.per_link_bytes(),
+                                        gpu.per_link_bytes())
+                     and cont.network_time == gpu.network_time
+                     and float((cont.X - gpu.X.cpu()).abs().max()) <= 1e-5)
+            report["card checkpoint on the cpu"] = {"identical": cross}
+            if not cross:
+                raise SystemExit("a checkpoint written on the card does "
+                                 "not continue on the CPU with the card's "
+                                 "integers")
+    rec = {"phase": "tier_agree", "cases": report}
+    emit(rec)
+    return rec
+
+
 def main() -> None:
     seconds = {}
 
@@ -1658,21 +2046,26 @@ def main() -> None:
     run("paper_agree", phase_paper_agree)
     net = run("net_train", phase_net_train)
     run("net_agree", phase_net_agree)
+    tier = run("tier_train", phase_tier_train)
+    run("tier_agree", phase_tier_agree)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
         {"name": "sqdist_rows", "route": "cuda", "source": csrc + "sqdist.cu",
          "replaces": "src/repro/kernels/sqdist.py:81",
          "launches": (launches["sqdist_rows"] + sum(paper.values())
-                      + sum(net.values())),
+                      + sum(net.values()) + sum(tier.values())),
          "launches_by_path": {"mnist dynamic": launches["sqdist_rows"],
                               **{k: v for k, v in paper.items()
                                  if k in ("deepdrive drift",
                                           "random augmentation")},
                               **{"network " + k: v for k, v in net.items()
+                                 if v},
+                              **{"tier " + k: v for k, v in tier.items()
                                  if v}},
          **table["sqdist_rows"],
-         "at_deepdrive_width": table["sqdist_rows_deepdrive"]},
+         "at_deepdrive_width": table["sqdist_rows_deepdrive"],
+         "grouped": table["sqdist_rows_grouped"]},
         {"name": "sqdist", "route": "cuda", "source": csrc + "sqdist.cu",
          "replaces": "src/repro/kernels/sqdist.py:41",
          "launches": launches["sqdist"], **table["sqdist"]},

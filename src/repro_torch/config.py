@@ -15,18 +15,20 @@ the optimizer settings and ``ProtocolConfig`` the sync protocol.
 ``ProtocolConfig`` validates exactly as the reference does (the same
 ``ValueError``s for a bad period, fraction, threshold, augmentation,
 payload size or layout) by resolving its preset through
-``repro_torch.core.sync.spec``. It departs from the reference in three
-ways: ``layout`` defaults to ``"flat"``, and ``"tree"`` runs on the same
-``(m, P)`` plane; ``"sharded"`` and the async and robust kinds raise
-``NotImplementedError`` naming the ROADMAP item that ports them; and the
-hierarchy field ``tiers`` waits for its slice.
+``repro_torch.core.sync.spec``; ``tiers`` (a ``HierarchyConfig``) makes
+it the intra tier of a two-tier hierarchy. It departs from the reference
+in three ways: ``layout`` defaults to ``"flat"``, and ``"tree"`` runs on
+the same ``(m, P)`` plane; ``"sharded"`` and the robust kinds raise
+``NotImplementedError`` naming the ROADMAP item that ports them; and
+there is no ``shard_devices`` field (its spec parameter is known, at the
+reference's default 0).
 
-``NetworkConfig`` is the reference's simulated network environment
-(``repro/config.py:394-500``), field for field, with the same
-validation errors and the ``full_availability`` property; the
-``TOPO_*``, ``TOPOLOGIES`` and ``LINK_CLASS_NAMES`` constants come with
-it. The other environment configs (hierarchy, async, faults, telemetry)
-wait for their slices.
+``NetworkConfig`` (``repro/config.py:394-500``), ``HierarchyConfig``
+(``:329-369``) and ``AsyncConfig`` (``:507-546``) are the reference's,
+field for field, with the same validation errors; the ``TOPO_*``,
+``TOPOLOGIES`` and ``LINK_CLASS_NAMES`` constants come with them. The
+fault and telemetry configs wait for their slices (ROADMAP Queue A 17,
+18).
 """
 from __future__ import annotations
 
@@ -193,6 +195,7 @@ class ProtocolConfig:
     weighted: bool = False               # Algorithm 2 (unbalanced B^i)
     bytes_per_param: int = 4
     layout: str = "flat"                 # flat | tree (the same plane)
+    tiers: Optional["HierarchyConfig"] = None   # two-tier hierarchy on top
 
     def __post_init__(self):
         if self.b < 1:
@@ -202,11 +205,55 @@ class ProtocolConfig:
                 f"fedavg_c must be in (0, 1], got {self.fedavg_c!r}")
         # resolving the preset validates the kind and the parameters its
         # stages consume, as in the reference
-        self._spec()
+        spec = self._spec()
+        if self.tiers is not None and not spec.uses_coordinator:
+            raise ValueError(
+                f"{self.kind} cannot be the intra-tier operator of a "
+                "hierarchy: it has no coordinator — a cluster's members "
+                "talk to their edge aggregator over uplinks. Use a "
+                "coordinator protocol (periodic/fedavg/dynamic) per tier.")
 
     def _spec(self):
         from repro_torch.core.sync.spec import resolve_spec
         return resolve_spec(self)
+
+
+@dataclass(frozen=True)
+class HierarchyConfig:
+    """Two-tier star-of-stars coordinator hierarchy
+    (``repro_torch.core.sync.hierarchy``).
+
+    The fleet is partitioned into ``num_clusters`` contiguous, equal-size
+    clusters (the engine rejects ``m % num_clusters != 0``). The enclosing
+    ``ProtocolConfig`` runs inside every cluster (members and their edge
+    aggregator), the aggregator model is the availability-masked cluster
+    mean, and ``inter`` runs among the aggregators with its own cadence,
+    threshold and payload size (``bytes_per_param``: a quantized
+    backhaul). ``link_class`` is the aggregator uplinks' class in the
+    network cost model."""
+    num_clusters: int
+    inter: ProtocolConfig
+    link_class: str = "wired"
+
+    def __post_init__(self):
+        if self.num_clusters < 2:
+            raise ValueError(
+                f"a hierarchy needs >= 2 clusters, got {self.num_clusters} "
+                "(one cluster is just the flat protocol — drop tiers=)")
+        if not self.inter._spec().uses_coordinator:
+            raise ValueError(
+                f"the inter-tier operator cannot be {self.inter.kind}: "
+                "edge aggregators talk to the top coordinator over a star "
+                "of uplinks, not a peer overlay. Use a coordinator "
+                "protocol (periodic/fedavg/dynamic/nosync).")
+        if self.inter.tiers is not None:
+            raise ValueError(
+                "hierarchies do not nest: tiers.inter must have tiers=None "
+                "(the hierarchy is exactly two tiers).")
+        if self.link_class not in LINK_CLASS_NAMES:
+            raise KeyError(
+                f"unknown aggregator link class {self.link_class!r}; "
+                f"known: {sorted(LINK_CLASS_NAMES)}")
 
 
 # ---------------------------------------------------------------------------
@@ -325,6 +372,40 @@ class NetworkConfig:
         then samples no masks (the pre-network path, bitwise)."""
         return (self.act_prob >= 1.0 and self.straggler_frac == 0.0
                 and self.outage_every == 0)
+
+
+@dataclass(frozen=True)
+class AsyncConfig:
+    """The event-driven network timeline (``repro_torch.network.events``
+    and ``repro_torch.core.sync.async_sync``). Attached to a
+    ``DecentralizedLearner`` it rewrites the protocol's trigger onto
+    per-learner local clocks with messages in flight: each sync exchange
+    flies ``k = ceil(round_trip / round_budget) - 1`` whole rounds, the
+    round trip priced from the ``NetworkConfig`` link classes and the
+    payload (``payload_bytes``; None = the model's own byte size). A
+    budget covering the slowest round trip is the synchronous engine, bit
+    for bit. ``aircomp`` swaps the mean/average pair for the over-the-air
+    stages: Gaussian receiver noise ``snr_db`` below the aggregate's RMS,
+    drawn purely from ``(air_seed, t)``."""
+    round_budget: float = 1.0     # simulated seconds per round
+    max_delay: int = 8            # arrival-ring depth (max flight rounds + 1)
+    payload_bytes: Optional[int] = None   # None = the engine's model_bytes
+    aircomp: bool = False         # swap mean/average -> over-the-air stages
+    snr_db: float = 20.0          # receiver SNR below the aggregate's RMS
+    air_seed: int = 0             # noise stream seed (pure in (seed, t))
+
+    def __post_init__(self):
+        if not self.round_budget > 0:
+            raise ValueError(
+                f"round_budget must be > 0 simulated seconds, "
+                f"got {self.round_budget!r}")
+        if self.max_delay < 1:
+            raise ValueError(
+                f"max_delay must be >= 1 round, got {self.max_delay!r}")
+        if self.payload_bytes is not None and self.payload_bytes < 0:
+            raise ValueError(
+                f"payload_bytes must be >= 0 (or None for the model's "
+                f"size), got {self.payload_bytes!r}")
 
 
 @dataclass(frozen=True)

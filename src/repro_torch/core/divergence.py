@@ -62,7 +62,8 @@ def sq_distance(a, b, use_kernel: bool = False) -> torch.Tensor:
 def per_learner_sq_distance_flat(X: torch.Tensor,
                                  r: torch.Tensor) -> torch.Tensor:
     """(m,) f32 squared distances over the flat fleet plane: ``X`` is the
-    (m, P) configuration, ``r`` the (P,) reference row."""
+    (m, P) configuration, ``r`` the (P,) reference row, or (g, P) rows of
+    g equal clusters, each row against its own cluster's."""
     return kops.sqdist_rows(X, r)
 
 

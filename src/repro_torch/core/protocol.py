@@ -39,14 +39,30 @@ init-noise key of ``init_heterogeneity``, and the sync state's key is
 ``key(seed)``, as in the reference. ``SerialLearner`` is the paper's
 serial baseline: one model trained on all the data.
 
-Departures from the reference: no async, fault, hierarchy or telemetry
-config (later slices); ``init_fn`` takes a ``torch.Generator`` seeded
-with ``seed`` (the reference hands it the first of the three keys), so a
-parity test passes the reference's initial model in;
-``init_heterogeneity``'s noise is ``prng.normal``, within its stated
-tolerance of jax's; masks, overlays and network times are host values,
-so ``ProtocolMetrics`` carries no divergence, in-flight, age or fault
-series, and ``num_active`` / ``net_time`` as host arrays; and the entry
+With ``async_net`` (an ``AsyncConfig``) the protocol is rewritten onto
+the event-driven timeline (``core.sync.async_sync.asyncify``): local
+clocks, exchanges in flight through a bounded arrival ring, and with
+``aircomp`` the over-the-air mean. With ``ProtocolConfig.tiers`` (a
+``HierarchyConfig``) a round is the two-tier star-of-stars
+(``core.sync.hierarchy``): the configured (possibly asyncified) protocol
+inside every cluster, ``tiers.inter`` among the edge aggregators, the
+ledger grown by g aggregator uplinks priced at
+``tiers.inter.bytes_per_param``, and the network time the two tiers
+back to back. ``counters_state``/``restore_counters`` and
+``restore_state`` resume a run from a checkpoint
+(``repro_torch.checkpoint.io``).
+
+Departures from the reference: no fault or telemetry config (later
+slices); ``init_fn`` takes a ``torch.Generator`` seeded with ``seed``
+(the reference hands it the first of the three keys), so a parity test
+passes the reference's initial model in; ``init_heterogeneity``'s noise
+is ``prng.normal``, within its stated tolerance of jax's; masks,
+overlays, the carried timeline and network times are host values, so
+``ProtocolMetrics`` carries no divergence or fault series, ``num_active``
+/ ``net_time`` / ``num_inflight`` / ``max_age`` are host arrays, and it
+adds ``checked``, whether the (intra-tier) gate fired each round; the
+reference's callers restore a run by assigning ``params``, ``opt_state``
+and ``sync_state``, the port's call ``restore_state``; and the entry
 points run on ``device="cuda"`` unless the caller asks for the CPU.
 """
 from __future__ import annotations
@@ -58,8 +74,12 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch import prng
-from repro_torch.config import NetworkConfig, TrainConfig
+from repro_torch.config import AsyncConfig, NetworkConfig, TrainConfig
 from repro_torch.core.flatten import fleet_adapter, tree_leaves, tree_map
+from repro_torch.core.sync.async_sync import asyncify
+from repro_torch.core.sync.hierarchy import (
+    HierSyncState, apply_hierarchical, init_hier_state, validate_hierarchy,
+)
 from repro_torch.core.sync.kernel import apply_staged, init_state
 from repro_torch.core.sync.registry import CommRecord
 from repro_torch.core.sync.spec import resolve_spec
@@ -67,7 +87,7 @@ from repro_torch.device import resolve_device
 from repro_torch.network import availability as net_availability
 from repro_torch.network import cost as net_cost
 from repro_torch.network import topology as net_topology
-from repro_torch.optim.optimizers import make_optimizer
+from repro_torch.optim.optimizers import OptState, make_optimizer
 
 
 class ProtocolMetrics(NamedTuple):
@@ -76,9 +96,15 @@ class ProtocolMetrics(NamedTuple):
     loss_per_learner: torch.Tensor   # (m,) this-round loss, on the device
     comm: CommRecord                 # host ints / (n,) int64 arrays
     link_xfers: np.ndarray           # (m,) int32 models per learner link
-    link_counts: np.ndarray          # (m, 2) int32 [transfers, messages]
+    link_counts: np.ndarray          # (L, 2) int32 [transfers, messages]:
+    #   L = m learner links, plus the g aggregator uplinks of a hierarchy
     num_active: Any                  # int / (n,) int64 reachable learners
     net_time: Any                    # np.float32 / (n,) simulated seconds
+    num_inflight: Any = 0            # learners whose exchange is in flight
+    #   after the round (0 without an async timeline)
+    max_age: Any = 0                 # the oldest rounds-since-sync counter
+    #   the trigger carries (0 for stateless triggers)
+    checked: Any = False             # the (intra-tier) trigger's gate fired
 
 
 class DecentralizedLearner:
@@ -103,6 +129,7 @@ class DecentralizedLearner:
         init_heterogeneity: float = 0.0,
         sample_weights: Optional[torch.Tensor] = None,
         network: Optional[NetworkConfig] = None,
+        async_net: Optional[AsyncConfig] = None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -128,7 +155,6 @@ class DecentralizedLearner:
             self.X = row[None].repeat(m, 1)
         self.G = torch.empty_like(self.X)            # the gradient plane
         self.opt_state = self.opt.init(self.X)
-        self.sync_state = init_state(row, seed, spec=self.spec, m=m)
         self.sample_weights = (None if sample_weights is None
                                else sample_weights.to(self.device))
         self.model_size = self.adapter.P
@@ -136,10 +162,37 @@ class DecentralizedLearner:
         self._grad_and_loss = torch.func.vmap(
             torch.func.grad_and_value(loss_fn))
 
+        # the event-driven timeline: rewrite the protocol onto local
+        # clocks before any state is built (the rewritten spec carries the
+        # timeline in SyncState.extra); under a hierarchy the intra tier
+        # runs it and tiers.inter stays synchronous
+        self.async_net = async_net
+        if async_net is not None:
+            self.spec = asyncify(self.spec, async_net, network,
+                                 self.model_bytes)
+
+        # the two-tier hierarchy: per-cluster intra state and the inter
+        # tier's; the aggregator uplinks get their own ledger rows, priced
+        # at tiers.inter.bytes_per_param
+        self.tiers = getattr(protocol, "tiers", None)
+        if self.tiers is not None:
+            validate_hierarchy(self.tiers, m)
+            self.sync_state = init_hier_state(
+                row, self.tiers, seed, m=m, intra_spec=self.spec,
+                inter_spec=resolve_spec(self.tiers.inter))
+            self.inter_model_bytes = (
+                self.model_size * self.tiers.inter.bytes_per_param)
+            self.num_links = m + self.tiers.num_clusters
+        else:
+            self.sync_state = init_state(row, seed, spec=self.spec, m=m)
+            self.inter_model_bytes = 0
+            self.num_links = m
+
         # network environment: link profile and peer overlay, a static
         # one built once, a mobile one per redraw window
         self.network = network
         self._link_bw = self._link_lat = None
+        self._agg_bw = self._agg_lat = None
         self._static_adj = None
         self._mobile = False
         if network is not None:
@@ -147,6 +200,9 @@ class DecentralizedLearner:
             self._mobile = net_topology.is_mobile(network)
             if not self._mobile:
                 self._static_adj = net_topology.adjacency(network, m)
+            if self.tiers is not None:
+                self._agg_bw, self._agg_lat = net_cost.uniform_profile(
+                    self.tiers.link_class, self.tiers.num_clusters)
         elif self.spec.uses_overlay:
             self._static_adj = net_topology.star(m)
         self._window_adj = (None, None)        # (window, adjacency)
@@ -159,14 +215,53 @@ class DecentralizedLearner:
         self.network_time = 0.0                    # simulated seconds
         self.active_rounds_total = 0               # sum of per-round |active|
         self.link_xfer_totals = np.zeros((m,), np.int64)
-        self.link_bytes_totals = np.zeros((m,), np.int64)
+        # the bytes ledger: learner links, then aggregator uplinks
+        self.link_bytes_totals = np.zeros((self.num_links,), np.int64)
         self.msg_bytes = network.msg_bytes if network is not None else 64
         self.link_payload_bytes = np.full((m,), self.model_bytes, np.int64)
+        if self.tiers is not None:
+            self.link_payload_bytes = np.concatenate([
+                self.link_payload_bytes,
+                np.full((self.tiers.num_clusters,), self.inter_model_bytes,
+                        np.int64)])
 
     @property
     def params(self):
         """The fleet as a stacked (m, ...) tree of views into the plane."""
         return self.adapter.unravel(self.X)
+
+    @property
+    def round_index(self) -> int:
+        """Rounds this engine's sync state has run: the next round's mask
+        and overlay index."""
+        if self.tiers is not None:
+            return self.sync_state.inter.step
+        return self.sync_state.step
+
+    def restore_state(self, params, opt_state, sync_state) -> None:
+        """Put a loaded run back (``repro_torch.checkpoint.io``'s
+        ``load_protocol_state``, or another engine's state): ``params`` a
+        stacked (m, ...) tree, copied into the plane; ``opt_state`` an
+        ``OptState`` over (m, P) planes; ``sync_state`` a ``SyncState``
+        or, under a hierarchy, a ``HierSyncState``. The counters are
+        restored apart, by ``restore_counters``."""
+        if isinstance(sync_state, HierSyncState) != (self.tiers is not None):
+            raise ValueError(
+                f"a {type(sync_state).__name__} does not fit an engine "
+                f"{'with' if self.tiers is not None else 'without'} tiers")
+        self.X.copy_(self.adapter.ravel(params))
+        dev = self.device
+        self.opt_state = OptState(*(
+            x if x is None or isinstance(x, int) else x.to(dev)
+            for x in opt_state))
+        if self.tiers is not None:
+            self.sync_state = HierSyncState(
+                intra=sync_state.intra._replace(
+                    ref=sync_state.intra.ref.to(dev)),
+                inter=sync_state.inter._replace(
+                    ref=sync_state.inter.ref.to(dev)))
+        else:
+            self.sync_state = sync_state._replace(ref=sync_state.ref.to(dev))
 
     def _heterogeneous_plane(self, base, m: int, k_noise, eps: float):
         """The reference's heterogeneous init: learner i's leaf ``li`` (in
@@ -197,12 +292,13 @@ class DecentralizedLearner:
         return self._window_adj[1]
 
     def _round(self, batch, active=None):
-        """One round on the plane; returns (losses (m,) on the device,
-        StageResult). The three layers are named ranges for
+        """One round on the plane; returns (losses (m,) on the device, the
+        round's ``CommRecord``, its (L, 2) per-link counts, whether the
+        gate fired). The three layers are named ranges for
         ``torch.profiler`` (microseconds each when none is active).
         ``active`` is the round's availability mask (None: all
         reachable)."""
-        t = self.sync_state.step                     # this round's index
+        t = self.round_index
         batch = {k: v.to(self.device) for k, v in batch.items()}
         with record_function("round.local_step"):
             grads, losses = self._grad_and_loss(self.params, batch)
@@ -212,17 +308,44 @@ class DecentralizedLearner:
             self.X, self.opt_state = self.opt.update(self.X, self.G,
                                                      self.opt_state)
         with record_function("round.sync"):
-            res = apply_staged(self.spec, self.X, self.sync_state,
-                               self.sample_weights, active=active,
-                               adjacency=self._adjacency(t))
+            if self.tiers is None:
+                res = apply_staged(self.spec, self.X, self.sync_state,
+                                   self.sample_weights, active=active,
+                                   adjacency=self._adjacency(t),
+                                   leaf_sizes=self.adapter.sizes)
+                counts = np.stack([res.xfers, res.link_msgs], axis=-1)
+                checked = res.checked
+            else:
+                # the intra tier runs this engine's (possibly asyncified)
+                # spec, the inter tier tiers.inter
+                res = apply_hierarchical(
+                    self.spec, self.tiers, self.X, self.sync_state,
+                    self.sample_weights, active,
+                    leaf_sizes=self.adapter.sizes)
+                counts = np.stack([
+                    np.concatenate([res.member_xfers, res.agg_xfers]),
+                    np.concatenate([res.member_msgs, res.agg_msgs])], axis=-1)
+                checked = res.checked
         self.X, self.sync_state = res.params, res.state
-        return losses, res
+        return losses, res.rec, counts, checked
+
+    def _timeline(self):
+        """(learners in flight, oldest age) from the trigger-carried state
+        after a round: the async timeline's ``inflight`` and the ``age``
+        or ``staleness`` counters, 0 where the trigger carries none."""
+        extra = (self.sync_state.extra if self.tiers is None
+                 else self.sync_state.intra.extra)
+        inflight = (int(np.count_nonzero(extra["inflight"]))
+                    if "inflight" in extra else 0)
+        age = next((extra[k] for k in ("age", "staleness") if k in extra),
+                   None)
+        return inflight, 0 if age is None else int(np.max(age))
 
     def _run(self, batches, n: int) -> ProtocolMetrics:
         """n rounds, then ONE device-to-host transfer of the losses. The
         chunk's availability masks are drawn before its first round, in
         one call."""
-        t0 = self.sync_state.step
+        t0 = self.round_index
         masks = None
         if self.network is not None and not self.network.full_availability:
             masks = net_availability.sample_rounds(self.network, self.m,
@@ -230,20 +353,27 @@ class DecentralizedLearner:
         losses = torch.empty((n, self.m), dtype=torch.float32,
                              device=self.device)
         comm = np.zeros((n, len(CommRecord._fields)), np.int64)
-        counts = np.zeros((n, self.m, 2), np.int32)
+        counts = np.zeros((n, self.num_links, 2), np.int32)
+        timeline = np.zeros((n, 2), np.int64)
+        checked = np.zeros((n,), bool)
         for i in range(n):
-            li, res = self._round({k: v[i] for k, v in batches.items()},
-                                  None if masks is None else masks[i])
-            losses[i] = li
-            comm[i] = res.rec
-            counts[i, :, 0] = res.xfers
-            counts[i, :, 1] = res.link_msgs
+            losses[i], comm[i], counts[i], checked[i] = self._round(
+                {k: v[i] for k, v in batches.items()},
+                None if masks is None else masks[i])
+            timeline[i] = self._timeline()
         num_active = (np.full((n,), self.m, np.int64) if masks is None
                       else masks.sum(axis=1, dtype=np.int64))
+        m = self.m
         if self.network is not None:
             net_time = net_cost.round_network_time(
-                counts[..., 0], counts[..., 1], self.model_bytes,
+                counts[..., :m, 0], counts[..., :m, 1], self.model_bytes,
                 self._link_bw, self._link_lat)
+            if self.tiers is not None:
+                # the two tiers back to back: members with their
+                # aggregator, then the aggregators with the top coordinator
+                net_time = net_time + net_cost.round_network_time(
+                    counts[..., m:, 0], counts[..., m:, 1],
+                    self.inter_model_bytes, self._agg_bw, self._agg_lat)
         else:
             net_time = np.zeros((n,), np.float32)
         host = torch.cat([losses.sum().reshape(1), losses.sum(dim=0)]).cpu()
@@ -256,14 +386,17 @@ class DecentralizedLearner:
         # the chunk's network time is its f32 sum, as the reference folds it
         self.network_time += float(np.cumsum(net_time, dtype=np.float32)[-1])
         self.active_rounds_total += int(num_active.sum())
-        self.link_xfer_totals += counts[..., 0].sum(axis=0, dtype=np.int64)
+        self.link_xfer_totals += counts[..., :m, 0].sum(axis=0,
+                                                       dtype=np.int64)
         self.link_bytes_totals += self.price_link_counts(
             counts.sum(axis=0, dtype=np.int64))
         return ProtocolMetrics(
             loss_per_learner=losses,
             comm=CommRecord(*(comm[:, j] for j in range(comm.shape[1]))),
-            link_xfers=counts[..., 0], link_counts=counts,
-            num_active=num_active, net_time=net_time)
+            link_xfers=counts[..., :m, 0], link_counts=counts,
+            num_active=num_active, net_time=net_time,
+            num_inflight=timeline[:, 0], max_age=timeline[:, 1],
+            checked=checked)
 
     def step(self, batches) -> ProtocolMetrics:
         """One round. ``batches``: dict with leading (m, B, ...) leaves."""
@@ -272,7 +405,9 @@ class DecentralizedLearner:
             metrics.loss_per_learner[0],
             CommRecord(*(int(c[0]) for c in metrics.comm)),
             metrics.link_xfers[0], metrics.link_counts[0],
-            int(metrics.num_active[0]), metrics.net_time[0])
+            int(metrics.num_active[0]), metrics.net_time[0],
+            int(metrics.num_inflight[0]), int(metrics.max_age[0]),
+            bool(metrics.checked[0]))
 
     def run_chunk(self, batches) -> ProtocolMetrics:
         """n rounds. ``batches``: dict with leading (n, m, B, ...) leaves —
@@ -299,16 +434,66 @@ class DecentralizedLearner:
                 + totals["messages"] * msg_bytes)
 
     def comm_bytes(self, msg_bytes: Optional[int] = None) -> int:
-        """Cumulative communication in bytes (paper's c(f) accounting)."""
+        """Cumulative communication in bytes (paper's c(f) accounting).
+        Under a hierarchy the tiers move different payload sizes, so the
+        total is the bytes ledger's sum (``msg_bytes`` is ignored)."""
+        if self.tiers is not None:
+            return int(self.link_bytes_totals.sum())
         return self.comm_bytes_of(self.comm_totals, msg_bytes)
 
     def per_link_bytes(self) -> np.ndarray:
-        """The bytes ledger: (m,) cumulative int64 bytes each learner link
-        carried — model payloads plus the control messages it sent. For
-        the coordinator protocols ``sum(per_link_bytes()) ==
-        comm_bytes()``; under gossip every transfer occupies both
-        endpoints' links, so the sum is ``2 * comm_bytes()``."""
+        """The bytes ledger: (L,) cumulative int64 bytes each link carried
+        — model payloads at its tier's payload size plus the control
+        messages it sent. Rows ``0..m-1`` are the learner links; under a
+        hierarchy rows ``m..m+g-1`` are the aggregator uplinks. For the
+        coordinator protocols ``sum(per_link_bytes()) == comm_bytes()``;
+        under gossip every transfer occupies both endpoints' links, so the
+        sum is ``2 * comm_bytes()``; under aircomp each member's link
+        carries one analog frame a sync, so it is not c(f)."""
         return self.link_bytes_totals.copy()
+
+    def counters_state(self) -> dict:
+        """JSON-ready snapshot of every cumulative counter, for a
+        checkpoint's ``.counters.json`` (the reference's keys)."""
+        return {
+            "rounds": int(self.rounds),
+            "cumulative_loss": float(self.cumulative_loss),
+            "cumulative_loss_per_learner": [
+                float(x) for x in self.cumulative_loss_per_learner],
+            "comm_totals": {k: int(v) for k, v in self.comm_totals.items()},
+            "network_time": float(self.network_time),
+            "active_rounds_total": int(self.active_rounds_total),
+            "link_xfer_totals": [int(x) for x in self.link_xfer_totals],
+            "link_bytes_totals": [int(x) for x in self.link_bytes_totals],
+        }
+
+    def restore_counters(self, d: dict) -> None:
+        """Restore counters saved by :meth:`counters_state`, with the
+        reference's errors for a snapshot of another fleet."""
+        if len(d["cumulative_loss_per_learner"]) != self.m:
+            raise ValueError(
+                f"counters were saved for m="
+                f"{len(d['cumulative_loss_per_learner'])} learners, "
+                f"this engine has m={self.m}")
+        if len(d["link_bytes_totals"]) != self.num_links:
+            raise ValueError(
+                f"counters were saved for {len(d['link_bytes_totals'])} "
+                f"links, this engine has {self.num_links} (did the "
+                f"hierarchy change?)")
+        unknown = sorted(set(d["comm_totals"]) - set(self.comm_totals))
+        if unknown:
+            raise ValueError(f"unknown comm counters in checkpoint: "
+                             f"{unknown}")
+        self.rounds = int(d["rounds"])
+        self.cumulative_loss = float(d["cumulative_loss"])
+        self.cumulative_loss_per_learner = np.asarray(
+            d["cumulative_loss_per_learner"], np.float32)
+        self.comm_totals = {k: int(v) for k, v in d["comm_totals"].items()}
+        self.network_time = float(d["network_time"])
+        self.active_rounds_total = int(d["active_rounds_total"])
+        self.link_xfer_totals = np.asarray(d["link_xfer_totals"], np.int64)
+        self.link_bytes_totals = np.asarray(
+            d["link_bytes_totals"], np.int64)
 
     def mean_active(self) -> float:
         """Average fraction of the fleet reachable per executed round."""
@@ -317,13 +502,17 @@ class DecentralizedLearner:
         return self.active_rounds_total / (self.rounds * self.m)
 
     def link_class_names(self):
-        """(m,) link-class names matching the ledger's rows, round-robin
-        over ``NetworkConfig.link_classes`` (``"ideal"`` without a
-        network)."""
+        """(L,) link-class names matching the ledger's rows: learner links
+        round-robin over ``NetworkConfig.link_classes`` (``"ideal"``
+        without a network), then a hierarchy's aggregator uplinks."""
         if self.network is None:
-            return ("ideal",) * self.m
-        lc = self.network.link_classes
-        return tuple(lc[i % len(lc)] for i in range(self.m))
+            names = ("ideal",) * self.m
+        else:
+            lc = self.network.link_classes
+            names = tuple(lc[i % len(lc)] for i in range(self.m))
+        if self.tiers is not None:
+            names += (self.tiers.link_class,) * self.tiers.num_clusters
+        return names
 
     def mean_model(self):
         """The fleet's mean model as a parameter tree."""

@@ -11,6 +11,9 @@ the counterpart of ``repro.core.sync.kernel``.
   * ``gossip``      — cadence -> neighborhood -> M–H mix -> mix
                       (coordinator-free, over the network topology)
   * ``stale``       — bounded staleness (``staleness.py``)
+  * ``aircomp``, ``async_periodic``, ``async_dynamic`` — the event-driven
+                      timeline and over-the-air aggregation
+                      (``async_sync.py``)
 
 ``apply_staged`` runs one round on the ``(m, P)`` plane (coordinator
 commits in place) and returns the full ``StageResult``; its
@@ -66,16 +69,19 @@ register_protocol("gossip", ProtocolSpec(name="gossip", trigger="cadence",
 
 
 def apply_staged(proto, X: torch.Tensor, state: SyncState,
-                 weights=None, active=None, adjacency=None) -> StageResult:
+                 weights=None, active=None, adjacency=None,
+                 leaf_sizes=None) -> StageResult:
     """Run one round of the configured protocol (a ``ProtocolConfig`` or a
     ``ProtocolSpec``) on the (m, P) plane ``X``, which coordinator
     commits update in place. ``weights`` (the B^i) are dropped unless the
-    spec says ``weighted``."""
+    spec says ``weighted``; ``leaf_sizes`` (the model's leaves in plane
+    order) feed the tree layout's per-leaf aircomp noise."""
     spec = resolve_spec(proto)
     if not spec.param("weighted"):
         weights = None
     return spec.compile()(X, state, weights, active=active,
-                          adjacency=adjacency)
+                          adjacency=adjacency, leaf_sizes=leaf_sizes)
 
 
 from repro_torch.core.sync import staleness  # noqa: E402,F401  ("stale")
+from repro_torch.core.sync import async_sync  # noqa: E402,F401  (presets)

@@ -19,13 +19,16 @@ Stage contracts, on the flat fleet plane:
   only when ``nhot > 0``. A trigger owns its extra carried state
   (``SyncState.extra``): ``init_extra(params, m)``, ``commit_extra(ctx,
   mask)`` after a sync (``mask`` is the committed cohort) and
-  ``skip_extra(ctx)`` in any round without one.
+  ``skip_extra(ctx)`` in any round without one (after a condition that
+  marked nobody, ``ctx.cond_aux`` holds its extras).
 * **cohort** — ``fn(ctx, hot, nhot, key) -> CohortOut``: WHO
   participates; a cohort that draws (FedAvg's fraction, the balancing
   augmentation) splits the round's PRNG key and carries the rest
   forward in ``CohortOut.key``. It declares ``uses_overlay`` (it needs
   the peer adjacency) and ``uses_coordinator`` (star traffic to a hub).
-* **aggregate** — ``fn(ctx, cohort_out) -> (P,) row``: WHAT they agree on.
+* **aggregate** — ``fn(ctx, cohort_out) -> (P,) row``: WHAT they agree on;
+  an aggregate a hierarchy may run also registers its ``batched`` form,
+  one call for every cluster of the intra tier.
 * **commit** — ``fn(ctx, cohort_out, aggregate, hot, nhot) -> SyncOut``:
   APPLY the agreement to the plane and ACCOUNT for it.
 
@@ -41,7 +44,7 @@ Queue A 20).
 from __future__ import annotations
 
 from types import MappingProxyType
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,13 +79,15 @@ class CommRecord(NamedTuple):
 
 class StageResult(NamedTuple):
     """One staged round's output: the committed plane, the carried sync
-    state, the comm record, and the per-link counts (model transfers and
-    control messages) the bytes ledger prices."""
+    state, the comm record, the per-link counts (model transfers and
+    control messages) the bytes ledger prices, and whether the trigger's
+    gate fired (a conditional trigger then ran its condition)."""
     params: torch.Tensor     # the (m, P) plane
     state: SyncState
     rec: CommRecord
     xfers: np.ndarray        # (m,) int32 models crossing each learner's link
     link_msgs: np.ndarray    # (m,) int32 control messages per learner link
+    checked: bool = False    # the gate fired this round
 
 
 class StageCtx(NamedTuple):
@@ -91,7 +96,11 @@ class StageCtx(NamedTuple):
     trigger's (m,) distances, reused as the balancing priority.
     ``active`` is the round's availability mask (None on an ideal
     network, which keeps the pre-network expressions) and ``reach`` the
-    same mask with None read as all True."""
+    same mask with None read as all True. ``dists`` returns the host (m,)
+    f32 distances of this plane's rows to its reference (None: one
+    ``sqdist_rows`` pass, ``stages.host_dists``); a hierarchy hands each
+    cluster a slice of one grouped pass. ``leaf_sizes`` are the model's
+    leaf sizes in plane order (the tree layout's per-leaf noise)."""
     params: Dict[str, Any]               # the spec's resolved params
     flat: torch.Tensor                   # (m, P) plane
     ref_flat: torch.Tensor               # (P,) reference row
@@ -103,6 +112,8 @@ class StageCtx(NamedTuple):
     cond_aux: Any = None
     active: Optional[np.ndarray] = None  # (m,) reachability, None = ideal
     adjacency: Optional[np.ndarray] = None   # (m, m) peer overlay or None
+    dists: Optional[Callable[[], np.ndarray]] = None
+    leaf_sizes: Optional[Tuple[int, ...]] = None
 
 
 class CohortOut(NamedTuple):
@@ -176,6 +187,8 @@ class AggregateStage(NamedTuple):
     needs: frozenset
     params: Dict[str, Any]
     validate: Optional[Callable]
+    batched: Optional[Callable]       # the same over a cluster batch:
+    #   ctx.flat (g, k, P), masks and weights (g, k) -> (g, P) rows
 
 
 class CommitStage(NamedTuple):
@@ -236,11 +249,12 @@ def register_cohort(name: str, *, provides=(), uses_overlay: bool = False,
 
 def register_aggregate(name: str, *, needs=(),
                        params: Optional[Dict[str, Any]] = None,
-                       validate: Optional[Callable] = None):
+                       validate: Optional[Callable] = None,
+                       batched: Optional[Callable] = None):
     def deco(fn: Callable) -> Callable:
         _enter(AGGREGATES, "aggregate", name, AggregateStage(
             name=name, fn=fn, needs=frozenset(needs),
-            params=dict(params or {}), validate=validate))
+            params=dict(params or {}), validate=validate, batched=batched))
         return fn
     return deco
 
@@ -295,9 +309,6 @@ def register_protocol(name: str, spec) -> None:
 
 # kinds the reference registers that later slices of the port bring
 NOT_PORTED = {
-    "aircomp": "ROADMAP Queue A 16 (core/sync/async_sync.py)",
-    "async_periodic": "ROADMAP Queue A 16 (core/sync/async_sync.py)",
-    "async_dynamic": "ROADMAP Queue A 16 (core/sync/async_sync.py)",
     "robust_periodic": "ROADMAP Queue A 17 (core/sync/robust.py)",
     "robust_dynamic": "ROADMAP Queue A 17 (core/sync/robust.py)",
 }

@@ -7,8 +7,10 @@ stages — the counterpart of ``repro.core.sync.spec``.
 
 A spec names one stage per slot (``registry.py``), carries the stages'
 static parameters, validates the composition at construction with the
-reference's errors, and ``compile()``s into the round function the
-engine runs: ``(X, state, weights) -> StageResult``.
+reference's errors, ``compile()``s into the round function the engine
+runs: ``(X, state, weights) -> StageResult``, and serializes to the
+reference's JSON (``to_dict``/``to_json``, ``from_dict``/``from_json``:
+the same text for the same spec, as a checkpoint's sidecar needs).
 
 Departures from the reference: the round runs eagerly, and its control
 flow is host Python: the gate ``t % b == 0`` is decided on the host (the
@@ -19,12 +21,14 @@ plane is the only arithmetic: ``layout`` defaults to ``"flat"``, and
 the reference holds its tree layout to its flat one (comm exact,
 parameters within rtol 2e-4, ``tests/test_flatten.py``), so a tree spec
 here gives the flat results; ``"sharded"`` raises
-``NotImplementedError``.
+``NotImplementedError`` (its ``shard_devices`` parameter is known, so
+the reference's specs load).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -37,7 +41,7 @@ from repro_torch.core.sync.registry import (
 
 # parameters every spec understands regardless of its stages
 GLOBAL_PARAMS: Dict[str, Any] = {"weighted": False, "bytes_per_param": 4,
-                                 "layout": "flat"}
+                                 "layout": "flat", "shard_devices": 0}
 
 # the reference's layouts; "tree" and "flat" both run on the plane
 LAYOUTS = ("tree", "flat", "sharded")
@@ -47,7 +51,8 @@ NOT_PORTED_LAYOUTS = {
 
 # the ProtocolConfig fields that overlay onto a preset's params
 _CONFIG_PARAM_FIELDS = ("b", "delta", "fedavg_c", "augmentation",
-                        "weighted", "bytes_per_param", "layout")
+                        "weighted", "bytes_per_param", "layout",
+                        "shard_devices")
 
 
 def _canonical(v):
@@ -176,6 +181,12 @@ class ProtocolSpec:
             raise ValueError(
                 f"layout must be one of {LAYOUTS}, got "
                 f"{resolved['layout']!r}")
+        if not (isinstance(resolved["shard_devices"], int)
+                and not isinstance(resolved["shard_devices"], bool)
+                and resolved["shard_devices"] >= 0):
+            raise ValueError(
+                f"shard_devices must be an int >= 0 (0 = all visible "
+                f"devices), got {resolved['shard_devices']!r}")
         for rec in (trig, coh, agg, com):
             if rec.validate is not None:
                 rec.validate(resolved)
@@ -183,6 +194,40 @@ class ProtocolSpec:
             raise NotImplementedError(
                 f"layout {resolved['layout']!r} is not ported yet: "
                 f"{NOT_PORTED_LAYOUTS[resolved['layout']]}")
+
+    # ---- serialization -----------------------------------------------
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "name": self.name,
+            "trigger": self.trigger,
+            "cohort": self.cohort,
+            "aggregate": self.aggregate,
+            "commit": self.commit,
+            "params": dict(self.params),
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ProtocolSpec":
+        allowed = {"name", "trigger", "cohort", "aggregate", "commit",
+                   "params"}
+        unknown = set(d) - allowed
+        if unknown:
+            raise ValueError(
+                f"unknown ProtocolSpec keys {sorted(unknown)}; "
+                f"schema: {sorted(allowed)}")
+        if "trigger" not in d:
+            raise ValueError("a ProtocolSpec dict needs at least 'trigger'")
+        kw = dict(d)
+        # JSON has no tuples; params may round-trip as a dict (canonical)
+        kw["params"] = dict(kw.get("params", {}))
+        return cls(**kw)
+
+    def to_json(self, indent: int = 1) -> str:
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ProtocolSpec":
+        return cls.from_dict(json.loads(s))
 
     # ---- compilation -------------------------------------------------
     def compile(self):
@@ -209,47 +254,55 @@ def _compiled_round(spec: ProtocolSpec):
               extra = trigger.skip_extra(ctx)
 
     ``active`` is the round's (m,) availability mask (None: the ideal
-    network) and ``adjacency`` the (m, m) peer overlay of a spec that
-    ``uses_overlay``."""
+    network), ``adjacency`` the (m, m) peer overlay of a spec that
+    ``uses_overlay``, ``dists`` and ``leaf_sizes`` as ``StageCtx``'s."""
     trig, coh, agg, com = spec.stage_records()
     p = spec.resolved_params()
+    fire = trigger_fire(trig)
 
     def round_fn(X, state, weights=None, active: Optional[np.ndarray] = None,
-                 adjacency: Optional[np.ndarray] = None) -> StageResult:
+                 adjacency: Optional[np.ndarray] = None, dists=None,
+                 leaf_sizes=None) -> StageResult:
         m = X.shape[0]
         t = state.step + 1
         reach = np.ones((m,), bool) if active is None else active
         ctx = StageCtx(params=p, flat=X, ref_flat=state.ref, state=state,
                        weights=weights, m=m, t=t, reach=reach,
-                       active=active, adjacency=adjacency)
-
-        def pipeline(ctx, hot, nhot):
+                       active=active, adjacency=adjacency, dists=dists,
+                       leaf_sizes=leaf_sizes)
+        checked, runs, ctx, hot, nhot = fire(ctx)
+        if runs:
             cout = coh.fn(ctx, hot, nhot, state.key)
             out = com.fn(ctx, cout, agg.fn(ctx, cout), hot, nhot)
-            return out, trig.commit_extra(ctx, cout.mask)
-
-        # a round whose pipeline does not run leaves the key untouched
-        out = None
-        if trig.gate(ctx):
-            if trig.condition is None:
-                out, extra = pipeline(ctx, reach, None)
-            else:
-                cond = trig.condition(ctx)
-                hot, nhot = cond[0], cond[1]
-                if nhot > 0:
-                    if len(cond) > 2:    # condition extras -> downstream
-                        ctx = ctx._replace(cond_aux=cond[2])
-                    out, extra = pipeline(ctx, hot, nhot)
-        if out is None:
+            extra = trig.commit_extra(ctx, cout.mask)
+        else:   # a round whose pipeline does not run keeps the key
             out = SyncOut(X, state.ref, state.v, state.key,
                           CommRecord.zero(), _zeros_i32(m), _zeros_i32(m))
             extra = trig.skip_extra(ctx)
         new_state = state._replace(ref=out.ref, v=out.v, step=t,
                                    key=out.key, extra=extra)
         return StageResult(out.params, new_state, out.rec, out.xfers,
-                           out.link_msgs)
+                           out.link_msgs, checked)
 
     return round_fn
+
+
+def trigger_fire(trig):
+    """The trigger half of a round, ``ctx -> (checked, runs, ctx, hot,
+    nhot)``: whether the gate fired, whether the pipeline runs, the
+    context with the condition's extras in ``cond_aux``, and the hot
+    learners. An unconditional trigger runs the pipeline whenever its
+    gate fires, with every reachable learner hot and ``nhot`` None."""
+    def fire(ctx):
+        if not trig.gate(ctx):
+            return False, False, ctx, None, None
+        if trig.condition is None:
+            return True, True, ctx, ctx.reach, None
+        cond = trig.condition(ctx)
+        if len(cond) > 2:        # condition extras -> downstream stages
+            ctx = ctx._replace(cond_aux=cond[2])
+        return True, cond[1] > 0, ctx, cond[0], cond[1]
+    return fire
 
 
 @functools.lru_cache(maxsize=None)
@@ -258,7 +311,9 @@ def _resolve_config(proto) -> ProtocolSpec:
     known = preset.known_params
     # params a preset pins explicitly win over the config overlay
     pinned = dict(preset.params)
-    overrides = {f: getattr(proto, f) for f in _CONFIG_PARAM_FIELDS
+    # the port's config has no ``shard_devices`` (ROADMAP Queue A 19): it
+    # overlays the reference's default 0, so both packages write one JSON
+    overrides = {f: getattr(proto, f, 0) for f in _CONFIG_PARAM_FIELDS
                  if f in known and f not in pinned}
     return preset.with_params(**overrides)
 

@@ -79,6 +79,28 @@ def flat_aggregate_mean(X: torch.Tensor, mask: np.ndarray,
     return flat_weighted_mean(X, w)
 
 
+def batched_aggregate_mean(X: torch.Tensor, mask: np.ndarray,
+                           weights=None) -> torch.Tensor:
+    """``flat_aggregate_mean`` for every cluster at once: X (g, k, P),
+    mask and weights (g, k) -> (g, P), one batched matvec. A cluster
+    with no weight gets the zero row."""
+    w = _on(mask, X)
+    if weights is not None:
+        w = w * weights.to(X.dtype)
+    wsum = torch.sum(w, dim=1, keepdim=True)
+    denom = torch.where(wsum > 0, wsum, torch.ones_like(wsum))
+    return torch.bmm(w[:, None, :], X)[:, 0] / denom
+
+
+def host_dists(ctx: StageCtx) -> np.ndarray:
+    """The (m,) f32 distances ``||f_i - r||^2`` of the round's plane on
+    the host: the context's own (a cluster's slice of one grouped pass),
+    or one ``sqdist_rows`` pass and one fetch."""
+    if ctx.dists is not None:
+        return ctx.dists()
+    return per_learner_sq_distance_flat(ctx.flat, ctx.ref_flat).cpu().numpy()
+
+
 def _safe_dist(s: torch.Tensor, ws: torch.Tensor,
                ref: torch.Tensor) -> np.float32:
     """``||s / ws - r||^2`` (the zero row for ws = 0), read back to the
@@ -248,8 +270,7 @@ def _divergence_condition(ctx: StageCtx):
     """Which reachable learners violate ``||f_i - r||^2 > Delta``; the f32
     compare runs on the host copy of the kernel's distances, which also
     serve as the balancing priority."""
-    dists = per_learner_sq_distance_flat(ctx.flat, ctx.ref_flat)
-    dists = dists.cpu().numpy()
+    dists = host_dists(ctx)
     violated = (dists > np.float32(ctx.params["delta"])) & ctx.reach
     return violated, int(violated.sum()), {"dists": dists}
 
@@ -304,8 +325,7 @@ def cohort_balanced_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
     dists = (ctx.cond_aux or {}).get("dists")
     if dists is None and ctx.params["augmentation"] == "max_distance":
         # a trigger without distances (staleness): one monitoring pass
-        dists = per_learner_sq_distance_flat(ctx.flat, ctx.ref_flat)
-        dists = dists.cpu().numpy()
+        dists = host_dists(ctx)
     mask = cohort_balanced_flat(
         ctx.params["delta"], ctx.params["augmentation"], ctx.flat,
         ctx.ref_flat, base, sub, ctx.weights, ctx.reach, dists)
@@ -330,7 +350,15 @@ def cohort_neighborhood_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
 
 # ---- aggregates -----------------------------------------------------------
 
-@register_aggregate("mean")
+def aggregate_mean_batched(ctx: StageCtx, cout: CohortOut) -> torch.Tensor:
+    """The mean stage for every cluster of a hierarchy's intra tier:
+    ``ctx.flat`` (g, k, P), ``cout.mask`` (g, k) -> (g, P)."""
+    if cout.ideal and ctx.weights is None:
+        return torch.mean(ctx.flat, dim=1)
+    return batched_aggregate_mean(ctx.flat, cout.mask, ctx.weights)
+
+
+@register_aggregate("mean", batched=aggregate_mean_batched)
 def aggregate_mean_stage(ctx: StageCtx, cout: CohortOut) -> torch.Tensor:
     """The cohort's (weighted) mean: a plain row mean for the unweighted
     full fleet, else one masked matvec."""

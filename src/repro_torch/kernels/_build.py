@@ -41,7 +41,7 @@ _ERR = {"repro_cuda_error_string": (ctypes.c_char_p, [_I])}
 SIGNATURES = {
     "sqdist": {
         "repro_sqdist_rows": (_I, [_I, _P, _P, _P, _P, _P, _LL, _LL, _LL,
-                                   _I, _P]),
+                                   _I, _LL, _P]),
         **_ERR,
     },
     "rmsnorm": {

@@ -1,7 +1,11 @@
 // Row-wise squared distance to a reference row, for Hopper (sm_90a).
 //
-//   out[i] = sum_j (x[i, j] - r[j])^2      x (m, P), r (P,), out (m,) f32
+//   out[i] = sum_j (x[i, j] - r[i / k, j])^2
+//            x (m, P), r (g, P) with k = m / g rows per group, out (m,) f32
 //
+// g = 1 (k = m) is every row against one reference; g > 1 is a fleet of
+// g clusters, each row against its own cluster's reference, in the same
+// single launch (the reference runs jax.vmap over the Pallas kernel).
 // Replaces the Pallas kernels of src/repro/kernels/sqdist.py:
 // sqdist_rows (_sqdist_rows_kernel) and, with m = 1, sqdist
 // (_sqdist_kernel). These distances are every learner's local condition
@@ -16,8 +20,8 @@
 //
 // Design: a deterministic reduction in ONE launch, no atomics in any sum,
 // so the same inputs give the same bits on every run (the threshold
-// compare must be reproducible). Grid (m, S): block (i, s) reduces columns
-// [s*seg, (s+1)*seg) of row i in f32 -- each thread a fixed strided
+// compare must be reproducible). Grid (k, S, g): block (i, s, c) reduces
+// columns [s*seg, (s+1)*seg) of row c*k + i in f32 -- each thread a fixed strided
 // subset in a fixed order, then warp shuffles, then shared memory -- and
 // writes partial[i, s]. The S column splits let m*S fill the SMs several
 // times over even when the fleet has few rows. Then the block makes its
@@ -32,6 +36,10 @@
 // Loads are plain coalesced scalar loads: a row of the mnist_cnn plane
 // has P = 1,199,882 = 2 (mod 4) elements, so every odd row starts 8
 // bytes off a 16-byte boundary and a float4 load there would fault.
+// The group is the grid's z index (grid (k, S, g)), so a block finds its
+// row and its reference row without a division. g = 1 launches the
+// ungrouped instantiation (kGrouped = false): the earlier kernel's code,
+// blocks and bits; the grouped one differs only in those two offsets.
 // Rows must be contiguous; the Python wrapper checks that.
 
 #include <cuda_bf16.h>
@@ -68,18 +76,21 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-template <typename T>
+template <typename T, bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
     sqdist_kernel(const T* __restrict__ x, const T* __restrict__ r,
                   float* __restrict__ partial, float* __restrict__ out,
                   unsigned int* __restrict__ tickets, int64_t P,
                   int64_t seg) {
-  const int64_t row = blockIdx.x;
+  const int64_t row =
+      kGrouped ? static_cast<int64_t>(blockIdx.z) * gridDim.x + blockIdx.x
+               : static_cast<int64_t>(blockIdx.x);
   const int64_t split = blockIdx.y;
   const int S = static_cast<int>(gridDim.y);
   const int64_t begin = split * seg;
   const int64_t end = begin + seg < P ? begin + seg : P;
   const T* __restrict__ xr = x + row * P;
+  if (kGrouped) r += static_cast<int64_t>(blockIdx.z) * P;  // its reference
 
   float acc[kUnroll] = {0.0f, 0.0f, 0.0f, 0.0f};
   int64_t j = begin + threadIdx.x;
@@ -119,23 +130,31 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and r share it). partial is an
-// (m, S) f32 scratch buffer, out the m f32 results, tickets m counters
-// that read 0 (the kernel leaves them at 0); seg * S >= P. One launch.
-// Returns its CUDA error code (0 = cudaSuccess).
+// dtype: 0 = float32, 1 = bfloat16 (x and r share it). r holds m / k
+// reference rows, row i of x is held against r row i / k (k = m: one
+// reference). partial is an (m, S) f32 scratch buffer, out the m f32
+// results, tickets m counters that read 0 (the kernel leaves them at 0);
+// seg * S >= P. One launch. Returns its CUDA error code (0 = cudaSuccess).
 extern "C" int repro_sqdist_rows(int dtype, const void* x, const void* r,
                                  float* partial, float* out,
                                  unsigned int* tickets, long long m,
                                  long long P, long long seg, int S,
-                                 void* stream) {
+                                 long long k, void* stream) {
+  if (k < 1 || m % k != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(m), static_cast<unsigned>(S));
+  const dim3 grid(static_cast<unsigned>(k), static_cast<unsigned>(S),
+                  static_cast<unsigned>(m / k));
+  const bool grouped = k != m;
   if (dtype == 0) {
-    sqdist_kernel<float><<<grid, kThreads, 0, s>>>(
+    auto* kernel =
+        grouped ? sqdist_kernel<float, true> : sqdist_kernel<float, false>;
+    kernel<<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(r), partial,
         out, tickets, P, seg);
   } else if (dtype == 1) {
-    sqdist_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+    auto* kernel = grouped ? sqdist_kernel<__nv_bfloat16, true>
+                           : sqdist_kernel<__nv_bfloat16, false>;
+    kernel<<<grid, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(r), partial, out, tickets, P, seg);
   } else {

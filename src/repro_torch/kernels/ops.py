@@ -7,12 +7,16 @@ runs the plain version (``repro_torch.kernels.ref``). There is no
 fallback: a kernel that fails to build or launch raises.
 
 ``LAUNCHES`` counts kernel launches by kernel, so a run can show that
-its main path went through the kernels; ``reset_launches`` zeroes it.
+its main path went through the kernels, and ``ROWS_LAUNCHES`` splits the
+``sqdist_rows`` count by ``(m, P, g)`` (g reference rows: 1, or a
+hierarchy's clusters); ``reset_launches`` zeroes both.
 ``flash_attention`` and its GQA front end ``flash_attention_gqa`` launch
 the same kernel and count under ``"flash_attention"``. Plain-version
 calls are not counted.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 import torch.nn.functional as F
@@ -26,11 +30,13 @@ from repro_torch.kernels import swa_attention as _swa
 
 LAUNCHES = {"sqdist_rows": 0, "sqdist": 0, "rmsnorm": 0,
             "flash_attention": 0, "swa_attention": 0, "ssd_scan": 0}
+ROWS_LAUNCHES: Counter = Counter()
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    ROWS_LAUNCHES.clear()
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -39,11 +45,14 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 
 def sqdist_rows(X: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Batched local condition over the flat fleet plane:
-    ``(m, P) x (P,) -> (m,)`` row-wise squared distances in f32."""
+    ``(m, P) x (P,) -> (m,)`` row-wise squared distances in f32; with r
+    ``(g, P)`` every row against its cluster's reference row (g equal
+    clusters of consecutive rows), in the same one launch."""
     if _on_cpu(X, r):
         return ref.sqdist_rows_ref(X, r)
     out = _sqdist.sqdist_rows(X, r)
     LAUNCHES["sqdist_rows"] += 1
+    ROWS_LAUNCHES[(*X.shape, 1 if r.dim() == 1 else r.shape[0])] += 1
     return out
 
 

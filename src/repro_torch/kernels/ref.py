@@ -25,7 +25,12 @@ def sqdist_ref(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 
 def sqdist_rows_ref(X: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Row-wise ||X[i] - r||^2 in f32: X (m, P), r (P,) -> (m,)."""
+    """Row-wise ||X[i] - r||^2 in f32: X (m, P), r (P,) -> (m,); with r
+    (g, P), g dividing m, row i against r[i // (m // g)]."""
+    if r.dim() == 2:
+        g, P = r.shape
+        d = X.float().view(g, -1, P) - r.float()[:, None]
+        return torch.sum(d * d, dim=2).reshape(-1)
     d = X.float() - r.float()[None]
     return torch.sum(d * d, dim=1)
 

@@ -3,8 +3,10 @@
 
 ``sqdist_rows`` launches ``csrc/sqdist.cu``: ``(m, P) x (P,) -> (m,)``
 f32, the whole fleet's local conditions ||f_i - r||^2 in one pass over
-the plane. ``sqdist`` is the same kernel with m = 1 and returns a 0-d
-tensor. The Pallas versions tile for the TPU's sequential grid (a
+the plane; or ``(m, P) x (g, P) -> (m,)``, a fleet of g equal clusters,
+row i against its cluster's reference ``r[i // (m / g)]``, in the same
+one launch (a hierarchy's intra tier). ``sqdist`` is the same kernel
+with m = 1 and returns a 0-d tensor. The Pallas versions tile for the TPU's sequential grid (a
 ``block_m`` fallback and a jnp tail); this kernel splits columns across
 blocks instead, and the last block of each row, chosen by a ticket
 counter, sums the row's partials in a fixed order: one launch per call
@@ -35,6 +37,7 @@ _MIN_SEG = _THREADS * 4         # one unrolled sweep of the block
 _MAX_SEG = _THREADS * 4 * 16    # longer segments leave SMs idle
 _BLOCKS_PER_SM = 2048 // _THREADS
 _MAX_SPLITS = 65535             # grid.y limit
+_MAX_GROUPS = 65535             # grid.z limit
 _SCRATCH: dict = {}             # (device index, stream) -> scratch buffers
 
 
@@ -82,9 +85,10 @@ def _scratch(device: torch.device, stream: int, m: int, S: int) -> tuple:
 
 
 def _launch(name: str, X: torch.Tensor, r: torch.Tensor, m: int, P: int,
-            shape: tuple) -> torch.Tensor:
+            shape: tuple, k: int) -> torch.Tensor:
     """Check what the kernel cannot take, then launch it once on
-    ``m`` rows of ``P`` into a new f32 tensor of ``shape`` (m elements)."""
+    ``m`` rows of ``P``, ``k`` rows per reference row, into a new f32
+    tensor of ``shape`` (m elements)."""
     if not (X.is_cuda and r.is_cuda and X.device == r.device):
         raise ValueError(
             f"{name} runs on one CUDA device: inputs on {X.device} and "
@@ -112,7 +116,7 @@ def _launch(name: str, X: torch.Tensor, r: torch.Tensor, m: int, P: int,
     partial, tickets = _scratch(device, stream, m, S)
     out = torch.empty(shape, dtype=torch.float32, device=device)
     code = lib.repro_sqdist_rows(dtype, X.data_ptr(), r.data_ptr(), partial,
-                                 out.data_ptr(), tickets, m, P, seg, S,
+                                 out.data_ptr(), tickets, m, P, seg, S, k,
                                  stream)
     _build.check(lib, code, f"{name} launch")
     return out
@@ -120,13 +124,17 @@ def _launch(name: str, X: torch.Tensor, r: torch.Tensor, m: int, P: int,
 
 def sqdist_rows(X: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Row-wise ``||X[i] - r||^2``: X ``(m, P)``, r ``(P,)`` -> ``(m,)``
-    f32, on the card."""
-    if X.dim() != 2 or r.dim() != 1 or X.shape[1] != r.shape[0]:
+    f32, on the card; with r ``(g, P)``, g dividing m, row i is held
+    against ``r[i // (m // g)]``."""
+    if (X.dim() != 2 or r.dim() not in (1, 2) or X.shape[1] != r.shape[-1]
+            or (r.dim() == 2 and not (1 <= r.shape[0] <= _MAX_GROUPS
+                                      and X.shape[0] % r.shape[0] == 0))):
         raise ValueError(
-            f"sqdist_rows needs X (m, P) and r (P,): got {tuple(X.shape)} "
-            f"and {tuple(r.shape)}")
+            f"sqdist_rows needs X (m, P) and r (P,) or (g, P) with g "
+            f"dividing m: got {tuple(X.shape)} and {tuple(r.shape)}")
     m, P = X.shape
-    return _launch("sqdist_rows", X, r, m, P, (m,))
+    k = m if r.dim() == 1 else m // r.shape[0]
+    return _launch("sqdist_rows", X, r, m, P, (m,), k)
 
 
 def sqdist(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -137,4 +145,4 @@ def sqdist(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"sqdist needs same-shape inputs: {tuple(x.shape)} vs "
             f"{tuple(r.shape)}")
-    return _launch("sqdist", x, r, 1, x.numel(), ())
+    return _launch("sqdist", x, r, 1, x.numel(), (), 1)

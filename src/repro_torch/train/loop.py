@@ -11,9 +11,11 @@ the reference's order, and ``Trajectory.drift_rounds`` records the
 rounds where one happened. ``run_drift_segments`` runs known drift
 rounds instead, as the drift figures do. With ``network=`` the learners
 run inside the simulated network, and ``Trajectory.network_time``
-records the cumulative simulated seconds.
+records the cumulative simulated seconds; ``async_net=`` runs the
+event-driven timeline; a protocol with ``tiers`` runs the two-tier
+hierarchy, whose byte curve is the per-round ledger priced per tier.
 
-Departures: no async/fault/telemetry configs; ``device`` defaults to
+Departures: no fault/telemetry configs; ``device`` defaults to
 ``"cuda"``.
 """
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-from repro_torch.config import NetworkConfig, TrainConfig
+from repro_torch.config import AsyncConfig, NetworkConfig, TrainConfig
 from repro_torch.core.protocol import DecentralizedLearner
 from repro_torch.core.sync.registry import CommRecord
 from repro_torch.data.pipeline import LearnerStreams
@@ -94,17 +96,19 @@ def run_protocol_training(
     init_heterogeneity: float = 0.0,
     chunk_size: int = DEFAULT_CHUNK,
     network: Optional[NetworkConfig] = None,
+    async_net: Optional[AsyncConfig] = None,
     device="cuda",
 ) -> tuple:
     """Returns (learner, trajectory). The data source must live on the
     learner's device; ``network`` runs the fleet inside the simulated
-    network environment."""
+    network environment, ``async_net`` on its event-driven timeline."""
     streams = LearnerStreams(source, m, batch=batch, seed=seed,
                              batch_sizes=batch_sizes)
     dl = DecentralizedLearner(
         loss_fn, init_fn, m, protocol, train, seed=seed,
         init_heterogeneity=init_heterogeneity,
-        sample_weights=streams.weights, network=network, device=device)
+        sample_weights=streams.weights, network=network,
+        async_net=async_net, device=device)
     if streams.device != dl.device:
         raise ValueError(
             f"the data source is on {streams.device}, the learners on "
@@ -123,6 +127,7 @@ def run_protocol_training(
         base_loss = dl.cumulative_loss
         base_totals = dict(dl.comm_totals)
         base_net_time = dl.network_time
+        base_ledger = int(dl.link_bytes_totals.sum())
         metrics = dl.run_chunk(streams.next_chunk(
             n, on_round=on_round if drifting else None))
         loss_cum = base_loss + np.cumsum(
@@ -131,6 +136,10 @@ def run_protocol_training(
         comm_cum = {k: base_totals[k] + np.cumsum(
             np.asarray(getattr(metrics.comm, k), np.int64))
             for k in CommRecord._fields}
+        # under a hierarchy the tiers move different payload sizes: the
+        # byte curve is the per-round ledger, priced per link
+        ledger_cum = base_ledger + np.cumsum(dl.price_link_counts(
+            np.asarray(metrics.link_counts, np.int64)).sum(axis=1))
         net_cum = base_net_time + np.cumsum(
             np.asarray(metrics.net_time, np.float64))
         for i in range(n):
@@ -138,8 +147,10 @@ def run_protocol_training(
             if (g + 1) % record_every == 0 or g == rounds - 1:
                 traj.rounds.append(g + 1)
                 traj.cumulative_loss.append(float(loss_cum[i]))
-                traj.cumulative_bytes.append(dl.comm_bytes_of(
-                    {k: int(v[i]) for k, v in comm_cum.items()}))
+                traj.cumulative_bytes.append(
+                    int(ledger_cum[i]) if dl.tiers is not None
+                    else dl.comm_bytes_of(
+                        {k: int(v[i]) for k, v in comm_cum.items()}))
                 traj.syncs.append(int(comm_cum["syncs"][i]))
                 traj.network_time.append(float(net_cum[i]))
         t += n

@@ -127,6 +127,102 @@ def test_kernel_rejects_what_it_does_not_take():
         sqdist.sqdist_rows(X, torch.randn(10))
 
 
+def _grouped(g, k, n, dtype="float32", seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7 * g + n)
+    X = torch.randn((g * k, n), generator=gen, device="cuda")
+    R = torch.randn((g, n), generator=gen, device="cuda")
+    return X.to(DTYPES[dtype]), R.to(DTYPES[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(1, 1), (17, 515), (10, 348_219),
+                                 (100, 1_199_882)])
+def test_grouped_sqdist_with_one_group_is_the_ungrouped_call(m, n):
+    """g = 1 only offsets the reference by 0: the bits of today's call."""
+    _need_card()
+    for dtype in DTYPES:
+        X, r = _inputs(m, n, dtype)
+        assert torch.equal(sqdist.sqdist_rows(X, r[None]),
+                           sqdist.sqdist_rows(X, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("g,k,n", [(2, 3, 7), (2, 50, 1_199_882),
+                                   (10, 10, 1_199_882), (10, 1, 348_219),
+                                   (10, 3, 515)])
+def test_grouped_sqdist_matches_plain_and_repeats_bitwise(g, k, n, dtype):
+    """Every row against its cluster's reference, odd P included, in one
+    launch; repeated calls give the same bits."""
+    _need_card()
+    X, R = _grouped(g, k, n, dtype)
+    a, b = sqdist.sqdist_rows(X, R), sqdist.sqdist_rows(X, R)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and a.shape == (g * k,)
+    torch.testing.assert_close(a, ref.sqdist_rows_ref(X, R), **TOL)
+    for c in range(g):    # the same bits as that cluster's own call
+        rows = slice(c * k, (c + 1) * k)
+        torch.testing.assert_close(
+            a[rows], sqdist.sqdist_rows(X[rows].contiguous(), R[c]), **TOL)
+
+
+@pytest.mark.cuda
+def test_grouped_sqdist_is_one_launch_per_call_and_counted():
+    _need_card()
+    X, R = _grouped(10, 10, 1_199_882)
+    per_call, names = _cuda_launches(lambda: sqdist.sqdist_rows(X, R))
+    assert per_call == 1 and all("sqdist_kernel" in k for k in names)
+    ops.reset_launches()
+    ops.sqdist_rows(X, R)
+    ops.sqdist_rows(X.cpu(), R.cpu())
+    assert ops.LAUNCHES["sqdist_rows"] == 1
+    with pytest.raises(ValueError, match="g dividing m"):
+        sqdist.sqdist_rows(X[:99], R)
+
+
+@pytest.mark.cuda
+def test_hierarchical_round_on_the_card_equals_the_cpu():
+    """One masked two-tier dynamic round at m = 100, g = 10 on the card and
+    on the CPU: the same records, per-link counts, counters and keys, one
+    grouped launch for the intra tier and one for the inter tier."""
+    _need_card()
+    import numpy as np
+    from repro_torch.config import (
+        HierarchyConfig, NetworkConfig, ProtocolConfig,
+    )
+    from repro_torch.core.sync import hierarchy
+    from repro_torch.device import resolve_device
+    from repro_torch.network import availability
+
+    resolve_device("cuda")
+    m, g, P = 100, 10, 20_011
+    gen = torch.Generator().manual_seed(3)
+    base = torch.randn((P,), generator=gen)
+    scale = torch.linspace(0.0, 0.4, m)[:, None]
+    X = base + scale * torch.randn((m, P), generator=gen) / P ** 0.5
+    active = availability.sample(NetworkConfig(act_prob=0.6), m, 5)
+    proto = ProtocolConfig(kind="dynamic", b=1, delta=0.05, tiers=(
+        HierarchyConfig(num_clusters=g, inter=ProtocolConfig(
+            kind="dynamic", b=1, delta=0.02))))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = hierarchy.init_hier_state(base.to(dev), proto.tiers, 0)
+        ops.reset_launches()
+        out[dev] = hierarchy.apply_hierarchical(
+            proto, proto.tiers, X.clone().to(dev), state,
+            active=active.copy())
+    cpu, card = out["cpu"], out["cuda"]
+    assert ops.LAUNCHES["sqdist_rows"] == 2
+    assert card.rec == cpu.rec and card.rec.syncs == 1
+    for a, b in [(card.member_xfers, cpu.member_xfers),
+                 (card.member_msgs, cpu.member_msgs),
+                 (card.agg_xfers, cpu.agg_xfers),
+                 (card.state.intra.v, cpu.state.intra.v)]:
+        assert (np.asarray(a) == np.asarray(b)).all()
+    assert torch.equal(card.state.intra.key, cpu.state.intra.key)
+    torch.testing.assert_close(card.params.cpu(), cpu.params, **TOL)
+
+
 # ---------------------------------------------------------------------------
 # rmsnorm and attention (the decoder LM's kernels). Both sides keep f32
 # statistics and accumulators and differ only in summation order: f32

@@ -213,8 +213,8 @@ def test_config_validation_matches_reference(kw):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(kind="aircomp"), "Queue A 16"),
-    (dict(kind="async_dynamic"), "Queue A 16"),
+    (dict(kind="aircomp", layout="sharded"), "Queue A 19"),
+    (dict(kind="async_dynamic", layout="sharded"), "Queue A 19"),
     (dict(kind="robust_dynamic"), "Queue A 17"),
     (dict(kind="robust_periodic"), "Queue A 17"),
     (dict(kind="dynamic", layout="sharded"), "Queue A 19"),
