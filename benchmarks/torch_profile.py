@@ -34,6 +34,16 @@ decode steps of a batch-4 ``ServeEngine`` after a 32-token prompt.
 The last line is the card's name and power limit as ``nvidia-smi``
 reports them. Needs a CUDA device; it imports nothing of JAX.
 
+    python3 benchmarks/torch_profile.py --faults
+
+traces only the MNIST cells of ``chip_smoke.py``'s ``fault_train``
+(slice 9), the same way: dynamic b=10 Δ=0.7 with ``faults=None``, at
+``FaultConfig()`` and under the crash and sign-flip schedule of
+examples/faulty_fleet.py, and robust_dynamic under that schedule (the
+trace covers rounds 21-40, so two of its syncs and their sorts). Each
+line adds the device time under ``round.faults`` (the restart zeroing
+and the perturbation) and the host-to-device copies a round.
+
     python3 benchmarks/torch_profile.py --paper
 
 traces only the training cells, the MNIST ones and the deep-driving
@@ -73,6 +83,7 @@ from torch.profiler import ProfilerActivity, profile
 
 KERNELS_ONLY = "--kernels" in sys.argv[1:]
 PAPER_ONLY = "--paper" in sys.argv[1:]
+FAULTS_ONLY = "--faults" in sys.argv[1:]
 OWN_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                        "src")
 SRC = (sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv[1:]
@@ -93,7 +104,9 @@ def _own_timing():
 
 _timing = _own_timing()
 
-from repro_torch.config import ProtocolConfig, TrainConfig, get_arch  # noqa: E402
+from repro_torch.config import (  # noqa: E402
+    FaultConfig, ProtocolConfig, TrainConfig, get_arch,
+)
 from repro_torch.core.protocol import DecentralizedLearner  # noqa: E402
 from repro_torch.data.pipeline import LearnerStreams  # noqa: E402
 from repro_torch.data.synthetic import DeepDriveStream, SyntheticMNIST  # noqa: E402
@@ -102,7 +115,11 @@ from repro_torch.models.model import init_lm_params  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, make_prefill  # noqa: E402
 
 M, B, WARM, TRACED = 100, 10, 20, 20
-RANGES = ("round.local_step", "round.optimizer", "round.sync")
+RANGES = ("round.local_step", "round.optimizer", "round.sync",
+          "round.faults")
+# examples/faulty_fleet.py:47: 20% sign-flippers, 2-4 round crashes
+FAULTS = dict(fault_seed=11, byzantine_frac=0.2, byzantine_mode="sign_flip",
+              crash_prob=0.15, crash_every=16, outage_min=2, outage_max=4)
 
 
 def _busy_us(intervals) -> float:
@@ -116,7 +133,8 @@ def _busy_us(intervals) -> float:
 
 
 def profile_protocol(name: str, proto: ProtocolConfig,
-                     arch: str = "mnist_cnn", lr: float = 0.1) -> dict:
+                     arch: str = "mnist_cnn", lr: float = 0.1,
+                     faults=None) -> dict:
     cfg = get_arch(arch)
     src = (DeepDriveStream(seed=1, device="cuda") if arch == "deepdrive_cnn"
            else SyntheticMNIST(seed=0, image_size=28, device="cuda"))
@@ -124,7 +142,7 @@ def profile_protocol(name: str, proto: ProtocolConfig,
     dl = DecentralizedLearner(
         lambda p, b: cnn_loss(cfg, p, b), lambda g: init_cnn_params(cfg, g),
         M, proto, TrainConfig(optimizer="sgd", learning_rate=lr),
-        device="cuda")
+        faults=faults, device="cuda")
     dl.run_chunk(streams.next_chunk(WARM))
     draw = _timing.cuda_ms(lambda: streams.next_chunk(TRACED), iters=1,
                            warmup=0)
@@ -155,6 +173,9 @@ def profile_protocol(name: str, proto: ProtocolConfig,
             ranges[e.name] += e.device_time_total / TRACED
     return {
         "protocol": name, "arch": arch, "m": M, "batch": B,
+        "faults": None if faults is None else {
+            k: v for k, v in vars(faults).items()
+            if v != getattr(FaultConfig(), k)},
         "rounds_traced": TRACED,
         "draw_ms_per_round": draw / TRACED,
         "syncs_traced": dl.comm_totals["syncs"],
@@ -163,6 +184,8 @@ def profile_protocol(name: str, proto: ProtocolConfig,
         "idle_share": 1.0 - device_us / wall_us,
         "range_device_ms_per_round": {k: v / 1e3 for k, v in ranges.items()},
         "kernels_launched": len(device),
+        "htod_copies_per_round": sum("HtoD" in e.name
+                                     for e in device) / TRACED,
         "top_kernels_ms_per_round": [
             [k[:90], us / TRACED / 1e3] for k, us in kernels[:12]],
     }
@@ -344,6 +367,22 @@ def main() -> None:
     if KERNELS_ONLY:
         for rec in profile_kernels():
             print(json.dumps(rec), flush=True)
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), flush=True)
+        return
+    if FAULTS_ONLY:
+        dyn = ProtocolConfig(kind="dynamic", b=10, delta=0.7)
+        for name, proto, faults in (
+                ("dynamic", dyn, None), ("dynamic", dyn, FaultConfig()),
+                ("dynamic", dyn, FaultConfig(**FAULTS)),
+                ("robust_dynamic", ProtocolConfig(kind="robust_dynamic",
+                                                  b=10, delta=0.7),
+                 FaultConfig(**FAULTS))):
+            print(json.dumps(profile_protocol(name, proto, faults=faults)),
+                  flush=True)
+            torch.cuda.empty_cache()
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -88,6 +88,24 @@ and drives both of the port's paths:
   run. ``tier_agree`` runs the hierarchy sweep's and the async bench's
   settings on the card and on the CPU (integers identical, parameters
   within 1e-5) and continues a card checkpoint on the CPU.
+* the fault plane, robust sync and telemetry (slice 9): ``kernels`` also
+  holds ``sqdist_rows`` at (100, 1,199,882) on planes with a NaN row, an
+  Inf row, a -Inf row and a zeroed row (finite rows bit for bit on
+  values in {-1, 0, 1}, within rtol 1e-5 on normal values; non-finite
+  ones alike in kind); ``fault_train`` trains the MNIST CNN at full width
+  (m = 100, B = 10) under the fault plane: dynamic (F1) and
+  robust_dynamic (F2, streamed through the telemetry plane with per-link
+  bytes, profiling and the divergence series) under the crash and
+  sign-flip schedule of examples/faulty_fleet.py, robust_periodic (F3)
+  and the median pipeline (F4) under NaN/Inf corruption, crashes,
+  adversaries and bursts, and dynamic at ``FaultConfig()`` (F5), which
+  must be the ``faults=None`` run bit for bit; ``sqdist_rows`` runs
+  exactly 6 times a run (66 for F2: one divergence pass a round); F2's
+  stream validates, holds 60 round records with the run's own fault
+  counts and ends on the live counters; one trimmed mean and one median
+  at (100, P) are timed against their bytes bound. ``fault_agree`` runs
+  those settings, an async run and a hierarchy at the test width on the
+  card and on the CPU: integers identical, finite parameters within 1e-5.
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -123,14 +141,15 @@ from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 from repro_torch import prng  # noqa: E402
 from repro_torch.checkpoint import io  # noqa: E402
 from repro_torch.config import (  # noqa: E402
-    AsyncConfig, HierarchyConfig, NetworkConfig, ProtocolConfig, TrainConfig,
-    get_arch,
+    AsyncConfig, FaultConfig, HierarchyConfig, NetworkConfig, ProtocolConfig,
+    TelemetryConfig, TrainConfig, get_arch,
 )
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.core.flatten import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core.protocol import DecentralizedLearner, SerialLearner  # noqa: E402
 from repro_torch.core.sync import stages  # noqa: E402
-from repro_torch.core.sync.spec import resolve_spec  # noqa: E402
+from repro_torch.core.sync.robust import flat_median, flat_trimmed_mean  # noqa: E402
+from repro_torch.core.sync.spec import ProtocolSpec, resolve_spec  # noqa: E402
 from repro_torch.data.pipeline import LearnerStreams  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     DeepDriveStream, GraphicalModelStream, SyntheticMNIST,
@@ -142,8 +161,9 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.kernels._timing import cuda_ms, profile_calls  # noqa: E402
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn_params  # noqa: E402
 from repro_torch.models.model import init_lm_params  # noqa: E402
-from repro_torch.network import availability, topology  # noqa: E402
+from repro_torch.network import availability, faults, topology  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, make_prefill  # noqa: E402
+from repro_torch.telemetry.observatory import load_run, summarize  # noqa: E402
 from repro_torch.train.loop import (  # noqa: E402
     run_drift_segments, run_protocol_training,
 )
@@ -319,6 +339,8 @@ def phase_kernels(gen) -> dict:
                   (X, R), [g * k, n, f"g={g}"])
             del X, R
 
+    nonfinite = check_non_finite_rows(gen)
+
     mem_rate, f32_rate = peaks(torch.cuda.get_device_name(0))[:2]
     X = torch.randn((M, P_MNIST), generator=gen, device="cuda")
     r = torch.randn((P_MNIST,), generator=gen, device="cuda")
@@ -388,10 +410,49 @@ def phase_kernels(gen) -> dict:
                              f"CUDA launches per call, not 1: {dev}")
     table["sqdist_rows_deepdrive"]["row_start_bytes_mod_16"] = row_starts
     table["sqdist_rows_grouped"]["groups"] = G
+    table["sqdist_rows"]["non_finite_rows"] = nonfinite
     emit({"phase": "kernels", "checks": len(checks),
           "all_ok": all(c["ok"] for c in checks), "timed": table,
           "peaks": {"bytes_per_s": mem_rate, "f32_flops": f32_rate}})
     return table
+
+
+def check_non_finite_rows(gen) -> dict:
+    """``sqdist_rows`` at (100, P_MNIST) on the planes a faulty fleet
+    syncs: a NaN row, an Inf row, a -Inf row and a row zeroed by a cold
+    restart, against its plain version. On values in {-1, 0, 1} every
+    partial sum is an integer below 2**24, exact in f32 in any order, so
+    the finite rows must be bit for bit; on normal values they must be
+    within TOL. The non-finite rows must agree in kind (NaN with NaN,
+    +Inf with +Inf)."""
+    out = {}
+    for label, make in (
+            ("values in {-1, 0, 1}", lambda shape: torch.randint(
+                -1, 2, shape, generator=gen, device="cuda").float()),
+            ("normal values", lambda shape: torch.randn(
+                shape, generator=gen, device="cuda"))):
+        X, r = make((M, P_MNIST)), make((P_MNIST,))
+        X[1], X[2], X[3], X[4] = math.nan, math.inf, -math.inf, 0.0
+        got, want = sqdist.sqdist_rows(X, r), ref.sqdist_rows_ref(X, r)
+        torch.cuda.synchronize()
+        kind = (torch.equal(torch.isnan(got), torch.isnan(want))
+                and torch.equal(torch.isposinf(got), torch.isposinf(want))
+                and bool(torch.isnan(got[1])) and bool(torch.isposinf(
+                    got[2])) and bool(torch.isposinf(got[3])))
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max())
+        exact = bool(torch.equal(got[fin], want[fin]))
+        ok = kind and (exact if label.startswith("values") else bool(
+            torch.allclose(got[fin], want[fin], **TOL)))
+        out[label] = {"shape": [M, P_MNIST], "finite_rows": int(fin.sum()),
+                      "finite_max_abs_err": err, "finite_bitwise": exact,
+                      "non_finite_agree_in_kind": kind, "ok": ok}
+        if not ok:
+            emit({"phase": "kernels", "failed": {"non_finite": out}})
+            raise SystemExit(f"sqdist_rows on non-finite rows disagrees "
+                             f"with its plain version: {out[label]}")
+        del X, r
+    return out
 
 
 def phase_train() -> dict:
@@ -2018,6 +2079,309 @@ def phase_tier_agree() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the fault plane, robust sync and telemetry (slice 9)
+# ---------------------------------------------------------------------------
+
+# examples/faulty_fleet.py:47: 20% sign-flippers, 2-4 round crashes
+FAULTS = dict(fault_seed=11, byzantine_frac=0.2, byzantine_mode="sign_flip",
+              crash_prob=0.15, crash_every=16, outage_min=2, outage_max=4)
+# tests/test_faults.py:112: crashes, NaN/Inf corruption, adversaries, bursts
+HEAVY = dict(fault_seed=7, crash_prob=0.3, byzantine_frac=0.25,
+             corrupt_prob=0.05, straggler_prob=0.3)
+# benchmarks/robust_bench.py's median pipeline
+MEDIAN = dict(name="robust_median", trigger="robust_divergence",
+              cohort="all_reachable", aggregate="median", commit="quarantine")
+FAULT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "fault_telemetry")
+
+
+def _finite_class_close(got: torch.Tensor, want: torch.Tensor,
+                        tol: float) -> tuple:
+    """(the same entries finite, max |diff| over them): NaN and Inf are
+    one class, since what a local step makes of a poisoned row depends
+    on how the device's kernels carry non-finite values."""
+    same = bool(torch.equal(torch.isfinite(got), torch.isfinite(want)))
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    return same and err <= tol, err
+
+
+def phase_fault_train() -> dict:
+    """mnist_cnn at full width, m = 100, B = 10, sgd lr 0.1, 60 rounds in
+    chunks of 20, seed 0, under the fault plane: F1 dynamic and F2
+    robust_dynamic (streamed to build/fault_telemetry/ with per-link
+    bytes, profiling and the divergence series) under FAULTS, F3
+    robust_periodic and F4 the median pipeline under HEAVY (NaN/Inf rows),
+    F5 dynamic at FaultConfig(), which must be the faults=None run bit
+    for bit. The sqdist_rows count is zeroed before each run and read
+    after it: one launch per checked round (6), plus one divergence pass
+    a round for F2 (60). Then one trimmed mean and one median at (100, P)
+    are timed against their bytes bound."""
+    cfg = get_arch("mnist_cnn")
+    loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
+    init_fn = lambda g: init_cnn_params(cfg, g)          # noqa: E731
+    src = SyntheticMNIST(seed=0, image_size=28, device="cuda")
+    train = TrainConfig(optimizer="sgd", learning_rate=0.1)
+    dyn = ProtocolConfig(kind="dynamic", b=PERIOD, delta=DELTA)
+    checked = ROUNDS // PERIOD
+    stream = os.path.join(FAULT_DIR, "F2.jsonl")
+    plan = {   # name -> (protocol, faults, predicted launches, extra)
+        "F1": (dyn, FAULTS, checked, {}),
+        "F2": (ProtocolConfig(kind="robust_dynamic", b=PERIOD, delta=DELTA),
+               FAULTS, checked + ROUNDS, dict(
+                   track_divergence=True, telemetry=TelemetryConfig(
+                       path=stream, per_link=True, profile=True))),
+        "F3": (ProtocolConfig(kind="robust_periodic", b=PERIOD), HEAVY,
+               checked, {}),
+        "F4": (ProtocolSpec(**MEDIAN).with_params(b=PERIOD, delta=DELTA),
+               HEAVY, checked, {}),
+        "F5": (dyn, {}, checked, {}),
+        "F5 faults=None": (dyn, None, checked, {}),
+    }
+    runs, counts, done = {}, {}, {}
+    for name, (proto, fkw, want, extra) in plan.items():
+        fcfg = None if fkw is None else FaultConfig(**fkw)
+
+        def run():
+            dl = DecentralizedLearner(loss_fn, init_fn, M, proto, train,
+                                      seed=0, faults=fcfg, device="cuda",
+                                      **extra)
+            streams = LearnerStreams(src, M, batch=B, seed=0)
+            metrics = [dl.run_chunk(streams.next_chunk(CHUNK))
+                       for _ in range(ROUNDS // CHUNK)]
+            return dl, metrics
+
+        held = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        (dl, metrics), ms, peak = _timed_run(run)
+        counts[name] = ops.LAUNCHES["sqdist_rows"]
+        if counts[name] != want:
+            raise SystemExit(f"{name} launched sqdist_rows {counts[name]} "
+                             f"times, predicted {want}")
+        if dl.model_size != P_MNIST or not dl.X.is_cuda:
+            raise SystemExit(f"{name}: {dl.model_size} weights on "
+                             f"{dl.X.device}")
+        series = {f: np.concatenate([np.asarray(getattr(x, f))
+                                     for x in metrics]).tolist()
+                  for f in ("num_faulty", "num_active", "num_quarantined",
+                            "num_recovered")}
+        if fcfg is not None:
+            want_faulty = faults.sample_rounds(fcfg, M, range(ROUNDS)) \
+                .num_faulty().tolist()
+            if series["num_faulty"] != want_faulty:
+                raise SystemExit(f"{name}: num_faulty {series['num_faulty']}"
+                                 f" is not the schedule's {want_faulty}")
+        # the learners the fault plane left honest and reachable at the
+        # last round hold finite rows, and the reference row is finite
+        # (the plain mean under FAULTS: no corruption, so all of it)
+        if fcfg is not None and fkw:
+            sched = faults.sample_rounds(fcfg, M, [ROUNDS - 1])
+            ok = ~(sched.down()[0] | sched.byzantine | sched.corrupt[0])
+        else:
+            ok = np.ones(M, bool)
+        finite_rows = torch.isfinite(dl.X).all(dim=1).cpu().numpy()
+        if not (finite_rows[ok].all()
+                and bool(torch.isfinite(dl.sync_state.ref).all())):
+            raise SystemExit(f"{name}: an honest reachable row or the "
+                             f"reference is not finite")
+        runs[name] = {
+            "faults": fkw, "ms_per_round": ms / ROUNDS,
+            "peak_memory_bytes": peak - held, "held_before_bytes": held,
+            "syncs": dl.comm_totals["syncs"],
+            "full_syncs": dl.comm_totals["full_syncs"],
+            "model_up": dl.comm_totals["model_up"],
+            "comm_bytes": dl.comm_bytes(),
+            "ledger_bytes": int(dl.per_link_bytes().sum()),
+            "quarantined_learner_rounds": int(sum(series["num_quarantined"])),
+            "recovered_total": int(sum(series["num_recovered"])),
+            "cumulative_loss": dl.cumulative_loss,
+            "honest_rows_finite": int(finite_rows[ok].sum()),
+            "sqdist_rows": counts[name], **series}
+        if runs[name]["ledger_bytes"] != dl.comm_bytes():
+            raise SystemExit(f"{name}: the ledger does not balance")
+        if name == "F2":
+            dl.recorder.close()
+            runs[name]["stream"] = check_fault_stream(dl, stream, series)
+            runs[name]["divergence_last"] = float(metrics[-1].divergence[-1])
+        if name.startswith("F5"):
+            done[name] = dl
+        else:
+            del dl
+    a, b = done["F5"], done["F5 faults=None"]
+    f5_bitwise = (torch.equal(a.X, b.X) and a.comm_totals == b.comm_totals
+                  and np.array_equal(a.per_link_bytes(), b.per_link_bytes())
+                  and a.cumulative_loss == b.cumulative_loss
+                  and torch.equal(a.sync_state.ref, b.sync_state.ref))
+    plane = a.X
+    del done, a, b
+    aggregates = time_robust_aggregates(plane)
+    del plane
+    rec = {"phase": "fault_train", "m": M, "batch": B, "runs": runs,
+           "f5_equals_faults_none_bitwise": f5_bitwise,
+           "aggregates": aggregates}
+    emit(rec)
+    if not f5_bitwise:
+        raise SystemExit("F5 (FaultConfig()) is not the faults=None run bit "
+                         "for bit")
+    for name in ("F2", "F3", "F4"):
+        if runs[name]["quarantined_learner_rounds"] < 1:
+            raise SystemExit(f"{name}: the quarantine never flagged a row")
+    for name, r in runs.items():
+        if r["syncs"] < 1:
+            raise SystemExit(f"{name} never synced")
+    return {k: v for k, v in counts.items() if k != "F5 faults=None"}
+
+
+def check_fault_stream(dl, path: str, series: dict) -> dict:
+    """F2's telemetry stream: it validates (``load_run``), holds 60 round
+    records whose ``num_faulty`` / ``num_quarantined`` / ``num_recovered``
+    are the run's own series, and its last ``cum_*`` are the live
+    counters bit for bit."""
+    run = load_run(path)
+    rounds = run.rounds
+    last = rounds[-1] if rounds else {}
+    card = summarize(run)
+    out = {"path": os.path.relpath(path, os.path.dirname(FAULT_DIR)),
+           "round_records": len(rounds), "chunk_records": len(run.chunks),
+           "fault_card": {k: v for k, v in card.get("faults", {}).items()
+                          if not isinstance(v, list)},
+           "profile": card.get("profile")}
+    checks = {
+        "60 round records": len(rounds) == ROUNDS,
+        "num_faulty": [r.get("num_faulty") for r in rounds]
+        == series["num_faulty"],
+        "num_quarantined": [r.get("num_quarantined") for r in rounds]
+        == series["num_quarantined"],
+        "num_recovered": [r.get("num_recovered") for r in rounds]
+        == series["num_recovered"],
+        "cum_loss": last.get("cum_loss") == dl.cumulative_loss,
+        "cum_net_time": last.get("cum_net_time") == dl.network_time,
+        "cum_syncs": last.get("cum_syncs") == dl.comm_totals["syncs"],
+        "cum_bytes": last.get("cum_bytes") == dl.comm_bytes(),
+        "link_bytes_cum": run.chunks[-1]["link_bytes_cum"]
+        == dl.per_link_bytes().tolist(),
+        "per_link": all(sum(r["link_bytes"]) == r["round_bytes"]
+                        for r in rounds),
+        "divergence": all(math.isfinite(r["divergence"])
+                          and r["divergence"] >= 0 for r in rounds)
+        and any(r["divergence"] > 0 for r in rounds)}
+    out["checks"] = checks
+    if not all(checks.values()):
+        emit({"phase": "fault_train", "failed": {"stream": out}})
+        raise SystemExit(f"F2's telemetry stream is wrong: {checks}")
+    return out
+
+
+def time_robust_aggregates(X: torch.Tensor) -> dict:
+    """One trimmed mean and one median over a (100, P) plane on the card,
+    with its peak memory, beside the bytes bound (the plane read once,
+    the row written once) and the sort alone."""
+    mem_rate = peaks(torch.cuda.get_device_name(0))[0]
+    m, P = X.shape
+    mask = np.ones(m, bool)
+    nbytes = (m * P + P) * 4
+    bound = nbytes / mem_rate * 1e3
+    out = {"shape": [m, P], "bytes": nbytes, "bound_ms": bound,
+           "bound_by": "bytes"}
+    for name, fn in (
+            ("trimmed_mean", lambda: flat_trimmed_mean(X, mask, 0.2)),
+            ("median", lambda: flat_median(X, mask)),
+            ("sort", lambda: torch.sort(X, dim=0))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = cuda_ms(fn, iters=5, warmup=1)
+        out[name] = {"ms": ms, "peak_bytes": peak,
+                     "of_bound": bound / ms}
+    return out
+
+
+def phase_fault_agree() -> dict:
+    """F1-F4's settings at the test width (drift_mlp smoke, m = 8, 32
+    rounds in chunks of 16), plus async periodic and a hierarchy under
+    HEAVY, on the card and on the CPU from the same model and batches:
+    comm, ledger, every round's fault / active / quarantine / recovery
+    counts and the health state identical; parameters finite alike and
+    the finite ones within 1e-5."""
+    cfg = get_arch("drift_mlp", smoke=True)
+    loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
+    init = params_to_numpy(init_cnn_params(cfg, torch.Generator()
+                                           .manual_seed(5)))
+    src = GraphicalModelStream(seed=1, drift_prob=0.0, device="cpu")
+    edge = dict(link_classes=("lte", "edge"))
+    cases = {   # name -> (protocol, faults, network, AsyncConfig)
+        "F1 dynamic": (ProtocolConfig(kind="dynamic", b=2, delta=0.5),
+                       FAULTS, None, None),
+        "F2 robust_dynamic": (ProtocolConfig(kind="robust_dynamic", b=2,
+                                             delta=0.5), FAULTS, None, None),
+        "F3 robust_periodic": (ProtocolConfig(kind="robust_periodic", b=2),
+                               HEAVY, None, None),
+        "F4 median": (ProtocolSpec(**MEDIAN).with_params(b=2, delta=0.5),
+                      HEAVY, None, None),
+        "async periodic": (ProtocolConfig(kind="periodic", b=2), HEAVY, edge,
+                           AsyncConfig(round_budget=1.0,
+                                       payload_bytes=100_000)),
+        "hierarchy": (ProtocolConfig(
+            kind="dynamic", b=2, delta=0.3, tiers=HierarchyConfig(
+                num_clusters=2, inter=ProtocolConfig(kind="dynamic", b=2,
+                                                     delta=0.6))),
+            HEAVY, None, None),
+    }
+    batches = src.sample(torch.Generator().manual_seed(7), 10, lead=(32, 8))
+    report = {}
+    fields = ("num_faulty", "num_active", "num_quarantined", "num_recovered",
+              "num_inflight", "link_counts")
+    for name, (proto, fkw, net, an) in cases.items():
+        out = {}
+        for dev in ("cpu", "cuda"):
+            dl = DecentralizedLearner(
+                loss_fn, lambda g: params_from_numpy(init, g.device), 8,
+                proto, TrainConfig(optimizer="sgd", learning_rate=0.05),
+                network=None if net is None else NetworkConfig(**net),
+                async_net=an, faults=FaultConfig(**fkw), device=dev)
+            metrics = [dl.run_chunk({k: v[i:i + 16].to(dev)
+                                     for k, v in batches.items()})
+                       for i in (0, 16)]
+            out[dev] = (dl, {f: np.concatenate([np.asarray(getattr(x, f))
+                                                for x in metrics])
+                             for f in fields})
+        (cpu, cs), (gpu, gs) = out["cpu"], out["cuda"]
+        ecpu = (cpu.sync_state.extra if cpu.tiers is None
+                else cpu.sync_state.intra.extra)
+        egpu = (gpu.sync_state.extra if gpu.tiers is None
+                else gpu.sync_state.intra.extra)
+        close, err = _finite_class_close(gpu.X.cpu(), cpu.X, 1e-5)
+        same = (gpu.comm_totals == cpu.comm_totals
+                and np.array_equal(gpu.per_link_bytes(),
+                                   cpu.per_link_bytes())
+                and gpu.network_time == cpu.network_time
+                and all(np.array_equal(gs[f], cs[f]) for f in fields)
+                and sorted(egpu) == sorted(ecpu)
+                and all(np.array_equal(egpu[k], ecpu[k]) for k in ecpu))
+        report[name] = {"comm_totals": gpu.comm_totals,
+                        "cpu_comm_totals": cpu.comm_totals,
+                        "faulty_learner_rounds": int(gs["num_faulty"].sum()),
+                        "quarantined_learner_rounds":
+                            int(gs["num_quarantined"].sum()),
+                        "param_max_abs_err_finite": err,
+                        "identical": same, "params_close": close}
+        if not same or gpu.comm_totals["syncs"] < 1:
+            emit({"phase": "fault_agree", "failed": name, **report[name]})
+            raise SystemExit(f"{name}: the card's integers differ from the "
+                             f"CPU's")
+        if not close:
+            emit({"phase": "fault_agree", "failed": name, **report[name]})
+            raise SystemExit(f"{name}: the card's parameters differ from "
+                             f"the CPU's by {err}")
+    rec = {"phase": "fault_agree", "cases": report}
+    emit(rec)
+    return rec
+
+
 def main() -> None:
     seconds = {}
 
@@ -2048,13 +2412,16 @@ def main() -> None:
     run("net_agree", phase_net_agree)
     tier = run("tier_train", phase_tier_train)
     run("tier_agree", phase_tier_agree)
+    fault = run("fault_train", phase_fault_train)
+    run("fault_agree", phase_fault_agree)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
         {"name": "sqdist_rows", "route": "cuda", "source": csrc + "sqdist.cu",
          "replaces": "src/repro/kernels/sqdist.py:81",
          "launches": (launches["sqdist_rows"] + sum(paper.values())
-                      + sum(net.values()) + sum(tier.values())),
+                      + sum(net.values()) + sum(tier.values())
+                      + sum(fault.values())),
          "launches_by_path": {"mnist dynamic": launches["sqdist_rows"],
                               **{k: v for k, v in paper.items()
                                  if k in ("deepdrive drift",
@@ -2062,7 +2429,8 @@ def main() -> None:
                               **{"network " + k: v for k, v in net.items()
                                  if v},
                               **{"tier " + k: v for k, v in tier.items()
-                                 if v}},
+                                 if v},
+                              **{"fault " + k: v for k, v in fault.items()}},
          **table["sqdist_rows"],
          "at_deepdrive_width": table["sqdist_rows_deepdrive"],
          "grouped": table["sqdist_rows_grouped"]},

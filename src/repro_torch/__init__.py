@@ -24,5 +24,8 @@ sources (``GraphicalModelStream``, ``DeepDriveStream``) and concept
 drift in the training loop. Slice 7 ported the network environment
 (``network``: availability masks, peer topologies, link costs) with
 availability-aware stages, the gossip preset, bounded staleness and
-``layout="tree"`` on the plane.
+``layout="tree"`` on the plane. Slice 8 ported checkpoints
+(``checkpoint``), the two-tier hierarchy and the event-driven timeline.
+Slice 9 ported the fault plane (``network.faults``), Byzantine-robust
+sync (``core.sync.robust``) and the telemetry plane (``telemetry``).
 """

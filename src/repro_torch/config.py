@@ -18,17 +18,18 @@ payload size or layout) by resolving its preset through
 ``repro_torch.core.sync.spec``; ``tiers`` (a ``HierarchyConfig``) makes
 it the intra tier of a two-tier hierarchy. It departs from the reference
 in three ways: ``layout`` defaults to ``"flat"``, and ``"tree"`` runs on
-the same ``(m, P)`` plane; ``"sharded"`` and the robust kinds raise
-``NotImplementedError`` naming the ROADMAP item that ports them; and
+the same ``(m, P)`` plane; ``"sharded"`` raises ``NotImplementedError``
+naming the ROADMAP item that ports it; and
 there is no ``shard_devices`` field (its spec parameter is known, at the
 reference's default 0).
 
 ``NetworkConfig`` (``repro/config.py:394-500``), ``HierarchyConfig``
-(``:329-369``) and ``AsyncConfig`` (``:507-546``) are the reference's,
-field for field, with the same validation errors; the ``TOPO_*``,
-``TOPOLOGIES`` and ``LINK_CLASS_NAMES`` constants come with them. The
-fault and telemetry configs wait for their slices (ROADMAP Queue A 17,
-18).
+(``:329-369``), ``AsyncConfig`` (``:507-546``), ``FaultConfig``
+(``:553-644``, with ``FAULT_BYZANTINE_MODES``) and ``TelemetryConfig``
+(``:646-678``) are the reference's, field for field, with the same
+validation errors; the ``TOPO_*``, ``TOPOLOGIES`` and
+``LINK_CLASS_NAMES`` constants come with them. ``TelemetryConfig``
+renames one field: the reference's ``jax_profiler`` is ``profiler``.
 """
 from __future__ import annotations
 
@@ -406,6 +407,125 @@ class AsyncConfig:
             raise ValueError(
                 f"payload_bytes must be >= 0 (or None for the model's "
                 f"size), got {self.payload_bytes!r}")
+
+
+# ---------------------------------------------------------------------------
+# Fault injection
+# ---------------------------------------------------------------------------
+
+FAULT_BYZANTINE_MODES = ("sign_flip", "scale")
+
+
+@dataclass(frozen=True)
+class FaultConfig:
+    """The fault-injection plane (``repro_torch.network.faults``),
+    threaded through the engine like ``NetworkConfig``/``AsyncConfig``.
+    Every mask is a pure function of ``(fault_seed, t)``:
+
+    * **crash/restart episodes** — time is cut into windows of
+      ``crash_every`` rounds; in each window a learner crashes with
+      probability ``crash_prob`` at a sampled offset for a sampled
+      ``outage_min..outage_max``-round outage. While crashed it neither
+      trains nor participates (the crash mask composes with the
+      availability mask); on restart it rejoins COLD — params, optimizer
+      state, and per-learner sync state (staleness counters, arrival
+      rings, health) are zeroed, modeling a node that lost local state.
+    * **payload corruption** — each round each learner's parameters go
+      non-finite with probability ``corrupt_prob`` (NaN on odd rounds,
+      Inf on even), the silent poison a plain ``mean`` spreads forever.
+    * **Byzantine adversaries** — a fixed ``byzantine_frac`` subset
+      (drawn once from ``fault_seed``) replaces its parameters every
+      round: ``sign_flip`` negates them, ``scale`` multiplies by
+      ``byzantine_scale``.
+    * **straggler bursts** — in each ``straggler_every``-round window,
+      with probability ``straggler_prob``, a random ``straggler_frac``
+      of the fleet goes dark for the window (AND-composed with the
+      availability mask like a crash, but without state loss).
+
+    ``faults=None`` runs no fault code at all; a default ``FaultConfig()``
+    has every fault disabled and gives the ``faults=None`` results bit
+    for bit. Defenses are registered stages
+    (``repro_torch.core.sync.robust``)."""
+    fault_seed: int = 0
+    crash_prob: float = 0.0       # per-learner per-window crash probability
+    crash_every: int = 16         # episode window length (rounds)
+    outage_min: int = 1           # shortest outage (rounds)
+    outage_max: int = 4           # longest outage (rounds)
+    corrupt_prob: float = 0.0     # per-learner per-round NaN/Inf corruption
+    byzantine_frac: float = 0.0   # fraction of the fleet that is adversarial
+    byzantine_mode: str = "sign_flip"   # sign_flip | scale
+    byzantine_scale: float = 10.0       # multiplier for mode="scale"
+    straggler_prob: float = 0.0   # per-window burst probability
+    straggler_every: int = 8      # burst window length (rounds)
+    straggler_frac: float = 0.5   # fraction straggling during a burst
+
+    def __post_init__(self):
+        for name in ("crash_prob", "corrupt_prob", "straggler_prob",
+                     "straggler_frac"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(
+                    f"{name} is a probability/fraction, must be in "
+                    f"[0, 1]: got {v!r}")
+        if not 0.0 <= self.byzantine_frac < 1.0:
+            raise ValueError(
+                f"byzantine_frac must be in [0, 1) — a fully adversarial "
+                f"fleet has nothing to defend; got {self.byzantine_frac!r}")
+        if self.byzantine_mode not in FAULT_BYZANTINE_MODES:
+            raise KeyError(
+                f"unknown byzantine_mode {self.byzantine_mode!r}; "
+                f"known: {sorted(FAULT_BYZANTINE_MODES)}")
+        if self.crash_every < 1:
+            raise ValueError(
+                f"crash_every must be >= 1 round, got {self.crash_every!r}")
+        if self.straggler_every < 1:
+            raise ValueError(
+                f"straggler_every must be >= 1 round, "
+                f"got {self.straggler_every!r}")
+        if not 1 <= self.outage_min <= self.outage_max:
+            raise ValueError(
+                f"need 1 <= outage_min <= outage_max, got "
+                f"outage_min={self.outage_min!r}, "
+                f"outage_max={self.outage_max!r}")
+        if self.outage_max > self.crash_every:
+            raise ValueError(
+                f"outage_max ({self.outage_max}) must not exceed "
+                f"crash_every ({self.crash_every}) — a crash outliving its "
+                f"episode window is a permanent loss, not a restart")
+
+
+# ---------------------------------------------------------------------------
+# Telemetry
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TelemetryConfig:
+    """The fleet telemetry plane (``repro_torch.telemetry``).
+
+    Attached to a ``DecentralizedLearner`` (directly or through
+    ``run_protocol_training(telemetry=...)``) it streams a schema'd round
+    record per executed round — loss, divergence, trigger accounting,
+    cohort size, reachability, simulated net-time, exact cumulative bytes
+    — to ``path`` as JSONL, with the newest ``ring`` records also held in
+    memory. Records are built on the host from the values each chunk
+    already fetches. ``telemetry=None`` leaves the engine as it is.
+
+    ``per_link`` adds the per-link byte vector to every round record.
+    ``profile`` adds wall-clock and first-call accounting per chunk.
+    ``profiler`` (the reference's ``jax_profiler``) names each chunk in
+    a ``torch.profiler`` trace with ``record_function`` (a no-op unless
+    a trace is active)."""
+    path: Optional[str] = None    # JSONL sink; None = ring buffer only
+    append: bool = False          # append to path (checkpoint resume)
+    ring: int = 1024              # in-memory ring capacity (records)
+    per_link: bool = False        # per-link bytes on every round record
+    profile: bool = False         # wall-clock + first-call spans per chunk
+    profiler: bool = False        # torch.profiler chunk annotations
+
+    def __post_init__(self):
+        if self.ring < 1:
+            raise ValueError(
+                f"ring must hold >= 1 record, got {self.ring!r}")
 
 
 @dataclass(frozen=True)

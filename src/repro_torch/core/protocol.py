@@ -52,21 +52,47 @@ back to back. ``counters_state``/``restore_counters`` and
 ``restore_state`` resume a run from a checkpoint
 (``repro_torch.checkpoint.io``).
 
-Departures from the reference: no fault or telemetry config (later
-slices); ``init_fn`` takes a ``torch.Generator`` seeded with ``seed``
-(the reference hands it the first of the three keys), so a parity test
-passes the reference's initial model in; ``init_heterogeneity``'s noise
-is ``prng.normal``, within its stated tolerance of jax's; masks,
-overlays, the carried timeline and network times are host values, so
-``ProtocolMetrics`` carries no divergence or fault series, ``num_active``
-/ ``net_time`` / ``num_inflight`` / ``max_age`` are host arrays, and it
-adds ``checked``, whether the (intra-tier) gate fired each round; the
-reference's callers restore a run by assigning ``params``, ``opt_state``
-and ``sync_state``, the port's call ``restore_state``; and the entry
-points run on ``device="cuda"`` unless the caller asks for the CPU.
+With ``faults`` (a ``FaultConfig``) the round runs the fault plane
+(``repro_torch.network.faults``), in the reference's order: a chunk's
+masks are drawn on the host before its first round, then each round
+zeroes the rows of learners rejoining from a crash (the parameter and
+optimizer planes, and the learner-indexed carried sync state unless a
+hierarchy carries it per cluster), takes the local step, puts back the
+crashed learners' rows (their losses become 0), perturbs the corrupted
+and Byzantine rows, and composes crashes and bursts into the
+availability mask. ``track_divergence`` adds the fleet's divergence
+after every round (one ``sqdist_rows`` pass against the mean row), and
+``telemetry`` (a ``TelemetryConfig``) streams a round record per round
+(``repro_torch.telemetry``) from the values the chunk already holds:
+the per-round loss sums and divergences cross to the host in the
+chunk's one transfer, and while a recorder is attached the cumulative
+loss and network time are sequential float64 sums of the per-round
+series, so the stream's last ``cum_*`` equals the counters bit for bit.
+The first fold whose loss counters go non-finite emits one
+``nonfinite_loss`` event through ``telemetry.sink.get_logger()``.
+
+Departures from the reference: ``init_fn`` takes a ``torch.Generator``
+seeded with ``seed`` (the reference hands it the first of the three
+keys), so a parity test passes the reference's initial model in;
+``init_heterogeneity``'s noise is ``prng.normal``, within its stated
+tolerance of jax's; masks, overlays, the carried timeline, the fault
+schedule and network times are host values, so ``num_active`` /
+``net_time`` / ``num_inflight`` / ``max_age`` / ``divergence`` /
+``num_faulty`` / ``num_quarantined`` / ``num_recovered`` are host
+arrays, and ``ProtocolMetrics`` adds ``checked``, whether the
+(intra-tier) gate fired each round; the optimizer's step count is one
+for the fleet (the reference's per-learner counts freeze with a crashed
+learner and restart at 0), which only adam reads, so adam under crash
+faults raises ``NotImplementedError`` (ROADMAP Queue C3); the
+reference's callers restore a run by assigning ``params``,
+``opt_state`` and ``sync_state``, the port's call ``restore_state``;
+and the entry points run on ``device="cuda"`` unless the caller asks
+for the CPU.
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -74,7 +100,10 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch import prng
-from repro_torch.config import AsyncConfig, NetworkConfig, TrainConfig
+from repro_torch.config import (
+    AsyncConfig, FaultConfig, NetworkConfig, TelemetryConfig, TrainConfig,
+)
+from repro_torch.core.divergence import per_learner_sq_distance_flat
 from repro_torch.core.flatten import fleet_adapter, tree_leaves, tree_map
 from repro_torch.core.sync.async_sync import asyncify
 from repro_torch.core.sync.hierarchy import (
@@ -86,8 +115,11 @@ from repro_torch.core.sync.spec import resolve_spec
 from repro_torch.device import resolve_device
 from repro_torch.network import availability as net_availability
 from repro_torch.network import cost as net_cost
+from repro_torch.network import faults as net_faults
 from repro_torch.network import topology as net_topology
 from repro_torch.optim.optimizers import OptState, make_optimizer
+from repro_torch.telemetry import sink
+from repro_torch.telemetry.trace import step_annotation
 
 
 class ProtocolMetrics(NamedTuple):
@@ -105,6 +137,13 @@ class ProtocolMetrics(NamedTuple):
     max_age: Any = 0                 # the oldest rounds-since-sync counter
     #   the trigger carries (0 for stateless triggers)
     checked: Any = False             # the (intra-tier) trigger's gate fired
+    divergence: Any = 0.0            # the fleet's divergence after the
+    #   round (0 unless track_divergence)
+    num_faulty: Any = 0              # learners under any injected fault
+    #   (0 without faults)
+    num_quarantined: Any = 0         # learners currently quarantined
+    #   (health > 0; 0 for non-robust triggers)
+    num_recovered: Any = 0           # learners recovering this round
 
 
 class DecentralizedLearner:
@@ -116,7 +155,8 @@ class DecentralizedLearner:
     0, that tree plus per-learner Gaussian noise at ε times each leaf's
     standard deviation (Fig. 6.2). ``protocol`` is a ``ProtocolConfig``
     or a ``ProtocolSpec``; ``network`` a ``NetworkConfig`` or None (the
-    ideal always-on network)."""
+    ideal always-on network); ``faults`` a ``FaultConfig`` or None (no
+    fault code runs); ``telemetry`` a ``TelemetryConfig`` or None."""
 
     def __init__(
         self,
@@ -130,9 +170,22 @@ class DecentralizedLearner:
         sample_weights: Optional[torch.Tensor] = None,
         network: Optional[NetworkConfig] = None,
         async_net: Optional[AsyncConfig] = None,
+        track_divergence: bool = False,
+        telemetry: Optional[TelemetryConfig] = None,
+        faults: Optional[FaultConfig] = None,
         device="cuda",
     ):
         self.device = resolve_device(device)
+        if (faults is not None and faults.crash_prob > 0.0
+                and train.optimizer == "adam"):
+            raise NotImplementedError(
+                "adam under crash faults needs per-learner optimizer step "
+                "counts (a crashed learner's freezes, a restarted one's "
+                "starts at 0); the port keeps one for the fleet — ROADMAP "
+                "Queue C3")
+        self.faults = faults
+        self.track_divergence = track_divergence
+        self._nonfinite_reported = False
         self.m = m
         self.protocol = protocol
         self.spec = resolve_spec(protocol)
@@ -225,6 +278,23 @@ class DecentralizedLearner:
                 np.full((self.tiers.num_clusters,), self.inter_model_bytes,
                         np.int64)])
 
+        # the telemetry plane: one record per round, from the values the
+        # chunk already holds and its one transfer
+        self.telemetry = telemetry
+        self.recorder = None
+        self._profiler = None
+        if telemetry is not None:
+            from repro_torch.telemetry.recorder import RoundRecorder
+            from repro_torch.telemetry.trace import ChunkProfiler
+            self._profiler = ChunkProfiler()
+            self.recorder = RoundRecorder(
+                telemetry, m=m, num_links=self.num_links,
+                model_size=self.model_size, model_bytes=self.model_bytes,
+                msg_bytes=self.msg_bytes,
+                link_payload_bytes=self.link_payload_bytes,
+                link_classes=self.link_class_names(),
+                spec=self.spec.to_dict(), tiers=self._tiers_meta())
+
     @property
     def params(self):
         """The fleet as a stacked (m, ...) tree of views into the plane."""
@@ -291,22 +361,45 @@ class DecentralizedLearner:
                                                        self.m, t))
         return self._window_adj[1]
 
-    def _round(self, batch, active=None):
+    def _round(self, batch, active=None, faults=None):
         """One round on the plane; returns (losses (m,) on the device, the
         round's ``CommRecord``, its (L, 2) per-link counts, whether the
-        gate fired). The three layers are named ranges for
-        ``torch.profiler`` (microseconds each when none is active).
+        gate fired). The layers are named ranges for ``torch.profiler``
+        (microseconds each when none is active); the fault plane's row
+        work outside the step is ``round.faults``.
         ``active`` is the round's availability mask (None: all
-        reachable)."""
+        reachable), already composed with the fault plane; ``faults`` is
+        (the chunk's ``FaultSchedule``, the round's row in it) or None."""
         t = self.round_index
         batch = {k: v.to(self.device) for k, v in batch.items()}
+        crashed = None
+        if faults is not None:
+            sched, i = faults
+            crashed = sched.crashed[i] if sched.crashed[i].any() else None
+            if sched.restart[i].any():
+                with record_function("round.faults"):
+                    self._lose_state(sched.restart[i])
         with record_function("round.local_step"):
             grads, losses = self._grad_and_loss(self.params, batch)
             torch.cat([g.reshape(self.m, -1).to(self.X.dtype)
                        for g in tree_leaves(grads)], dim=1, out=self.G)
         with record_function("round.optimizer"):
+            if crashed is not None:     # a crashed learner does not train
+                idx, saved = net_faults.keep_rows(
+                    crashed, self.X, self.opt_state.mu, self.opt_state.nu)
             self.X, self.opt_state = self.opt.update(self.X, self.G,
                                                      self.opt_state)
+            if crashed is not None:
+                net_faults.freeze_state(idx, saved, self.X,
+                                        self.opt_state.mu, self.opt_state.nu)
+                losses = losses.masked_fill(
+                    torch.from_numpy(crashed).to(losses.device), 0.0)
+        if faults is not None:
+            # corrupted and Byzantine rows are perturbed in the plane: the
+            # garbage is what the fleet syncs against
+            with record_function("round.faults"):
+                net_faults.perturb_params(self.faults, self.X, t,
+                                          sched.byzantine, sched.corrupt[i])
         with record_function("round.sync"):
             if self.tiers is None:
                 res = apply_staged(self.spec, self.X, self.sync_state,
@@ -329,38 +422,96 @@ class DecentralizedLearner:
         self.X, self.sync_state = res.params, res.state
         return losses, res.rec, counts, checked
 
-    def _timeline(self):
-        """(learners in flight, oldest age) from the trigger-carried state
-        after a round: the async timeline's ``inflight`` and the ``age``
-        or ``staleness`` counters, 0 where the trigger carries none."""
+    def _lose_state(self, rows: np.ndarray) -> None:
+        """The restart's state loss: zero the rejoining learners' rows of
+        the parameter and optimizer planes and of every learner-indexed
+        array the sync state carries (a hierarchy's intra state is per
+        cluster, so it is left alone, as the reference does)."""
+        net_faults.lose_state((self.X, self.opt_state.mu, self.opt_state.nu),
+                              rows, self.m)
+        if self.tiers is None:
+            self.sync_state = self.sync_state._replace(
+                extra=net_faults.lose_state(dict(self.sync_state.extra),
+                                            rows, self.m))
+
+    def _carried(self):
+        """(learners in flight, oldest age, quarantined, recovering) from
+        the trigger-carried state after a round: the async timeline's
+        ``inflight``, the ``age`` or ``staleness`` counters and the robust
+        triggers' ``health``/``recovered``, 0 where the trigger carries
+        none."""
         extra = (self.sync_state.extra if self.tiers is None
                  else self.sync_state.intra.extra)
         inflight = (int(np.count_nonzero(extra["inflight"]))
                     if "inflight" in extra else 0)
         age = next((extra[k] for k in ("age", "staleness") if k in extra),
                    None)
-        return inflight, 0 if age is None else int(np.max(age))
+        quarantined = (int(np.count_nonzero(extra["health"] > 0))
+                       if "health" in extra else 0)
+        recovered = (int(np.sum(extra["recovered"]))
+                     if "recovered" in extra else 0)
+        return (inflight, 0 if age is None else int(np.max(age)),
+                quarantined, recovered)
 
     def _run(self, batches, n: int) -> ProtocolMetrics:
-        """n rounds, then ONE device-to-host transfer of the losses. The
-        chunk's availability masks are drawn before its first round, in
-        one call."""
+        """n rounds, then ONE device-to-host transfer of the losses (and
+        divergences). The chunk's availability and fault masks are drawn
+        before its first round, one batched call each. With a recorder
+        attached the chunk is observed: timed when profiling, named in a
+        ``torch.profiler`` trace when asked, then filed as records."""
+        if self.recorder is None:
+            return self._chunk(batches, n)
+        cfg = self.telemetry
+        compiled = self._profiler.begin(n) if cfg.profile else None
+        base = self.counters_snapshot()
+        t0 = time.perf_counter()
+        ctx = (step_annotation("repro_round", self.rounds) if cfg.profiler
+               else contextlib.nullcontext())
+        with ctx:
+            metrics, per = self._chunk(batches, n, observe=True)
+        wall = time.perf_counter() - t0 if cfg.profile else None
+        if cfg.profile:
+            self._profiler.observe(n, wall)
+        self.recorder.observe(
+            per, base, self._state_extra(), n, wall_s=wall,
+            compiled=compiled,
+            recompiles=self._profiler.recompiles if cfg.profile else None)
+        return metrics
+
+    def _chunk(self, batches, n: int, observe: bool = False):
+        """The n rounds and the counters' fold; with ``observe`` also the
+        per-round series the recorder files (the reference's fold keys,
+        present where the reference's are)."""
         t0 = self.round_index
         masks = None
         if self.network is not None and not self.network.full_availability:
             masks = net_availability.sample_rounds(self.network, self.m,
                                                    range(t0, t0 + n))
+        sched = None
+        if self.faults is not None:
+            sched = net_faults.sample_rounds(self.faults, self.m,
+                                             range(t0, t0 + n))
+            if net_faults.darkens(self.faults):
+                # crashed and bursting learners leave the availability
+                # mask; the composition only removes learners
+                down = sched.down()
+                masks = ~down if masks is None else masks & ~down
         losses = torch.empty((n, self.m), dtype=torch.float32,
                              device=self.device)
+        divs = (torch.empty((n,), dtype=torch.float32, device=self.device)
+                if self.track_divergence else None)
         comm = np.zeros((n, len(CommRecord._fields)), np.int64)
         counts = np.zeros((n, self.num_links, 2), np.int32)
-        timeline = np.zeros((n, 2), np.int64)
+        carried = np.zeros((n, 4), np.int64)
         checked = np.zeros((n,), bool)
         for i in range(n):
             losses[i], comm[i], counts[i], checked[i] = self._round(
                 {k: v[i] for k, v in batches.items()},
-                None if masks is None else masks[i])
-            timeline[i] = self._timeline()
+                None if masks is None else masks[i],
+                None if sched is None else (sched, i))
+            carried[i] = self._carried()
+            if divs is not None:
+                divs[i] = self._divergence()
         num_active = (np.full((n,), self.m, np.int64) if masks is None
                       else masks.sum(axis=1, dtype=np.int64))
         m = self.m
@@ -376,27 +527,99 @@ class DecentralizedLearner:
                     self.inter_model_bytes, self._agg_bw, self._agg_lat)
         else:
             net_time = np.zeros((n,), np.float32)
-        host = torch.cat([losses.sum().reshape(1), losses.sum(dim=0)]).cpu()
-        host = host.numpy()
+        parts = [losses.sum().reshape(1), losses.sum(dim=0)]
+        if observe:
+            parts.append(losses.sum(dim=1))
+        if divs is not None:
+            parts.append(divs)
+        host = torch.cat(parts).cpu().numpy()      # the one transfer
+        round_loss = host[1 + m:1 + m + n] if observe else None
+        divergence = (host[-n:] if divs is not None
+                      else np.zeros((n,), np.float32))
         self.rounds += n
-        self.cumulative_loss += float(host[0])
-        self.cumulative_loss_per_learner += host[1:]
+        if observe:
+            # the sequential float64 sums of the per-round series: the
+            # recorder's cum_* arithmetic, so the last record equals the
+            # counters bit for bit
+            self.cumulative_loss += float(
+                np.cumsum(round_loss.astype(np.float64))[-1])
+            self.network_time += float(
+                np.cumsum(np.asarray(net_time, np.float64))[-1])
+        else:
+            self.cumulative_loss += float(host[0])
+            # the chunk's network time is its f32 sum, as the reference
+            # folds it
+            self.network_time += float(np.cumsum(net_time,
+                                                 dtype=np.float32)[-1])
+        self.cumulative_loss_per_learner += host[1:1 + m]
+        self._report_nonfinite()
         for k, total in zip(CommRecord._fields, comm.sum(axis=0)):
             self.comm_totals[k] += int(total)
-        # the chunk's network time is its f32 sum, as the reference folds it
-        self.network_time += float(np.cumsum(net_time, dtype=np.float32)[-1])
         self.active_rounds_total += int(num_active.sum())
         self.link_xfer_totals += counts[..., :m, 0].sum(axis=0,
                                                        dtype=np.int64)
         self.link_bytes_totals += self.price_link_counts(
             counts.sum(axis=0, dtype=np.int64))
-        return ProtocolMetrics(
+        num_faulty = (sched.num_faulty() if sched is not None
+                      else np.zeros((n,), np.int32))
+        metrics = ProtocolMetrics(
             loss_per_learner=losses,
             comm=CommRecord(*(comm[:, j] for j in range(comm.shape[1]))),
             link_xfers=counts[..., :m, 0], link_counts=counts,
             num_active=num_active, net_time=net_time,
-            num_inflight=timeline[:, 0], max_age=timeline[:, 1],
-            checked=checked)
+            num_inflight=carried[:, 0], max_age=carried[:, 1],
+            checked=checked, divergence=divergence, num_faulty=num_faulty,
+            num_quarantined=carried[:, 2], num_recovered=carried[:, 3])
+        if not observe:
+            return metrics
+        per = {"loss": round_loss, "divergence": divergence,
+               "num_active": num_active, "net_time": net_time,
+               "comm": {k: comm[:, j]
+                        for j, k in enumerate(CommRecord._fields)},
+               "link_counts": counts}
+        extra_state = self.spec.extra_state
+        if extra_state:
+            # the carried-state series, only for triggers that carry state
+            # — records of stateless runs keep the reference's keys
+            per["num_inflight"], per["max_age"] = carried[:, 0], carried[:, 1]
+        if sched is not None:
+            per["num_faulty"] = num_faulty
+        if "health" in extra_state:
+            per["num_quarantined"] = carried[:, 2]
+            per["num_recovered"] = carried[:, 3]
+        return metrics, per
+
+    def _divergence(self) -> torch.Tensor:
+        """delta(f) = 1/m sum_i ||f_i - mean(f)||^2 on the plane: one
+        ``sqdist_rows`` pass against the mean row, on the device."""
+        return torch.mean(per_learner_sq_distance_flat(
+            self.X, torch.mean(self.X, dim=0)))
+
+    def _report_nonfinite(self) -> None:
+        """One-shot: the first fold where a loss counter goes non-finite
+        names the offending learners, then stays quiet."""
+        if self._nonfinite_reported:
+            return
+        bad = ~np.isfinite(self.cumulative_loss_per_learner)
+        if bad.any() or not np.isfinite(self.cumulative_loss):
+            self._nonfinite_reported = True
+            sink.get_logger().event(
+                "nonfinite_loss", round=self.rounds,
+                learners=[int(i) for i in np.flatnonzero(bad)])
+
+    def _state_extra(self):
+        """The trigger-carried state (host arrays) for a chunk record."""
+        if self.tiers is not None:
+            return {"intra": dict(self.sync_state.intra.extra),
+                    "inter": dict(self.sync_state.inter.extra)}
+        return dict(self.sync_state.extra)
+
+    def _tiers_meta(self):
+        if self.tiers is None:
+            return None
+        return {"num_clusters": self.tiers.num_clusters,
+                "link_class": self.tiers.link_class,
+                "inter": resolve_spec(self.tiers.inter).to_dict()}
 
     def step(self, batches) -> ProtocolMetrics:
         """One round. ``batches``: dict with leading (m, B, ...) leaves."""
@@ -407,13 +630,16 @@ class DecentralizedLearner:
             metrics.link_xfers[0], metrics.link_counts[0],
             int(metrics.num_active[0]), metrics.net_time[0],
             int(metrics.num_inflight[0]), int(metrics.max_age[0]),
-            bool(metrics.checked[0]))
+            bool(metrics.checked[0]), metrics.divergence[0],
+            int(metrics.num_faulty[0]), int(metrics.num_quarantined[0]),
+            int(metrics.num_recovered[0]))
 
     def run_chunk(self, batches) -> ProtocolMetrics:
         """n rounds. ``batches``: dict with leading (n, m, B, ...) leaves —
         round t of the chunk is ``batches[t]``. Returns stacked
         ``ProtocolMetrics``: ``loss_per_learner`` is (n, m), every
-        ``CommRecord`` field, ``num_active`` and ``net_time`` (n,)."""
+        ``CommRecord`` field, ``num_active``, ``net_time`` and the other
+        per-round series (n,)."""
         return self._run(batches, int(next(iter(batches.values())).shape[0]))
 
     # ------------------------------------------------------------------
@@ -452,6 +678,16 @@ class DecentralizedLearner:
         carries one analog frame a sync, so it is not c(f)."""
         return self.link_bytes_totals.copy()
 
+    def counters_snapshot(self) -> dict:
+        """The cumulative counters the telemetry plane bases its per-round
+        ``cum_*`` series on — taken BEFORE a chunk is accumulated."""
+        return {"rounds": self.rounds,
+                "cumulative_loss": self.cumulative_loss,
+                "network_time": self.network_time,
+                "syncs": self.comm_totals["syncs"],
+                "cum_bytes": self.comm_bytes(),
+                "link_bytes_totals": self.link_bytes_totals.copy()}
+
     def counters_state(self) -> dict:
         """JSON-ready snapshot of every cumulative counter, for a
         checkpoint's ``.counters.json`` (the reference's keys)."""
@@ -469,7 +705,9 @@ class DecentralizedLearner:
 
     def restore_counters(self, d: dict) -> None:
         """Restore counters saved by :meth:`counters_state`, with the
-        reference's errors for a snapshot of another fleet."""
+        reference's errors for a snapshot of another fleet. With a
+        recorder attached, the stream's meta record is written again with
+        ``resumed_rounds``."""
         if len(d["cumulative_loss_per_learner"]) != self.m:
             raise ValueError(
                 f"counters were saved for m="
@@ -494,6 +732,9 @@ class DecentralizedLearner:
         self.link_xfer_totals = np.asarray(d["link_xfer_totals"], np.int64)
         self.link_bytes_totals = np.asarray(
             d["link_bytes_totals"], np.int64)
+        if self.recorder is not None:
+            # the stream says where it picks up
+            self.recorder.resume(self.rounds)
 
     def mean_active(self) -> float:
         """Average fraction of the fleet reachable per executed round."""

@@ -158,7 +158,8 @@ def _intra_round(spec: ProtocolSpec, X: torch.Tensor, st: SyncState,
             params=p, flat=Xgk[c], ref_flat=st.ref[c], state=state,
             weights=None if w_gk is None else w_gk[c], m=k, t=t,
             reach=np.ones((k,), bool) if act is None else act, active=act,
-            dists=lambda c=c: dists.rows(c), leaf_sizes=leaf_sizes)
+            dists=lambda c=c: dists.rows(c), leaf_sizes=leaf_sizes,
+            memo={})
         checked, runs, ctx, hot, nhot = fire(ctx)
         cout = coh.fn(ctx, hot, nhot, state.key) if runs else None
         plans.append((checked, ctx, hot, nhot, cout))
@@ -180,10 +181,11 @@ def _intra_round(spec: ProtocolSpec, X: torch.Tensor, st: SyncState,
     refs, keys, vs, extras, recs, xfers, msgs = [], [], [], [], [], [], []
     for c, (checked, ctx, hot, nhot, cout) in enumerate(plans):
         if cout is not None:
+            # the commit-time state reads the uncommitted rows
+            extras.append(trig.commit_extra(ctx, cout.mask))
             out = com.fn(ctx, cout, means[c], hot, nhot)
             if out.params is not ctx.flat:
                 ctx.flat.copy_(out.params)
-            extras.append(trig.commit_extra(ctx, cout.mask))
         else:
             out = SyncOut(ctx.flat, ctx.ref_flat, ctx.state.v, ctx.state.key,
                           CommRecord.zero(), zeros_i32(k), zeros_i32(k))

@@ -14,6 +14,8 @@ the counterpart of ``repro.core.sync.kernel``.
   * ``aircomp``, ``async_periodic``, ``async_dynamic`` — the event-driven
                       timeline and over-the-air aggregation
                       (``async_sync.py``)
+  * ``robust_periodic``, ``robust_dynamic`` — Byzantine-robust sync:
+                      trimmed mean and quarantine (``robust.py``)
 
 ``apply_staged`` runs one round on the ``(m, P)`` plane (coordinator
 commits in place) and returns the full ``StageResult``; its
@@ -85,3 +87,4 @@ def apply_staged(proto, X: torch.Tensor, state: SyncState,
 
 from repro_torch.core.sync import staleness  # noqa: E402,F401  ("stale")
 from repro_torch.core.sync import async_sync  # noqa: E402,F401  (presets)
+from repro_torch.core.sync import robust  # noqa: E402,F401  (robust presets)

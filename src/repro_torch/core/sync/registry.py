@@ -100,7 +100,11 @@ class StageCtx(NamedTuple):
     f32 distances of this plane's rows to its reference (None: one
     ``sqdist_rows`` pass, ``stages.host_dists``); a hierarchy hands each
     cluster a slice of one grouped pass. ``leaf_sizes`` are the model's
-    leaf sizes in plane order (the tree layout's per-leaf noise)."""
+    leaf sizes in plane order (the tree layout's per-leaf noise).
+    ``memo`` is a dict made fresh for each round (and each cluster), where
+    stages keep what several of them read on the round's uncommitted
+    plane — the robust stages' row distances and finiteness — so it is
+    computed once (the reference leaves that to XLA's CSE)."""
     params: Dict[str, Any]               # the spec's resolved params
     flat: torch.Tensor                   # (m, P) plane
     ref_flat: torch.Tensor               # (P,) reference row
@@ -114,6 +118,7 @@ class StageCtx(NamedTuple):
     adjacency: Optional[np.ndarray] = None   # (m, m) peer overlay or None
     dists: Optional[Callable[[], np.ndarray]] = None
     leaf_sizes: Optional[Tuple[int, ...]] = None
+    memo: Optional[Dict[str, Any]] = None    # one round's shared results
 
 
 class CohortOut(NamedTuple):
@@ -307,17 +312,7 @@ def register_protocol(name: str, spec) -> None:
     PROTOCOLS[name] = spec
 
 
-# kinds the reference registers that later slices of the port bring
-NOT_PORTED = {
-    "robust_periodic": "ROADMAP Queue A 17 (core/sync/robust.py)",
-    "robust_dynamic": "ROADMAP Queue A 17 (core/sync/robust.py)",
-}
-
-
 def get_protocol(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"protocol {name!r} is not ported yet: {NOT_PORTED[name]}")
     if name not in PROTOCOLS:
         raise KeyError(
             f"unknown protocol {name!r}; known: {sorted(PROTOCOLS)}")

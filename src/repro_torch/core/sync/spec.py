@@ -248,8 +248,8 @@ def _compiled_round(spec: ProtocolSpec):
         if trigger.gate(ctx):                      # t % b == 0
             [hot, nhot[, aux] = trigger.condition(ctx)   # conditional
              if nhot > 0:]                               # triggers only
-                cohort(key) -> aggregate -> commit
-                extra = trigger.commit_extra(ctx, cohort mask)
+                cohort(key) -> aggregate ->
+                extra = trigger.commit_extra(ctx, cohort mask) -> commit
         else: identity + zero accounting, the key unchanged,
               extra = trigger.skip_extra(ctx)
 
@@ -269,12 +269,15 @@ def _compiled_round(spec: ProtocolSpec):
         ctx = StageCtx(params=p, flat=X, ref_flat=state.ref, state=state,
                        weights=weights, m=m, t=t, reach=reach,
                        active=active, adjacency=adjacency, dists=dists,
-                       leaf_sizes=leaf_sizes)
+                       leaf_sizes=leaf_sizes, memo={})
         checked, runs, ctx, hot, nhot = fire(ctx)
         if runs:
             cout = coh.fn(ctx, hot, nhot, state.key)
-            out = com.fn(ctx, cout, agg.fn(ctx, cout), hot, nhot)
+            mean = agg.fn(ctx, cout)
+            # the trigger's commit-time state reads the uncommitted plane,
+            # as the reference's does: before the commit writes it
             extra = trig.commit_extra(ctx, cout.mask)
+            out = com.fn(ctx, cout, mean, hot, nhot)
         else:   # a round whose pipeline does not run keeps the key
             out = SyncOut(X, state.ref, state.v, state.key,
                           CommRecord.zero(), _zeros_i32(m), _zeros_i32(m))

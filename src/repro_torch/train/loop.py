@@ -14,9 +14,10 @@ run inside the simulated network, and ``Trajectory.network_time``
 records the cumulative simulated seconds; ``async_net=`` runs the
 event-driven timeline; a protocol with ``tiers`` runs the two-tier
 hierarchy, whose byte curve is the per-round ledger priced per tier.
+``faults=`` injects the fault plane and ``telemetry=`` attaches the
+telemetry plane (one record per round, no change to the numerics).
 
-Departures: no fault/telemetry configs; ``device`` defaults to
-``"cuda"``.
+Departure: ``device`` defaults to ``"cuda"``.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-from repro_torch.config import AsyncConfig, NetworkConfig, TrainConfig
+from repro_torch.config import (
+    AsyncConfig, FaultConfig, NetworkConfig, TelemetryConfig, TrainConfig,
+)
 from repro_torch.core.protocol import DecentralizedLearner
 from repro_torch.core.sync.registry import CommRecord
 from repro_torch.data.pipeline import LearnerStreams
@@ -97,18 +100,23 @@ def run_protocol_training(
     chunk_size: int = DEFAULT_CHUNK,
     network: Optional[NetworkConfig] = None,
     async_net: Optional[AsyncConfig] = None,
+    telemetry: Optional[TelemetryConfig] = None,
+    faults: Optional[FaultConfig] = None,
     device="cuda",
 ) -> tuple:
     """Returns (learner, trajectory). The data source must live on the
     learner's device; ``network`` runs the fleet inside the simulated
-    network environment, ``async_net`` on its event-driven timeline."""
+    network environment, ``async_net`` on its event-driven timeline,
+    ``faults`` under the fault plane; ``telemetry`` streams a record per
+    round."""
     streams = LearnerStreams(source, m, batch=batch, seed=seed,
                              batch_sizes=batch_sizes)
     dl = DecentralizedLearner(
         loss_fn, init_fn, m, protocol, train, seed=seed,
         init_heterogeneity=init_heterogeneity,
         sample_weights=streams.weights, network=network,
-        async_net=async_net, device=device)
+        async_net=async_net, telemetry=telemetry, faults=faults,
+        device=device)
     if streams.device != dl.device:
         raise ValueError(
             f"the data source is on {streams.device}, the learners on "

@@ -10,7 +10,10 @@ distances both sides accumulate in f32 in different orders: rtol 1e-5,
 atol 1e-6 (odd P included: every odd row then starts 4 bytes off an
 8-byte boundary); the LM kernels' tolerances stand above their tests.
 ``repro_torch.prng`` on the card equals it on the CPU bit for bit,
-``normal`` within ``prng.NORMAL_TOL``.
+``normal`` within ``prng.NORMAL_TOL``. On planes holding NaN, ±Inf and
+zeroed rows, ``sqdist_rows`` gives NaN and +Inf where its plain version
+does (compared with ``equal_nan``); the robust aggregates give the CPU's
+bits on the card, and one quarantine round the CPU's integers.
 """
 import pytest
 
@@ -547,3 +550,90 @@ def test_gossip_mixing_on_the_card_is_f32_close_to_the_cpu():
     # a dark learner's row is e_i: its model passes through bit for bit
     dark = int(np.flatnonzero(~active)[0])
     assert torch.equal(mixed["cuda"][dark].cpu(), X[dark])
+
+
+def _poisoned(m, n, seed=0):
+    """An (m, n) f32 plane on the card with a NaN row, an Inf row, a
+    -Inf row and a zero row (a cold restart), beside random rows."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn((m, n), generator=gen, device="cuda")
+    X[1], X[2], X[3], X[4] = float("nan"), float("inf"), -float("inf"), 0.0
+    X[5, n // 2] = float("nan")               # one poisoned entry
+    r = torch.randn((n,), generator=gen, device="cuda")
+    return X, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(8, 515), (100, 20_011), (100, 1_199_882)])
+def test_sqdist_rows_on_non_finite_rows_matches_plain(m, n):
+    """A NaN row gives NaN and an Inf row +Inf, in the kernel as in the
+    plain version; finite rows within TOL, and the zero row's distance is
+    ||r||^2."""
+    _need_card()
+    X, r = _poisoned(m, n)
+    got = sqdist.sqdist_rows(X, r)
+    want = ref.sqdist_rows_ref(X, r)
+    torch.testing.assert_close(got, want, equal_nan=True, **TOL)
+    assert torch.isnan(got[[1, 5]]).all()
+    assert torch.isposinf(got[[2, 3]]).all()
+    assert torch.isfinite(got[[0, 4]]).all()
+    again = sqdist.sqdist_rows(X, r)             # bitwise repeat
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(17, 515), (100, 20_011)])
+def test_robust_aggregates_on_the_card_equal_the_cpu_bitwise(m, n):
+    """The trimmed mean sums its kept order statistics in one fixed
+    order, one add per row, and the median is a sort and one midpoint:
+    the card gives the CPU's bits."""
+    _need_card()
+    import numpy as np
+    from repro_torch.core.sync.robust import flat_median, flat_trimmed_mean
+    X, _ = _poisoned(m, n, seed=3)
+    mask = np.arange(m) % 5 != 2
+    for trim in (0.0, 0.2, 0.29):
+        card = flat_trimmed_mean(X, mask, trim)
+        cpu = flat_trimmed_mean(X.cpu(), mask, trim)
+        assert card.is_cuda and torch.equal(card.cpu(), cpu), trim
+    assert torch.equal(flat_median(X, mask).cpu(),
+                       flat_median(X.cpu(), mask))
+    Xg = X[:m - m % 4].view(4, -1, n)
+    masks = np.stack([mask[:Xg.shape[1]]] * 4)
+    assert torch.equal(flat_trimmed_mean(Xg, masks, 0.2).cpu(),
+                       flat_trimmed_mean(Xg.cpu(), masks, 0.2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["robust_periodic", "robust_dynamic"])
+def test_quarantine_round_on_the_card_equals_the_cpu(kind):
+    """One robust round at m = 100 on a poisoned plane, on the card and
+    on the CPU: the same record, suspects, health counters, and the
+    plane's finite entries within TOL."""
+    _need_card()
+    import numpy as np
+    from repro_torch.config import ProtocolConfig
+    from repro_torch.core.sync import kernel
+    from repro_torch.device import resolve_device
+
+    resolve_device("cuda")
+    m, P = 100, 20_011
+    X, r = _poisoned(m, P, seed=5)
+    honest = torch.isfinite(X).all(dim=1)
+    honest[4] = False                         # the cold row stays zero
+    X[honest] = r + 0.01 * X[honest]          # a fleet near its reference
+    X[6:10] = -X[6:10]                        # sign-flipped adversaries
+    spec = ProtocolConfig(kind=kind, b=1, delta=0.05)._spec()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = kernel.init_state(r.to(dev), 0, spec=spec, m=m)
+        out[dev] = kernel.apply_staged(spec, X.clone().to(dev), state)
+    cpu, card = out["cpu"], out["cuda"]
+    assert card.params.is_cuda and card.rec == cpu.rec
+    assert card.rec.syncs == 1
+    for k in ("health", "recovered"):
+        assert (card.state.extra[k] == cpu.state.extra[k]).all()
+    assert np.flatnonzero(cpu.state.extra["health"]).tolist() == list(
+        range(1, 10))
+    torch.testing.assert_close(card.params.cpu(), cpu.params, **TOL)
+    assert torch.isfinite(card.params).all()

@@ -1,8 +1,8 @@
 """The port stands apart from the JAX package.
 
 ``src/repro_torch``, ``chip_smoke.py`` and the port's examples
-(``examples/torch_quickstart.py``, ``examples/torch_network_regimes.py``)
-import torch and numpy, never
+(``examples/torch_quickstart.py``, ``examples/torch_network_regimes.py``,
+``examples/torch_faulty_fleet.py``) import torch and numpy, never
 jax and nothing of ``repro``; the port's entry points run on the card by
 default and raise, rather than fall back to the CPU, when there is none.
 """
@@ -32,7 +32,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
-    ROOT / "examples" / "torch_network_regimes.py"]
+    ROOT / "examples" / "torch_network_regimes.py",
+    ROOT / "examples" / "torch_faulty_fleet.py"]
 
 
 def _modules():

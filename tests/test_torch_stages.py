@@ -215,8 +215,8 @@ def test_config_validation_matches_reference(kw):
 @pytest.mark.parametrize("kw,what", [
     (dict(kind="aircomp", layout="sharded"), "Queue A 19"),
     (dict(kind="async_dynamic", layout="sharded"), "Queue A 19"),
-    (dict(kind="robust_dynamic"), "Queue A 17"),
-    (dict(kind="robust_periodic"), "Queue A 17"),
+    (dict(kind="robust_dynamic", layout="sharded"), "Queue A 19"),
+    (dict(kind="robust_periodic", layout="sharded"), "Queue A 19"),
     (dict(kind="dynamic", layout="sharded"), "Queue A 19"),
 ])
 def test_unported_options_raise_not_implemented(kw, what):
