@@ -106,6 +106,36 @@ and drives both of the port's paths:
   at (100, P) are timed against their bytes bound. ``fault_agree`` runs
   those settings, an async run and a hierarchy at the test width on the
   card and on the CPU: integers identical, finite parameters within 1e-5.
+* per-learner optimizer steps, the row-sharded fleet and the analysis
+  tools (slice 10): ``kernels`` also holds ``sqdist_rows`` at (50, P)
+  and (25, P), one rank's rows of mnist_cnn's fleet over 2 and 4 ranks,
+  and times them; ``fault_train`` adds F6, adam at lr 1e-3 under the
+  crash schedule, whose per-learner step counts must be the schedule's
+  (``fault_agree`` holds F6's settings on the card to the CPU, step
+  counts included); ``shard_train`` runs tests/test_shard.py's fixture
+  (the drift MLP, m = 8, the seven presets and a hierarchy) flat on the
+  card and the CPU (integers identical), then trains mnist_cnn at full width (m = 100,
+  B = 10), dynamic and periodic, flat in this process, then on
+  ``layout="sharded"`` through ``shard.launch``: S1 one rank over NCCL
+  (the flat run bit for bit), S2 and S4 two and four ranks sharing the
+  card over gloo. Every world: every rank's counters alike, a second
+  run bit for bit the first, each rank's ``sqdist_rows`` launches by
+  shape (6 at (100/n, P) under dynamic), and the fixture's presets with
+  the card's flat comm, ledger and link transfers and planes within the
+  reference's rtol 2e-4 / atol 1e-6. At full width S2 and S4 keep the
+  flat comm and ledger under periodic; the planes, and dynamic's sync
+  decisions, are reported against the flat run (the ranks' smaller
+  cuBLAS/cuDNN calls give other last bits, which training grows), held
+  only to a gross-fault bound. Also ms a round, peak memory and
+  collective bytes a round, and ``make_dynamic_train_step`` at world 2
+  against one process; ``analysis`` runs the lint of the port
+  and this script and the contract matrix (clean), audits one dynamic
+  chunk on the card, where the dispatch mode's host syncs and
+  ``torch.cuda.set_sync_debug_mode``'s warnings must both equal the
+  documented budget, places one dynamic round on the roofline and sets
+  each kernel's ``kernel_bound`` beside its measured time (the same
+  bound the kernel phases computed); ``costs`` runs
+  ``python -m repro_torch.telemetry costs`` on F2's stream.
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -116,6 +146,7 @@ package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -124,6 +155,8 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
+from io import StringIO
 
 import numpy as np
 import torch
@@ -144,13 +177,18 @@ from repro_torch.config import (  # noqa: E402
     AsyncConfig, FaultConfig, HierarchyConfig, NetworkConfig, ProtocolConfig,
     TelemetryConfig, TrainConfig, get_arch,
 )
+from repro_torch.analysis.roofline import (  # noqa: E402
+    attention_work, kernel_bound, peaks, ssd_work,
+)
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
+from repro_torch.core import distributed, shard  # noqa: E402
 from repro_torch.core.flatten import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core.protocol import DecentralizedLearner, SerialLearner  # noqa: E402
 from repro_torch.core.sync import stages  # noqa: E402
 from repro_torch.core.sync.robust import flat_median, flat_trimmed_mean  # noqa: E402
 from repro_torch.core.sync.spec import ProtocolSpec, resolve_spec  # noqa: E402
 from repro_torch.data.pipeline import LearnerStreams  # noqa: E402
+from repro_torch.device import versions  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     DeepDriveStream, GraphicalModelStream, SyntheticMNIST,
 )
@@ -173,13 +211,6 @@ P_DEEPDRIVE = 348_219        # deepdrive_cnn's weights (Table 5, PilotNet)
 M, B, ROUNDS, CHUNK, PERIOD, DELTA = 100, 10, 60, 20, 10, 0.7
 TIER_G = 10                  # tier_train's clusters of 10 learners
 TOL = dict(rtol=1e-5, atol=1e-6)
-
-# published peaks (NVIDIA data sheets, dense): device-memory bytes/s,
-# f32 flop/s outside the tensor cores, bf16 and TF32 tensor-core flop/s
-PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12, 378e12),
-         "H100 NVL": (3.9e12, 60e12, 835e12, 418e12),
-         "H100": (3.35e12, 67e12, 989e12, 495e12),
-         "H200": (4.8e12, 67e12, 989e12, 495e12)}
 
 # the serving path (llama3-8b and its sliding-window variant, bf16)
 SERVE_B, SERVE_S, PROMPT, GEN = 4, 2048, 32, 32
@@ -236,13 +267,6 @@ def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
-def peaks(name: str):
-    for key in sorted(PEAKS, key=len, reverse=True):
-        if all(part in name for part in key.split()):
-            return PEAKS[key]
-    raise ValueError(f"no published peaks for {name!r}")
-
-
 # ---------------------------------------------------------------------------
 def phase_env() -> dict:
     smi = subprocess.run(
@@ -251,8 +275,8 @@ def phase_env() -> dict:
         check=True).stdout.strip().splitlines()[0]
     rec = {"phase": "env", "nvidia_smi": smi,
            "device": torch.cuda.get_device_name(0),
-           "count": torch.cuda.device_count(), "torch": torch.__version__,
-           "cuda": torch.version.cuda, "nvcc": _build.nvcc_path(),
+           "count": torch.cuda.device_count(), **versions(),
+           "nvcc": _build.nvcc_path(),
            "ninja": shutil.which("ninja")}
     emit(rec)
     return rec
@@ -317,8 +341,11 @@ def phase_kernels(gen) -> dict:
     # sqdist flattens its inputs: (1, P_MNIST) is one whole mnist_cnn model;
     # P_DEEPDRIVE is odd, so every odd row of that plane starts 4 bytes off
     # an 8-byte boundary
+    # (50, P) and (25, P): one rank's rows of a fleet sharded over 2 and 4
+    # ranks (shard_train)
     for m, n in [(1, 1), (17, 515), (1, P_MNIST), (7, P_MNIST),
-                 (100, P_MNIST), (3, P_DEEPDRIVE), (100, P_DEEPDRIVE)]:
+                 (25, P_MNIST), (50, P_MNIST), (100, P_MNIST),
+                 (3, P_DEEPDRIVE), (100, P_DEEPDRIVE)]:
         for dt in (torch.float32, torch.bfloat16):
             X = torch.randn((m, n), generator=gen, device="cuda").to(dt)
             r = torch.randn((n,), generator=gen, device="cuda").to(dt)
@@ -372,6 +399,14 @@ def phase_kernels(gen) -> dict:
         "sqdist": (1, P_MNIST, lambda: sqdist.sqdist(x0, r),
                    lambda: ref.sqdist_ref(x0, r),
                    lambda: torch.linalg.vector_norm(x0 - r).square()),
+        "sqdist_rows_50": (
+            50, P_MNIST, lambda: sqdist.sqdist_rows(X[:50], r),
+            lambda: ref.sqdist_rows_ref(X[:50], r),
+            lambda: torch.linalg.vector_norm(X[:50] - r, dim=1).square()),
+        "sqdist_rows_25": (
+            25, P_MNIST, lambda: sqdist.sqdist_rows(X[:25], r),
+            lambda: ref.sqdist_rows_ref(X[:25], r),
+            lambda: torch.linalg.vector_norm(X[:25] - r, dim=1).square()),
         "sqdist_rows_deepdrive": (
             M, P_DEEPDRIVE, lambda: sqdist.sqdist_rows(Xd, rd),
             lambda: ref.sqdist_rows_ref(Xd, rd),
@@ -391,7 +426,7 @@ def phase_kernels(gen) -> dict:
         # the device alone: one launch per call (the last block of a row,
         # chosen by a ticket, sums its partials), against vector_norm's
         dev, dev_library = profile_calls(kernel), profile_calls(library)
-        kernel_name = name.split("_deepdrive")[0].split("_grouped")[0]
+        kernel_name = "sqdist" if name == "sqdist" else "sqdist_rows"
         table[name] = {
             "shape": [m, P], "dtype": "float32",
             "max_abs_err": worst[kernel_name]["abs"],
@@ -571,18 +606,6 @@ def phase_agree() -> dict:
 # ---------------------------------------------------------------------------
 # serving (slice 2)
 # ---------------------------------------------------------------------------
-def attention_work(B, Sq, Sk, H, Hkv, d, causal, window, itemsize):
-    """(bytes, flops) the attention function needs at these shapes: q, k,
-    v read once and o written once; 4 flops per kept query-key pair per
-    head dimension (q.k and p.v), counting the pairs this mask keeps."""
-    pos = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
-    hi = np.minimum(pos, Sk - 1) if causal else np.full(Sq, Sk - 1)
-    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(Sq)
-    pairs = int(np.maximum(hi - lo + 1, 0).sum())
-    nbytes = (2 * B * Sq * H * d + 2 * B * Sk * Hkv * d) * itemsize
-    return nbytes, 4 * d * pairs * B * H
-
-
 def phase_lm_kernels(gen) -> dict:
     """rmsnorm, flash_attention(_gqa) and swa_attention against their plain
     versions on the card, f32 and bf16, bitwise equal across two
@@ -960,24 +983,6 @@ def phase_serve() -> dict:
 # ---------------------------------------------------------------------------
 # Mamba2 serving (slice 3)
 # ---------------------------------------------------------------------------
-def ssd_work(BH, S, P, N, bc_rows, chunk, itemsize):
-    """(bytes, flops) of the SSD at these shapes: x, dt, b, c read once
-    (b and c as the kernel reads them, ``bc_rows`` rows), a read, y and
-    the f32 state written once; the flops are the fewer of the two forms
-    that compute it. The chunked form needs, per chunk of Q steps, the
-    causal triangle of C B^T once per row of b and c (the row's heads
-    share it), Q (Q + 1) N, and per head the triangle of the diagonal
-    product, Q (Q + 1) P, then 2 Q N P for C h^T and 2 Q P N for the
-    state update; the sequential recurrence needs 5 P N per step (decay,
-    the dt x b^T outer product and its add, then C h)."""
-    nbytes = ((2 * BH * S * P + BH * S + 2 * bc_rows * S * N) * itemsize
-              + 4 * BH + 4 * BH * P * N)
-    nc = S // chunk
-    chunked = (bc_rows * chunk * (chunk + 1) * N
-               + BH * (chunk * (chunk + 1) * P + 4 * chunk * N * P)) * nc
-    return nbytes, min(chunked, 5 * P * N * S * BH)
-
-
 def phase_ssm_kernels(gen) -> tuple:
     """ssd_scan against the sequential plain version on the card, in f32
     and bf16, bitwise equal across two launches; then the serving path's
@@ -1073,7 +1078,7 @@ def phase_ssm_kernels(gen) -> tuple:
                            label="serve (320, 2048, 64, 128), chunk 64, "
                                  "80 heads per group")
     br, cr = b.repeat_interleave(R, 0), c.repeat_interleave(R, 0)
-    mem_rate, f32_rate, _, tf32_rate = peaks(torch.cuda.get_device_name(0))
+    mem_rate, f32_rate, _, tf32_rate = peaks(torch.cuda.get_device_name(0))[:4]
     nbytes, nops = ssd_work(BH, S, P, N, BH // R, Q, 4)
     t_bytes, t_ops = nbytes / mem_rate * 1e3, nops / tf32_rate * 1e3
     run = lambda: ssd_scan.ssd_scan(x, dt, a, b, c, chunk=Q)  # noqa: E731
@@ -1802,7 +1807,8 @@ def _state_equal(a, b) -> bool:
 
 
 def _same_run(a, b) -> bool:
-    return (torch.equal(a.X, b.X) and a.opt_state.step == b.opt_state.step
+    return (torch.equal(a.X, b.X)
+            and torch.equal(a.opt_state.step, b.opt_state.step)
             and _state_equal(a.sync_state, b.sync_state)
             and a.comm_totals == b.comm_totals
             and np.array_equal(a.per_link_bytes(), b.per_link_bytes())
@@ -2092,6 +2098,8 @@ HEAVY = dict(fault_seed=7, crash_prob=0.3, byzantine_frac=0.25,
 # benchmarks/robust_bench.py's median pipeline
 MEDIAN = dict(name="robust_median", trigger="robust_divergence",
               cohort="all_reachable", aggregate="median", commit="quarantine")
+# F6: adam under FAULTS' crashes (ROADMAP C3: per-learner step counts)
+ADAM = TrainConfig(optimizer="adam", learning_rate=1e-3)
 FAULT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build", "fault_telemetry")
 
@@ -2114,10 +2122,13 @@ def phase_fault_train() -> dict:
     bytes, profiling and the divergence series) under FAULTS, F3
     robust_periodic and F4 the median pipeline under HEAVY (NaN/Inf rows),
     F5 dynamic at FaultConfig(), which must be the faults=None run bit
-    for bit. The sqdist_rows count is zeroed before each run and read
-    after it: one launch per checked round (6), plus one divergence pass
-    a round for F2 (60). Then one trimmed mean and one median at (100, P)
-    are timed against their bytes bound."""
+    for bit, and F6 dynamic with adam at lr 1e-3 under FAULTS, whose
+    learners' optimizer step counts must be the schedule's (a crashed
+    learner's frozen, a restarted one's counted from 0). The sqdist_rows
+    count is zeroed before each run and read after it: one launch per
+    checked round (6), plus one divergence pass a round for F2 (60).
+    Then one trimmed mean and one median at (100, P) are timed against
+    their bytes bound."""
     cfg = get_arch("mnist_cnn")
     loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
     init_fn = lambda g: init_cnn_params(cfg, g)          # noqa: E731
@@ -2138,13 +2149,15 @@ def phase_fault_train() -> dict:
                HEAVY, checked, {}),
         "F5": (dyn, {}, checked, {}),
         "F5 faults=None": (dyn, None, checked, {}),
+        "F6": (dyn, FAULTS, checked, {"train": ADAM}),
     }
     runs, counts, done = {}, {}, {}
     for name, (proto, fkw, want, extra) in plan.items():
         fcfg = None if fkw is None else FaultConfig(**fkw)
+        tr = extra.pop("train", train)
 
         def run():
-            dl = DecentralizedLearner(loss_fn, init_fn, M, proto, train,
+            dl = DecentralizedLearner(loss_fn, init_fn, M, proto, tr,
                                       seed=0, faults=fcfg, device="cuda",
                                       **extra)
             streams = LearnerStreams(src, M, batch=B, seed=0)
@@ -2200,6 +2213,8 @@ def phase_fault_train() -> dict:
             "sqdist_rows": counts[name], **series}
         if runs[name]["ledger_bytes"] != dl.comm_bytes():
             raise SystemExit(f"{name}: the ledger does not balance")
+        if name == "F6":
+            runs[name]["optimizer_steps"] = check_adam_steps(dl, fcfg)
         if name == "F2":
             dl.recorder.close()
             runs[name]["stream"] = check_fault_stream(dl, stream, series)
@@ -2231,6 +2246,40 @@ def phase_fault_train() -> dict:
         if r["syncs"] < 1:
             raise SystemExit(f"{name} never synced")
     return {k: v for k, v in counts.items() if k != "F5 faults=None"}
+
+
+def schedule_steps(fcfg, m: int, rounds: int) -> np.ndarray:
+    """Each learner's optimizer step count after ``rounds`` rounds of the
+    fault schedule: the rounds it trained (was not crashed) since its
+    last restart, which zeroes the count before that round's step."""
+    crashed = faults.crash_rounds(fcfg, m, range(rounds))
+    restarted = faults.restart_rounds(fcfg, m, range(rounds))
+    last = np.where(restarted.any(axis=0),
+                    rounds - 1 - np.argmax(restarted[::-1], axis=0), 0)
+    return np.array([int((~crashed[last[i]:, i]).sum()) for i in range(m)],
+                    np.int32)
+
+
+def check_adam_steps(dl, fcfg) -> dict:
+    """F6's per-learner optimizer steps against the fault masks: the
+    schedule's counts, an (m,) int32 tensor on the card, unequal (some
+    learner crashed or restarted)."""
+    steps = dl.opt_state.step
+    want = schedule_steps(fcfg, M, ROUNDS)
+    got = steps.cpu().numpy()
+    out = {"dtype": str(steps.dtype), "device": str(steps.device),
+           "min": int(got.min()), "max": int(got.max()),
+           "learners_behind": int((got < ROUNDS).sum()),
+           "restarted": int(faults.restart_rounds(fcfg, M, range(ROUNDS))
+                            .any(axis=0).sum())}
+    if not (steps.is_cuda and steps.dtype == torch.int32
+            and np.array_equal(got, want) and got.min() < ROUNDS):
+        emit({"phase": "fault_train", "failed": {"F6 steps": out,
+                                                 "got": got.tolist(),
+                                                 "want": want.tolist()}})
+        raise SystemExit("F6: the optimizer step counts are not the fault "
+                         "schedule's")
+    return out
 
 
 def check_fault_stream(dl, path: str, series: dict) -> dict:
@@ -2301,21 +2350,25 @@ def time_robust_aggregates(X: torch.Tensor) -> dict:
 
 
 def phase_fault_agree() -> dict:
-    """F1-F4's settings at the test width (drift_mlp smoke, m = 8, 32
-    rounds in chunks of 16), plus async periodic and a hierarchy under
-    HEAVY, on the card and on the CPU from the same model and batches:
-    comm, ledger, every round's fault / active / quarantine / recovery
-    counts and the health state identical; parameters finite alike and
-    the finite ones within 1e-5."""
+    """F1-F4's and F6's settings at the test width (drift_mlp smoke,
+    m = 8, 32 rounds in chunks of 16), plus async periodic and a hierarchy
+    under HEAVY, on the card and on the CPU from the same model and
+    batches: comm, ledger, every round's fault / active / quarantine /
+    recovery counts, the health state and the optimizer step counts
+    identical; parameters finite alike and the finite ones within
+    1e-5."""
     cfg = get_arch("drift_mlp", smoke=True)
     loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
     init = params_to_numpy(init_cnn_params(cfg, torch.Generator()
                                            .manual_seed(5)))
     src = GraphicalModelStream(seed=1, drift_prob=0.0, device="cpu")
     edge = dict(link_classes=("lte", "edge"))
-    cases = {   # name -> (protocol, faults, network, AsyncConfig)
+    sgd = TrainConfig(optimizer="sgd", learning_rate=0.05)
+    cases = {   # name -> (protocol, faults, network, AsyncConfig[, train])
         "F1 dynamic": (ProtocolConfig(kind="dynamic", b=2, delta=0.5),
                        FAULTS, None, None),
+        "F6 adam dynamic": (ProtocolConfig(kind="dynamic", b=2, delta=0.5),
+                            FAULTS, None, None, ADAM),
         "F2 robust_dynamic": (ProtocolConfig(kind="robust_dynamic", b=2,
                                              delta=0.5), FAULTS, None, None),
         "F3 robust_periodic": (ProtocolConfig(kind="robust_periodic", b=2),
@@ -2335,12 +2388,12 @@ def phase_fault_agree() -> dict:
     report = {}
     fields = ("num_faulty", "num_active", "num_quarantined", "num_recovered",
               "num_inflight", "link_counts")
-    for name, (proto, fkw, net, an) in cases.items():
+    for name, (proto, fkw, net, an, *tr) in cases.items():
         out = {}
         for dev in ("cpu", "cuda"):
             dl = DecentralizedLearner(
                 loss_fn, lambda g: params_from_numpy(init, g.device), 8,
-                proto, TrainConfig(optimizer="sgd", learning_rate=0.05),
+                proto, tr[0] if tr else sgd,
                 network=None if net is None else NetworkConfig(**net),
                 async_net=an, faults=FaultConfig(**fkw), device=dev)
             metrics = [dl.run_chunk({k: v[i:i + 16].to(dev)
@@ -2361,13 +2414,15 @@ def phase_fault_agree() -> dict:
                 and gpu.network_time == cpu.network_time
                 and all(np.array_equal(gs[f], cs[f]) for f in fields)
                 and sorted(egpu) == sorted(ecpu)
-                and all(np.array_equal(egpu[k], ecpu[k]) for k in ecpu))
+                and all(np.array_equal(egpu[k], ecpu[k]) for k in ecpu)
+                and torch.equal(gpu.opt_state.step.cpu(), cpu.opt_state.step))
         report[name] = {"comm_totals": gpu.comm_totals,
                         "cpu_comm_totals": cpu.comm_totals,
                         "faulty_learner_rounds": int(gs["num_faulty"].sum()),
                         "quarantined_learner_rounds":
                             int(gs["num_quarantined"].sum()),
                         "param_max_abs_err_finite": err,
+                        "optimizer_steps": gpu.opt_state.step.tolist(),
                         "identical": same, "params_close": close}
         if not same or gpu.comm_totals["syncs"] < 1:
             emit({"phase": "fault_agree", "failed": name, **report[name]})
@@ -2379,6 +2434,456 @@ def phase_fault_agree() -> dict:
                              f"the CPU's by {err}")
     rec = {"phase": "fault_agree", "cases": report}
     emit(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+SHARD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "shard")
+# the reference's sharded-vs-flat tolerance (tests/test_shard.py:79): the
+# cohort means add the ranks' partial sums in rank order
+SHARD_TOL = dict(rtol=2e-4, atol=1e-6)
+# a split fleet's plane is held to the flat plane only to catch a gross
+# fault (a lost rank or a wrong row is O(1) of the plane's norm), and
+# its precision is reported: the ranks' smaller cuBLAS/cuDNN calls give
+# other last bits, training grows them, and a ReLU kink can turn one into
+# an O(lr) step (on the CPU, the fixture's fedavg at world 2: learner 2's
+# gradient moves by 0.053 in round 26 for a 6e-8 parameter difference)
+SHARD_GROSS_REL = 1e-2
+SHARD_WORLDS = (1, 2, 4)
+SHARD_KINDS = ("dynamic", "periodic")
+STEP_ROUNDS = 20             # make_dynamic_train_step's steps at world 2
+# tests/test_shard.py's fixture: the smoke drift MLP, m = 8, B = 10, sgd
+# lr 0.05, 30 rounds, the ring at 60% availability over wifi and lte
+FIXTURE_M, FIXTURE_ROUNDS = 8, 30
+FIXTURE_NET = dict(act_prob=0.6, topology="ring", link_classes=("wifi", "lte"))
+FIXTURE_PRESETS = {
+    "nosync": dict(kind="nosync"),
+    "periodic": dict(kind="periodic", b=3),
+    "continuous": dict(kind="continuous", b=1),
+    "fedavg": dict(kind="fedavg", b=2, fedavg_c=0.5),
+    "dynamic": dict(kind="dynamic", b=2, delta=0.5),
+    "gossip": dict(kind="gossip", b=2),
+    "stale": dict(kind="stale"),
+    "hierarchy": dict(kind="dynamic", b=2, delta=0.5),
+}
+
+
+def _shard_proto(kind: str, layout: str) -> ProtocolConfig:
+    if kind == "dynamic":
+        return ProtocolConfig(kind="dynamic", b=PERIOD, delta=DELTA,
+                              layout=layout)
+    return ProtocolConfig(kind="periodic", b=PERIOD, layout=layout)
+
+
+def _fingerprint(X: torch.Tensor) -> int:
+    """A position-weighted sum of the plane's bits, mod 2**64 (integer
+    sums do not depend on their order): equal planes give equal values,
+    and one changed bit changes it."""
+    bits = X.contiguous().view(torch.int32).reshape(-1)
+    total, step = 0, 1 << 24
+    for i in range(0, bits.numel(), step):
+        b = bits[i:i + step].to(torch.int64)
+        w = torch.arange(i, i + b.numel(), device=X.device) % 65521 + 1
+        total = (total + int((b * w).sum())) % (1 << 64)
+    return total
+
+
+def _mnist_run(kind: str, layout: str):
+    """mnist_cnn at full width, m = 100, B = 10, sgd lr 0.1, seed 0, 60
+    rounds in chunks of 20, under ``kind`` on ``layout``, timed: (the
+    learner, ms, peak bytes)."""
+    cfg = get_arch("mnist_cnn")
+    src = SyntheticMNIST(seed=0, image_size=28, device="cuda")
+
+    def run():
+        dl = DecentralizedLearner(
+            lambda p, b: cnn_loss(cfg, p, b),
+            lambda g: init_cnn_params(cfg, g), M, _shard_proto(kind, layout),
+            TrainConfig(optimizer="sgd", learning_rate=0.1), seed=0,
+            device="cuda")
+        streams = LearnerStreams(src, M, batch=B, seed=0)
+        for _ in range(ROUNDS // CHUNK):
+            dl.run_chunk(streams.next_chunk(CHUNK))
+        return dl
+
+    return _timed_run(run)
+
+
+def _counters(dl) -> dict:
+    return {"comm": dict(dl.comm_totals),
+            "ledger": [int(x) for x in dl.per_link_bytes()],
+            "network_time": dl.network_time,
+            "cumulative_loss": dl.cumulative_loss,
+            "loss_per_learner": dl.cumulative_loss_per_learner.tolist()}
+
+
+def _fixture_data():
+    """The fixture's initial model and 30 rounds of batches, as numpy
+    (they go to the ranks by pickle)."""
+    cfg = get_arch("drift_mlp", smoke=True)
+    init = params_to_numpy(init_cnn_params(cfg, torch.Generator()
+                                           .manual_seed(0)))
+    src = GraphicalModelStream(seed=0, drift_prob=0.0, device="cpu")
+    batches = LearnerStreams(src, FIXTURE_M, batch=B,
+                             seed=0).next_chunk(FIXTURE_ROUNDS)
+    return init, {k: v.numpy() for k, v in batches.items()}
+
+
+def _fixture_run(name: str, layout: str, data, device: str) -> dict:
+    """One preset of the fixture on ``layout``: counters, ledger, link
+    transfers and the whole (gathered) plane on the host."""
+    cfg = get_arch("drift_mlp", smoke=True)
+    init, batches = data
+    tiers = None if name != "hierarchy" else HierarchyConfig(
+        num_clusters=4, inter=ProtocolConfig(kind="periodic", b=6))
+    dl = DecentralizedLearner(
+        lambda p, b: cnn_loss(cfg, p, b),
+        lambda g: params_from_numpy(init, device=device), FIXTURE_M,
+        ProtocolConfig(**FIXTURE_PRESETS[name], layout=layout, tiers=tiers),
+        TrainConfig(optimizer="sgd", learning_rate=0.05),
+        network=NetworkConfig(**FIXTURE_NET), device=device)
+    dl.run_chunk({k: torch.from_numpy(v).to(device)
+                  for k, v in batches.items()})
+    return {"comm": dict(dl.comm_totals),
+            "ledger": [int(x) for x in dl.per_link_bytes()],
+            "xfers": dl.link_xfer_totals.tolist(),
+            "plane": dl.fleet_plane().cpu()}
+
+
+def _train_step_run(fleet) -> dict:
+    """``make_dynamic_train_step`` at full width (m = 100, B = 10, sgd lr
+    0.1, dynamic b=10 Δ=0.7) for STEP_ROUNDS steps; ``fleet`` None is one
+    process."""
+    cfg = get_arch("mnist_cnn")
+    loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
+    train = TrainConfig(optimizer="sgd", learning_rate=0.1)
+    proto = ProtocolConfig(kind="dynamic", b=PERIOD, delta=DELTA)
+    state = distributed.init_dynamic_state(
+        lambda g: init_cnn_params(cfg, g),
+        torch.Generator(device="cuda").manual_seed(0), M, train,
+        fleet=fleet, device="cuda")
+    step = distributed.make_dynamic_train_step(loss_fn, proto, train, M,
+                                               fleet=fleet)
+    src = SyntheticMNIST(seed=0, image_size=28, device="cuda")
+    batches = LearnerStreams(src, M, batch=B, seed=0).next_chunk(STEP_ROUNDS)
+    synced, maxd, loss = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(STEP_ROUNDS):
+        state, metrics = step(state, {k: v[t] for k, v in batches.items()})
+        synced.append(int(metrics["synced"]))
+        maxd.append(float(metrics["max_sq_dist"]))
+        loss.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    return {"synced": synced, "max_sq_dist": maxd, "loss": loss,
+            "syncs": state.syncs, "checks": state.checks,
+            "ms_per_step": (time.perf_counter() - t0) * 1e3 / STEP_ROUNDS}
+
+
+def shard_rank(flat_dir: str, fixture) -> dict:
+    """One rank of shard_train (run by ``shard.launch``): the dynamic and
+    periodic runs at full width on layout="sharded", twice each, with
+    this rank's sqdist_rows launches by shape, the bytes its collectives
+    received a round, its ms a round and peak memory and the gathered
+    plane's fingerprint; rank 0 measures each first run's plane against
+    the flat run's. Then every preset of the fixture on the card. At
+    world 2, also make_dynamic_train_step on the fleet."""
+    import torch.distributed as dist
+    world, rank = dist.get_world_size(), dist.get_rank()
+    out = {"world": world, "rank": rank, "backend": dist.get_backend()}
+    for kind in SHARD_KINDS:
+        runs = []
+        for rep in range(2):
+            ops.reset_launches()
+            shard.COLLECTIVE_BYTES.clear()
+            dl, ms, peak = _mnist_run(kind, "sharded")
+            rec = {**_counters(dl), "ms_per_round": ms / ROUNDS,
+                   "peak_memory_bytes": peak, "rows_per_rank": dl.m_local,
+                   "sqdist_rows": {"x".join(map(str, k)): v for k, v in
+                                   ops.ROWS_LAUNCHES.items()},
+                   "collective_bytes_per_round": {
+                       k: v / ROUNDS
+                       for k, v in shard.COLLECTIVE_BYTES.items()}}
+            plane = dl.fleet_plane()
+            rec["fingerprint"] = _fingerprint(plane)
+            if rank == 0 and rep == 0:
+                flat = torch.load(os.path.join(flat_dir, f"{kind}.pt"),
+                                  map_location="cuda")
+                rec.update(bitwise=bool(torch.equal(plane, flat)),
+                           **_plane_gap(plane, flat))
+                del flat
+            runs.append(rec)
+            del dl, plane
+            torch.cuda.empty_cache()
+        out[kind] = runs
+    ops.reset_launches()
+    out["fixture"] = {name: _fixture_run(name, "sharded", fixture, "cuda")
+                      for name in FIXTURE_PRESETS}
+    if world == 2:
+        out["train_step"] = _train_step_run(shard.fleet_sharding(M))
+    return out
+
+
+def _same_fixture(a: dict, b: dict) -> bool:
+    return all(a[k] == b[k] for k in ("comm", "ledger", "xfers"))
+
+
+def _plane_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """How far a plane is from another: the largest entry, SHARD_TOL's
+    verdict and the norm of the difference relative to ``want``'s."""
+    return {"max_abs_err": float((got - want).abs().max()),
+            "close": bool(torch.allclose(got, want, **SHARD_TOL)),
+            "rel_l2_err": float(torch.linalg.vector_norm(got - want)
+                                / torch.linalg.vector_norm(want)),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def _gross(gap: dict) -> bool:
+    return gap["finite"] and gap["rel_l2_err"] <= SHARD_GROSS_REL
+
+
+def phase_shard_train() -> dict:
+    """The row-sharded fleet on the one card. First tests/test_shard.py's
+    fixture (the smoke drift MLP, m = 8, the ring at 60%, the seven
+    presets and a hierarchy of 4 clusters) flat on the card and on the
+    CPU: comm, ledger and link transfers identical. Then mnist_cnn at
+    full width (m = 100, B = 10, sgd lr 0.1, 60 rounds in chunks of 20),
+    dynamic b=10 Δ=0.7 and periodic b=10, flat (planes saved to
+    build/shard/), and make_dynamic_train_step in this process. Then S1,
+    one rank over NCCL, and S2 and S4, two and four ranks sharing the
+    card over gloo. Every world: each rank's counters alike, a second
+    run bit for bit the first, sqdist_rows 6 times on each rank's
+    (100/n, P) rows under dynamic and never under periodic, and the
+    fixture's every preset with the card's flat comm, ledger and link
+    transfers. S1 is the flat run bit for bit, fixture and full width.
+    At full width S2 and S4 run the local step in calls of 50 and 25
+    learners, so periodic keeps the flat comm and ledger (its cadence
+    reads no value) and dynamic's are reported beside the flat run's.
+    Each split plane is measured against its flat one (largest error,
+    SHARD_TOL's verdict) and held within SHARD_GROSS_REL of its norm.
+    make_dynamic_train_step at world 2 makes one process's sync
+    decisions."""
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    problems = []
+    fixture = _fixture_data()
+    fix_flat, fix_agree = {}, {}
+    for name in FIXTURE_PRESETS:
+        card = _fixture_run(name, "flat", fixture, "cuda")
+        cpu = _fixture_run(name, "flat", fixture, "cpu")
+        fix_flat[name] = card
+        fix_agree[name] = {"integers_identical": _same_fixture(card, cpu),
+                           **_plane_gap(card["plane"], cpu["plane"]),
+                           "syncs": card["comm"]["syncs"]}
+        if not (fix_agree[name]["integers_identical"]
+                and _gross(fix_agree[name])):
+            problems.append(f"fixture {name}: card flat vs CPU flat "
+                            f"{fix_agree[name]}")
+    flat = {}
+    for kind in SHARD_KINDS:
+        ops.reset_launches()
+        dl, ms, peak = _mnist_run(kind, "flat")
+        flat[kind] = {
+            **_counters(dl), "ms_per_round": ms / ROUNDS,
+            "peak_memory_bytes": peak, "fingerprint": _fingerprint(dl.X),
+            "sqdist_rows": {"x".join(map(str, k)): v for k, v in
+                            ops.ROWS_LAUNCHES.items()}}
+        torch.save(dl.X, os.path.join(SHARD_DIR, f"{kind}.pt"))
+        del dl
+    step_one = _train_step_run(None)
+    torch.cuda.empty_cache()
+    worlds, held, fix_held = {}, {}, {}
+    keys = ("comm", "ledger", "network_time", "cumulative_loss",
+            "loss_per_learner", "fingerprint")
+    for world in SHARD_WORLDS:
+        t0 = time.perf_counter()
+        ranks = shard.launch(shard_rank, world, SHARD_DIR, fixture,
+                             device="cuda")
+        name = f"S{world}"
+        worlds[name] = {"seconds": time.perf_counter() - t0,
+                        "ranks": ranks}
+        for kind in SHARD_KINDS:
+            want, lead = flat[kind], ranks[0][kind][0]
+            shape = f"{M // world}x{P_MNIST}x1"
+            launches = {shape: ROUNDS // PERIOD} if kind == "dynamic" else {}
+            for r in ranks:
+                first, second = r[kind]
+                if {k: first[k] for k in keys} != {k: lead[k] for k in keys}:
+                    problems.append(f"{name} {kind}: rank {r['rank']} "
+                                    f"differs from rank 0")
+                if any(first[k] != second[k] for k in keys):
+                    problems.append(f"{name} {kind} rank {r['rank']}: the "
+                                    f"second run is not the first bit for "
+                                    f"bit")
+                if first["sqdist_rows"] != launches:
+                    problems.append(f"{name} {kind} rank {r['rank']}: "
+                                    f"sqdist_rows {first['sqdist_rows']}, "
+                                    f"predicted {launches}")
+            same = {k: lead[k] == want[k] for k in
+                    ("comm", "ledger", "fingerprint")}
+            held[f"{name} {kind}"] = {
+                **same, **{k: lead[k] for k in
+                           ("bitwise", "close", "max_abs_err", "rel_l2_err",
+                            "finite")},
+                "split_comm": lead["comm"], "flat_comm": want["comm"]}
+            h = held[f"{name} {kind}"]
+            if world == 1 and not (all(same.values()) and h["bitwise"]):
+                problems.append(f"{name} {kind}: not the flat run bit for "
+                                f"bit: {h}")
+            if kind == "periodic" and not (same["comm"] and same["ledger"]):
+                problems.append(f"{name} periodic: comm or ledger differ "
+                                f"from the flat run's: {h}")
+            if not _gross(h):
+                problems.append(f"{name} {kind}: the plane is not the flat "
+                                f"plane's within {SHARD_GROSS_REL}: {h}")
+        fix_held[name] = {}
+        for preset, want in fix_flat.items():
+            for r in ranks:
+                got = r["fixture"][preset]
+                gap = _plane_gap(got["plane"], want["plane"])
+                ok = _same_fixture(got, want) and _gross(gap)
+                if world == 1:
+                    ok = ok and bool(torch.equal(got["plane"],
+                                                 want["plane"]))
+                if not ok:
+                    problems.append(f"{name} fixture {preset} rank "
+                                    f"{r['rank']}: comm {got['comm']} vs "
+                                    f"flat {want['comm']}, {gap}")
+                if r["rank"] == 0:
+                    fix_held[name][preset] = gap
+        if world == 2:
+            got = ranks[0]["train_step"]
+            if not (got["synced"] == step_one["synced"] and got["syncs"] > 0
+                    and all(r["train_step"]["synced"] == got["synced"]
+                            for r in ranks)
+                    and all(math.isfinite(x) for x in got["loss"])):
+                problems.append(f"make_dynamic_train_step at world 2: "
+                                f"{got} against one process's {step_one}")
+    summary = {}
+    for name, w in worlds.items():
+        lead = w["ranks"][0]
+        summary[name] = {
+            "backend": lead["backend"], "seconds": w["seconds"],
+            "fixture": fix_held[name],
+            **{kind: {
+                "ms_per_round": [x["ms_per_round"] for x in lead[kind]],
+                "peak_memory_bytes_per_rank": [
+                    r[kind][0]["peak_memory_bytes"] for r in w["ranks"]],
+                "collective_bytes_per_round":
+                    lead[kind][0]["collective_bytes_per_round"],
+                "sqdist_rows_per_rank": [r[kind][0]["sqdist_rows"]
+                                         for r in w["ranks"]],
+                **held[f"{name} {kind}"]} for kind in SHARD_KINDS}}
+    rec = {"phase": "shard_train", "m": M, "batch": B,
+           "fixture": {"m": FIXTURE_M, "rounds": FIXTURE_ROUNDS,
+                       "card_vs_cpu": fix_agree},
+           "flat": {k: {kk: v[kk] for kk in ("ms_per_round",
+                                             "peak_memory_bytes",
+                                             "sqdist_rows", "comm")}
+                    for k, v in flat.items()},
+           "worlds": summary,
+           "train_step": {"one_process": step_one,
+                          "world2": worlds["S2"]["ranks"][0]["train_step"]},
+           "problems": problems}
+    emit(rec)
+    if problems:
+        raise SystemExit(f"shard_train: {problems}")
+    return {f"{name} rank {r['rank']}": r["dynamic"][0]["sqdist_rows"]
+            for name, w in worlds.items() for r in w["ranks"]}
+
+
+def phase_analysis(kernel_rows: list) -> dict:
+    """The analysis tools on the card's tree and the card: the lint of the
+    port and this script and the contract matrix (``--check-all``'s
+    static half; the audit's CPU half is the tests'), then the audit of
+    one dynamic chunk of mnist_cnn at full width on the card, under
+    ``torch.cuda.set_sync_debug_mode("warn")`` too: both counts of host
+    syncs must be the documented budget. Then ``roofline.analyze`` of
+    one dynamic round, and ``kernel_bound`` of each kernel at its timed
+    shape beside its measured time."""
+    from repro_torch.analysis import audit, contracts, lint, roofline
+    card = peaks(torch.cuda.get_device_name(0))
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    findings = contracts.check_all() + lint.lint_paths(
+        [os.path.join(here, "src", "repro_torch"), os.path.abspath(__file__)])
+    static_s = time.perf_counter() - t0
+    if findings:
+        emit({"phase": "analysis",
+              "failed": [f.render() for f in findings[:20]]})
+        raise SystemExit(f"{len(findings)} analysis finding(s)")
+
+    cfg = get_arch("mnist_cnn")
+    src = SyntheticMNIST(seed=0, image_size=28, device="cuda")
+    dl = DecentralizedLearner(
+        lambda p, b: cnn_loss(cfg, p, b), lambda g: init_cnn_params(cfg, g),
+        M, ProtocolConfig(kind="dynamic", b=PERIOD, delta=DELTA),
+        TrainConfig(optimizer="sgd", learning_rate=0.1), seed=0,
+        device="cuda")
+    streams = LearnerStreams(src, M, batch=B, seed=0)
+    dl.run_chunk(streams.next_chunk(CHUNK))     # warm-up: cuDNN, scratch
+    batches = streams.next_chunk(CHUNK)
+    torch.cuda.synchronize()
+    # the mode is set before the warnings are caught: setting it warns
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = audit.audit_learner(dl, batches)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    warned = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    audit_rec = {k: v for k, v in got.items() if k not in ("metrics",
+                                                            "findings")}
+    audit_rec["sync_debug_warnings"] = len(warned)
+    audit_rec["findings"] = [f.render() for f in got["findings"]]
+    if (got["findings"] or got["syncs"] != got["budget"]
+            or len(warned) != got["budget"]):
+        audit_rec["warned_at"] = sorted({f"{os.path.basename(w.filename)}:"
+                                         f"{w.lineno}" for w in warned})
+        emit({"phase": "analysis", "failed": {"audit": audit_rec}})
+        raise SystemExit(f"host syncs over the budget: {audit_rec}")
+
+    one = {k: v[:1] for k, v in streams.next_chunk(1).items()}
+    rep = roofline.analyze(
+        "mnist_cnn dynamic round (m=100, B=10)", dl.run_chunk, one,
+        model_flops=6.0 * dl.model_size * M * B)
+    bounds = []
+    for row in kernel_rows:
+        b = kernel_bound(row["kernel"], row["shape"],
+                         getattr(torch, row["dtype"]), card)
+        bounds.append({**row, **b,
+                       "measured_over_bound": row["ms"] / b["bound_ms"]})
+        if abs(b["bound_ms"] - row["bound_ms"]) > 1e-9:
+            raise SystemExit(f"kernel_bound({row['kernel']}) "
+                             f"{b['bound_ms']} != the phase's "
+                             f"{row['bound_ms']}")
+    rec = {"phase": "analysis", "static_seconds": static_s,
+           "static_findings": 0, "audit": audit_rec,
+           "roofline": rep.as_dict(),
+           "roofline_table": roofline.format_table([rep]),
+           "kernel_bounds": bounds}
+    emit(rec)
+    return rec
+
+
+def phase_costs() -> dict:
+    """``python -m repro_torch.telemetry costs`` on F2's stream
+    (fault_train): the per-round gate / skip / sync FLOPs of its spec
+    joined with the stream's fires."""
+    from repro_torch.telemetry.__main__ import main as telemetry_main
+    out = StringIO()
+    with contextlib.redirect_stdout(out):
+        code = telemetry_main(["costs", os.path.join(FAULT_DIR, "F2.jsonl")])
+    if code != 0:
+        raise SystemExit(f"telemetry costs exited {code}")
+    costs = json.loads(out.getvalue())
+    rec = {"phase": "costs", "stream": "build/fault_telemetry/F2.jsonl",
+           **costs}
+    emit(rec)
+    if not (costs["rounds"] == ROUNDS and costs["fires"] >= 1
+            and costs["per_round"]["sync_flops"] > 0):
+        raise SystemExit(f"costs of F2's stream: {costs}")
     return rec
 
 
@@ -2414,6 +2919,32 @@ def main() -> None:
     run("tier_agree", phase_tier_agree)
     fault = run("fault_train", phase_fault_train)
     run("fault_agree", phase_fault_agree)
+    torch.cuda.empty_cache()
+    sharded = run("shard_train", phase_shard_train)
+    f32, bf16 = "float32", "bfloat16"
+    fa = lm_table["flash_attention"]["shape"]
+    timed_rows = [
+        ("sqdist_rows", [M, P_MNIST], f32, table["sqdist_rows"]),
+        ("sqdist_rows", [50, P_MNIST], f32, table["sqdist_rows_50"]),
+        ("sqdist_rows", [25, P_MNIST], f32, table["sqdist_rows_25"]),
+        ("sqdist_rows", [M, P_MNIST, TIER_G], f32,
+         table["sqdist_rows_grouped"]),
+        ("sqdist_rows", [M, P_DEEPDRIVE], f32,
+         table["sqdist_rows_deepdrive"]),
+        ("sqdist", [P_MNIST], f32, table["sqdist"]),
+        ("rmsnorm", lm_table["rmsnorm"]["shape"], bf16, lm_table["rmsnorm"]),
+        ("flash_attention", [fa[0], fa[1], fa[1], *fa[2:]], bf16,
+         lm_table["flash_attention"]),
+        ("flash_attention", [fa[0], fa[1], fa[1], *fa[2:]], f32,
+         lm_table["flash_attention"]["f32"]),
+        ("swa_attention", lm_table["swa_attention"]["shape"], bf16,
+         lm_table["swa_attention"]),
+        ("ssd_scan", ssm_table["ssd_scan"]["shape"], f32,
+         ssm_table["ssd_scan"])]
+    run("analysis", phase_analysis, [
+        {"kernel": k, "shape": list(shape), "dtype": dt, "ms": t["ms"],
+         "bound_ms": t["bound_ms"]} for k, shape, dt, t in timed_rows])
+    run("costs", phase_costs)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -2421,7 +2952,8 @@ def main() -> None:
          "replaces": "src/repro/kernels/sqdist.py:81",
          "launches": (launches["sqdist_rows"] + sum(paper.values())
                       + sum(net.values()) + sum(tier.values())
-                      + sum(fault.values())),
+                      + sum(fault.values())
+                      + sum(sum(v.values()) for v in sharded.values())),
          "launches_by_path": {"mnist dynamic": launches["sqdist_rows"],
                               **{k: v for k, v in paper.items()
                                  if k in ("deepdrive drift",
@@ -2430,10 +2962,15 @@ def main() -> None:
                                  if v},
                               **{"tier " + k: v for k, v in tier.items()
                                  if v},
-                              **{"fault " + k: v for k, v in fault.items()}},
+                              **{"fault " + k: v for k, v in fault.items()},
+                              **{"shard " + k: sum(v.values())
+                                 for k, v in sharded.items()}},
+         "launches_by_shape_per_rank": sharded,
          **table["sqdist_rows"],
          "at_deepdrive_width": table["sqdist_rows_deepdrive"],
-         "grouped": table["sqdist_rows_grouped"]},
+         "grouped": table["sqdist_rows_grouped"],
+         "per_rank": {"(50, P)": table["sqdist_rows_50"],
+                      "(25, P)": table["sqdist_rows_25"]}},
         {"name": "sqdist", "route": "cuda", "source": csrc + "sqdist.cu",
          "replaces": "src/repro/kernels/sqdist.py:41",
          "launches": launches["sqdist"], **table["sqdist"]},

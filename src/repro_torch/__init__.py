@@ -28,4 +28,8 @@ availability-aware stages, the gossip preset, bounded staleness and
 (``checkpoint``), the two-tier hierarchy and the event-driven timeline.
 Slice 9 ported the fault plane (``network.faults``), Byzantine-robust
 sync (``core.sync.robust``) and the telemetry plane (``telemetry``).
+Slice 10 gave each learner its own optimizer step count, ported the
+row-sharded fleet across ``torch.distributed`` ranks (``core.shard``,
+``core.distributed``) and the analysis tools (``analysis``,
+``telemetry.costs``).
 """

@@ -12,9 +12,9 @@ pickling.
 The port keeps a run on planes; the files hold the reference's trees:
 
 * ``.params.npz`` — the stacked (m, ...) parameter leaves;
-* ``.opt.npz`` — ``a:.step`` as (m,) int32 and the moments ``a:.mu`` /
-  ``a:.nu`` as stacked trees (the port's step is one int, its moments
-  (m, P) planes);
+* ``.opt.npz`` — ``a:.step`` as the (m,) int32 per-learner counts and
+  the moments ``a:.mu`` / ``a:.nu`` as stacked trees (the port's moments
+  are (m, P) planes);
 * ``.sync.npz`` — ``ref`` as a model tree (the port's (P,) row), ``v``
   and ``step`` as int32, ``rng`` as the raw uint32 key (the port's int64
   ``key``), and ``extra`` as the trigger's int32 arrays; a hierarchical
@@ -169,8 +169,11 @@ def save_protocol_state(path: str, params, opt_state, sync_state,
     adapter = fleet_adapter(tree_map(lambda x: x[0], params))
     m = tree_leaves(params)[0].shape[0]
     save_pytree(path + ".params.npz", params)
+    # a scalar count (a fleet-wide one) holds for every learner
+    steps = np.broadcast_to(
+        np.asarray(torch.as_tensor(opt_state.step).cpu(), np.int32), (m,))
     save_pytree(path + ".opt.npz", OptState(
-        step=np.full((m,), opt_state.step, np.int32),
+        step=steps,
         mu=None if opt_state.mu is None else adapter.unravel(opt_state.mu),
         nu=None if opt_state.nu is None else adapter.unravel(opt_state.nu)))
     if isinstance(sync_state, HierSyncState):
@@ -228,13 +231,9 @@ def load_protocol_state(path: str, device="cuda"):
     params = params_from_numpy(load_pytree(path + ".params.npz"), dev)
     adapter = fleet_adapter(tree_map(lambda x: x[0], params))
     opt = load_pytree(path + ".opt.npz")
-    steps = np.asarray(opt[".step"])
-    if np.unique(steps).size > 1:
-        raise ValueError(f"the learners' optimizer steps differ "
-                         f"({np.unique(steps).tolist()}); the port keeps "
-                         f"one step for the fleet")
+    steps = np.asarray(opt[".step"], np.int32).reshape(-1)
     opt_state = OptState(
-        step=int(steps.reshape(-1)[0]),
+        step=torch.from_numpy(steps.copy()).to(dev),
         mu=_ravel(adapter, opt[".mu"], dev) if ".mu" in opt else None,
         nu=_ravel(adapter, opt[".nu"], dev) if ".nu" in opt else None)
     sync = load_pytree(path + ".sync.npz")

@@ -17,11 +17,11 @@ the optimizer settings and ``ProtocolConfig`` the sync protocol.
 payload size or layout) by resolving its preset through
 ``repro_torch.core.sync.spec``; ``tiers`` (a ``HierarchyConfig``) makes
 it the intra tier of a two-tier hierarchy. It departs from the reference
-in three ways: ``layout`` defaults to ``"flat"``, and ``"tree"`` runs on
-the same ``(m, P)`` plane; ``"sharded"`` raises ``NotImplementedError``
-naming the ROADMAP item that ports it; and
-there is no ``shard_devices`` field (its spec parameter is known, at the
-reference's default 0).
+in one way: ``layout`` defaults to ``"flat"``, and ``"tree"`` runs on the
+same ``(m, P)`` plane. ``"sharded"`` splits the plane's rows over the
+ranks of a ``torch.distributed`` process group
+(``repro_torch.core.shard``), and ``shard_devices`` caps how many ranks
+the fleet uses, with the reference's validation.
 
 ``NetworkConfig`` (``repro/config.py:394-500``), ``HierarchyConfig``
 (``:329-369``), ``AsyncConfig`` (``:507-546``), ``FaultConfig``
@@ -187,7 +187,10 @@ class ProtocolConfig:
     coordinator's balancing strategy for dynamic averaging; ``weighted``
     turns on Algorithm 2's B^i weights; ``bytes_per_param`` prices a
     model transfer; ``layout`` the fleet arithmetic (``"flat"``: one
-    ``(m, P)`` plane)."""
+    ``(m, P)`` plane; ``"sharded"``: its rows split over the ranks of a
+    process group). ``shard_devices`` caps how many ranks the sharded
+    fleet uses (0 = all); ``m % n_devices`` must be 0 — every rank owns
+    the same number of learner rows."""
     kind: str = "dynamic"
     b: int = 10
     delta: float = 0.5
@@ -195,7 +198,8 @@ class ProtocolConfig:
     augmentation: str = "max_distance"   # max_distance | random | all
     weighted: bool = False               # Algorithm 2 (unbalanced B^i)
     bytes_per_param: int = 4
-    layout: str = "flat"                 # flat | tree (the same plane)
+    layout: str = "flat"                 # flat | tree | sharded
+    shard_devices: int = 0               # sharded: rank cap, 0 = all
     tiers: Optional["HierarchyConfig"] = None   # two-tier hierarchy on top
 
     def __post_init__(self):

@@ -71,6 +71,15 @@ series, so the stream's last ``cum_*`` equals the counters bit for bit.
 The first fold whose loss counters go non-finite emits one
 ``nonfinite_loss`` event through ``telemetry.sink.get_logger()``.
 
+With ``layout="sharded"`` the engine is one rank of a fleet split over
+the ranks of a ``torch.distributed`` process group
+(``repro_torch.core.shard``): it holds ``m_local`` = m/n learners' rows
+of every plane and takes their rows of each chunk's batches; the round's
+host decisions, the counters and the ledger are every rank's alike;
+the chunk's losses are gathered with its one transfer; ``fleet_plane``
+and ``fleet_state`` gather the whole fleet, and ``is_writer`` (rank 0)
+writes the telemetry stream. One rank is the flat run bit for bit.
+
 Departures from the reference: ``init_fn`` takes a ``torch.Generator``
 seeded with ``seed`` (the reference hands it the first of the three
 keys), so a parity test passes the reference's initial model in;
@@ -80,10 +89,7 @@ schedule and network times are host values, so ``num_active`` /
 ``net_time`` / ``num_inflight`` / ``max_age`` / ``divergence`` /
 ``num_faulty`` / ``num_quarantined`` / ``num_recovered`` are host
 arrays, and ``ProtocolMetrics`` adds ``checked``, whether the
-(intra-tier) gate fired each round; the optimizer's step count is one
-for the fleet (the reference's per-learner counts freeze with a crashed
-learner and restart at 0), which only adam reads, so adam under crash
-faults raises ``NotImplementedError`` (ROADMAP Queue C3); the
+(intra-tier) gate fired each round; the
 reference's callers restore a run by assigning ``params``,
 ``opt_state`` and ``sync_state``, the port's call ``restore_state``;
 and the entry points run on ``device="cuda"`` unless the caller asks
@@ -92,6 +98,7 @@ for the CPU.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -103,7 +110,7 @@ from repro_torch import prng
 from repro_torch.config import (
     AsyncConfig, FaultConfig, NetworkConfig, TelemetryConfig, TrainConfig,
 )
-from repro_torch.core.divergence import per_learner_sq_distance_flat
+from repro_torch.core import shard
 from repro_torch.core.flatten import fleet_adapter, tree_leaves, tree_map
 from repro_torch.core.sync.async_sync import asyncify
 from repro_torch.core.sync.hierarchy import (
@@ -146,6 +153,21 @@ class ProtocolMetrics(NamedTuple):
     num_recovered: Any = 0           # learners recovering this round
 
 
+def _check_split(fleet, spec, async_net, faults, tiers, m: int) -> None:
+    """The planes a fleet split over several ranks cannot run yet raise
+    here, naming their ROADMAP item; nothing runs quietly on one rank."""
+    if fleet.n_devices == 1:
+        return
+    if async_net is not None or faults is not None or \
+            spec.aggregate == "aircomp" or spec.trigger.startswith("events"):
+        raise NotImplementedError(
+            "layout='sharded' over more than one rank does not run the "
+            "event-driven timeline, aircomp or the fault plane yet — "
+            "ROADMAP Queue A 26")
+    if tiers is not None:
+        validate_hierarchy(tiers, m, fleet.n_devices)
+
+
 class DecentralizedLearner:
     """m local learners + a synchronization protocol Pi = (phi, sigma).
 
@@ -176,19 +198,20 @@ class DecentralizedLearner:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if (faults is not None and faults.crash_prob > 0.0
-                and train.optimizer == "adam"):
-            raise NotImplementedError(
-                "adam under crash faults needs per-learner optimizer step "
-                "counts (a crashed learner's freezes, a restarted one's "
-                "starts at 0); the port keeps one for the fleet — ROADMAP "
-                "Queue C3")
         self.faults = faults
         self.track_divergence = track_divergence
         self._nonfinite_reported = False
         self.m = m
         self.protocol = protocol
         self.spec = resolve_spec(protocol)
+        # the row-sharded plane: this rank holds learners fleet.rows of
+        # every learner-indexed plane; None for the flat layouts
+        self.fleet = None
+        if self.spec.param("layout") == "sharded":
+            self.fleet = shard.fleet_sharding(
+                m, self.spec.param("shard_devices"))
+            _check_split(self.fleet, self.spec, async_net, faults,
+                         getattr(protocol, "tiers", None), m)
         self.train = train
         self.loss_fn = loss_fn
         self.opt = make_optimizer(train)
@@ -204,8 +227,10 @@ class DecentralizedLearner:
         if init_heterogeneity > 0.0:                 # the (m, P) plane
             self.X = self._heterogeneous_plane(base, m, k_noise,
                                                init_heterogeneity)
+            if self.fleet is not None:
+                self.X = self.X[self.fleet.rows].clone()
         else:
-            self.X = row[None].repeat(m, 1)
+            self.X = row[None].repeat(self.m_local, 1)
         self.G = torch.empty_like(self.X)            # the gradient plane
         self.opt_state = self.opt.init(self.X)
         self.sample_weights = (None if sample_weights is None
@@ -229,7 +254,8 @@ class DecentralizedLearner:
         # at tiers.inter.bytes_per_param
         self.tiers = getattr(protocol, "tiers", None)
         if self.tiers is not None:
-            validate_hierarchy(self.tiers, m)
+            validate_hierarchy(self.tiers, m, 1 if self.fleet is None
+                               else self.fleet.n_devices)
             self.sync_state = init_hier_state(
                 row, self.tiers, seed, m=m, intra_spec=self.spec,
                 inter_spec=resolve_spec(self.tiers.inter))
@@ -283,6 +309,10 @@ class DecentralizedLearner:
         self.telemetry = telemetry
         self.recorder = None
         self._profiler = None
+        if telemetry is not None and not self.is_writer:
+            # one stream for the fleet: the other ranks keep their
+            # records in the ring only
+            telemetry = dataclasses.replace(telemetry, path=None)
         if telemetry is not None:
             from repro_torch.telemetry.recorder import RoundRecorder
             from repro_torch.telemetry.trace import ChunkProfiler
@@ -296,9 +326,37 @@ class DecentralizedLearner:
                 spec=self.spec.to_dict(), tiers=self._tiers_meta())
 
     @property
+    def m_local(self) -> int:
+        """The learners this process holds: m, or a rank's rows."""
+        return self.m if self.fleet is None else self.fleet.rows_per_device
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes the run's files (the telemetry
+        stream, checkpoints): rank 0 of a sharded fleet, else always."""
+        return self.fleet is None or self.fleet.rank == 0
+
+    @property
     def params(self):
-        """The fleet as a stacked (m, ...) tree of views into the plane."""
+        """The fleet as a stacked (m, ...) tree of views into the plane
+        (a rank's (m/n, ...) rows of a sharded fleet)."""
         return self.adapter.unravel(self.X)
+
+    def fleet_plane(self) -> torch.Tensor:
+        """The whole (m, P) plane; on a sharded fleet every rank's rows
+        gathered (every rank must call it)."""
+        with shard.use_fleet(self.fleet):
+            return shard.gather_plane(self.X)
+
+    def fleet_state(self):
+        """``(params, opt_state)`` of the whole fleet — the stacked (m,
+        ...) tree and the optimizer over (m, P) planes and (m,) step
+        counts — gathered on a sharded fleet (every rank must call it):
+        what ``checkpoint.io.save_protocol_state`` writes."""
+        with shard.use_fleet(self.fleet):
+            opt = OptState(*(None if x is None else shard.gather_plane(x)
+                             for x in self.opt_state))
+            return self.adapter.unravel(shard.gather_plane(self.X)), opt
 
     @property
     def round_index(self) -> int:
@@ -313,25 +371,28 @@ class DecentralizedLearner:
         ``load_protocol_state``, or another engine's state): ``params`` a
         stacked (m, ...) tree, copied into the plane; ``opt_state`` an
         ``OptState`` over (m, P) planes; ``sync_state`` a ``SyncState``
-        or, under a hierarchy, a ``HierSyncState``. The counters are
-        restored apart, by ``restore_counters``."""
+        or, under a hierarchy, a ``HierSyncState``. A sharded fleet takes
+        its rows of each. The counters are restored apart, by
+        ``restore_counters``."""
         if isinstance(sync_state, HierSyncState) != (self.tiers is not None):
             raise ValueError(
                 f"a {type(sync_state).__name__} does not fit an engine "
                 f"{'with' if self.tiers is not None else 'without'} tiers")
-        self.X.copy_(self.adapter.ravel(params))
+        X = self.adapter.ravel(params)
+        if self.fleet is not None:
+            X = X[self.fleet.rows]
+            opt_state = shard.put_fleet(self.fleet, opt_state)
+        self.X.copy_(X)
         dev = self.device
         self.opt_state = OptState(*(
-            x if x is None or isinstance(x, int) else x.to(dev)
-            for x in opt_state))
+            x if x is None else x.to(dev).clone() for x in opt_state))
         if self.tiers is not None:
             self.sync_state = HierSyncState(
-                intra=sync_state.intra._replace(
-                    ref=sync_state.intra.ref.to(dev)),
-                inter=sync_state.inter._replace(
-                    ref=sync_state.inter.ref.to(dev)))
+                intra=shard.put_sync_state(self.fleet, sync_state.intra, dev),
+                inter=shard.put_sync_state(self.fleet, sync_state.inter, dev))
         else:
-            self.sync_state = sync_state._replace(ref=sync_state.ref.to(dev))
+            self.sync_state = shard.put_sync_state(self.fleet, sync_state,
+                                                   dev)
 
     def _heterogeneous_plane(self, base, m: int, k_noise, eps: float):
         """The reference's heterogeneous init: learner i's leaf ``li`` (in
@@ -372,6 +433,7 @@ class DecentralizedLearner:
         (the chunk's ``FaultSchedule``, the round's row in it) or None."""
         t = self.round_index
         batch = {k: v.to(self.device) for k, v in batch.items()}
+        m = self.m_local
         crashed = None
         if faults is not None:
             sched, i = faults
@@ -381,16 +443,18 @@ class DecentralizedLearner:
                     self._lose_state(sched.restart[i])
         with record_function("round.local_step"):
             grads, losses = self._grad_and_loss(self.params, batch)
-            torch.cat([g.reshape(self.m, -1).to(self.X.dtype)
+            torch.cat([g.reshape(m, -1).to(self.X.dtype)
                        for g in tree_leaves(grads)], dim=1, out=self.G)
         with record_function("round.optimizer"):
             if crashed is not None:     # a crashed learner does not train
                 idx, saved = net_faults.keep_rows(
-                    crashed, self.X, self.opt_state.mu, self.opt_state.nu)
+                    crashed, self.X, self.opt_state.step, self.opt_state.mu,
+                    self.opt_state.nu)
             self.X, self.opt_state = self.opt.update(self.X, self.G,
                                                      self.opt_state)
             if crashed is not None:
                 net_faults.freeze_state(idx, saved, self.X,
+                                        self.opt_state.step,
                                         self.opt_state.mu, self.opt_state.nu)
                 losses = losses.masked_fill(
                     torch.from_numpy(crashed).to(losses.device), 0.0)
@@ -424,10 +488,12 @@ class DecentralizedLearner:
 
     def _lose_state(self, rows: np.ndarray) -> None:
         """The restart's state loss: zero the rejoining learners' rows of
-        the parameter and optimizer planes and of every learner-indexed
-        array the sync state carries (a hierarchy's intra state is per
-        cluster, so it is left alone, as the reference does)."""
-        net_faults.lose_state((self.X, self.opt_state.mu, self.opt_state.nu),
+        the parameter and optimizer planes, their optimizer step counts,
+        and every learner-indexed array the sync state carries (a
+        hierarchy's intra state is per cluster, so it is left alone, as
+        the reference does)."""
+        net_faults.lose_state((self.X, self.opt_state.step,
+                               self.opt_state.mu, self.opt_state.nu),
                               rows, self.m)
         if self.tiers is None:
             self.sync_state = self.sync_state._replace(
@@ -496,7 +562,9 @@ class DecentralizedLearner:
                 # mask; the composition only removes learners
                 down = sched.down()
                 masks = ~down if masks is None else masks & ~down
-        losses = torch.empty((n, self.m), dtype=torch.float32,
+        if self.fleet is not None:      # this rank's learners' batches
+            batches = shard.put_fleet(self.fleet, batches, axis=1)
+        losses = torch.empty((n, self.m_local), dtype=torch.float32,
                              device=self.device)
         divs = (torch.empty((n,), dtype=torch.float32, device=self.device)
                 if self.track_divergence else None)
@@ -504,14 +572,17 @@ class DecentralizedLearner:
         counts = np.zeros((n, self.num_links, 2), np.int32)
         carried = np.zeros((n, 4), np.int64)
         checked = np.zeros((n,), bool)
-        for i in range(n):
-            losses[i], comm[i], counts[i], checked[i] = self._round(
-                {k: v[i] for k, v in batches.items()},
-                None if masks is None else masks[i],
-                None if sched is None else (sched, i))
-            carried[i] = self._carried()
-            if divs is not None:
-                divs[i] = self._divergence()
+        with shard.use_fleet(self.fleet):
+            for i in range(n):
+                losses[i], comm[i], counts[i], checked[i] = self._round(
+                    {k: v[i] for k, v in batches.items()},
+                    None if masks is None else masks[i],
+                    None if sched is None else (sched, i))
+                carried[i] = self._carried()
+                if divs is not None:
+                    divs[i] = self._divergence()
+            if self.fleet is not None and self.fleet.n_devices > 1:
+                losses = shard.all_gather(self.fleet, losses, dim=1)
         num_active = (np.full((n,), self.m, np.int64) if masks is None
                       else masks.sum(axis=1, dtype=np.int64))
         m = self.m
@@ -591,9 +662,10 @@ class DecentralizedLearner:
 
     def _divergence(self) -> torch.Tensor:
         """delta(f) = 1/m sum_i ||f_i - mean(f)||^2 on the plane: one
-        ``sqdist_rows`` pass against the mean row, on the device."""
-        return torch.mean(per_learner_sq_distance_flat(
-            self.X, torch.mean(self.X, dim=0)))
+        ``sqdist_rows`` pass against the mean row, on the device (a
+        sharded fleet's mean and distances gathered)."""
+        return torch.mean(shard.row_dists_device(
+            self.X, shard.row_mean(self.X)))
 
     def _report_nonfinite(self) -> None:
         """One-shot: the first fold where a loss counter goes non-finite
@@ -756,12 +828,17 @@ class DecentralizedLearner:
         return names
 
     def mean_model(self):
-        """The fleet's mean model as a parameter tree."""
-        return self.adapter.unravel_model(torch.mean(self.X, dim=0))
+        """The fleet's mean model as a parameter tree (every rank of a
+        sharded fleet must call it)."""
+        with shard.use_fleet(self.fleet):
+            return self.adapter.unravel_model(shard.row_mean(self.X))
 
     def learner_model(self, i: int):
-        """Learner i's model as a parameter tree (a copy)."""
-        return self.adapter.unravel_model(self.X[i].clone())
+        """Learner i's model as a parameter tree (a copy; every rank of a
+        sharded fleet must call it)."""
+        with shard.use_fleet(self.fleet):
+            return self.adapter.unravel_model(
+                shard.plane_row(self.X, i).clone())
 
 
 class SerialLearner:

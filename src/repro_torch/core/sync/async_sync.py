@@ -51,8 +51,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.sync.registry import (
-    CohortOut, CommRecord, StageCtx, SyncOut, carried_v, register_aggregate,
-    register_commit, register_protocol, register_trigger,
+    CohortOut, CommRecord, StageContract, StageCtx, SyncOut, carried_v,
+    register_aggregate, register_commit, register_protocol, register_trigger,
 )
 from repro_torch.core.sync.spec import ProtocolSpec
 from repro_torch.core.sync.stages import (
@@ -62,6 +62,7 @@ from repro_torch.core.sync.stages import (
 from repro_torch.network import events
 
 _EXTRA_KEYS = ("age", "inflight", "lclock", "ring")
+_EXTRA_CONTRACT = tuple((k, "int32") for k in _EXTRA_KEYS)
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +200,12 @@ register_trigger(
     commit_extra=_events_commit, skip_extra=_events_skip,
     params={"base": "cadence", "b": 1, "tau": 5, "budget": 1.0,
             "max_delay": 8, "link_classes": "", "payload_bytes": 0},
-    validate=_validate_events)(_events_gate)
+    validate=_validate_events,
+    contract=StageContract(
+        summary="event-driven cadence/staleness alarm on the per-learner "
+                "local clock; launches fly k rounds through the bounded-"
+                "delay arrival ring",
+        extra_state=_EXTRA_CONTRACT))(_events_gate)
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +263,13 @@ register_trigger(
     skip_extra=_events_div_skip,
     params={"b": 1, "delta": 0.5, "budget": 1.0, "max_delay": 8,
             "link_classes": "", "payload_bytes": 0},
-    validate=_validate_events_div)(_events_gate)
+    validate=_validate_events_div,
+    contract=StageContract(
+        summary="sigma_Delta's divergence condition checked on idle "
+                "learners' local ticks; violations on slow links fly "
+                "before participating",
+        extra_state=_EXTRA_CONTRACT, cond_aux=("dists", "launch")))(
+            _events_gate)
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +337,11 @@ def aggregate_aircomp_batched(ctx: StageCtx, cout: CohortOut):
 
 @register_aggregate("aircomp", params={"snr_db": 20.0, "air_seed": 0},
                     validate=_validate_air,
-                    batched=aggregate_aircomp_batched)
+                    batched=aggregate_aircomp_batched,
+                    contract=StageContract(
+                        summary="cohort mean over the analog MAC: Gaussian "
+                                "receiver noise at snr_db, attenuated by "
+                                "the cohort size", out="model"))
 def aggregate_aircomp(ctx: StageCtx, cout: CohortOut) -> torch.Tensor:
     """The cohort mean as the analog channel computes it: the superposed
     waveform is the sum, and the receiver adds Gaussian noise at
@@ -335,7 +351,10 @@ def aggregate_aircomp(ctx: StageCtx, cout: CohortOut) -> torch.Tensor:
     return _air_noise(ctx, mean, _cohort_size(cout, ctx.m, mean)[0])
 
 
-@register_commit("aircomp", needs=("full-cohort",))
+@register_commit("aircomp", needs=("full-cohort",), contract=StageContract(
+    summary="cohort adopts the noisy analog aggregate; c(f) counts ONE "
+            "shared-medium exchange; the ledger bills each member's analog "
+            "frame airtime"))
 def commit_aircomp(ctx: StageCtx, cout: CohortOut, mean, hot,
                    nhot) -> SyncOut:
     """The analog channel's pricing: the simultaneous uplink plus the

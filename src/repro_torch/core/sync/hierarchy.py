@@ -33,6 +33,16 @@ clusters' rows of the plane in place. The aggregator means are one more
 batched matvec, the inter round runs on the ``(g, P)`` aggregator
 plane, and the down-push is a masked add.
 
+On a row-sharded plane (``layout="sharded"`` over n ranks) the clusters
+lie whole on one rank, which needs n to divide g: each rank runs its
+g/n clusters' intra rounds on its own rows, with no collective; their
+host results (counters, keys, ledger rows) and their reference rows are
+then gathered, so every rank carries the whole intra state; the (g, P)
+aggregator plane is gathered from the ranks' (g/n, P) blocks, and every
+rank runs the same inter round on it and pushes the adjustment down to
+its own rows. The reference's GSPMD partitioner handles any g; the port
+raises ``ValueError`` unless n divides g.
+
 Departures from the reference: ``HierSyncState.intra`` carries ``v``
 as a host ``(g,)`` int64 array and ``step`` as one int (the clusters
 step together; the reference carries ``(g,)`` int32), and ``HierResult``
@@ -46,7 +56,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch import prng
+from repro_torch.core import shard
 from repro_torch.core.divergence import per_learner_sq_distance_flat
 from repro_torch.core.sync.kernel import apply_staged
 from repro_torch.core.sync.registry import (
@@ -73,14 +86,21 @@ class HierResult(NamedTuple):
     checked: bool = False      # the intra tier's gate fired
 
 
-def validate_hierarchy(tiers, m: int) -> int:
-    """Cluster size k, or a clear error when the fleet doesn't partition."""
+def validate_hierarchy(tiers, m: int, n_devices: int = 1) -> int:
+    """Cluster size k, or a clear error when the fleet doesn't partition
+    (into equal clusters, and the clusters over ``n_devices`` ranks)."""
     g = tiers.num_clusters
     if m % g != 0:
         raise ValueError(
             f"hierarchy needs equal clusters: m={m} learners do not "
             f"partition into num_clusters={g} (m % g == {m % g}). "
             f"Pick g dividing m.")
+    if g % n_devices != 0:
+        raise ValueError(
+            f"a sharded hierarchy needs n_devices to divide num_clusters, "
+            f"so every cluster lies whole on one rank; got "
+            f"num_clusters={g}, n_devices={n_devices} (g % n == "
+            f"{g % n_devices})")
     return m // g
 
 
@@ -206,15 +226,53 @@ def _intra_round(spec: ProtocolSpec, X: torch.Tensor, st: SyncState,
             any(plan[0] for plan in plans))
 
 
+def _gather_intra(fleet, intra):
+    """Every rank's clusters' intra results, whole on every rank: the
+    reference rows by ``all_gather``, the host values (counters, keys,
+    extra state, comm records, ledger rows, whether the gate fired) by
+    ``all_gather_object``, in rank order."""
+    state, rec, xf, lm, checked = intra
+    host = (state.v, state.key.numpy(), dict(state.extra), tuple(rec), xf,
+            lm, checked)
+    parts = [None] * fleet.n_devices
+    dist.all_gather_object(parts, host, group=fleet.group)
+    extra = ({n: np.concatenate([p[2][n] for p in parts])
+              for n in parts[0][2]} if parts[0][2] else state.extra)
+    full = SyncState(
+        ref=shard.all_gather(fleet, state.ref),
+        v=np.concatenate([p[0] for p in parts]), step=state.step,
+        key=torch.from_numpy(np.concatenate([p[1] for p in parts])),
+        extra=extra)
+    rec = CommRecord(*(sum(p[3][i] for p in parts)
+                       for i in range(len(CommRecord._fields))))
+    return (full, rec, np.concatenate([p[4] for p in parts]),
+            np.concatenate([p[5] for p in parts]),
+            any(p[6] for p in parts))
+
+
+def _local_clusters(st: SyncState, c: slice) -> SyncState:
+    return SyncState(ref=st.ref[c], v=st.v[c], step=st.step, key=st.key[c],
+                     extra={n: a[c] for n, a in st.extra.items()})
+
+
 def apply_hierarchical(cfg, tiers, X: torch.Tensor, hstate: HierSyncState,
                        weights=None, active: Optional[np.ndarray] = None,
                        leaf_sizes=None) -> HierResult:
     """One hierarchical round on the (m, P) plane ``X`` (updated in
-    place): intra tier → aggregators → inter tier → commit down.
-    ``active`` is the flat (m,) reachability mask."""
-    m, P = X.shape
+    place; this rank's rows of a row-sharded plane): intra tier →
+    aggregators → inter tier → commit down. ``active`` is the flat (m,)
+    reachability mask."""
+    P = X.shape[1]
+    m = shard.fleet_m(X)
     g = tiers.num_clusters
     k = m // g
+    fleet = shard.current_fleet()
+    fleet = fleet if fleet is not None and fleet.n_devices > 1 else None
+    validate_hierarchy(tiers, m, 1 if fleet is None else fleet.n_devices)
+    # this rank's clusters (all of them without a split fleet)
+    gl = g if fleet is None else g // fleet.n_devices
+    cl = slice(0, g) if fleet is None else \
+        slice(fleet.rank * gl, (fleet.rank + 1) * gl)
     spec = resolve_spec(cfg)
     if not spec.param("weighted"):
         # Algorithm-2 weights enter (the aggregator means and the inter
@@ -223,34 +281,46 @@ def apply_hierarchical(cfg, tiers, X: torch.Tensor, hstate: HierSyncState,
     w_gk = None if weights is None else weights.reshape(g, k)
     act_gk = None if active is None else active.reshape(g, k)
 
-    # --- 1. intra tier: every cluster in one batched round
-    intra_state, intra_rec, xf, lm, intra_checked = _intra_round(
-        spec, X, hstate.intra, w_gk, act_gk, leaf_sizes)
-
-    # --- 2. edge aggregators: masked cluster means, one batched matvec
-    member_mask = act_gk if act_gk is not None else np.ones((g, k), bool)
-    agg = batched_aggregate_mean(X.view(g, k, P), member_mask, w_gk)
+    with shard.use_fleet(None):
+        # --- 1. intra tier: this rank's clusters in one batched round
+        intra = _intra_round(
+            spec, X, _local_clusters(hstate.intra, cl),
+            None if w_gk is None else w_gk[cl],
+            None if act_gk is None else act_gk[cl], leaf_sizes)
+        # --- 2. edge aggregators: masked cluster means, one batched matvec
+        member_mask = act_gk if act_gk is not None else \
+            np.ones((g, k), bool)
+        agg = batched_aggregate_mean(X.view(gl, k, P), member_mask[cl],
+                                     None if w_gk is None else w_gk[cl])
+    if fleet is not None:
+        intra = _gather_intra(fleet, intra)
+        agg = shard.all_gather(fleet, agg)
+    intra_state, intra_rec, xf, lm, intra_checked = intra
     cluster_w = None if w_gk is None else torch.sum(w_gk, dim=1)
     agg_active = None if act_gk is None else member_mask.any(axis=1)
 
-    # --- 3. inter tier over the g aggregators. Under Algorithm 2 each
-    # aggregator carries its cluster's sampling mass, so the intra tier's
-    # weighting turns the inter tier weighted, whatever it says
+    # --- 3. inter tier over the g aggregators (whole on every rank).
+    # Under Algorithm 2 each aggregator carries its cluster's sampling
+    # mass, so the intra tier's weighting turns the inter tier weighted,
+    # whatever it says
     inter_cfg = tiers.inter
     if cluster_w is not None and not inter_cfg.weighted:
         inter_cfg = dataclasses.replace(inter_cfg, weighted=True)
-    inter = apply_staged(inter_cfg, agg.clone(), hstate.inter, cluster_w,
-                         active=agg_active, leaf_sizes=leaf_sizes)
+    with shard.use_fleet(None):
+        inter = apply_staged(inter_cfg, agg.clone(), hstate.inter,
+                             cluster_w, active=agg_active,
+                             leaf_sizes=leaf_sizes)
 
     # --- 4. commit down: the inter-tier adjustment, added to the
     # reachable members of every cluster whose aggregator synchronized
     down_mask = (inter.xfers > 0)[:, None] & member_mask
     n_down = int(down_mask.sum())
-    if n_down == m:
-        X.view(g, k, P).add_((inter.params - agg)[:, None])
-    elif n_down:
-        rows = np.flatnonzero(down_mask.reshape(m))
-        delta = inter.params - agg
+    down_local = down_mask[cl]
+    delta = (inter.params - agg)[cl]
+    if down_local.all():
+        X.view(gl, k, P).add_(delta[:, None])
+    elif down_local.any():
+        rows = np.flatnonzero(down_local.reshape(gl * k))
         idx = torch.from_numpy(rows).to(X.device)
         X[idx] += delta[torch.from_numpy(rows // k).to(X.device)]
 

@@ -38,8 +38,8 @@ counter ``v``, the PRNG key, the extra carried state, the
 ``CommRecord`` and the per-link counts — are host values (Python ints
 and bools, numpy arrays, the key a CPU tensor of ``repro_torch.prng``);
 only the plane, the reference row and the distances live on the device.
-Stages declare no ``StageContract`` (the contract checker is ROADMAP
-Queue A 20).
+Every stage declares a ``StageContract`` at registration, which
+``repro_torch.analysis.contracts`` verifies by running the stage.
 """
 from __future__ import annotations
 
@@ -152,6 +152,35 @@ def carried_v(ctx: StageCtx, cout: CohortOut) -> int:
     return ctx.state.v if cout.v is None else cout.v
 
 
+class StageContract(NamedTuple):
+    """The static promises of one registered stage, declared at
+    registration (``register_*(..., contract=...)``) and verified — not
+    trusted — by ``repro_torch.analysis.contracts``, which runs every
+    slot of every preset on a small plane. The fields are the
+    reference's:
+
+    * **trigger** — ``extra_state``: ``(name, dtype)`` pairs of the host
+      arrays it threads through ``SyncState.extra`` (``init_extra`` /
+      ``commit_extra`` / ``skip_extra`` must all produce exactly these);
+      ``cond_aux``: the keys of the condition's auxiliary dict;
+    * **cohort** — ``manages_v``: the stage owns the violation counter
+      (returns an int ``v`` and a bool ``full``; every other cohort
+      leaves both None); ``aux``: the keys of ``CohortOut.aux``;
+    * **aggregate** — ``out``: ``"model"`` (a (P,) row) or ``"fleet"``
+      (the (m, P) plane).
+
+    Universal promises, always checked: the committed plane and
+    reference keep their shapes and dtypes, the counters are ints, the
+    ledger vectors (m,) int32, the masks (m,) bool, the key (2,) int64.
+    """
+    summary: str = ""
+    extra_state: tuple = ()       # trigger: ((name, dtype), ...)
+    cond_aux: tuple = ()          # trigger: condition aux dict keys
+    manages_v: bool = False       # cohort: owns v / full
+    aux: tuple = ()               # cohort: CohortOut.aux keys
+    out: str = "model"            # aggregate: "model" | "fleet"
+
+
 def _default_init_extra(params, m):
     return {}
 
@@ -173,6 +202,7 @@ class TriggerStage(NamedTuple):
     skip_extra: Callable              # ctx -> dict
     params: Dict[str, Any]
     validate: Optional[Callable]
+    contract: Optional[StageContract] = None
 
 
 class CohortStage(NamedTuple):
@@ -184,6 +214,7 @@ class CohortStage(NamedTuple):
     needs_condition: bool             # requires a conditional trigger
     params: Dict[str, Any]
     validate: Optional[Callable]
+    contract: Optional[StageContract] = None
 
 
 class AggregateStage(NamedTuple):
@@ -194,6 +225,7 @@ class AggregateStage(NamedTuple):
     validate: Optional[Callable]
     batched: Optional[Callable]       # the same over a cluster batch:
     #   ctx.flat (g, k, P), masks and weights (g, k) -> (g, P) rows
+    contract: Optional[StageContract] = None
 
 
 class CommitStage(NamedTuple):
@@ -203,6 +235,7 @@ class CommitStage(NamedTuple):
     needs_condition: bool
     params: Dict[str, Any]
     validate: Optional[Callable]
+    contract: Optional[StageContract] = None
 
 
 TRIGGERS: Dict[str, TriggerStage] = {}
@@ -224,7 +257,8 @@ def register_trigger(name: str, *, condition: Optional[Callable] = None,
                      commit_extra: Optional[Callable] = None,
                      skip_extra: Optional[Callable] = None,
                      params: Optional[Dict[str, Any]] = None,
-                     validate: Optional[Callable] = None):
+                     validate: Optional[Callable] = None,
+                     contract: Optional[StageContract] = None):
     """Register the decorated function as trigger ``name``'s gate."""
     def deco(gate: Callable) -> Callable:
         _enter(TRIGGERS, "trigger", name, TriggerStage(
@@ -232,7 +266,8 @@ def register_trigger(name: str, *, condition: Optional[Callable] = None,
             init_extra=init_extra or _default_init_extra,
             commit_extra=commit_extra or _default_commit_extra,
             skip_extra=skip_extra or _default_skip_extra,
-            params=dict(params or {}), validate=validate))
+            params=dict(params or {}), validate=validate,
+            contract=contract))
         return gate
     return deco
 
@@ -241,13 +276,14 @@ def register_cohort(name: str, *, provides=(), uses_overlay: bool = False,
                     uses_coordinator: bool = True,
                     needs_condition: bool = False,
                     params: Optional[Dict[str, Any]] = None,
-                    validate: Optional[Callable] = None):
+                    validate: Optional[Callable] = None,
+                    contract: Optional[StageContract] = None):
     def deco(fn: Callable) -> Callable:
         _enter(COHORTS, "cohort", name, CohortStage(
             name=name, fn=fn, provides=frozenset(provides),
             uses_overlay=uses_overlay, uses_coordinator=uses_coordinator,
             needs_condition=needs_condition, params=dict(params or {}),
-            validate=validate))
+            validate=validate, contract=contract))
         return fn
     return deco
 
@@ -255,23 +291,26 @@ def register_cohort(name: str, *, provides=(), uses_overlay: bool = False,
 def register_aggregate(name: str, *, needs=(),
                        params: Optional[Dict[str, Any]] = None,
                        validate: Optional[Callable] = None,
-                       batched: Optional[Callable] = None):
+                       batched: Optional[Callable] = None,
+                       contract: Optional[StageContract] = None):
     def deco(fn: Callable) -> Callable:
         _enter(AGGREGATES, "aggregate", name, AggregateStage(
             name=name, fn=fn, needs=frozenset(needs),
-            params=dict(params or {}), validate=validate, batched=batched))
+            params=dict(params or {}), validate=validate, batched=batched,
+            contract=contract))
         return fn
     return deco
 
 
 def register_commit(name: str, *, needs=(), needs_condition: bool = False,
                     params: Optional[Dict[str, Any]] = None,
-                    validate: Optional[Callable] = None):
+                    validate: Optional[Callable] = None,
+                    contract: Optional[StageContract] = None):
     def deco(fn: Callable) -> Callable:
         _enter(COMMITS, "commit", name, CommitStage(
             name=name, fn=fn, needs=frozenset(needs),
             needs_condition=needs_condition, params=dict(params or {}),
-            validate=validate))
+            validate=validate, contract=contract))
         return fn
     return deco
 

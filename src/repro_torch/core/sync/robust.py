@@ -56,9 +56,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import shard
 from repro_torch.core.sync.registry import (
-    CohortOut, CommRecord, StageCtx, SyncOut, carried_v, register_aggregate,
-    register_commit, register_protocol, register_trigger,
+    CohortOut, CommRecord, StageContract, StageCtx, SyncOut, carried_v,
+    register_aggregate, register_commit, register_protocol, register_trigger,
 )
 from repro_torch.core.sync.spec import ProtocolSpec
 from repro_torch.core.sync.stages import (
@@ -102,9 +103,8 @@ def _finite_rows(ctx: StageCtx) -> np.ndarray:
         finite = np.isfinite(_row_dists(ctx))
         rows = np.flatnonzero(~finite)
         if rows.size:
-            idx = torch.from_numpy(rows).to(ctx.flat.device)
-            finite[rows] = torch.isfinite(ctx.flat[idx]).all(dim=1) \
-                .cpu().numpy()
+            finite[rows] = torch.isfinite(shard.plane_rows(ctx.flat, rows)) \
+                .all(dim=1).cpu().numpy()
         memo["finite"] = finite
     return memo["finite"]
 
@@ -144,6 +144,9 @@ def _health(ctx: StageCtx):
             "init_state(ref, seed, spec=spec, m=m) (the engine does this "
             "automatically)")
     return ctx.state.extra["health"], ctx.state.extra["recovered"]
+
+
+_HEALTH_STATE = (("health", "int32"), ("recovered", "int32"))
 
 
 def _health_init(params, m: int):
@@ -198,7 +201,10 @@ def _validate_robust_divergence(params):
 @register_trigger("robust_cadence", init_extra=_health_init,
                   commit_extra=_health_commit, skip_extra=_health_skip,
                   params={"b": 1, "quarantine_mult": 16.0},
-                  validate=_validate_robust_cadence)
+                  validate=_validate_robust_cadence,
+                  contract=StageContract(
+                      summary="cadence gate + per-learner quarantine "
+                              "health counters", extra_state=_HEALTH_STATE))
 def trigger_robust_cadence(ctx: StageCtx) -> bool:
     """sigma_b's schedule with the quarantine health counters — the
     robust counterpart of ``cadence``."""
@@ -210,7 +216,11 @@ def trigger_robust_cadence(ctx: StageCtx) -> bool:
                   init_extra=_health_init, commit_extra=_health_commit,
                   skip_extra=_health_skip,
                   params={"b": 1, "delta": 0.5, "quarantine_mult": 16.0},
-                  validate=_validate_robust_divergence)
+                  validate=_validate_robust_divergence,
+                  contract=StageContract(
+                      summary="divergence condition + per-learner "
+                              "quarantine health counters",
+                      extra_state=_HEALTH_STATE, cond_aux=("dists",)))
 def trigger_robust_divergence(ctx: StageCtx) -> bool:
     """sigma_Delta's condition with the quarantine health counters — the
     robust counterpart of ``divergence``: an adversarial or cold row is
@@ -287,21 +297,28 @@ def aggregate_trimmed_mean(ctx: StageCtx, cout: CohortOut) -> torch.Tensor:
     ``floor(trim_frac * n)`` arbitrary (even non-finite) values per
     coordinate; unweighted by design. It also serves a hierarchy's
     intra tier as the batched form, on (g, k, P) with (g, k) masks."""
-    return flat_trimmed_mean(ctx.flat, _cohort_mask(cout),
-                             ctx.params["trim_frac"])
+    return flat_trimmed_mean(shard.gather_plane(ctx.flat),
+                             _cohort_mask(cout), ctx.params["trim_frac"])
 
 
 def aggregate_median(ctx: StageCtx, cout: CohortOut) -> torch.Tensor:
     """Coordinate-wise median of the cohort — the maximal trim, robust
     up to (but not at) 50% arbitrary values per coordinate; the batched
     form too."""
-    return flat_median(ctx.flat, _cohort_mask(cout))
+    return flat_median(shard.gather_plane(ctx.flat), _cohort_mask(cout))
 
 
 register_aggregate("trimmed_mean", params={"trim_frac": 0.2},
-                   validate=_validate_trim,
-                   batched=aggregate_trimmed_mean)(aggregate_trimmed_mean)
-register_aggregate("median", batched=aggregate_median)(aggregate_median)
+                   validate=_validate_trim, batched=aggregate_trimmed_mean,
+                   contract=StageContract(
+                       summary="coordinate-wise finite-guarded trimmed "
+                               "mean; ignores Algorithm-2 weights",
+                       out="model"))(aggregate_trimmed_mean)
+register_aggregate("median", batched=aggregate_median,
+                   contract=StageContract(
+                       summary="coordinate-wise finite-guarded median; "
+                               "ignores Algorithm-2 weights",
+                       out="model"))(aggregate_median)
 
 
 # ---------------------------------------------------------------------------
@@ -312,12 +329,15 @@ def _quarantine_select(ctx: StageCtx, bad: np.ndarray) -> None:
     """Suspect rows are warm-started from the reference model, in place,
     after the cohort adopted the aggregate."""
     if bad.any():
-        idx = torch.from_numpy(np.flatnonzero(bad)).to(ctx.flat.device)
-        ctx.flat[idx] = ctx.ref_flat
+        shard.select_rows(ctx.flat, bad, ctx.ref_flat)
 
 
 @register_commit("quarantine", needs=("full-cohort",),
-                 params={"quarantine_mult": 16.0}, validate=_validate_mult)
+                 params={"quarantine_mult": 16.0}, validate=_validate_mult,
+                 contract=StageContract(
+                     summary="cohort adopts the aggregate except suspect "
+                             "rows, which warm-start from the reference; "
+                             "ledger identical to 'average'"))
 def commit_quarantine(ctx: StageCtx, cout: CohortOut, mean, hot,
                       nhot) -> SyncOut:
     """``average`` with a quarantine: suspect cohort rows (non-finite or

@@ -20,9 +20,9 @@ plane is the only arithmetic: ``layout`` defaults to ``"flat"``, and
 ``"tree"`` (the reference's default) runs on the same ``(m, P)`` plane —
 the reference holds its tree layout to its flat one (comm exact,
 parameters within rtol 2e-4, ``tests/test_flatten.py``), so a tree spec
-here gives the flat results; ``"sharded"`` raises
-``NotImplementedError`` (its ``shard_devices`` parameter is known, so
-the reference's specs load).
+here gives the flat results; ``"sharded"`` is the flat round on each
+rank's rows of the plane, the round's host decisions replicated
+(``repro_torch.core.shard``), and the flat round itself on one rank.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core import shard
 from repro_torch.core.sync import registry, stages  # noqa: F401
 from repro_torch.core.sync.registry import (
     CommRecord, StageCtx, StageResult, SyncOut, get_protocol,
@@ -43,11 +44,13 @@ from repro_torch.core.sync.registry import (
 GLOBAL_PARAMS: Dict[str, Any] = {"weighted": False, "bytes_per_param": 4,
                                  "layout": "flat", "shard_devices": 0}
 
-# the reference's layouts; "tree" and "flat" both run on the plane
+# the reference's layouts; "tree" and "flat" both run on the plane, and
+# "sharded" splits its rows over the ranks of a process group
+# (repro_torch.core.shard: the flat arithmetic on one rank)
 LAYOUTS = ("tree", "flat", "sharded")
-NOT_PORTED_LAYOUTS = {
-    "sharded": "ROADMAP Queue A 19 (core/shard.py, the row-sharded plane)",
-}
+
+# layouts that run the dense (m, P) fleet-plane arithmetic
+PLANE_LAYOUTS = ("flat", "sharded")
 
 # the ProtocolConfig fields that overlay onto a preset's params
 _CONFIG_PARAM_FIELDS = ("b", "delta", "fedavg_c", "augmentation",
@@ -190,10 +193,6 @@ class ProtocolSpec:
         for rec in (trig, coh, agg, com):
             if rec.validate is not None:
                 rec.validate(resolved)
-        if resolved["layout"] in NOT_PORTED_LAYOUTS:
-            raise NotImplementedError(
-                f"layout {resolved['layout']!r} is not ported yet: "
-                f"{NOT_PORTED_LAYOUTS[resolved['layout']]}")
 
     # ---- serialization -----------------------------------------------
     def to_dict(self) -> Dict[str, Any]:
@@ -263,7 +262,7 @@ def _compiled_round(spec: ProtocolSpec):
     def round_fn(X, state, weights=None, active: Optional[np.ndarray] = None,
                  adjacency: Optional[np.ndarray] = None, dists=None,
                  leaf_sizes=None) -> StageResult:
-        m = X.shape[0]
+        m = shard.fleet_m(X)
         t = state.step + 1
         reach = np.ones((m,), bool) if active is None else active
         ctx = StageCtx(params=p, flat=X, ref_flat=state.ref, state=state,
@@ -314,9 +313,7 @@ def _resolve_config(proto) -> ProtocolSpec:
     known = preset.known_params
     # params a preset pins explicitly win over the config overlay
     pinned = dict(preset.params)
-    # the port's config has no ``shard_devices`` (ROADMAP Queue A 19): it
-    # overlays the reference's default 0, so both packages write one JSON
-    overrides = {f: getattr(proto, f, 0) for f in _CONFIG_PARAM_FIELDS
+    overrides = {f: getattr(proto, f) for f in _CONFIG_PARAM_FIELDS
                  if f in known and f not in pinned}
     return preset.with_params(**overrides)
 

@@ -41,11 +41,13 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core import shard
 from repro_torch.core.divergence import per_learner_sq_distance_flat
 from repro_torch.core.sync.registry import (
-    CohortOut, CommRecord, StageCtx, SyncOut, carried_v, register_aggregate,
-    register_cohort, register_commit, register_trigger,
+    CohortOut, CommRecord, StageContract, StageCtx, SyncOut, carried_v,
+    register_aggregate, register_cohort, register_commit, register_trigger,
 )
+from repro_torch.device import host_to_device
 
 
 def zeros_i32(m: int) -> np.ndarray:
@@ -53,8 +55,9 @@ def zeros_i32(m: int) -> np.ndarray:
 
 
 def _on(mask: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """A host bool mask as a 0/1 vector in the plane's dtype and device."""
-    return torch.from_numpy(mask).to(device=like.device, dtype=like.dtype)
+    """A host bool mask as a 0/1 vector in the plane's dtype and device
+    (sent without a host sync)."""
+    return host_to_device(mask, like.device).to(like.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -63,11 +66,12 @@ def _on(mask: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 def flat_weighted_mean(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Masked/weighted mean over the plane's rows: ``w @ X / sum(w)`` —
-    one matvec. An all-zero weight vector yields the zero row."""
+    one matvec (on a row-sharded plane, ``shard.row_sum``). An all-zero
+    weight vector yields the zero row."""
     w = w.to(X.dtype)
     wsum = torch.sum(w)
     denom = torch.where(wsum > 0, wsum, torch.ones_like(wsum))
-    return (w @ X) / denom
+    return shard.row_sum(X, w) / denom
 
 
 def flat_aggregate_mean(X: torch.Tensor, mask: np.ndarray,
@@ -95,10 +99,12 @@ def batched_aggregate_mean(X: torch.Tensor, mask: np.ndarray,
 def host_dists(ctx: StageCtx) -> np.ndarray:
     """The (m,) f32 distances ``||f_i - r||^2`` of the round's plane on
     the host: the context's own (a cluster's slice of one grouped pass),
-    or one ``sqdist_rows`` pass and one fetch."""
+    or one ``sqdist_rows`` pass and one fetch (on a row-sharded plane,
+    each rank's pass over its rows, gathered)."""
     if ctx.dists is not None:
         return ctx.dists()
-    return per_learner_sq_distance_flat(ctx.flat, ctx.ref_flat).cpu().numpy()
+    return shard.gather_rows(
+        per_learner_sq_distance_flat(ctx.flat, ctx.ref_flat)).cpu().numpy()
 
 
 def _safe_dist(s: torch.Tensor, ws: torch.Tensor,
@@ -172,8 +178,9 @@ def cohort_balanced_flat(delta: float, augmentation: str, X: torch.Tensor,
     already computed (``max_distance``), or a uniform draw from the host
     key ``sub`` (``random``). Returns the mask B; the aggregate stage
     computes the mean (the reference also returns it, then discards
-    it)."""
-    m = X.shape[0]
+    it). On a row-sharded plane the sums are ``shard.row_sum`` and the
+    added row comes from its owner."""
+    m = reach.shape[0]
     if augmentation == "all":   # jump straight to full sync
         return reach.copy()
     prio = (prng.uniform(sub, (m,), device="cpu").numpy()
@@ -181,7 +188,7 @@ def cohort_balanced_flat(delta: float, augmentation: str, X: torch.Tensor,
     w = (weights.to(X.dtype) if weights is not None
          else torch.ones((m,), dtype=X.dtype, device=X.device))
     w0 = _on(violated, X) * w
-    s = w0 @ X
+    s = shard.row_sum(X, w0)
     ws = torch.sum(w0)
     d = _safe_dist(s, ws, ref)
     mask = violated.copy()
@@ -190,7 +197,7 @@ def cohort_balanced_flat(delta: float, augmentation: str, X: torch.Tensor,
         cand = np.where(mask | ~reach, np.float32(-np.inf), prio)
         nxt = int(np.argmax(cand))
         mask[nxt] = True
-        s = s + w[nxt] * X[nxt]
+        s = s + w[nxt] * shard.plane_row(X, nxt)
         ws = ws + w[nxt]
         d = _safe_dist(s, ws, ref)
     return mask
@@ -198,13 +205,9 @@ def cohort_balanced_flat(delta: float, augmentation: str, X: torch.Tensor,
 
 def _select_commit(X: torch.Tensor, mask: np.ndarray,
                    mean: torch.Tensor) -> torch.Tensor:
-    """Cohort rows adopt the aggregate, in place."""
-    if mask.all():
-        X.copy_(mean.expand_as(X))
-    else:
-        idx = torch.from_numpy(np.flatnonzero(mask)).to(X.device)
-        X[idx] = mean
-    return X
+    """Cohort rows adopt the aggregate, in place (this rank's rows of a
+    row-sharded plane)."""
+    return shard.select_rows(X, mask, mean)
 
 
 def xfers_cohort(mask: np.ndarray) -> np.ndarray:
@@ -254,13 +257,16 @@ def _validate_balanced(params):
 
 # ---- triggers -------------------------------------------------------------
 
-@register_trigger("never")
+@register_trigger("never", contract=StageContract(
+    summary="never fires; no state, no condition"))
 def trigger_never(ctx: StageCtx) -> bool:
     """nosync's trigger: never fires."""
     return False
 
 
-@register_trigger("cadence", params={"b": 1}, validate=_validate_b)
+@register_trigger("cadence", params={"b": 1}, validate=_validate_b,
+                  contract=StageContract(
+                      summary="gate t % b == 0; stateless"))
 def trigger_cadence(ctx: StageCtx) -> bool:
     """sigma_b's trigger: fire every ``b`` rounds, unconditionally."""
     return cadence_fire(ctx.params["b"], ctx.t)
@@ -276,7 +282,11 @@ def _divergence_condition(ctx: StageCtx):
 
 
 @register_trigger("divergence", condition=_divergence_condition,
-                  params={"b": 1, "delta": 0.5}, validate=_validate_delta)
+                  params={"b": 1, "delta": 0.5}, validate=_validate_delta,
+                  contract=StageContract(
+                      summary="conditional gate; threads the (m,) f32 "
+                              "monitoring distances to downstream stages",
+                      cond_aux=("dists",)))
 def trigger_divergence(ctx: StageCtx) -> bool:
     """sigma_Delta's trigger: check every ``b`` rounds (the gate); the
     condition marks learners with ``||f_i - r||^2 > Delta``."""
@@ -285,7 +295,9 @@ def trigger_divergence(ctx: StageCtx) -> bool:
 
 # ---- cohorts --------------------------------------------------------------
 
-@register_cohort("all_reachable", provides=("full-cohort",))
+@register_cohort("all_reachable", provides=("full-cohort",),
+                 contract=StageContract(
+                     summary="(m,) bool mask = reachability; no counter"))
 def cohort_all_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
     """sigma_b's cohort: every reachable learner; on the ideal network the
     whole fleet (``ideal=True`` keeps the pre-network expressions)."""
@@ -294,7 +306,10 @@ def cohort_all_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
 
 
 @register_cohort("fraction", provides=("subset",),
-                 params={"fedavg_c": 0.3}, validate=_validate_fraction)
+                 params={"fedavg_c": 0.3}, validate=_validate_fraction,
+                 contract=StageContract(
+                     summary="(m,) bool random C-fraction; subset size k "
+                             "in aux", aux=("k",)))
 def cohort_fraction_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
     """FedAvg's cohort: a random k-subset, ``k = max(1, round(C * m))``
     (Python's round, half to even, as the reference's), drawn from the
@@ -310,7 +325,11 @@ def cohort_fraction_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
 
 @register_cohort("balanced", provides=("balance",), needs_condition=True,
                  params={"delta": 0.5, "augmentation": "max_distance"},
-                 validate=_validate_balanced)
+                 validate=_validate_balanced,
+                 contract=StageContract(
+                     summary="balancing augmentation; owns the violation "
+                             "counter and the full-sync flag",
+                     manages_v=True))
 def cohort_balanced_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
     """sigma_Delta's cohort: coordinator balancing. Owns the violation
     counter: the hot count accumulates into ``v``, ``v >= m`` forces a
@@ -335,7 +354,11 @@ def cohort_balanced_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
 
 
 @register_cohort("neighborhood", provides=("mixing",), uses_overlay=True,
-                 uses_coordinator=False)
+                 uses_coordinator=False,
+                 contract=StageContract(
+                     summary="peer overlay cohort: (m, m) bool active "
+                             "adjacency A + f32 mixing matrix W in aux",
+                     aux=("A", "W")))
 def cohort_neighborhood_stage(ctx: StageCtx, hot, nhot, key) -> CohortOut:
     """Gossip's cohort: the availability-masked peer overlay and its
     Metropolis–Hastings mixing matrix. No coordinator."""
@@ -358,27 +381,34 @@ def aggregate_mean_batched(ctx: StageCtx, cout: CohortOut) -> torch.Tensor:
     return batched_aggregate_mean(ctx.flat, cout.mask, ctx.weights)
 
 
-@register_aggregate("mean", batched=aggregate_mean_batched)
+@register_aggregate("mean", batched=aggregate_mean_batched,
+                    contract=StageContract(
+                        summary="masked (weighted) cohort mean, a plane "
+                                "row", out="model"))
 def aggregate_mean_stage(ctx: StageCtx, cout: CohortOut) -> torch.Tensor:
     """The cohort's (weighted) mean: a plain row mean for the unweighted
     full fleet, else one masked matvec."""
     if cout.ideal and ctx.weights is None:
-        return torch.mean(ctx.flat, dim=0)
+        return shard.row_mean(ctx.flat)
     return flat_aggregate_mean(ctx.flat, cout.mask, ctx.weights)
 
 
-@register_aggregate("mix", needs=("mixing",))
+@register_aggregate("mix", needs=("mixing",), contract=StageContract(
+    summary="one M-H mixing step: per-learner output, not a single model",
+    out="fleet"))
 def aggregate_mix_stage(ctx: StageCtx, cout: CohortOut) -> torch.Tensor:
     """One Metropolis–Hastings mixing step over the neighborhood: one
-    ``W @ X`` product on the plane, a new (m, P) plane."""
+    ``W @ X`` product on the plane, a new (m, P) plane (on a row-sharded
+    plane, this rank's rows of it, from the gathered plane)."""
     W = torch.from_numpy(cout.aux["W"]).to(device=ctx.flat.device,
                                            dtype=ctx.flat.dtype)
-    return W @ ctx.flat
+    return shard.mix(W, ctx.flat)
 
 
 # ---- commits --------------------------------------------------------------
 
-@register_commit("average", needs=("full-cohort",))
+@register_commit("average", needs=("full-cohort",), contract=StageContract(
+    summary="cohort adopts the mean; ref moves when anyone averaged"))
 def commit_average(ctx: StageCtx, cout: CohortOut, mean, hot,
                    nhot) -> SyncOut:
     """sigma_b's commit: every cohort member adopts the aggregate. On the
@@ -401,7 +431,9 @@ def commit_average(ctx: StageCtx, cout: CohortOut, mean, hot,
                    xfers_cohort(cout.mask), zeros_i32(m))
 
 
-@register_commit("subset", needs=("subset",))
+@register_commit("subset", needs=("subset",), contract=StageContract(
+    summary="subset adopts the mean; full when it covered every reachable "
+            "learner"))
 def commit_subset(ctx: StageCtx, cout: CohortOut, mean, hot,
                   nhot) -> SyncOut:
     """FedAvg's commit: the subset adopts the aggregate and the reference
@@ -424,7 +456,10 @@ def commit_subset(ctx: StageCtx, cout: CohortOut, mean, hot,
                    xfers_cohort(cout.mask), zeros_i32(m))
 
 
-@register_commit("balancing", needs=("balance",), needs_condition=True)
+@register_commit("balancing", needs=("balance",), needs_condition=True,
+                 contract=StageContract(
+                     summary="balanced cohort adopts the partial average; "
+                             "per-link chatter on the sending links"))
 def commit_balancing(ctx: StageCtx, cout: CohortOut, mean, hot,
                      nhot) -> SyncOut:
     """sigma_Delta's commit: the balanced cohort adopts the partial
@@ -443,7 +478,9 @@ def commit_balancing(ctx: StageCtx, cout: CohortOut, mean, hot,
                    xfers_cohort(mask), link_msgs)
 
 
-@register_commit("mix", needs=("mixing",))
+@register_commit("mix", needs=("mixing",), contract=StageContract(
+    summary="every learner adopts its mixing row; transfers occupy both "
+            "endpoints' links; the reference never moves"))
 def commit_mix(ctx: StageCtx, cout: CohortOut, mixed, hot, nhot) -> SyncOut:
     """Gossip's commit: every learner adopts its mixing-row combination;
     transfers occupy both endpoints' links; the reference never moves

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.sync.registry import (
-    StageCtx, register_protocol, register_trigger,
+    StageContract, StageCtx, register_protocol, register_trigger,
 )
 from repro_torch.core.sync.spec import ProtocolSpec
 from repro_torch.core.sync.stages import _validate_b, cadence_fire
@@ -70,7 +70,11 @@ def _validate(params):
                   init_extra=_staleness_init,
                   commit_extra=_staleness_commit,
                   skip_extra=_staleness_skip,
-                  params={"b": 1, "tau": 5}, validate=_validate)
+                  params={"b": 1, "tau": 5}, validate=_validate,
+                  contract=StageContract(
+                      summary="conditional gate on the per-learner "
+                              "rounds-since-sync counters",
+                      extra_state=(("staleness", "int32"),)))
 def trigger_staleness(ctx: StageCtx) -> bool:
     """Gate: check every ``b`` rounds (b = 1: every round); the condition
     fires when any reachable learner's rounds-since-last-sync reach

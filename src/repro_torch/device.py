@@ -14,6 +14,7 @@ run to run.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -30,3 +31,20 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"the port runs on 'cuda' or 'cpu', got {device!r}")
     return dev
+
+
+def versions() -> dict:
+    """The toolchain a run used: torch's version and the CUDA it was
+    built for (None for a CPU build)."""
+    return {"torch": torch.__version__, "cuda": torch.version.cuda}
+
+
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``: the array itself on the
+    CPU; on a card, a pinned copy sent asynchronously (the caching host
+    allocator keeps the pinned buffer until the copy has run); elsewhere
+    (``meta``) a plain copy."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

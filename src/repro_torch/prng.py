@@ -139,8 +139,16 @@ def uniform(key, shape: Shape = (), minval: float = 0.0,
     hi = torch.tensor(maxval, dtype=torch.float32, device=dev)
     floats = one_two - torch.tensor(1.0, dtype=torch.float32, device=dev)
     # XLA fuses ``floats * (hi - lo) + lo`` into one multiply-add rounded
-    # once; the product of two f32 values is exact in f64
-    scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
+    # once. When hi - lo (in f32) is a power of two, as for [0, 1) and
+    # the normals' [nextafter(-1, 0), 1), the f32 product is exact and
+    # the add rounds once: the same bits, in f32. Otherwise the product
+    # of two f32 values is exact in f64
+    span = np.float32(maxval) - np.float32(minval)
+    if span > 0 and np.frexp(span)[0] == 0.5:
+        scaled = floats * (hi - lo) + lo
+    else:
+        scaled = (floats.double() * (hi - lo).double()
+                  + lo.double()).float()
     return torch.maximum(lo, scaled)
 
 

@@ -12,8 +12,8 @@ streams.
     tail       the newest records, one JSON object per line
                (``--follow`` keeps watching the file)
     prom       Prometheus text exposition of counters/gauges
-    costs      static per-stage FLOPs × this stream's observed fires:
-               not ported (it reads jaxpr FLOPs; ROADMAP Queue A 20)
+    costs      per-stage FLOPs × this stream's observed fires
+               (``repro_torch.telemetry.costs``)
 
 ``record`` runs on ``--device`` (the card unless asked for the CPU).
 """
@@ -91,10 +91,38 @@ def _cmd_prom(args) -> int:
 
 
 def _cmd_costs(args) -> int:
-    raise NotImplementedError(
-        "`costs` attributes jaxpr FLOPs to the stages; the port has no "
-        "jaxpr — it waits for ROADMAP Queue A 20 (analysis/roofline and "
-        "telemetry/costs)")
+    from repro_torch.core.sync.spec import ProtocolSpec
+    from repro_torch.telemetry.costs import attribute, round_costs
+    from repro_torch.telemetry.observatory import load_run
+
+    run = load_run(args.path)
+    spec_dict = run.meta.get("spec")
+    if spec_dict is None:
+        print("error: stream's meta record carries no spec",
+              file=sys.stderr)
+        return 2
+    spec = ProtocolSpec.from_dict(spec_dict)
+    template = None
+    if args.arch:
+        import torch
+        from repro_torch.config import get_arch
+        from repro_torch.core.flatten import tree_map
+        from repro_torch.models.cnn import init_cnn_params
+        cfg = get_arch(args.arch, smoke=True)
+        params = init_cnn_params(cfg, torch.Generator())
+        template = tree_map(
+            lambda x: torch.empty((run.meta["m"],) + tuple(x.shape),
+                                  dtype=x.dtype, device="meta"), params)
+    costs = round_costs(spec, template=template, m=run.meta["m"])
+    last = run.rounds[-1] if run.rounds else None
+    rounds = last["round"] if last else 0
+    fires = last["cum_syncs"] if last else 0
+    walls = [c["wall_s"] for c in run.chunks if "wall_s" in c]
+    print(json.dumps(
+        attribute(costs, rounds, fires,
+                  wall_s=sum(walls) if walls else None),
+        indent=1, sort_keys=True))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -144,8 +172,7 @@ def main(argv=None) -> int:
     pr.set_defaults(fn=_cmd_prom)
 
     co = sub.add_parser("costs",
-                        help="static stage FLOPs x observed fires "
-                             "(not ported: ROADMAP Queue A 20)")
+                        help="stage FLOPs x observed fires")
     co.add_argument("path")
     co.add_argument("--arch", default=None,
                     help="architecture template for absolute FLOPs "

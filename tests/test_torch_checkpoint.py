@@ -233,7 +233,7 @@ def test_old_checkpoint_without_spec_or_extra_loads(tmp_path):
         _, opt, state = io.load_protocol_state(str(tmp_path / name),
                                                device="cpu")
         assert state.extra == {} and state.v == 0 and state.step == 0
-        assert opt.step == 0 and opt.mu is None
+        assert (opt.step == 0).all() and opt.mu is None
         assert torch.equal(state.ref, row)
         assert io.load_protocol_spec(str(tmp_path / name)) is None
         assert io.load_counters(str(tmp_path / name)) is None

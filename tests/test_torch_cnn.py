@@ -118,7 +118,7 @@ def test_optimizer_steps_match_reference(opt):
     for g in grads:
         jX, jstate = jopt.update(jX, jnp.asarray(g), jstate)
         X, state = topt.update(X, torch.from_numpy(g.copy()), state)
-    assert state.step == int(jstate.step) == 2
+    assert (state.step == int(jstate.step)).all() and int(jstate.step) == 2
     np.testing.assert_allclose(X.numpy(), np.asarray(jX), rtol=1e-6,
                                atol=1e-7)
     for name in ("mu", "nu"):

@@ -637,3 +637,111 @@ def test_quarantine_round_on_the_card_equals_the_cpu(kind):
         range(1, 10))
     torch.testing.assert_close(card.params.cpu(), cpu.params, **TOL)
     assert torch.isfinite(card.params).all()
+
+
+# ---------------------------------------------------------------------------
+# the sharded plane, per-learner optimizer steps and the audit on the card
+# ---------------------------------------------------------------------------
+
+def _mnist_engine(layout, optimizer="sgd", lr=0.1, m=8, faults=None,
+                  device="cuda"):
+    from repro_torch.config import (
+        FaultConfig, ProtocolConfig, TrainConfig, get_arch,
+    )
+    from repro_torch.core.protocol import DecentralizedLearner
+    from repro_torch.data.pipeline import LearnerStreams
+    from repro_torch.data.synthetic import GraphicalModelStream
+    from repro_torch.models.cnn import cnn_loss, init_cnn_params
+    cfg = get_arch("drift_mlp", smoke=True)
+    init = init_cnn_params(cfg, torch.Generator().manual_seed(3))
+    dl = DecentralizedLearner(
+        lambda p, b: cnn_loss(cfg, p, b),
+        lambda g: {"layers": [{k: v.to(device) for k, v in layer.items()}
+                              for layer in init["layers"]]}, m,
+        ProtocolConfig(kind="dynamic", b=2, delta=0.05, layout=layout),
+        TrainConfig(optimizer=optimizer, learning_rate=lr),
+        faults=None if faults is None else FaultConfig(**faults),
+        device=device)
+    src = GraphicalModelStream(seed=0, drift_prob=0.0, device="cpu")
+    batches = LearnerStreams(src, m, batch=10, seed=0).next_chunk(24)
+    return dl, {k: v.to(device) for k, v in batches.items()}
+
+
+@pytest.mark.cuda
+def test_world1_sharded_is_the_flat_run_on_the_card():
+    _need_card()
+    flat, batches = _mnist_engine("flat")
+    shd, _ = _mnist_engine("sharded")
+    flat.run_chunk(batches)
+    shd.run_chunk(batches)
+    assert flat.comm_totals == shd.comm_totals and \
+        flat.comm_totals["syncs"] > 0
+    assert (flat.per_link_bytes() == shd.per_link_bytes()).all()
+    assert torch.equal(flat.X, shd.X)
+    assert torch.equal(shd.fleet_plane(), flat.X)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("m", [25, 50])
+def test_sqdist_rows_at_the_per_rank_shapes(m, dtype):
+    """One rank's rows of mnist_cnn's fleet sharded over 4 and 2 ranks."""
+    _need_card()
+    X, r = _inputs(m, 1_199_882, dtype)
+    a, b = sqdist.sqdist_rows(X, r), sqdist.sqdist_rows(X, r)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, ref.sqdist_rows_ref(X, r), **TOL)
+
+
+@pytest.mark.cuda
+def test_per_row_adam_on_the_card_equals_the_cpu():
+    """Unequal per-learner step counts under crashes: the card's counts
+    are the CPU's, the planes within the fault tests' 1e-5."""
+    _need_card()
+    kw = dict(fault_seed=11, crash_prob=0.15, crash_every=16,
+              outage_min=2, outage_max=4)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        dl, batches = _mnist_engine("flat", "adam", 1e-3, faults=kw,
+                                    device=dev)
+        dl.run_chunk(batches)
+        runs[dev] = dl
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    assert gpu.opt_state.step.is_cuda
+    assert torch.equal(gpu.opt_state.step.cpu(), cpu.opt_state.step)
+    assert gpu.comm_totals == cpu.comm_totals
+    # the output bias after a cold restart: its gradient is a sum that is
+    # 0 in exact arithmetic, and adam's g / (|g| + eps) maps the card's
+    # and the CPU's residuals up to lr apart (tests/test_torch_optim_steps)
+    marks = cpu.adapter.unravel_model(torch.arange(cpu.model_size))
+    bias = marks["layers"][-1]["b"].long()
+    keep = torch.ones(cpu.model_size, dtype=torch.bool)
+    keep[bias] = False
+    torch.testing.assert_close(gpu.X.cpu()[:, keep], cpu.X[:, keep],
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gpu.X.cpu()[:, bias], cpu.X[:, bias],
+                               rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_audit_sync_count_under_sync_debug_mode():
+    """One dynamic chunk: the dispatch mode's host syncs and the warnings
+    of ``set_sync_debug_mode`` both equal the documented budget."""
+    import warnings
+    from repro_torch.analysis import audit
+    _need_card()
+    dl, batches = _mnist_engine("flat")
+    dl.run_chunk({k: v[:12] for k, v in batches.items()})   # warm-up
+    torch.cuda.set_sync_debug_mode("warn")   # (setting it warns too)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = audit.audit_learner(dl, {k: v[12:] for k, v in
+                                           batches.items()})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    warned = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    assert got["findings"] == []
+    assert got["checked"] == 6
+    assert got["syncs"] == got["budget"] == len(warned)

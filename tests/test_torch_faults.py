@@ -417,11 +417,20 @@ def test_nonfinite_loss_event_fires_once_with_learners():
 
 
 def test_adam_under_crashes_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="Queue C3"):
-        DecentralizedLearner(
-            lambda p, b: 0, lambda g: {"w": torch.zeros(3)}, 4,
-            ProtocolConfig(kind="periodic"), TrainConfig(optimizer="adam"),
-            faults=FaultConfig(crash_prob=0.1), device="cpu")
+    """Adam under crash faults no longer raises (ROADMAP C3, repaired):
+    the optimizer carries one step count per learner, which a crash
+    freezes; the parity with the reference's live run is in
+    tests/test_torch_optim_steps.py."""
+    dl = DecentralizedLearner(
+        lambda p, b: torch.sum(p["w"] * b["x"]),
+        lambda g: {"w": torch.zeros(3)}, 4,
+        ProtocolConfig(kind="periodic"), TrainConfig(optimizer="adam"),
+        faults=FaultConfig(crash_prob=0.9, crash_every=4, outage_min=2,
+                           outage_max=2), device="cpu")
+    dl.run_chunk({"x": torch.ones((4, 4, 3))})
+    assert dl.opt_state.step.dtype == torch.int32
+    assert dl.opt_state.step.shape == (4,)
+    assert (dl.opt_state.step < 4).any()    # some learner crashed
 
 
 def test_torch_faulty_fleet_example_smoke():

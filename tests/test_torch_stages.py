@@ -213,16 +213,27 @@ def test_config_validation_matches_reference(kw):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(kind="aircomp", layout="sharded"), "Queue A 19"),
-    (dict(kind="async_dynamic", layout="sharded"), "Queue A 19"),
-    (dict(kind="robust_dynamic", layout="sharded"), "Queue A 19"),
-    (dict(kind="robust_periodic", layout="sharded"), "Queue A 19"),
-    (dict(kind="dynamic", layout="sharded"), "Queue A 19"),
+    (dict(kind="aircomp", layout="sharded"), "Queue A 26"),
+    (dict(kind="async_dynamic", layout="sharded"), "Queue A 26"),
+    (dict(kind="robust_dynamic", layout="sharded"), None),
+    (dict(kind="robust_periodic", layout="sharded"), None),
+    (dict(kind="dynamic", layout="sharded"), None),
 ])
 def test_unported_options_raise_not_implemented(kw, what):
+    """``layout="sharded"`` is ported (ROADMAP A19): the reference's
+    sharded configs resolve; only the planes that a fleet split over
+    several ranks cannot run yet raise, naming their ROADMAP item."""
+    from repro_torch.core.protocol import _check_split
+    from repro_torch.core.shard import FleetSharding
     JProtocolConfig(**kw)        # valid in the reference
-    with pytest.raises(NotImplementedError, match=what):
-        ProtocolConfig(**kw)
+    spec = ProtocolConfig(**kw)._spec()
+    assert spec.param("layout") == "sharded"
+    split = FleetSharding(group=None, m=4, n_devices=2)
+    if what is None:
+        _check_split(split, spec, None, None, None, 4)
+    else:
+        with pytest.raises(NotImplementedError, match=what):
+            _check_split(split, spec, None, None, None, 4)
 
 
 def test_default_layout_is_flat():

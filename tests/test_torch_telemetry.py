@@ -374,10 +374,16 @@ def test_nonfinite_loss_event_lands_in_the_stream_once(tmp_path):
     assert events[0]["learners"] and events[0]["round"] == 8
 
 
-def test_costs_is_not_ported_and_tools_run_on_the_cpu(tmp_path):
+def test_costs_is_not_ported_and_tools_run_on_the_cpu(tmp_path, capsys):
+    """``costs`` is ported (ROADMAP A20, tests/test_torch_analysis.py):
+    it reads a stream the port recorded."""
     from repro_torch.telemetry.__main__ import main
-    with pytest.raises(NotImplementedError, match="Queue A 20"):
-        main(["costs", str(tmp_path / "x.jsonl")])
+    path = str(tmp_path / "x.jsonl")
+    assert main(["record", "--out", path, "--rounds", "4", "--m", "2",
+                 "--chunk", "2", "--device", "cpu"]) == 0
+    capsys.readouterr()
+    assert main(["costs", path]) == 0
+    assert json.loads(capsys.readouterr().out)["rounds"] == 4
     with profiler_trace(str(tmp_path / "trace")):
         out, seconds = timed(lambda: torch.ones(4).sum())
     assert float(out) == 4.0 and seconds >= 0.0
