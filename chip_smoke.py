@@ -136,6 +136,29 @@ and drives both of the port's paths:
   each kernel's ``kernel_bound`` beside its measured time (the same
   bound the kernel phases computed); ``costs`` runs
   ``python -m repro_torch.telemetry costs`` on F2's stream.
+* the training side closed (slice 11): ``shard_train`` also runs, inside
+  each world's launch, F1 (dynamic under the faulty_fleet schedule), F3
+  (robust_periodic under HEAVY), A1 (async dynamic, lte 2 rounds in
+  flight) and A3 (aircomp) at full width for 60 rounds (F3 40), flat
+  in this process first: S1 is each one's flat run bit for bit; at S2
+  and S4 the ranks agree, the integers no float decides (the fault
+  schedule's counts, a cadence trigger's comm, ledger and in-flight
+  timeline) are the flat run's and the plane is within 1% of the flat
+  plane's norm, NaN and Inf one class (README, the split fleet's
+  contract), with each rank's ``sqdist_rows`` launches at (100/n, P),
+  ms a round and peak memory. ``train_step`` holds Proposition 3 at
+  full width (one σ_1 round of m = 100 learners, B = 10, η = 0.05,
+  against one ``make_train_step`` step with batch 1,000 and lr η/m·mB:
+  rtol 1e-4 / atol 1e-6 in float64; in float32 within 1e-5 of the
+  norm, which a serial step at (1 + 1/m) times the learning rate must
+  miss) and ``micro_batch`` 4 against 1 at batch 1,000, each timed
+  after a warm-up call. ``figures`` runs the eight figure twins at the
+  reference's quick settings on the card (verdicts, rows and seconds
+  beside the reference's quick verdicts on the CPU, and the grids'
+  ``sqdist_rows`` launches, each plane among those ``kernels`` held to
+  the plain version), then each twin's cut rows (``CUT``) on the CPU
+  from its own source and on the card from the same draws: integers
+  identical.
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -205,6 +228,7 @@ from repro_torch.telemetry.observatory import load_run, summarize  # noqa: E402
 from repro_torch.train.loop import (  # noqa: E402
     run_drift_segments, run_protocol_training,
 )
+from benchmarks import torch_run  # noqa: E402
 
 P_MNIST = 1_199_882          # mnist_cnn's weights (Table 1)
 P_DEEPDRIVE = 348_219        # deepdrive_cnn's weights (Table 5, PilotNet)
@@ -267,6 +291,36 @@ def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
+def child_pids() -> list:
+    """The processes whose parent is this one, zombies included."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == os.getpid():
+            pids.append(int(entry))
+    return pids
+
+
+def stop_children() -> list:
+    """Stop every process this script started that is still there: a
+    multiprocessing child, and multiprocessing's resource tracker, which
+    spawning shard_train's ranks starts and which would otherwise exit
+    only after this script has, outliving it. Returns the child processes
+    left after that (none, unless something else started one)."""
+    import multiprocessing
+    from multiprocessing import resource_tracker
+
+    for child in multiprocessing.active_children():
+        child.terminate()
+        child.join(10)
+    resource_tracker._resource_tracker._stop()   # closes its pipe, reaps it
+    return child_pids()
+
+
 # ---------------------------------------------------------------------------
 def phase_env() -> dict:
     smi = subprocess.run(
@@ -314,6 +368,26 @@ def phase_build() -> dict:
     return rec
 
 
+# the figure twins' planes (benchmarks/torch_fig*.py, their smoke models):
+# m of the quick grids (fig5_1 and fig5_2 10; fig6_1 4, 8 and 16; fig6_2
+# and figA6 6; fig5_4 8; figC 6; fig5_5 5) and of the cut rows the
+# figures phase runs (each twin's CUT: 4 and 8; 4 and 6; 3)
+FIGURE_ROWS = {"mnist_cnn": (4, 6, 8, 10, 16), "drift_mlp": (4, 6, 8),
+               "deepdrive_cnn": (3, 5)}
+
+
+def figure_planes() -> list:
+    """FIGURE_ROWS as ``ops.ROWS_LAUNCHES`` keys ``(m, P, 1)``, P the
+    smoke model's weights."""
+    planes = []
+    for arch, rows in FIGURE_ROWS.items():
+        params = init_cnn_params(get_arch(arch, smoke=True),
+                                 torch.Generator().manual_seed(0))
+        P = sum(x.numel() for x in tree_leaves(params))
+        planes += [(m, P, 1) for m in rows]
+    return planes
+
+
 def phase_kernels(gen) -> dict:
     """Each kernel against its plain version on the card, at rtol 1e-5 /
     atol 1e-6, and bitwise equal across two launches."""
@@ -342,10 +416,11 @@ def phase_kernels(gen) -> dict:
     # P_DEEPDRIVE is odd, so every odd row of that plane starts 4 bytes off
     # an 8-byte boundary
     # (50, P) and (25, P): one rank's rows of a fleet sharded over 2 and 4
-    # ranks (shard_train)
+    # ranks (shard_train); then every plane of the figures phase
     for m, n in [(1, 1), (17, 515), (1, P_MNIST), (7, P_MNIST),
                  (25, P_MNIST), (50, P_MNIST), (100, P_MNIST),
-                 (3, P_DEEPDRIVE), (100, P_DEEPDRIVE)]:
+                 (3, P_DEEPDRIVE), (100, P_DEEPDRIVE)] + [
+                     (m, n) for m, n, _ in figure_planes()]:
         for dt in (torch.float32, torch.bfloat16):
             X = torch.randn((m, n), generator=gen, device="cuda").to(dt)
             r = torch.randn((n,), generator=gen, device="cuda").to(dt)
@@ -2581,14 +2656,98 @@ def _train_step_run(fleet) -> dict:
             "ms_per_step": (time.perf_counter() - t0) * 1e3 / STEP_ROUNDS}
 
 
+# the fault plane, robust sync, the async timeline and aircomp on the
+# split fleet (ROADMAP A26), at fault_train's F1 / F3 and tier_train's
+# A1 / A3 settings: name -> (protocol kwargs, network, AsyncConfig
+# kwargs, FaultConfig kwargs)
+SPLIT_PLANES = {
+    "F1": (dict(kind="dynamic", b=PERIOD, delta=DELTA), None, None, FAULTS),
+    "F3": (dict(kind="robust_periodic", b=PERIOD), None, None, HEAVY),
+    "A1": (dict(kind="dynamic", b=PERIOD, delta=DELTA), ASYNC_NET,
+           dict(round_budget=1.0, max_delay=8), None),
+    "A3": (dict(kind="periodic", b=PERIOD), ASYNC_NET,
+           dict(round_budget=3.0, aircomp=True, snr_db=20.0), None),
+}
+# what no float decides in each run, held to the flat run's at S2 and S4
+# (README, the split fleet's contract): the fault schedule's counts, a
+# cadence trigger's comm, ledger and in-flight timeline; A1's launches
+# and F1's cohorts are a distance trigger's decisions
+SPLIT_EXACT = {"F1": ("num_faulty", "num_active"),
+               "F3": ("comm", "ledger", "num_faulty", "num_active"),
+               "A1": (),
+               "A3": ("comm", "ledger", "num_inflight", "network_time")}
+# ROUNDS each, but F3 two chunks: its syncs gather the whole plane
+# through the host and sort it on every rank (130-180 ms a round at S2
+# and S4 on an H100), and the phase keeps near its time budget
+SPLIT_ROUNDS = {"F1": ROUNDS, "F3": 2 * CHUNK, "A1": ROUNDS, "A3": ROUNDS}
+SPLIT_KEYS = ("comm", "ledger", "network_time", "cumulative_loss",
+              "num_faulty", "num_active", "num_inflight", "checked",
+              "fingerprint")
+
+
+def _split_plane_run(name: str, layout: str) -> tuple:
+    """SPLIT_PLANES[name] on mnist_cnn at full width (m = 100, B = 10,
+    sgd lr 0.1, seed 0, SPLIT_ROUNDS[name] rounds in chunks of 20) on
+    ``layout``, timed, with its sqdist_rows launches by shape (the
+    counts zeroed first): (the learner, its record)."""
+    proto, net, an, fk = SPLIT_PLANES[name]
+    rounds = SPLIT_ROUNDS[name]
+    cfg = get_arch("mnist_cnn")
+    src = SyntheticMNIST(seed=0, image_size=28, device="cuda")
+
+    def run():
+        dl = DecentralizedLearner(
+            lambda p, b: cnn_loss(cfg, p, b),
+            lambda g: init_cnn_params(cfg, g), M,
+            ProtocolConfig(**proto, layout=layout),
+            TrainConfig(optimizer="sgd", learning_rate=0.1), seed=0,
+            network=None if net is None else NetworkConfig(**net),
+            async_net=None if an is None else AsyncConfig(**an),
+            faults=None if fk is None else FaultConfig(**fk), device="cuda")
+        streams = LearnerStreams(src, M, batch=B, seed=0)
+        return dl, [dl.run_chunk(streams.next_chunk(CHUNK))
+                    for _ in range(rounds // CHUNK)]
+
+    ops.reset_launches()
+    (dl, metrics), ms, peak = _timed_run(run)
+    rec = {**_counters(dl), "ms_per_round": ms / rounds, "rounds": rounds,
+           "peak_memory_bytes": peak, "rows_per_rank": dl.m_local,
+           "sqdist_rows": {"x".join(map(str, k)): v for k, v in
+                           ops.ROWS_LAUNCHES.items()},
+           **{f: np.concatenate([np.asarray(getattr(x, f)) for x in
+                                 metrics]).tolist()
+              for f in ("num_faulty", "num_active", "num_inflight",
+                        "checked")}}
+    return dl, rec
+
+
+def _class_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """``_plane_gap`` over ``want``'s finite entries, NaN and ±Inf one
+    class: ``finite`` says whether both planes are finite at the same
+    entries."""
+    fin = torch.isfinite(want)
+    same = bool(torch.equal(torch.isfinite(got), fin))
+    gap = _plane_gap(got[fin], want[fin])
+    gap.update(finite=same and gap["finite"],
+               nonfinite_entries=int((~fin).sum()))
+    return gap
+
+
+def _js(x) -> str:
+    """A value as JSON text: NaN equals NaN, as the runs' bits do."""
+    return json.dumps(x, sort_keys=True)
+
+
 def shard_rank(flat_dir: str, fixture) -> dict:
     """One rank of shard_train (run by ``shard.launch``): the dynamic and
     periodic runs at full width on layout="sharded", twice each, with
     this rank's sqdist_rows launches by shape, the bytes its collectives
     received a round, its ms a round and peak memory and the gathered
     plane's fingerprint; rank 0 measures each first run's plane against
-    the flat run's. Then every preset of the fixture on the card. At
-    world 2, also make_dynamic_train_step on the fleet."""
+    the flat run's. Then SPLIT_PLANES' runs (F1, F3, A1, A3) once each,
+    recorded the same way with their per-round series. Then every preset
+    of the fixture on the card. At world 2, also make_dynamic_train_step
+    on the fleet."""
     import torch.distributed as dist
     world, rank = dist.get_world_size(), dist.get_rank()
     out = {"world": world, "rank": rank, "backend": dist.get_backend()}
@@ -2617,6 +2776,20 @@ def shard_rank(flat_dir: str, fixture) -> dict:
             del dl, plane
             torch.cuda.empty_cache()
         out[kind] = runs
+    planes = {}
+    for name in SPLIT_PLANES:
+        dl, rec = _split_plane_run(name, "sharded")
+        plane = dl.fleet_plane()
+        rec["fingerprint"] = _fingerprint(plane)
+        if rank == 0:
+            flat = torch.load(os.path.join(flat_dir, f"{name}.pt"),
+                              map_location="cuda")
+            rec.update(_class_gap(plane, flat))
+            del flat
+        planes[name] = rec
+        del dl, plane
+        torch.cuda.empty_cache()
+    out["planes"] = planes
     ops.reset_launches()
     out["fixture"] = {name: _fixture_run(name, "sharded", fixture, "cuda")
                       for name in FIXTURE_PRESETS}
@@ -2662,8 +2835,12 @@ def phase_shard_train() -> dict:
     reads no value) and dynamic's are reported beside the flat run's.
     Each split plane is measured against its flat one (largest error,
     SHARD_TOL's verdict) and held within SHARD_GROSS_REL of its norm.
-    make_dynamic_train_step at world 2 makes one process's sync
-    decisions."""
+    SPLIT_PLANES' runs (F1, F3, A1, A3; SPLIT_ROUNDS) are held the same
+    way, flat in this process first: S1 bit for bit, S2 and S4 to the
+    split fleet's contract (SPLIT_EXACT's integers the flat run's, the
+    plane within SHARD_GROSS_REL, NaN and Inf one class), each rank's
+    sqdist_rows launches at (100/n, P) as predicted. make_dynamic_train_step at
+    world 2 makes one process's sync decisions."""
     os.makedirs(SHARD_DIR, exist_ok=True)
     problems = []
     fixture = _fixture_data()
@@ -2689,6 +2866,13 @@ def phase_shard_train() -> dict:
             "sqdist_rows": {"x".join(map(str, k)): v for k, v in
                             ops.ROWS_LAUNCHES.items()}}
         torch.save(dl.X, os.path.join(SHARD_DIR, f"{kind}.pt"))
+        del dl
+    flat_planes = {}
+    for name in SPLIT_PLANES:
+        dl, rec = _split_plane_run(name, "flat")
+        rec["fingerprint"] = _fingerprint(dl.X)
+        torch.save(dl.X, os.path.join(SHARD_DIR, f"{name}.pt"))
+        flat_planes[name] = rec
         del dl
     step_one = _train_step_run(None)
     torch.cuda.empty_cache()
@@ -2736,6 +2920,42 @@ def phase_shard_train() -> dict:
             if not _gross(h):
                 problems.append(f"{name} {kind}: the plane is not the flat "
                                 f"plane's within {SHARD_GROSS_REL}: {h}")
+        for pname, want in flat_planes.items():
+            lead = ranks[0]["planes"][pname]
+            shape = f"{M // world}x{P_MNIST}x1"
+            for r in ranks:
+                got = r["planes"][pname]
+                if _js({k: got[k] for k in SPLIT_KEYS}) != \
+                        _js({k: lead[k] for k in SPLIT_KEYS}):
+                    problems.append(f"{name} {pname}: rank {r['rank']} "
+                                    f"differs from rank 0")
+                # a distance trigger checks (F1), a sync reads the
+                # distances (F3), a gated round checks (A1); aircomp none
+                n = (sum(got["checked"]) if pname == "A1"
+                     else 0 if pname == "A3"
+                     else SPLIT_ROUNDS[pname] // PERIOD)
+                if got["sqdist_rows"] != ({shape: n} if n else {}):
+                    problems.append(f"{name} {pname} rank {r['rank']}: "
+                                    f"sqdist_rows {got['sqdist_rows']}, "
+                                    f"predicted {n} at {shape}")
+            exact = {k: _js(lead[k]) == _js(want[k])
+                     for k in (SPLIT_KEYS if world == 1
+                               else SPLIT_EXACT[pname])}
+            held[f"{name} {pname}"] = {
+                **{k: lead[k] for k in ("close", "max_abs_err",
+                                        "rel_l2_err", "finite",
+                                        "nonfinite_entries")},
+                "exact": exact, "split_comm": lead["comm"],
+                "flat_comm": want["comm"]}
+            if not all(exact.values()):
+                what = ("not the flat run bit for bit" if world == 1 else
+                        "an integer no float decides differs from the "
+                        "flat run")
+                problems.append(f"{name} {pname}: {what}: {exact}")
+            if not _gross(lead):
+                problems.append(f"{name} {pname}: the plane is not the "
+                                f"flat plane's within {SHARD_GROSS_REL}: "
+                                f"{held[f'{name} {pname}']}")
         fix_held[name] = {}
         for preset, want in fix_flat.items():
             for r in ranks:
@@ -2773,14 +2993,22 @@ def phase_shard_train() -> dict:
                     lead[kind][0]["collective_bytes_per_round"],
                 "sqdist_rows_per_rank": [r[kind][0]["sqdist_rows"]
                                          for r in w["ranks"]],
-                **held[f"{name} {kind}"]} for kind in SHARD_KINDS}}
+                **held[f"{name} {kind}"]} for kind in SHARD_KINDS},
+            "planes": {pname: {
+                "ms_per_round": lead["planes"][pname]["ms_per_round"],
+                "peak_memory_bytes_per_rank": [
+                    r["planes"][pname]["peak_memory_bytes"]
+                    for r in w["ranks"]],
+                "sqdist_rows_per_rank": [r["planes"][pname]["sqdist_rows"]
+                                         for r in w["ranks"]],
+                **held[f"{name} {pname}"]} for pname in SPLIT_PLANES}}
     rec = {"phase": "shard_train", "m": M, "batch": B,
            "fixture": {"m": FIXTURE_M, "rounds": FIXTURE_ROUNDS,
                        "card_vs_cpu": fix_agree},
            "flat": {k: {kk: v[kk] for kk in ("ms_per_round",
                                              "peak_memory_bytes",
                                              "sqdist_rows", "comm")}
-                    for k, v in flat.items()},
+                    for k, v in {**flat, **flat_planes}.items()},
            "worlds": summary,
            "train_step": {"one_process": step_one,
                           "world2": worlds["S2"]["ranks"][0]["train_step"]},
@@ -2788,8 +3016,249 @@ def phase_shard_train() -> dict:
     emit(rec)
     if problems:
         raise SystemExit(f"shard_train: {problems}")
-    return {f"{name} rank {r['rank']}": r["dynamic"][0]["sqdist_rows"]
-            for name, w in worlds.items() for r in w["ranks"]}
+    return {f"{name} rank {r['rank']} {run}": (
+                r["dynamic"][0] if run == "dynamic"
+                else r["planes"][run])["sqdist_rows"]
+            for name, w in worlds.items() for r in w["ranks"]
+            for run in ("dynamic", *SPLIT_PLANES)}
+
+
+# ---------------------------------------------------------------------------
+# slice 11: the single-model step and Proposition 3, the figure twins
+# ---------------------------------------------------------------------------
+PROP3_ETA = 0.05             # tests/test_protocol_theory.py:30's eta
+PROP3_TOL = dict(rtol=1e-4, atol=1e-6)
+# Proposition 3 in float32 on the card: the fleet round's and the serial
+# step's planes within this share of the norm (relative L2). Each f32
+# side is ~1e-5 from the float64 result at mnist_cnn's width, and the two
+# sides ~1e-6 of the norm apart; the control, a serial step at (1 + 1/m)
+# times the right learning rate (one learner's share of the step too
+# many), must land outside it
+PROP3_F32_REL = 1e-5
+TRAIN_STEP_CALLS = 5         # a step's time: the mean of this many calls
+
+
+def _row_of(params) -> torch.Tensor:
+    return torch.cat([x.reshape(-1) for x in tree_leaves(params)])
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def _prop3(cfg, init, fleet_batch, big, dtype, timed) -> tuple:
+    """One σ_1 round of the fleet and one serial step in ``dtype``
+    (parameters and images), each timed after a warm-up call, and the
+    control, a serial step at (1 + 1/M) times the learning rate: (the
+    fleet's row 0, the serial row, the control's row, whether every row
+    of the fleet is row 0, the fleet's syncs)."""
+    from repro_torch.train import make_train_step
+    loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
+    p0 = tree_map(lambda x: x.to(dtype), init)
+    name = str(dtype).split(".")[-1]
+
+    def cast(batch):
+        return {k: v.to(dtype) if v.is_floating_point() else v
+                for k, v in batch.items()}
+
+    def fleet():
+        return DecentralizedLearner(
+            loss_fn, lambda g: p0, M, ProtocolConfig(kind="continuous", b=1),
+            TrainConfig(optimizer="sgd", learning_rate=PROP3_ETA * B),
+            device="cuda")
+
+    warm = fleet()
+    warm.step(cast(fleet_batch))
+    del warm
+    dl = fleet()
+    timed(f"fleet_round_{name}", lambda: dl.step(cast(fleet_batch)), 1)
+    rows = []
+    for scale in (1.0, 1.0 + 1.0 / M):
+        init_state, step = make_train_step(
+            loss_fn, TrainConfig(optimizer="sgd", learning_rate=scale * (
+                PROP3_ETA / M) * (M * B)), device="cuda")
+        state0 = init_state(p0)
+        run = lambda: step(state0, cast(big))           # noqa: E731
+        run()
+        serial, _ = (timed(f"serial_step_{name}", run, TRAIN_STEP_CALLS)
+                     if scale == 1.0 else run())
+        rows.append(_row_of(serial.params))
+    out = (dl.X[0].clone(), *rows, bool(torch.equal(dl.X[0], dl.X[-1])),
+           dl.comm_totals["syncs"])
+    del dl
+    return out
+
+
+def phase_train_step() -> dict:
+    """``repro_torch.train.step`` at mnist_cnn's full width on the card
+    (TF32 off). Proposition 3 with m = 100, B = 10, η = 0.05: one σ_1
+    round of the fleet (continuous averaging, sgd lr ηB: the paper's
+    φ^mSGD) against one ``make_train_step`` step with batch mB = 1,000
+    and lr (η/m)·mB. The identity is held within rtol 1e-4 / atol 1e-6
+    in float64, where both sides are exact to the card's f64 rounding.
+    In float32 each side is itself ~1e-5 from the float64 result, so
+    atol 1e-6 cannot hold there: the two f32 planes are held within
+    PROP3_F32_REL of the norm, and a control, the serial step at
+    (1 + 1/m) times the learning rate, must miss that bound; each side's
+    distance from its float64 twin is reported. ``micro_batch`` 4
+    against 1 on the same batch of 1,000 (f32, sgd lr 0.1), within TOL.
+    Timed by CUDA events after a warm-up call, with the peak memory
+    added: a fleet round once (it moves the fleet), a step (a pure
+    function) as the mean of TRAIN_STEP_CALLS calls."""
+    from repro_torch.train import make_train_step
+    cfg = get_arch("mnist_cnn")
+    loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
+    init = init_cnn_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    src = SyntheticMNIST(seed=0, image_size=28, device="cuda")
+    fleet_batch = {k: v[0] for k, v in LearnerStreams(
+        src, M, batch=B, seed=0).next_chunk(1).items()}
+    big = {k: v.reshape((M * B,) + v.shape[2:])
+           for k, v in fleet_batch.items()}
+    out = {}
+
+    def timed(name, fn, calls):
+        def repeat():
+            for _ in range(calls):
+                res = fn()
+            return res
+        held = torch.cuda.memory_allocated()
+        res, ms, peak = _timed_run(repeat)
+        out[name] = {"ms": ms / calls, "calls": calls,
+                     "peak_memory_bytes": peak - held}
+        return res
+
+    f64, s64, c64, eq64, syncs64 = _prop3(cfg, init, fleet_batch, big,
+                                          torch.float64, timed)
+    f32, s32, c32, eq32, syncs32 = _prop3(cfg, init, fleet_batch, big,
+                                          torch.float32, timed)
+    prop3 = {"weights": f32.numel(), "m": M, "B": B, "eta": PROP3_ETA,
+             "syncs": [syncs64, syncs32], "rows_equal": eq64 and eq32,
+             "f64_max_abs_err": float((f64 - s64).abs().max()),
+             "f64_close": bool(torch.allclose(f64, s64, **PROP3_TOL)),
+             "f32_max_abs_err": float((f32 - s32).abs().max()),
+             "f32_rel_l2_err": _rel_l2(f32, s32),
+             "f32_rel_l2_bound": PROP3_F32_REL,
+             "control_f32_rel_l2_err": _rel_l2(f32, c32),
+             "control_f64_rel_l2_err": _rel_l2(f64, c64),
+             "fleet_f32_vs_f64": float((f32.double() - f64).abs().max()),
+             "serial_f32_vs_f64": float((s32.double() - s64).abs().max())}
+    micro = {}
+    for n in (1, 4):
+        init_state, step = make_train_step(
+            loss_fn, TrainConfig(optimizer="sgd", learning_rate=0.1,
+                                 micro_batch=n), device="cuda")
+        s0 = init_state(init)
+        step(s0, big)
+        (s1, res) = timed(f"micro_batch_{n}", lambda: step(s0, big),
+                          TRAIN_STEP_CALLS)
+        micro[n] = (_row_of(s1.params), float(res["loss"]))
+    micro_rec = {"batch": M * B,
+                 "max_abs_err": float((micro[4][0] - micro[1][0]).abs()
+                                      .max()),
+                 "close": bool(torch.allclose(micro[4][0], micro[1][0],
+                                              **TOL)),
+                 "loss": [micro[1][1], micro[4][1]]}
+    rec = {"phase": "train_step", "proposition3": prop3,
+           "micro_batch_4_vs_1": micro_rec, "timings": out}
+    emit(rec)
+    if not (prop3["f64_close"] and prop3["f32_rel_l2_err"] <= PROP3_F32_REL
+            and prop3["control_f32_rel_l2_err"] > PROP3_F32_REL
+            and prop3["rows_equal"] and prop3["syncs"] == [1, 1]
+            and prop3["weights"] == P_MNIST and micro_rec["close"]
+            and all(math.isfinite(x) for x in micro_rec["loss"])):
+        raise SystemExit(f"train_step: {rec}")
+    return rec
+
+
+# the reference's quick verdicts (``python -m benchmarks.run``, jax 0.9.0
+# on a CPU): a card verdict that differs is reported, not failed
+REFERENCE_QUICK_VERDICTS = {
+    "fig5_1_dynamic_vs_periodic": "MIXED", "fig5_2_fedavg": "PASS",
+    "fig5_4_drift": "PASS", "fig5_5_deepdrive": "PASS",
+    "fig6_1_scaleout": "PASS", "fig6_2_init_heterogeneity": "PASS",
+    "figA6_optimizers": "PASS", "figC_unbalanced": "PASS"}
+
+
+def _figure_cut(mod, case) -> dict:
+    """``case`` of the twin's ``CUT`` on the CPU from the twin's own
+    source (recorded), then on the card from the recorded batches, each
+    from the same initial model: each run's integers (comm counters,
+    bytes, ledger; the sync curve of the drift figure)."""
+    from benchmarks.torch_common import RecordSource, ReplaySource
+    init = params_to_numpy(init_cnn_params(get_arch(mod.ARCH, smoke=True),
+                                           torch.Generator().manual_seed(0)))
+    rec = RecordSource(mod.default_source("cpu"))
+    runs = {}
+    for device in ("cpu", "cuda"):
+        src = rec if device == "cpu" else ReplaySource(rec.batches, device)
+        dl, extra = mod.cut(case, device, src,
+                            lambda g: params_from_numpy(init, device=device))
+        runs[device] = {
+            "comm": dict(dl.comm_totals), "comm_bytes": dl.comm_bytes(),
+            "ledger": [int(x) for x in dl.per_link_bytes()],
+            "syncs": [int(x) for x in extra.get("syncs", [])],
+            "finite": bool(math.isfinite(dl.cumulative_loss))}
+    return runs
+
+
+def _finite_row(row: dict) -> bool:
+    return all(math.isfinite(v) for v in row.values()
+               if isinstance(v, float))
+
+
+def phase_figures() -> tuple:
+    """The eight figure twins (``benchmarks/torch_run.py``) at the
+    reference's quick settings on the card: each figure's verdict, rows
+    and seconds, beside the reference's quick verdict on the CPU (a
+    difference is reported, not failed), with the grids' sqdist_rows
+    launches (zeroed first). Then one cut row per figure on the card and
+    on the CPU from the same draws and initial model: integers
+    identical. Fails on an exception, a non-finite loss or an integer
+    mismatch."""
+    problems, figures = [], {}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for mod in torch_run.ALL:
+        verdict, rows, sec = torch_run.run_one(mod, True, "cuda")
+        want = REFERENCE_QUICK_VERDICTS[mod.NAME]
+        figures[mod.NAME] = {
+            "verdict": verdict, "reference_cpu_verdict": want,
+            "differs": verdict != want, "seconds": sec,
+            "rows": [{k: v for k, v in r.items()
+                      if not isinstance(v, (list, dict))} for r in rows]}
+        if str(verdict).startswith("ERROR"):
+            problems.append(f"{mod.NAME}: {verdict}")
+        if not all(_finite_row(r) for r in rows):
+            problems.append(f"{mod.NAME}: a non-finite value in {rows}")
+    grid_s = time.perf_counter() - t0
+    launches = ops.LAUNCHES["sqdist_rows"]
+    cuts = {}
+    for mod in torch_run.ALL:
+        for i, case in enumerate(mod.CUT):
+            runs = _figure_cut(mod, case)
+            card, cpu = runs["cuda"], runs["cpu"]
+            key = f"{mod.NAME} {i}"
+            cuts[key] = {"case": _js(case),
+                         "integers_identical": _js(card) == _js(cpu),
+                         "syncs": card["comm"]["syncs"],
+                         "comm_bytes": card["comm_bytes"]}
+            if not (cuts[key]["integers_identical"] and card["finite"]):
+                problems.append(f"{key} cut row: card {card} vs CPU {cpu}")
+    # every plane the grids and the cut rows gave sqdist_rows was held to
+    # its plain version in the kernels phase
+    shapes = {"x".join(map(str, k)): v for k, v in ops.ROWS_LAUNCHES.items()}
+    unchecked = sorted(set(ops.ROWS_LAUNCHES) - set(figure_planes()))
+    if unchecked:
+        problems.append(f"sqdist_rows at planes the kernels phase did not "
+                        f"check: {unchecked}")
+    rec = {"phase": "figures", "quick_grid_seconds": grid_s,
+           "sqdist_rows": launches, "sqdist_rows_by_plane": shapes,
+           "figures": figures, "cut_rows": cuts, "problems": problems}
+    emit(rec)
+    if problems:
+        raise SystemExit(f"figures: {problems}")
+    return launches, rec
 
 
 def phase_analysis(kernel_rows: list) -> dict:
@@ -2805,8 +3274,11 @@ def phase_analysis(kernel_rows: list) -> dict:
     card = peaks(torch.cuda.get_device_name(0))
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
+    bench = os.path.join(here, "benchmarks")
     findings = contracts.check_all() + lint.lint_paths(
-        [os.path.join(here, "src", "repro_torch"), os.path.abspath(__file__)])
+        [os.path.join(here, "src", "repro_torch"), os.path.abspath(__file__)]
+        + [os.path.join(bench, f) for f in sorted(os.listdir(bench))
+           if f.startswith("torch_") and f.endswith(".py")])
     static_s = time.perf_counter() - t0
     if findings:
         emit({"phase": "analysis",
@@ -2921,6 +3393,8 @@ def main() -> None:
     run("fault_agree", phase_fault_agree)
     torch.cuda.empty_cache()
     sharded = run("shard_train", phase_shard_train)
+    run("train_step", phase_train_step)
+    fig_launches, _ = run("figures", phase_figures)
     f32, bf16 = "float32", "bfloat16"
     fa = lm_table["flash_attention"]["shape"]
     timed_rows = [
@@ -2945,6 +3419,9 @@ def main() -> None:
         {"kernel": k, "shape": list(shape), "dtype": dt, "ms": t["ms"],
          "bound_ms": t["bound_ms"]} for k, shape, dt, t in timed_rows])
     run("costs", phase_costs)
+    left = stop_children()
+    if left:
+        raise SystemExit(f"chip_smoke.py: child processes left: {left}")
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -2953,7 +3430,8 @@ def main() -> None:
          "launches": (launches["sqdist_rows"] + sum(paper.values())
                       + sum(net.values()) + sum(tier.values())
                       + sum(fault.values())
-                      + sum(sum(v.values()) for v in sharded.values())),
+                      + sum(sum(v.values()) for v in sharded.values())
+                      + fig_launches),
          "launches_by_path": {"mnist dynamic": launches["sqdist_rows"],
                               **{k: v for k, v in paper.items()
                                  if k in ("deepdrive drift",
@@ -2964,7 +3442,8 @@ def main() -> None:
                                  if v},
                               **{"fault " + k: v for k, v in fault.items()},
                               **{"shard " + k: sum(v.values())
-                                 for k, v in sharded.items()}},
+                                 for k, v in sharded.items()},
+                              "figures (quick grids)": fig_launches},
          "launches_by_shape_per_rank": sharded,
          **table["sqdist_rows"],
          "at_deepdrive_width": table["sqdist_rows_deepdrive"],
@@ -3007,4 +3486,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_children()

@@ -16,15 +16,16 @@ a syntax error is itself a finding, not a crash):
   ``repro_torch.analysis.contracts`` verifies).
 * **print-outside-cli** — no bare ``print(`` in library code: output
   goes through ``repro_torch.telemetry.sink.get_logger().event(...)``.
-  Exempt: ``__main__.py`` files, ``chip_smoke.py`` and the examples
-  (they ARE the CLIs).
+  Exempt: ``__main__.py`` files, ``chip_smoke.py``, the examples and
+  the port's benchmarks (``benchmarks/torch_*.py``): they ARE the CLIs.
 * **network-impure** — modules under ``repro_torch/network/`` are pure
   functions of ``(seed, t)``: no wall-clock (``time``/``datetime``), no
   stateful RNG (``random``, ``secrets``, ``numpy.random``), no carried
   ``torch.Generator`` state (``torch.Generator``, ``manual_seed``,
   ``torch.random``) and no carried keys (``prng.split``: derive
   per-round keys with ``prng.fold_in`` on the seed), no ``global``.
-* **port-isolation** — nothing under ``repro_torch`` imports ``jax``
+* **port-isolation** — nothing under ``repro_torch``, ``chip_smoke.py``
+  or the port's benchmarks (``benchmarks/torch_*.py``) imports ``jax``
   (or ``jaxlib``) or the ``repro`` package: the port keeps its own copy
   of what it needs (``tests/test_torch_isolation.py``'s rule).
 """
@@ -73,15 +74,21 @@ def _is_network(path: str) -> bool:
     return "network" in _parts(path)
 
 
+def _is_port_benchmark(path: str) -> bool:
+    return ("benchmarks" in _parts(path)
+            and os.path.basename(path).startswith("torch_"))
+
+
 def _is_cli(path: str) -> bool:
     base = os.path.basename(path)
     return (base in ("__main__.py", "chip_smoke.py")
-            or "examples" in _parts(path))
+            or "examples" in _parts(path) or _is_port_benchmark(path))
 
 
 def _in_port(path: str) -> bool:
-    return "repro_torch" in _parts(path) or os.path.basename(path) == \
-        "chip_smoke.py"
+    return ("repro_torch" in _parts(path)
+            or os.path.basename(path) == "chip_smoke.py"
+            or _is_port_benchmark(path))
 
 
 def _call_name(node: ast.Call) -> str:

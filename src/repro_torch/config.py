@@ -541,6 +541,7 @@ class TrainConfig:
     beta2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 0.0
+    micro_batch: int = 0                   # 0 -> no microbatching
     seed: int = 0
 
 

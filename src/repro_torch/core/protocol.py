@@ -75,7 +75,9 @@ With ``layout="sharded"`` the engine is one rank of a fleet split over
 the ranks of a ``torch.distributed`` process group
 (``repro_torch.core.shard``): it holds ``m_local`` = m/n learners' rows
 of every plane and takes their rows of each chunk's batches; the round's
-host decisions, the counters and the ledger are every rank's alike;
+host decisions, the counters, the ledger, the fault schedule and the
+async timeline are every rank's alike (a fault's row work takes the
+rank's part of the fleet mask);
 the chunk's losses are gathered with its one transfer; ``fleet_plane``
 and ``fleet_state`` gather the whole fleet, and ``is_writer`` (rank 0)
 writes the telemetry stream. One rank is the flat run bit for bit.
@@ -119,7 +121,7 @@ from repro_torch.core.sync.hierarchy import (
 from repro_torch.core.sync.kernel import apply_staged, init_state
 from repro_torch.core.sync.registry import CommRecord
 from repro_torch.core.sync.spec import resolve_spec
-from repro_torch.device import resolve_device
+from repro_torch.device import host_to_device, resolve_device
 from repro_torch.network import availability as net_availability
 from repro_torch.network import cost as net_cost
 from repro_torch.network import faults as net_faults
@@ -151,21 +153,6 @@ class ProtocolMetrics(NamedTuple):
     num_quarantined: Any = 0         # learners currently quarantined
     #   (health > 0; 0 for non-robust triggers)
     num_recovered: Any = 0           # learners recovering this round
-
-
-def _check_split(fleet, spec, async_net, faults, tiers, m: int) -> None:
-    """The planes a fleet split over several ranks cannot run yet raise
-    here, naming their ROADMAP item; nothing runs quietly on one rank."""
-    if fleet.n_devices == 1:
-        return
-    if async_net is not None or faults is not None or \
-            spec.aggregate == "aircomp" or spec.trigger.startswith("events"):
-        raise NotImplementedError(
-            "layout='sharded' over more than one rank does not run the "
-            "event-driven timeline, aircomp or the fault plane yet — "
-            "ROADMAP Queue A 26")
-    if tiers is not None:
-        validate_hierarchy(tiers, m, fleet.n_devices)
 
 
 class DecentralizedLearner:
@@ -210,8 +197,6 @@ class DecentralizedLearner:
         if self.spec.param("layout") == "sharded":
             self.fleet = shard.fleet_sharding(
                 m, self.spec.param("shard_devices"))
-            _check_split(self.fleet, self.spec, async_net, faults,
-                         getattr(protocol, "tiers", None), m)
         self.train = train
         self.loss_fn = loss_fn
         self.opt = make_optimizer(train)
@@ -457,7 +442,7 @@ class DecentralizedLearner:
                                         self.opt_state.step,
                                         self.opt_state.mu, self.opt_state.nu)
                 losses = losses.masked_fill(
-                    torch.from_numpy(crashed).to(losses.device), 0.0)
+                    host_to_device(shard.local(crashed), losses.device), 0.0)
         if faults is not None:
             # corrupted and Byzantine rows are perturbed in the plane: the
             # garbage is what the fleet syncs against

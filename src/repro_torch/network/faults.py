@@ -24,7 +24,11 @@ kinds (see ``FaultConfig``):
   random fraction of the fleet goes dark, AND-composed with the
   availability mask (no state loss).
 
-The masks are host numpy arrays, like the port's availability masks.
+The masks are host numpy arrays over the whole fleet, like the port's
+availability masks, and the same on every rank of a split fleet
+(``layout="sharded"``): a row operation takes this rank's part of a
+fleet mask (``shard.local``) for the plane's rows, and the fleet mask
+itself for the carried host state.
 ``sample_rounds`` draws a chunk's masks before its first round in one
 batched call per fault kind (each distinct episode window once);
 ``crash_mask``, ``restart_mask``, ``straggler_burst_mask``,
@@ -42,6 +46,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.config import FaultConfig
+from repro_torch.core import shard
+from repro_torch.device import host_to_device
 
 # per-fault-kind key-derivation constants (xor'd into the seed so the
 # streams never collide with each other or with availability's
@@ -240,7 +246,10 @@ def num_faulty(cfg: FaultConfig, m: int, t: int) -> int:
 # ---------------------------------------------------------------------------
 
 def _rows(mask: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(np.flatnonzero(mask)).to(like.device)
+    """The plane rows an (m,) fleet mask marks, on ``like``'s device:
+    this rank's part of the mask on a split fleet, sent through pinned
+    memory."""
+    return host_to_device(np.flatnonzero(shard.local(mask)), like.device)
 
 
 def perturb_params(cfg: FaultConfig, X: torch.Tensor, t: int,
@@ -287,17 +296,19 @@ def freeze_state(idx: torch.Tensor, saved, *planes) -> None:
 
 
 def lose_state(tree, rows: np.ndarray, m: int):
-    """Zero the learner rows of every learner-indexed leaf (leading dim
-    ``m``): the restart state loss. Tensors (the parameter and optimizer
-    planes) are zeroed in place; host arrays (the carried sync state)
-    come back as new arrays; leaves without a leading fleet axis, and
-    other values, pass through. Dicts and tuples are walked."""
+    """Zero the learner rows of every learner-indexed leaf: the restart
+    state loss. ``rows`` is the (m,) fleet mask. Tensors (the parameter
+    and optimizer planes, a rank's rows of a split fleet) are zeroed in
+    place where their leading dim is the rows this process holds; host
+    arrays (the carried sync state, whole on every rank) come back as
+    new arrays where their leading dim is ``m``; other leaves and values
+    pass through. Dicts and tuples are walked."""
     if isinstance(tree, dict):
         return {k: lose_state(v, rows, m) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(lose_state(v, rows, m) for v in tree)
     if isinstance(tree, torch.Tensor):
-        if tree.dim() >= 1 and tree.shape[0] == m:
+        if tree.dim() >= 1 and tree.shape[0] == shard.local(rows).shape[0]:
             tree[_rows(rows, tree)] = 0
         return tree
     if isinstance(tree, np.ndarray) and tree.ndim >= 1 and \

@@ -83,6 +83,9 @@ def test_lint_clean_port():
              os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(ROOT, "examples", f)
         for f in sorted(os.listdir(os.path.join(ROOT, "examples")))
+        if f.startswith("torch_")] + [
+        os.path.join(ROOT, "benchmarks", f)
+        for f in sorted(os.listdir(os.path.join(ROOT, "benchmarks")))
         if f.startswith("torch_")]
     findings = lint.lint_paths(paths)
     assert findings == [], [f.render() for f in findings]
@@ -334,6 +337,18 @@ def test_lint_print_is_for_the_clis():
     for cli in ("repro_torch/analysis/__main__.py", "chip_smoke.py",
                 "examples/torch_quickstart.py"):
         assert lint.lint_source(src, cli) == []
+
+
+def test_lint_port_isolation_covers_the_port_benchmarks():
+    src = "import jax\nfrom repro.config import TrainConfig\nprint(1)\n"
+    for path in ("benchmarks/torch_run.py",
+                 "benchmarks/torch_fig5_1_dynamic_vs_periodic.py"):
+        assert [f.rule for f in lint.lint_source(src, path)] == [
+            "port-isolation", "port-isolation"]
+    # the reference's benchmarks are the JAX package's, not the port's
+    assert "port-isolation" not in [
+        f.rule for f in lint.lint_source(
+            src, "benchmarks/fig5_1_dynamic_vs_periodic.py")]
 
 
 def test_lint_syntax_error_is_a_finding_not_a_crash():

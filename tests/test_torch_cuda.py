@@ -745,3 +745,159 @@ def test_audit_sync_count_under_sync_debug_mode():
     assert got["findings"] == []
     assert got["checked"] == 6
     assert got["syncs"] == got["budget"] == len(warned)
+
+
+# the split fleet's gross bound on the card (chip_smoke.py's
+# SHARD_GROSS_REL; README, "the split fleet's contract")
+SHARD_GROSS_REL = 1e-2
+
+
+def _conv_op_errors(dl, batch, kernels) -> dict:
+    """mnist_cnn's two convolutions one op at a time, on the learners'
+    float64 activations and a seeded float64 upstream gradient: each
+    op's largest f32 distance from float64 over the largest float64
+    entry, and the device kernels the f32 op runs. The forward of the
+    second convolution grouped over 100 and 25 learners (vmap) and
+    alone (learner 0); its input and weight gradients and the first
+    convolution's weight gradient alone."""
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    convs = [p for p in dl.params["layers"] if p and p["w"].dim() == 5]
+    w1, w2 = (p["w"].double().permute(0, 4, 3, 1, 2) for p in convs[:2])
+    b1 = convs[0]["b"].double()
+    x = batch["x"].double().permute(0, 1, 4, 2, 3)      # (m, B, C, H, W)
+    a1 = torch.relu(torch.func.vmap(F.conv2d)(x, w1)
+                    + b1[:, None, :, None, None])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    z2 = F.conv2d(a1[0], w2[0])
+    g2 = torch.randn(z2.shape, generator=gen, device="cuda",
+                     dtype=torch.float64)
+    g1 = torch.randn(a1[0].shape, generator=gen, device="cuda",
+                     dtype=torch.float64)
+    grouped = torch.func.vmap(F.conv2d)
+    ops = {
+        "conv2_forward_100": (grouped, a1, w2),
+        "conv2_forward_25": (grouped, a1[:25], w2[:25]),
+        "conv2_forward_alone": (F.conv2d, a1[0], w2[0]),
+        "conv2_input_grad_alone": (
+            lambda w, g: conv2d_input(a1[0].shape, w, g), w2[0], g2),
+        "conv2_weight_grad_alone": (
+            lambda a, g: conv2d_weight(a, w2[0].shape, g), a1[0], g2),
+        "conv1_weight_grad_alone": (
+            lambda a, g: conv2d_weight(a, w1[0].shape, g), x[0], g1)}
+    out = {}
+    for name, (fn, *args) in ops.items():
+        want = fn(*args)
+        f32 = [a.float() for a in args]
+        got = fn(*f32)
+        out[name] = {"rel_err": float((got.double() - want).abs().max()
+                                      / want.abs().max()),
+                     "kernels": kernels(lambda: fn(*f32))}
+    return out
+
+
+@pytest.mark.cuda
+def test_gradient_depends_on_the_call_size(record_property):
+    """The mechanism behind the split fleet's contract on the card: the
+    same 25 learners' gradients of mnist_cnn at full width (P =
+    1,199,882, B = 10, f32, TF32 off, learners apart by a heterogeneous
+    init of ε = 1), computed inside vmapped calls of 100, 50 and 25
+    learners (the local step of S1, S2 and S4), are each within the
+    contract's bound of the 100-learner call's. Reported (the junit
+    properties and stdout), so that the cause stands measured: the
+    largest difference from the 100-learner call; each call's largest
+    distance from the same gradients in float64, overall and per
+    parameter tensor; the device kernels each call size runs (names
+    from ``torch.profiler``); the same distance for one learner's
+    gradient taken alone (no vmap, an ungrouped convolution), with cuDNN
+    free to pick non-deterministic algorithms, without cuDNN, and at a
+    homogeneous model; and each convolution op on its own
+    (``_conv_op_errors``)."""
+    import numpy as np
+    from repro_torch.config import ProtocolConfig, get_arch
+    from repro_torch.core.flatten import tree_leaves, tree_map
+    from repro_torch.core.protocol import DecentralizedLearner
+    from repro_torch.data.pipeline import LearnerStreams
+    from repro_torch.data.synthetic import SyntheticMNIST
+    from repro_torch.models.cnn import cnn_loss, init_cnn_params
+    _need_card()
+    cfg = get_arch("mnist_cnn")
+    loss_fn = lambda p, b: cnn_loss(cfg, p, b)          # noqa: E731
+    dl = DecentralizedLearner(
+        loss_fn, lambda g: init_cnn_params(cfg, g), 100,
+        ProtocolConfig(kind="nosync"), init_heterogeneity=1.0,
+        device="cuda")
+    assert dl.model_size == 1_199_882
+    src = SyntheticMNIST(seed=0, image_size=28, device="cuda")
+    batch = {k: v[0] for k, v in
+             LearnerStreams(src, 100, batch=10, seed=0).next_chunk(1).items()}
+    shapes = [tuple(x.shape[1:]) for x in tree_leaves(dl.params)]
+    bounds = np.cumsum([0] + [int(np.prod(s)) for s in shapes])
+
+    def cast(t, dtype):
+        return t.to(dtype) if t.is_floating_point() else t
+
+    def grads(rows, dtype=torch.float32):
+        params = tree_map(lambda x: x[:rows].to(dtype), dl.params)
+        g, _ = dl._grad_and_loss(params, {k: cast(v[:rows], dtype)
+                                          for k, v in batch.items()})
+        return torch.cat([x.reshape(rows, -1) for x in tree_leaves(g)],
+                         dim=1)[:25]
+
+    def alone(i):
+        """Learner i's gradient from an unbatched call (f32)."""
+        params = tree_map(lambda x: x[i], dl.params)
+        g, _ = torch.func.grad_and_value(loss_fn)(
+            params, {k: v[i] for k, v in batch.items()})
+        return torch.cat([x.reshape(-1) for x in tree_leaves(g)])
+
+    def kernels(fn):
+        return sorted(profile_calls(fn, calls=1)["kernels_us"])
+
+    exact = grads(25, torch.float64)
+
+    def off(g):
+        return float((g.double() - exact).abs().max())
+
+    def by_tensor(g):
+        d = (g.double() - exact).abs()
+        return {"x".join(map(str, s)): float(d[:, a:b].max())
+                for s, a, b in zip(shapes, bounds[:-1], bounds[1:])}
+
+    whole = grads(100)
+    report = {"f32_vs_f64": {100: off(whole)}, "vs_100": {},
+              "f32_vs_f64_by_tensor": {100: by_tensor(whole)},
+              "kernels": {100: kernels(lambda: grads(100))}}
+    for rows in (50, 25):
+        part = grads(rows)
+        assert torch.isfinite(part).all()
+        rel = torch.linalg.vector_norm(part - whole, dim=1) / \
+            torch.linalg.vector_norm(whole, dim=1)
+        assert float(rel.max()) <= SHARD_GROSS_REL
+        report["vs_100"][rows] = float((part - whole).abs().max())
+        report["f32_vs_f64"][rows] = off(part)
+        report["f32_vs_f64_by_tensor"][rows] = by_tensor(part)
+        report["kernels"][rows] = kernels(lambda: grads(rows))
+    again = grads(100)
+    assert torch.equal(again, whole)          # one call size repeats
+    single = torch.stack([alone(i) for i in range(25)])
+    report["one_learner_alone"] = {"f32_vs_f64": off(single),
+                                   "kernels": kernels(lambda: alone(0))}
+    torch.backends.cudnn.deterministic = False
+    try:
+        free = grads(100)
+        report["cudnn_nondeterministic"] = {
+            "f32_vs_f64": off(free), "kernels": kernels(lambda: grads(100))}
+    finally:
+        torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.enabled = False
+    try:
+        report["f32_vs_f64_without_cudnn"] = {
+            rows: off(grads(rows)) for rows in (100, 25)}
+    finally:
+        torch.backends.cudnn.enabled = True
+    report["ops"] = _conv_op_errors(dl, batch, kernels)
+    dl.X.copy_(dl.X[0].expand_as(dl.X))
+    report["homogeneous_f32_vs_f64"] = float(
+        (grads(100).double() - grads(25, torch.float64)).abs().max())
+    record_property("gradient_call_size", report)
+    print(f"gradient call-size dependence at (100, 1199882): {report}")

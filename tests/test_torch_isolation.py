@@ -1,9 +1,11 @@
 """The port stands apart from the JAX package.
 
-``src/repro_torch``, ``chip_smoke.py`` and the port's examples
+``src/repro_torch``, ``chip_smoke.py``, the port's examples
 (``examples/torch_quickstart.py``, ``examples/torch_network_regimes.py``,
-``examples/torch_faulty_fleet.py``) import torch and numpy, never
-jax and nothing of ``repro``; the port's entry points run on the card by
+``examples/torch_faulty_fleet.py``) and the port's benchmarks
+(``benchmarks/torch_*.py``: the figure twins, their runner and helpers,
+``torch_profile.py``) import torch and numpy, never jax and nothing of
+``repro``; the port's entry points run on the card by
 default and raise, rather than fall back to the CPU, when there is none.
 """
 import ast
@@ -33,7 +35,8 @@ PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
     ROOT / "examples" / "torch_network_regimes.py",
-    ROOT / "examples" / "torch_faulty_fleet.py"]
+    ROOT / "examples" / "torch_faulty_fleet.py"] + sorted(
+    (ROOT / "benchmarks").glob("torch_*.py"))
 
 
 def _modules():
@@ -155,6 +158,28 @@ def test_paper_entry_points_default_to_the_card_and_raise_without_one():
             make()
     assert GraphicalModelStream(device="cpu").W.device.type == "cpu"
     assert prng.key(0, device="cpu").device.type == "cpu"
+
+
+def test_step_and_figure_entry_points_default_to_the_card():
+    """``make_train_step`` and the figure twins' helpers run on the card
+    unless the caller asks for the CPU, and raise without one."""
+    _need_no_card()
+    from benchmarks import torch_fig5_4_drift, torch_figC_unbalanced
+    from benchmarks.torch_common import run_mnist_protocol
+    from repro_torch.config import TrainConfig
+    from repro_torch.train import make_train_step
+    cfg = get_arch("drift_mlp")
+    loss = lambda p, b: cnn_loss(cfg, p, b)      # noqa: E731
+    proto = ProtocolConfig(kind="periodic", b=2)
+    for make in (lambda: make_train_step(loss, TrainConfig()),
+                 lambda: run_mnist_protocol(proto, 2, 2),
+                 lambda: torch_fig5_4_drift._run_one(proto, 2, 4, {2}),
+                 lambda: torch_figC_unbalanced.fleet(True, 6, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    init_state, _ = make_train_step(loss, TrainConfig(), device="cpu")
+    state = init_state(init_cnn_params(cfg, torch.Generator()))
+    assert state.step.device.type == "cpu"
 
 
 def test_unknown_devices_are_rejected():

@@ -383,8 +383,9 @@ def test_split_fleet_refusals(world, data, tmp_path_factory):
             "m % n_devices" in err["indivisible"]
         assert err["too_many"].startswith("ValueError") and \
             "device(s) are visible" in err["too_many"]
-        assert err["faults"].startswith("NotImplementedError") and \
-            "Queue A 26" in err["faults"]
+        # a crash schedule on the split fleet runs since A26 (the
+        # parity is tests/test_torch_shard_planes.py's)
+        assert err["faults"] == "no error"
         assert err["clusters"].startswith("ValueError") and \
             "n_devices to divide num_clusters" in err["clusters"]
 

@@ -220,20 +220,33 @@ def test_config_validation_matches_reference(kw):
     (dict(kind="dynamic", layout="sharded"), None),
 ])
 def test_unported_options_raise_not_implemented(kw, what):
-    """``layout="sharded"`` is ported (ROADMAP A19): the reference's
-    sharded configs resolve; only the planes that a fleet split over
-    several ranks cannot run yet raise, naming their ROADMAP item."""
-    from repro_torch.core.protocol import _check_split
-    from repro_torch.core.shard import FleetSharding
+    """``layout="sharded"`` is ported (ROADMAP A19), and since A26 a
+    split fleet runs the event-driven timeline and aircomp too (``what``
+    names the item that once refused them): the reference's sharded
+    configs resolve, the engine raises nothing for them, and one round of
+    each on a fleet of one rank is its flat round bit for bit. The split
+    fleets' parity is tests/test_torch_shard_planes.py's."""
+    from repro_torch.core.protocol import DecentralizedLearner
     JProtocolConfig(**kw)        # valid in the reference
     spec = ProtocolConfig(**kw)._spec()
     assert spec.param("layout") == "sharded"
-    split = FleetSharding(group=None, m=4, n_devices=2)
-    if what is None:
-        _check_split(split, spec, None, None, None, 4)
-    else:
-        with pytest.raises(NotImplementedError, match=what):
-            _check_split(split, spec, None, None, None, 4)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"x": torch.randn((3, 4, 2, 3), generator=gen)}
+
+    def run(layout):
+        dl = DecentralizedLearner(
+            lambda p, b: torch.sum((b["x"] @ p["w"]) ** 2),
+            lambda g: {"w": torch.full((3,), 0.1)}, 4,
+            ProtocolConfig(**dict(kw, layout=layout, b=1, delta=1e-3)),
+            device="cpu")
+        dl.run_chunk(batch)
+        return dl.X, dl.comm_totals
+
+    (X, comm), (Xf, commf) = run("sharded"), run("flat")
+    assert torch.equal(X, Xf) and comm == commf and comm["syncs"] >= 1
+    if what is not None:
+        assert spec.trigger.startswith("events") or \
+            spec.aggregate == "aircomp"
 
 
 def test_default_layout_is_flat():

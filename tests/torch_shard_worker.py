@@ -1,14 +1,16 @@
-"""Rank workers for tests/test_torch_shard.py (not collected: the name
-does not start with ``test_``). They import torch, numpy and the port
+"""Rank workers for tests/test_torch_shard.py and
+tests/test_torch_shard_planes.py (not collected: the name does not start
+with ``test_``). They import torch, numpy and the port
 only — never jax — because ``repro_torch.core.shard.launch`` spawns
 each rank as a fresh interpreter that imports this module.
 
 Every case builds the port's engine on tests/test_shard.py's fixture
 (the smoke drift MLP, m = 8, B = 10, sgd lr 0.05, the ring at 60%
-availability over wifi and lte links) from the reference's initial
-parameters and batches, which the test hands over as numpy arrays, and
-returns host values: the counters, the ledger and the whole gathered
-plane.
+availability over wifi and lte links, unless a case names its own
+network, optimizer, ``FaultConfig`` or ``AsyncConfig``) from the
+reference's initial parameters and batches, which the test hands over as
+numpy arrays, and returns host values: the counters, the ledger, the
+per-round series and the whole gathered plane.
 """
 import dataclasses
 import os
@@ -19,7 +21,7 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import io
 from repro_torch.config import (
-    FaultConfig, HierarchyConfig, NetworkConfig, ProtocolConfig,
+    AsyncConfig, FaultConfig, HierarchyConfig, NetworkConfig, ProtocolConfig,
     TelemetryConfig, TrainConfig, get_arch,
 )
 from repro_torch.convert import params_from_numpy
@@ -36,17 +38,43 @@ def _loss():
     return lambda p, b: cnn_loss(cfg, p, b)
 
 
-def learner(proto, m, init, tiers=None, telemetry=None, **kw):
+SERIES = ("num_faulty", "num_active", "num_quarantined", "num_recovered",
+          "num_inflight", "max_age", "checked", "link_counts")
+
+
+def learner(proto, m, init, tiers=None, telemetry=None, net=NET, train=SGD,
+            **kw):
     """The fixture's engine for ``proto`` (ProtocolConfig kwargs) and
-    ``tiers`` (``{"num_clusters": g, "inter": kwargs}``)."""
+    ``tiers`` (``{"num_clusters": g, "inter": kwargs}``), in the network
+    ``net`` (NetworkConfig kwargs, None: the ideal network)."""
     hier = None if tiers is None else HierarchyConfig(
         num_clusters=tiers["num_clusters"],
         inter=ProtocolConfig(**tiers["inter"]))
     return DecentralizedLearner(
         _loss(), lambda g: params_from_numpy(init, device="cpu"), m,
-        ProtocolConfig(**proto, tiers=hier), TrainConfig(**SGD),
-        network=NetworkConfig(**NET), telemetry=telemetry, device="cpu",
-        **kw)
+        ProtocolConfig(**proto, tiers=hier), TrainConfig(**train),
+        network=None if net is None else NetworkConfig(**net),
+        telemetry=telemetry, device="cpu", **kw)
+
+
+def planes_learner(case, init, **kw):
+    """A case's engine with its own network, optimizer, ``faults`` and
+    ``async`` (FaultConfig / AsyncConfig kwargs, or None)."""
+    fk, ak = case.get("faults"), case.get("async")
+    return learner(case["proto"], case.get("m", 8), init,
+                   net=case.get("net", NET), train=case.get("train", SGD),
+                   faults=None if fk is None else FaultConfig(**fk),
+                   async_net=None if ak is None else AsyncConfig(**ak), **kw)
+
+
+def series(metrics):
+    """The chunks' per-round series, concatenated: the fault, timeline
+    and quarantine counts, the gate, the link counts and the losses."""
+    out = {f: np.concatenate([np.asarray(getattr(x, f)) for x in metrics])
+           for f in SERIES}
+    out["losses"] = np.concatenate([x.loss_per_learner.numpy()
+                                    for x in metrics])
+    return out
 
 
 def chunk(batches, a, b):
@@ -141,8 +169,10 @@ def _errors(case, init, batches, workdir, name):
     dyn = dict(kind="dynamic", b=2, delta=0.5, layout="sharded")
     catch("indivisible", lambda: learner(dyn, n + 1, init))
     catch("too_many", lambda: shard.fleet_sharding(8, n + 1))
-    catch("faults", lambda: learner(dyn, 8, init,
-                                    faults=FaultConfig(crash_prob=0.1)))
+    # runs since A26: a crash schedule on the split fleet
+    catch("faults", lambda: learner(
+        dyn, 8, init, faults=FaultConfig(crash_prob=0.1)).run_chunk(
+            chunk(batches, 0, 4)))
     g = n + 1
     catch("clusters", lambda: learner(
         dyn, n * g, init,
@@ -206,9 +236,52 @@ def _collectives(case, init, batches, workdir, name):
     return out
 
 
+def _planes(case, init, batches, workdir, name):
+    """A run under the fault plane, the async timeline or aircomp, in the
+    case's chunks: the summary, the per-round series and every learner's
+    optimizer step count (gathered)."""
+    dl = planes_learner(case, init)
+    metrics, at = [], 0
+    for n in case["chunks"]:
+        metrics.append(dl.run_chunk(chunk(batches, at, at + n)))
+        at += n
+    return {**summary(dl), **series(metrics),
+            "steps": dl.fleet_state()[1].step.numpy().copy()}
+
+
+def _inert(case, init, batches, workdir, name):
+    """``faults=None`` and ``FaultConfig()``, each one run: their
+    summaries."""
+    return {label: _planes(dict(case, faults=fk), init, batches, workdir,
+                           name)
+            for label, fk in (("none", None), ("inert", {}))}
+
+
+def _checkpoint(case, init, batches, workdir, name):
+    """``at`` rounds streamed, then checkpointed (rank 0 writes the
+    fleet's files), then ``more`` rounds on the same engine."""
+    path = os.path.join(workdir, f"{name}.jsonl")
+    ckpt = os.path.join(workdir, f"{name}_ckpt")
+    dl = planes_learner(case, init, telemetry=TelemetryConfig(
+        path=path, per_link=True))
+    at, more = case["at"], case["more"]
+    dl.run_chunk(chunk(batches, 0, at))
+    params, opt = dl.fleet_state()
+    if dl.is_writer:
+        io.save_protocol_state(ckpt, params, opt, dl.sync_state,
+                               protocol=ProtocolConfig(**case["proto"]),
+                               counters=dl.counters_state())
+    _barrier()
+    metrics = dl.run_chunk(chunk(batches, at, at + more))
+    dl.recorder.close()
+    return {**summary(dl), **series([metrics]),
+            "steps": dl.fleet_state()[1].step.numpy().copy()}
+
+
 CASES = {"run": _run, "repeat": _repeat, "telemetry": _telemetry,
          "resume": _resume, "subset": _subset, "errors": _errors,
-         "train_step": _train_step, "collectives": _collectives}
+         "train_step": _train_step, "collectives": _collectives,
+         "planes": _planes, "inert": _inert, "checkpoint": _checkpoint}
 
 
 def run_cases(cases, init, batches, workdir):
