@@ -160,6 +160,27 @@ and drives both of the port's paths:
   from its own source and on the card from the same draws: integers
   identical.
 
+* the rest of the serving zoo (slice 12): ``zoo_kernels`` holds the
+  kernels against their plain versions at the shapes the zoo gives them
+  (swa attention at hymba's (4, 2048, 25/5, 64) with w = 1,024; flash
+  attention at musicgen's (4, 2048, 32/32, 64), llama3-405b's group of
+  16 and MLA's query/key width 192 over value width 128 in bf16 and f32;
+  ``ssd_scan`` at hymba's (200, 2048, 64, 16), 50 heads a group;
+  ``rmsnorm`` at d = 1,600, 6,144, 5,120 and 16,384) and times each
+  beside its plain version, one PyTorch call and ``kernel_bound``;
+  ``zoo_agree`` runs the eight zoo smoke configs (mixtral-8x22b,
+  deepseek-v2-236b, hymba-1.5b, internvl2-76b with a stub vision
+  prefix, musicgen-large's four codebooks, minitron-4b, qwen1.5-110b,
+  llama3-405b) on the card and on the CPU from the same weights:
+  prefill logits and the MoE auxiliary loss within AGREE_TOL, each layer
+  through its kernels, 16 greedy tokens identical, and the MoE configs
+  also at capacity factor 1.25, where every layer's kept (token, k) set
+  must be the CPU's; ``zoo_serve`` serves each at full width in bf16
+  (depth cut where one card cannot hold it, ``ZOO_LAYERS``): prefill at
+  (4, 2048), a batch-4 engine feeding 16 tokens and generating 16, with
+  ms, tokens/s, decode ms a step beside its bytes bound, peak memory,
+  each kernel's launches and the MoE configs' dropped share.
+
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
 reports them, and ``{"ok": true, "device": {...}}``. Any failure exits
@@ -170,6 +191,7 @@ package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -221,7 +243,8 @@ from repro_torch.kernels import (  # noqa: E402
 )
 from repro_torch.kernels._timing import cuda_ms, profile_calls  # noqa: E402
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn_params  # noqa: E402
-from repro_torch.models.model import init_lm_params  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.model import init_lm_params, lm_apply  # noqa: E402
 from repro_torch.network import availability, faults, topology  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, make_prefill  # noqa: E402
 from repro_torch.telemetry.observatory import load_run, summarize  # noqa: E402
@@ -1350,6 +1373,342 @@ def phase_ssm_serve() -> dict:
     del params
     torch.cuda.empty_cache()
     return main_launches
+
+
+# ---------------------------------------------------------------------------
+# the serving zoo (slice 12)
+# ---------------------------------------------------------------------------
+
+ZOO = ("mixtral-8x22b", "deepseek-v2-236b", "hymba-1.5b", "internvl2-76b",
+       "musicgen-large", "minitron-4b", "qwen1.5-110b", "llama3-405b")
+# zoo_serve: the layers each config runs at full width (bf16 weights on
+# one 80 GB card; the cut keeps each under ~21 GB), and the vision
+# prefix of stub patch embeddings before the text
+ZOO_LAYERS = {"hymba-1.5b": 32, "musicgen-large": 48, "minitron-4b": 32,
+              "mixtral-8x22b": 4, "deepseek-v2-236b": 2, "internvl2-76b": 8,
+              "qwen1.5-110b": 4, "llama3-405b": 2}
+ZOO_PREFIX = 256             # internvl2-76b's NUM_PATCHES
+ZOO_PROMPT, ZOO_GEN = 16, 16
+
+
+def _zoo_inputs(cfg, B, S, gen, device, prefix=0):
+    """Tokens (B, S - prefix) (audio: (B, S, K)) and, for the vision
+    backbone, ``prefix`` stub patch embeddings (B, prefix, D)."""
+    shape = (B, S, 4) if cfg.modality == "audio" else (B, S - prefix)
+    toks = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                         device=device)
+    kw = {}
+    if prefix:
+        kw["prefix_embeds"] = 0.02 * torch.randn(
+            (B, prefix, cfg.d_model), generator=gen, device=device)
+    return toks, kw
+
+
+def phase_zoo_kernels(gen) -> dict:
+    """The kernels at the shapes the serving zoo gives them, each against
+    its plain version (bitwise repeatable), then timed beside the plain
+    version, one PyTorch call and ``kernel_bound``: swa attention at
+    hymba's (4, 2048, 25/5, 64), w = 1,024; flash attention at
+    musicgen's (4, 2048, 32/32, 64) and llama3-405b's group of 16
+    (4, 2048, 128/8, 128); MLA's (4, 2048, 128 heads, 192/128) in bf16
+    and in f32; ssd_scan at hymba's (200, 2048, 64, 16), 50 heads a
+    group; rmsnorm at d = 1,600, 6,144, 5,120 and 16,384."""
+    bf, f32 = torch.bfloat16, torch.float32
+    card = peaks(torch.cuda.get_device_name(0))
+    B, S = SERVE_B, SERVE_S
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    def row(kernel, shape, dt, err, run, plain, library, lib_name,
+            bound_shape, iters=5):
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise SystemExit(f"{kernel} {shape}: two launches differ")
+        bound = kernel_bound(kernel, bound_shape, dt, card)
+        return {"kernel": kernel, "shape": list(shape),
+                "dtype": str(dt).split(".")[1], "max_abs_err": err,
+                "ms": cuda_ms(run, iters, 1),
+                "plain_ms": cuda_ms(plain, max(1, iters // 2), 1),
+                "library_ms": (None if library is None
+                               else cuda_ms(library, iters, 1)),
+                "library": lib_name, **bound}
+
+    def attn_case(kernel, shape, dt, window=0):
+        Bq, Sq, H, Hkv, d, dv = shape
+        q, k, v = (randn((Bq, Sq, H, d), dt), randn((Bq, Sq, Hkv, d), dt),
+                   randn((Bq, Sq, Hkv, dv), dt))
+        if kernel == "swa_attention":
+            run = lambda: swa_attention.swa_attention(  # noqa: E731
+                q, k, v, window=window)
+            plain = lambda: ref.swa_attention_ref(  # noqa: E731
+                q, k, v, window=window)
+        else:
+            run = lambda: flash_attention.flash_attention_gqa(  # noqa: E731
+                q, k, v)
+            plain = lambda: ref.flash_attention_gqa_ref(  # noqa: E731
+                q, k, v)
+        got, want = run(), plain()
+        err = float((got.float() - want.float()).abs().max())
+        tol = LM_TOL["attention", dt]
+        if not torch.allclose(got.float(), want.float(), **tol):
+            raise SystemExit(f"{kernel} {shape} {dt} disagrees: {err}")
+        del got, want
+        G = H // Hkv
+        qT = q.transpose(1, 2)
+        kT, vT = (t.transpose(1, 2).repeat_interleave(G, dim=1)
+                  for t in (k, v))
+        if window:
+            i = torch.arange(Sq, device="cuda")
+            band = (i[None, :] <= i[:, None]) & (
+                i[None, :] > i[:, None] - window)
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qT, kT, vT, attn_mask=band)
+            lib = "F.scaled_dot_product_attention(attn_mask=band)"
+        else:
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qT, kT, vT, is_causal=True)
+            lib = "F.scaled_dot_product_attention(is_causal=True)"
+        if kernel == "swa_attention":
+            bshape = (Bq, Sq, H, Hkv, d, window)
+        else:
+            bshape = (Bq, Sq, Sq, H, Hkv, d) + ((dv,) if dv != d else ())
+        rec = row(kernel, shape, dt, err, run, plain, library,
+                  lib + ", kv heads expanded" if G > 1 else lib, bshape,
+                  iters=3 if dt == f32 else 5)
+        rec["program"] = flash_attention.program(dt)
+        return rec
+
+    rows = [
+        attn_case("swa_attention", (B, S, 25, 5, 64, 64), bf, window=1024),
+        attn_case("flash_attention", (B, S, 32, 32, 64, 64), bf),
+        attn_case("flash_attention", (B, S, 128, 8, 128, 128), bf),
+        attn_case("flash_attention", (B, S, 128, 128, 192, 128), bf),
+        attn_case("flash_attention", (B, S, 128, 128, 192, 128), f32)]
+    rows[-2]["label"] = rows[-1]["label"] = "MLA (deepseek-v2-236b)"
+
+    # ssd_scan as hymba's mamba_forward hands it over: 50 heads, 1 group
+    BH, P, N, Q, R = B * 50, 64, 16, 64, 50
+    x, b_, c_ = (randn((BH, S, P), f32), randn((BH // R, S, N), f32),
+                 randn((BH // R, S, N), f32))
+    dt = F.softplus(randn((BH, S), f32)) * 0.1
+    a = -torch.exp(randn((BH,), f32))
+    run = lambda: ssd_scan.ssd_scan(x, dt, a, b_, c_, chunk=Q)  # noqa: E731
+    br, cr = b_.repeat_interleave(R, 0), c_.repeat_interleave(R, 0)
+    plain = lambda: ref.ssd_scan_ref(x, dt, a, br, cr)  # noqa: E731
+    (y, h), (yr, hr) = run(), plain()
+    err = max(float((y - yr).abs().max()), float((h - hr).abs().max()))
+    if not (torch.allclose(y, yr, **SSM_TOL[f32])
+            and torch.allclose(h, hr, **SSM_TOL[f32])):
+        raise SystemExit(f"ssd_scan at hymba's shape disagrees: {err}")
+    rec = row("ssd_scan", (BH, S, P, N, Q, R), f32, err,
+              lambda: run()[0], lambda: plain()[0], None,
+              "none: no single PyTorch call computes the chunked SSD",
+              (BH, S, P, N, Q, R), iters=10)
+    rec["program"] = ssd_scan.PROGRAM
+    rows.append(rec)
+
+    for d in (1600, 6144, 5120, 16384):
+        xn, s = randn((B, S, d), bf), randn((d,), bf)
+        got, want = rmsnorm.rmsnorm(xn, s, 1e-5), ref.rmsnorm_ref(xn, s, 1e-5)
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(),
+                              **LM_TOL["rmsnorm", bf]):
+            raise SystemExit(f"rmsnorm at d = {d} disagrees: {err}")
+        rows.append(row(
+            "rmsnorm", (B, S, d), bf, err,
+            lambda: rmsnorm.rmsnorm(xn, s, 1e-5),
+            lambda: ref.rmsnorm_ref(xn, s, 1e-5),
+            lambda: F.rms_norm(xn, (d,), weight=s, eps=1e-5), "F.rms_norm",
+            (B, S, d), iters=20))
+    emit({"phase": "zoo_kernels", "rows": rows,
+          "tolerances": {"attention bf16": LM_TOL["attention", bf],
+                         "attention f32": LM_TOL["attention", f32],
+                         "ssd_scan f32": SSM_TOL[f32],
+                         "rmsnorm bf16": LM_TOL["rmsnorm", bf]}})
+    return rows
+
+
+def _zoo_path(cfg, S) -> str:
+    """The attention entry point a prefill of S positions takes."""
+    if cfg.block_type == "ssm":
+        return ""
+    w = cfg.sliding_window if cfg.attn_type == "sliding" else 0
+    return ("swa_attention" if w and S % w == 0 and S >= 2 * w
+            else "flash_attention")
+
+
+def phase_zoo_agree() -> dict:
+    """The eight smoke configs of the serving zoo in f32, from the same
+    numpy weights, on the CPU and on the card: prefill logits and the MoE
+    auxiliary loss within AGREE_TOL (each layer through its kernels: the
+    attention entry point once a layer, hymba's ssd_scan once a layer),
+    a ServeEngine's 16 greedy tokens identical; the two MoE configs also
+    at capacity factor 1.25, where each layer's kept (token, k) set must
+    be the CPU's exactly."""
+    def forward(cfg, params, toks, kw, dev):
+        moe.ROUTING = []
+        ops.reset_launches()
+        logits, aux = lm_apply(cfg, params, toks.to(dev),
+                               **{k: v.to(dev) for k, v in kw.items()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        keep = [k.cpu() for k in moe.ROUTING]
+        moe.ROUTING = None
+        return logits.cpu(), aux.cpu(), keep, dict(ops.LAUNCHES)
+
+    out = {}
+    S = 32
+    for name in ZOO:
+        base = get_arch(name, smoke=True)
+        variants = [("", base)]
+        if base.is_moe:
+            variants.append((" cf 1.25", dataclasses.replace(
+                base, moe=dataclasses.replace(base.moe,
+                                              capacity_factor=1.25))))
+        weights = params_to_numpy(init_lm_params(base, seed=7, device="cpu"))
+        params = {dev: params_from_numpy(weights, device=dev)
+                  for dev in ("cpu", "cuda")}
+        g = torch.Generator().manual_seed(8)
+        toks, kw = _zoo_inputs(base, 2, S, g, "cpu",
+                               prefix=8 if base.modality == "vision" else 0)
+        for tag, cfg in variants:
+            want, want_aux, want_keep, _ = forward(cfg, params["cpu"], toks,
+                                                   kw, "cpu")
+            got, aux, keep, launches = forward(cfg, params["cuda"], toks, kw,
+                                               "cuda")
+            err = float((got - want).abs().max())
+            rec = {"prefill_max_abs_err": err, "aux": float(aux),
+                   "aux_cpu": float(want_aux), "launches": launches}
+            L = cfg.num_layers
+            path = _zoo_path(cfg, want.shape[1])
+            if (launches[path] != L or launches["rmsnorm"] < 2 * L + 1
+                    or launches["ssd_scan"] != (
+                        L if cfg.block_type == "hybrid" else 0)):
+                raise SystemExit(f"{name}{tag}: the card's prefill did not "
+                                 f"take its kernels: {launches}")
+            if not torch.allclose(got, want, **AGREE_TOL) or not \
+                    torch.allclose(aux, want_aux, **AGREE_TOL):
+                raise SystemExit(f"{name}{tag}: the card's prefill differs "
+                                 f"from the CPU's by {err} (aux {aux} vs "
+                                 f"{want_aux})")
+            if cfg.is_moe:
+                same = len(keep) == len(want_keep) == L and all(
+                    torch.equal(a, b) for a, b in zip(keep, want_keep))
+                pairs = sum(k.numel() for k in keep)
+                rec["kept_sets_equal"] = same
+                rec["dropped_share"] = 1 - sum(
+                    int(k.sum()) for k in keep) / pairs
+                if not same:
+                    raise SystemExit(f"{name}{tag}: the card kept other "
+                                     f"(token, k) pairs than the CPU")
+            out[name + tag] = rec
+        prompt = toks[:, :5]
+        tokens = {}
+        for dev in ("cpu", "cuda"):
+            eng = ServeEngine(base, params[dev], max_seq=32, batch=2,
+                              device=dev)
+            logits = eng.feed(prompt)
+            tokens[dev] = eng.generate(16, first_logits=logits).cpu()
+        same = bool(torch.equal(tokens["cpu"], tokens["cuda"]))
+        out[name]["greedy_tokens_equal"] = same
+        if not same:
+            raise SystemExit(f"{name}: greedy tokens differ on the card: "
+                             f"{tokens}")
+    emit({"phase": "zoo_agree", "tolerance": AGREE_TOL, "configs": out})
+    return out
+
+
+def phase_zoo_serve() -> dict:
+    """Each zoo config at full width in bf16, weights drawn on the card,
+    depth cut only where one card cannot hold the model (``ZOO_LAYERS``):
+    the prefill at (4, 2048) — internvl2-76b 256 stub patch embeddings
+    and 1,792 tokens — timed as the first full call after a short
+    warm-up, then a batch-4 engine feeding 16 prompt tokens and
+    generating 16; each model freed before the next. Per config:
+    prefill ms and tokens/s, decode ms a step beside the bytes bound
+    (the weights read once a step), peak memory, each kernel's launches,
+    and for the MoE configs the share of (token, k) pairs dropped."""
+    bf = torch.bfloat16
+    card = peaks(torch.cuda.get_device_name(0))
+    records, launches_by_model = {}, {}
+    for name in ZOO:
+        full = get_arch(name)
+        L = ZOO_LAYERS[name]
+        cfg = dataclasses.replace(full, num_layers=L)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, init_ms, _ = _timed(lambda: init_lm_params(
+            cfg, seed=0, dtype=bf, device="cuda"))
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in tree_leaves(params))
+        # a decode step reads every weight once but the embedding table,
+        # of which it gathers B rows
+        step_bytes = weight_bytes - params["embed"].numel() * 2
+        g = torch.Generator(device="cuda").manual_seed(3)
+        prefix = ZOO_PREFIX if cfg.modality == "vision" else 0
+        toks, kw = _zoo_inputs(cfg, SERVE_B, SERVE_S, g, "cuda",
+                               prefix=prefix)
+        kw = {k: v.to(bf) for k, v in kw.items()}
+        lm_apply(cfg, params, toks[:, :128])                # warm-up
+        moe.ROUTING = [] if cfg.is_moe else None
+        ops.reset_launches()
+        (logits, _), ms, _ = _timed(lambda: lm_apply(cfg, params, toks,
+                                                     **kw))
+        pre_launches = dict(ops.LAUNCHES)
+        keep = moe.ROUTING
+        moe.ROUTING = None
+        want_shape = (SERVE_B, SERVE_S) + (
+            (4, cfg.vocab_size) if cfg.modality == "audio"
+            else (cfg.vocab_size,))
+        if tuple(logits.shape) != want_shape or not bool(
+                torch.isfinite(logits).all()):
+            raise SystemExit(f"{name}: prefill logits {tuple(logits.shape)} "
+                             f"are not finite or not {want_shape}")
+        path = _zoo_path(cfg, SERVE_S)
+        if pre_launches[path] != L or pre_launches["ssd_scan"] != (
+                L if cfg.block_type == "hybrid" else 0):
+            raise SystemExit(f"{name}: prefill launches {pre_launches}")
+        del logits
+        eng = ServeEngine(cfg, params, max_seq=ZOO_PROMPT + ZOO_GEN + 1,
+                          batch=SERVE_B, dtype=bf, device="cuda")
+        ops.reset_launches()
+        first, feed_ms, _ = _timed(lambda: eng.feed(toks[:, :ZOO_PROMPT]))
+        generated, gen_ms, _ = _timed(
+            lambda: eng.generate(ZOO_GEN, first_logits=first))
+        dec_launches = dict(ops.LAUNCHES)
+        if not bool(torch.isfinite(first.float()).all()) or not bool(
+                ((generated >= 0) & (generated < cfg.vocab_size)).all()):
+            raise SystemExit(f"{name}: decode gave non-finite logits or "
+                             f"tokens out of range")
+        rec = {"arch": name, "layers": L, "layers_published":
+               full.num_layers,
+               "cut": (None if L == full.num_layers else
+                       f"{L} of {full.num_layers} layers: one card holds "
+                       f"~{weight_bytes / 2 ** 30:.1f} GiB of bf16 weights"),
+               "weights_bytes": weight_bytes, "init_ms": init_ms,
+               "prefill": {"batch": SERVE_B, "seq": SERVE_S, "ms": ms,
+                           "tokens_per_s": SERVE_B * SERVE_S / ms * 1e3,
+                           "prefix": prefix or None},
+               "decode": {"batch": SERVE_B, "prompt": ZOO_PROMPT,
+                          "generated": ZOO_GEN,
+                          "feed_ms_per_step": feed_ms / ZOO_PROMPT,
+                          "ms_per_step": gen_ms / ZOO_GEN,
+                          "step_bytes": step_bytes,
+                          "step_bytes_bound_ms": step_bytes / card.hbm * 1e3},
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": {"prefill": pre_launches, "decode": dec_launches}}
+        if keep:
+            rec["moe_dropped_share"] = 1 - float(sum(
+                k.sum() for k in keep)) / sum(k.numel() for k in keep)
+        records[name] = rec
+        launches_by_model[name] = {k: pre_launches[k] + dec_launches[k]
+                                   for k in ops.LAUNCHES}
+        emit({"phase": "zoo_serve", **rec})
+        del params, eng, first, generated, toks, kw
+        torch.cuda.empty_cache()
+    return launches_by_model
 
 
 # ---------------------------------------------------------------------------
@@ -3383,6 +3742,10 @@ def main() -> None:
     run("ssm_agree", phase_ssm_agree)
     ssm = run("ssm_serve", phase_ssm_serve)
     torch.cuda.empty_cache()
+    zoo_rows = run("zoo_kernels", phase_zoo_kernels, gen)
+    run("zoo_agree", phase_zoo_agree)
+    zoo = run("zoo_serve", phase_zoo_serve)
+    torch.cuda.empty_cache()
     paper = run("paper_train", phase_paper_train)
     run("paper_agree", phase_paper_agree)
     net = run("net_train", phase_net_train)
@@ -3424,6 +3787,17 @@ def main() -> None:
         raise SystemExit(f"chip_smoke.py: child processes left: {left}")
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     csrc = "src/repro_torch/kernels/csrc/"
+
+    def zoo_launches(kernel):
+        return sum(v[kernel] for v in zoo.values())
+
+    def zoo_paths(kernel):
+        return {f"{k} serve": v[kernel] for k, v in zoo.items() if v[kernel]}
+
+    def zoo_shapes(kernel):
+        return [{k: v for k, v in r.items() if k != "kernel"}
+                for r in zoo_rows if r["kernel"] == kernel]
+
     kernels = [
         {"name": "sqdist_rows", "route": "cuda", "source": csrc + "sqdist.cu",
          "replaces": "src/repro/kernels/sqdist.py:81",
@@ -3455,28 +3829,44 @@ def main() -> None:
          "launches": launches["sqdist"], **table["sqdist"]},
         {"name": "rmsnorm", "route": "cuda", "source": csrc + "rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:25",
-         "launches": serve["main"]["rmsnorm"] + ssm["rmsnorm"],
+         "launches": serve["main"]["rmsnorm"] + ssm["rmsnorm"]
+         + zoo_launches("rmsnorm"),
          "launches_by_path": {"llama3-8b serve": serve["main"]["rmsnorm"],
-                              "mamba2-2.7b serve": ssm["rmsnorm"]},
+                              "mamba2-2.7b serve": ssm["rmsnorm"],
+                              **zoo_paths("rmsnorm")},
          **lm_table["rmsnorm"], "max_abs_err": max(
-             lm_table["rmsnorm"]["max_abs_err"], ssm_norm_err)},
+             lm_table["rmsnorm"]["max_abs_err"], ssm_norm_err),
+         "zoo_shapes": zoo_shapes("rmsnorm")},
         {"name": "flash_attention", "route": "cuda",
          "source": csrc + "attention_sm90.cu",
          "sources_by_dtype": {"bfloat16": csrc + "attention_sm90.cu",
                               "float32": csrc + "attention.cu"},
          "replaces": "src/repro/kernels/flash_attention.py:77",
-         "launches": serve["main"]["flash_attention"],
-         **lm_table["flash_attention"]},
+         "launches": serve["main"]["flash_attention"]
+         + zoo_launches("flash_attention"),
+         "launches_by_path": {
+             "llama3-8b serve": serve["main"]["flash_attention"],
+             **zoo_paths("flash_attention")},
+         **lm_table["flash_attention"],
+         "zoo_shapes": zoo_shapes("flash_attention")},
         {"name": "swa_attention", "route": "cuda",
          "source": csrc + "attention_sm90.cu",
          "sources_by_dtype": {"bfloat16": csrc + "attention_sm90.cu",
                               "float32": csrc + "attention.cu"},
          "replaces": "src/repro/kernels/swa_attention.py:64",
-         "launches": serve["swa"]["swa_attention"],
-         **lm_table["swa_attention"]},
+         "launches": serve["swa"]["swa_attention"]
+         + zoo_launches("swa_attention"),
+         "launches_by_path": {
+             "llama3-8b-swa prefill": serve["swa"]["swa_attention"],
+             **zoo_paths("swa_attention")},
+         **lm_table["swa_attention"],
+         "zoo_shapes": zoo_shapes("swa_attention")},
         {"name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:74",
-         "launches": ssm["ssd_scan"], **ssm_table["ssd_scan"]},
+         "launches": ssm["ssd_scan"] + zoo_launches("ssd_scan"),
+         "launches_by_path": {"mamba2-2.7b serve": ssm["ssd_scan"],
+                              **zoo_paths("ssd_scan")},
+         **ssm_table["ssd_scan"], "zoo_shapes": zoo_shapes("ssd_scan")},
     ]
     emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)

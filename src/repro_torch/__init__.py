@@ -31,5 +31,9 @@ sync (``core.sync.robust``) and the telemetry plane (``telemetry``).
 Slice 10 gave each learner its own optimizer step count, ported the
 row-sharded fleet across ``torch.distributed`` ranks (``core.shard``,
 ``core.distributed``) and the analysis tools (``analysis``,
-``telemetry.costs``).
+``telemetry.costs``). Slice 12 ported the rest of the serving zoo:
+mixture-of-experts FFNs (``models.moe``), multi-head latent attention,
+the Hymba hybrid block, the vision prefix and the audio codebooks, with
+every reference config (``configs``), and the attention kernels at MLA's
+wider queries and keys.
 """

@@ -254,16 +254,20 @@ def format_table(reports) -> str:
 # the kernels' bounds
 # ---------------------------------------------------------------------------
 
-def attention_work(B, Sq, Sk, H, Hkv, d, causal, window, itemsize):
+def attention_work(B, Sq, Sk, H, Hkv, d, causal, window, itemsize,
+                   dv=None):
     """(bytes, flops) the attention function needs at these shapes: q, k,
-    v read once and o written once; 4 flops per kept query-key pair per
-    head dimension (q.k and p.v), counting the pairs this mask keeps."""
+    v read once and o written once; 2 (d + dv) flops per kept query-key
+    pair and head (q.k over d, p.v over dv), counting the pairs this mask
+    keeps. ``dv`` is the value width, d's unless given (MLA's queries and
+    keys are wider than its values)."""
+    dv = d if dv is None else dv
     pos = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
     hi = np.minimum(pos, Sk - 1) if causal else np.full(Sq, Sk - 1)
     lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(Sq)
     pairs = int(np.maximum(hi - lo + 1, 0).sum())
-    nbytes = (2 * B * Sq * H * d + 2 * B * Sk * Hkv * d) * itemsize
-    return nbytes, 4 * d * pairs * B * H
+    nbytes = (B * Sq * H * (d + dv) + B * Sk * Hkv * (d + dv)) * itemsize
+    return nbytes, 2 * (d + dv) * pairs * B * H
 
 
 def ssd_work(BH, S, P, N, bc_rows, chunk, itemsize):
@@ -294,8 +298,8 @@ def kernel_work(name: str, shape, dtype=torch.float32):
     * ``sqdist`` (P,): the rows form at m = 1;
     * ``rmsnorm`` (..., D): x read and written, the scale read; 4
       operations per element, f32 statistics;
-    * ``flash_attention`` (B, Sq, Sk, H, Hkv, d), causal: bf16 on the
-      tensor cores, f32 on the CUDA cores;
+    * ``flash_attention`` (B, Sq, Sk, H, Hkv, d) or (B, Sq, Sk, H, Hkv,
+      d, dv), causal: bf16 on the tensor cores, f32 on the CUDA cores;
     * ``swa_attention`` (B, S, H, Hkv, d, window), causal;
     * ``ssd_scan`` (BH, S, P, N, chunk, R): R heads share a row of b and
       c; the products in TF32 on the tensor cores."""
@@ -309,8 +313,8 @@ def kernel_work(name: str, shape, dtype=torch.float32):
         n, D = math.prod(shape), shape[-1]
         return 2 * n * item + D * item, 4 * n, "f32"
     if name == "flash_attention":
-        B, Sq, Sk, H, Hkv, d = shape
-        return (*attention_work(B, Sq, Sk, H, Hkv, d, True, 0, item),
+        B, Sq, Sk, H, Hkv, d, *dv = shape
+        return (*attention_work(B, Sq, Sk, H, Hkv, d, True, 0, item, *dv),
                 tensor_rate)
     if name == "swa_attention":
         B, S, H, Hkv, d, w = shape

@@ -1,15 +1,20 @@
 """Configuration for the port — its own copy of what the slice needs from
 ``repro.config``.
 
-``ModelConfig`` keeps the fields of the paper's CNN/MLP families, of
-the dense decoder LM (``repro/config.py:69-100``: GQA, optional QKV bias,
-optional sliding window, text modality) and of the Mamba2 SSM decoder
-(``ssm=SSMConfig(...)`` with ``block_type="ssm"``, ``repro/config.py:58``),
-with ``resolved_head_dim``, ``is_attention_free`` and ``param_count()``.
-Setting ``moe`` or ``mla``, a hybrid ``block_type``, or a vision/audio
-``modality`` raises ``NotImplementedError`` naming the ROADMAP item that
-ports it; the reference's ``moe_layer_period`` and ``scan_layers`` have
-no port (the port's layer loop is a Python loop). ``TrainConfig`` keeps
+``ModelConfig`` keeps the fields of every family the reference
+describes (``repro/config.py:69-100``): the paper's CNN/MLP, the dense
+decoder LM (GQA, optional QKV bias, optional sliding window), the MoE
+decoder (``moe=MoEConfig(...)``, top-k routing with optional shared
+experts, and optionally ``mla=MLAConfig(...)``), the Mamba2 SSM decoder
+(``ssm=SSMConfig(...)`` with ``block_type="ssm"``), the Hymba-style
+hybrid decoder (``block_type="hybrid"``: attention and SSM heads in
+parallel) and the vision and audio modalities, with
+``resolved_head_dim``, ``is_moe``, ``is_attention_free`` and
+``param_count()``. The reference's ``moe_layer_period`` and
+``scan_layers`` have no port: every config of the repo leaves the
+period at 1 (its ``block_init`` makes every layer MoE whatever the
+period), and the port's layer loop is a Python loop.
+``TrainConfig`` keeps
 the optimizer settings and ``ProtocolConfig`` the sync protocol.
 
 ``ProtocolConfig`` validates exactly as the reference does (the same
@@ -48,14 +53,25 @@ MODALITY_TEXT = "text"
 MODALITY_VISION = "vision"
 MODALITY_AUDIO = "audio"
 
-# what this port does not run yet, and the ROADMAP Queue A item that ports it
-NOT_PORTED_LM = {
-    "moe": "mixture-of-experts FFNs (ROADMAP Queue A 23)",
-    "mla": "multi-head latent attention (ROADMAP Queue A 23)",
-    BLOCK_HYBRID: "hybrid attention + SSM blocks (ROADMAP Queue A 23)",
-    MODALITY_VISION: "the vision modality (ROADMAP Queue A 23)",
-    MODALITY_AUDIO: "the audio modality (ROADMAP Queue A 23)",
-}
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts settings for the FFN of a block
+    (``repro.config.MoEConfig``, field for field)."""
+    num_experts: int = 8
+    num_experts_per_tok: int = 2
+    num_shared_experts: int = 0          # DeepSeek-style always-on experts
+    expert_d_ff: int = 0                 # per-expert hidden dim (0 -> d_ff)
+    capacity_factor: float = 1.25        # dispatch capacity per expert
+    router_aux_loss_coef: float = 0.01   # load-balance loss weight
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention, DeepSeek-V2
+    (``repro.config.MLAConfig``, field for field)."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0                 # 0 -> full-rank queries
+    rope_head_dim: int = 64              # decoupled rope dims per head
 
 
 @dataclass(frozen=True)
@@ -73,12 +89,12 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """One model: the paper's CNN/MLP (a ``cnn_spec`` of layer descriptors
-    over per-example ``input_shape``, see ``repro_torch.models.cnn``), the
-    dense decoder LM (``num_layers`` blocks of GQA attention and a SwiGLU
-    FFN) or the Mamba2 decoder (``num_layers`` SSM blocks, no FFN); see
-    ``repro_torch.models.model``."""
+    over per-example ``input_shape``, see ``repro_torch.models.cnn``) or
+    a decoder LM of ``num_layers`` blocks, each a mixer (GQA or MLA
+    attention, a Mamba2 SSM, or both in parallel) and an FFN (SwiGLU, a
+    mixture of experts, or none); see ``repro_torch.models.model``."""
     name: str
-    family: str                           # dense | ssm | cnn
+    family: str               # dense | moe | ssm | hybrid | vlm | audio | cnn
     num_layers: int = 0
     d_model: int = 0
     num_heads: int = 0
@@ -86,7 +102,7 @@ class ModelConfig:
     d_ff: int = 0
     vocab_size: int = 0
     head_dim: int = 0                     # 0 -> d_model // num_heads
-    block_type: str = BLOCK_ATTN
+    block_type: str = BLOCK_ATTN          # attn | ssm | hybrid
     attn_type: str = ATTN_FULL            # full | sliding
     sliding_window: int = 4096
     qkv_bias: bool = False
@@ -94,8 +110,8 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     modality: str = MODALITY_TEXT
-    moe: Any = None                       # not ported: raises when set
-    mla: Any = None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     # CNN-only fields (the paper's MNIST / deep-driving nets)
     cnn_spec: Optional[Tuple[Any, ...]] = None
@@ -105,25 +121,19 @@ class ModelConfig:
     source: str = ""                                # citation
 
     def __post_init__(self):
-        for name in ("moe", "mla"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"{name}= is not ported yet: {NOT_PORTED_LM[name]}")
-        if self.ssm is not None and not isinstance(self.ssm, SSMConfig):
-            raise TypeError(f"ssm= takes an SSMConfig, got {self.ssm!r}")
-        if self.block_type == BLOCK_SSM and self.ssm is None:
-            raise ValueError("block_type='ssm' needs ssm=SSMConfig(...)")
-        if self.block_type == BLOCK_HYBRID:
-            raise NotImplementedError(
-                f"block_type='hybrid' is not ported yet: "
-                f"{NOT_PORTED_LM[BLOCK_HYBRID]}")
-        if self.block_type not in (BLOCK_ATTN, BLOCK_SSM):
+        for name, kind in (("moe", MoEConfig), ("mla", MLAConfig),
+                           ("ssm", SSMConfig)):
+            value = getattr(self, name)
+            if value is not None and not isinstance(value, kind):
+                raise TypeError(
+                    f"{name}= takes a {kind.__name__}, got {value!r}")
+        if self.block_type not in (BLOCK_ATTN, BLOCK_SSM, BLOCK_HYBRID):
             raise ValueError(f"unknown block_type {self.block_type!r}")
-        if self.modality in (MODALITY_VISION, MODALITY_AUDIO):
-            raise NotImplementedError(
-                f"modality={self.modality!r} is not ported yet: "
-                f"{NOT_PORTED_LM[self.modality]}")
-        if self.modality != MODALITY_TEXT:
+        if self.block_type != BLOCK_ATTN and self.ssm is None:
+            raise ValueError(
+                f"block_type={self.block_type!r} needs ssm=SSMConfig(...)")
+        if self.modality not in (MODALITY_TEXT, MODALITY_VISION,
+                                 MODALITY_AUDIO):
             raise ValueError(f"unknown modality {self.modality!r}")
         if self.attn_type not in (ATTN_FULL, ATTN_SLIDING):
             raise ValueError(f"unknown attn_type {self.attn_type!r}")
@@ -137,33 +147,51 @@ class ModelConfig:
         return 0
 
     @property
+    def is_moe(self) -> bool:
+        return self.moe is not None
+
+    @property
     def is_attention_free(self) -> bool:
         return self.block_type == BLOCK_SSM
 
     def param_count(self) -> int:
         """Analytic parameter count of the LM (embedding + blocks + head),
-        as ``repro.config.ModelConfig.param_count`` counts a dense GQA or
-        an SSM decoder, term for term; -1 for the CNN family (count the
-        tree instead).
+        as ``repro.config.ModelConfig.param_count`` counts it, term for
+        term; -1 for the CNN family (count the tree instead).
 
         Like the reference's, the count leaves out ``final_norm`` (d).
         For an SSM block it counts two norms where the block has one
         (``norm_mix``: there is no FFN) and leaves out ``dt_bias`` (H)
         and ``out_norm`` (d_inner), so the tree holds
         ``L * (H + d_inner - d) + d`` more weights than this: 171,520 for
-        mamba2-2.7b (2,830,780,416 counted, 2,830,951,936 held)."""
+        mamba2-2.7b (2,830,780,416 counted, 2,830,951,936 held). A
+        hybrid block holds those and its two branch norms (2 d) beyond
+        the count, and an audio model's K codebook tables and K-fold head
+        are counted once, as the reference counts them."""
         if self.family == "cnn":
             return -1
-        d, hd = self.d_model, self.resolved_head_dim
+        d, L, hd = self.d_model, self.num_layers, self.resolved_head_dim
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         per_layer = 2 * d                                   # norms
-        if self.block_type == BLOCK_ATTN:
-            per_layer += d * self.num_heads * hd            # q
-            per_layer += 2 * d * self.num_kv_heads * hd     # k, v
-            per_layer += self.num_heads * hd * d            # o
-            if self.qkv_bias:
-                per_layer += (self.num_heads + 2 * self.num_kv_heads) * hd
-        if self.block_type == BLOCK_SSM:
+        if self.block_type in (BLOCK_ATTN, BLOCK_HYBRID):
+            if self.mla is not None:
+                r, rh = self.mla.kv_lora_rank, self.mla.rope_head_dim
+                per_layer += d * (r + rh)               # kv down + rope k
+                per_layer += r * self.num_heads * (hd + hd)     # k/v up
+                if self.mla.q_lora_rank:
+                    per_layer += d * self.mla.q_lora_rank
+                    per_layer += (self.mla.q_lora_rank * self.num_heads
+                                  * (hd + rh))
+                else:
+                    per_layer += d * self.num_heads * (hd + rh)
+                per_layer += self.num_heads * hd * d            # out proj
+            else:
+                per_layer += d * self.num_heads * hd            # q
+                per_layer += 2 * d * self.num_kv_heads * hd     # k, v
+                per_layer += self.num_heads * hd * d            # o
+                if self.qkv_bias:
+                    per_layer += (self.num_heads + 2 * self.num_kv_heads) * hd
+        if self.block_type in (BLOCK_SSM, BLOCK_HYBRID):
             s = self.ssm
             d_in = s.expand * d
             nheads = d_in // s.head_dim
@@ -172,9 +200,15 @@ class ModelConfig:
             per_layer += s.d_conv * (d_in + 2 * s.ngroups * s.d_state)
             per_layer += nheads * 2                         # A_log, D
             per_layer += d_in * d                           # out proj
+        if self.is_moe:
+            eff = self.moe.expert_d_ff or self.d_ff
+            per_moe = ((self.moe.num_experts + self.moe.num_shared_experts)
+                       * 3 * d * eff)
+            per_moe += d * self.moe.num_experts             # router
+            return n + L * per_moe + L * per_layer
         if self.d_ff:
             per_layer += 3 * d * self.d_ff                  # swiglu
-        return n + self.num_layers * per_layer
+        return n + L * per_layer
 
 
 @dataclass(frozen=True)

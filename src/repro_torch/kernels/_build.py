@@ -49,10 +49,10 @@ SIGNATURES = {
         **_ERR,
     },
     "attention": {
-        "repro_attention": (_I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _I, _F, _P]),
-        "repro_attention_sm90": (_I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I, _I, _F, _P]),
+        "repro_attention": (_I, [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _F, _P]),
+        "repro_attention_sm90": (_I, [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _I, _F, _P]),
         **_ERR,
     },
     "ssd_scan": {

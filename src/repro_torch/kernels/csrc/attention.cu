@@ -5,7 +5,11 @@
 //   o[b, i, h, :] = softmax_j(mask(i, j) ? scale * q[b, i, h] . k[b, j, h/G]
 //                                        : -1e30) @ v[b, :, h/G, :]
 //
-// q, o (B, Sq, H, D); k, v (B, Sk, Hkv, D); G = H / Hkv; f32 throughout.
+// q (B, Sq, H, DK); k (B, Sk, Hkv, DK); v (B, Sk, Hkv, DV); o (B, Sq, H, DV);
+// G = H / Hkv; f32 throughout. DK = DV but for multi-head latent attention
+// (DeepSeek-V2), whose queries and keys carry the decoupled rotary part on
+// top of the value width: (192, 128) at full width, (48, 32) at the smoke
+// config's.
 // Query row i sits at position i + Sk - Sq (the causal diagonal is
 // right-aligned); key j is kept when j < Sk, j <= qpos if causal, and
 // j > qpos - window if window > 0.
@@ -20,8 +24,8 @@
 //     which is what the TPU kernel's "k blocks i-1 and i" does when its
 //     block is the whole window.
 //
-// Bound: the arithmetic, 4 flops per kept query-key pair per head
-// dimension. The tensor cores take f32 only as TF32, which keeps ~3
+// Bound: the arithmetic, 2 (DK + DV) flops per kept query-key pair and
+// head. The tensor cores take f32 only as TF32, which keeps ~3
 // digits and would miss the f32 tolerance (rtol 1e-4), so the products
 // stay f32 FMAs on the CUDA cores (67 TFLOP/s peak).
 //
@@ -29,14 +33,14 @@
 // query rows, and loops over 64-key tiles inside the block; that loop takes
 // the place of the TPU's sequential k grid axis, whose running state lived
 // in VMEM scratch. Each thread owns 8 query rows (r + 8i) and, per row, 4
-// keys of the score tile (c + 16j) and D/16 columns of the accumulator
+// keys of the score tile (c + 16j) and DV/16 columns of the accumulator
 // (c + 16u), where r = tid / 16 and c = tid % 16; the 16 threads of a row
 // group form half a warp, so the row max and row sum are shuffle
 // butterflies in a fixed order and every thread of the group holds the same
 // m and l. The Q tile stays in shared memory for the whole loop; K, V and
 // the probabilities of the current tile are staged there (rows padded by
-// one float against bank conflicts): 113 KB at D = 128, so it is dynamic
-// shared memory. Tiles that lie wholly outside the causal or window range
+// one float against bank conflicts): 113 KB at D = 128 and 145 KB at
+// (192, 128), so it is dynamic shared memory. Tiles that lie wholly outside the causal or window range
 // of the query tile are skipped. Key positions >= Sk are masked in the
 // kernel, so a ragged non-causal Sk is right (the Pallas kernel pads keys
 // with zeros and lets them into the softmax, ROADMAP C1). A masked entry
@@ -72,28 +76,29 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
-         (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
+         (kBQ * (DK + 1) + kBK * (DK + 1) + kBK * DV + kBQ * (kBK + 1));
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int H,
                      int Hkv, int Sq, int Sk, int causal, int window,
                      float scale) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int LD = D + 1;     // padded row stride of the Q and K tiles
+  static_assert(DK % 16 == 0 && DV % 16 == 0,
+                "head dims must be multiples of 16");
+  constexpr int LD = DK + 1;    // padded row stride of the Q and K tiles
   constexpr int LDP = kBK + 1;  // padded row stride of the P tile
-  constexpr int NU = D / 16;    // accumulator columns per thread
+  constexpr int NU = DV / 16;   // accumulator columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;              // kBQ x LD
   float* sK = sQ + kBQ * LD;     // kBK x LD
-  float* sV = sK + kBK * LD;     // kBK x D
-  float* sP = sV + kBK * D;      // kBQ x LDP
+  float* sV = sK + kBK * LD;     // kBK x DV
+  float* sP = sV + kBK * DV;     // kBQ x LDP
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -104,15 +109,17 @@ __global__ void __launch_bounds__(kThreads)
   const int r = tid >> 4;
   const int c = tid & 15;
 
-  const int64_t q_stride = static_cast<int64_t>(H) * D;    // per position
-  const int64_t k_stride = static_cast<int64_t>(Hkv) * D;
-  const float* qb = q + (static_cast<int64_t>(b) * Sq * H + h) * D;
-  const float* kb = k + (static_cast<int64_t>(b) * Sk * Hkv + hk) * D;
-  const float* vb = v + (static_cast<int64_t>(b) * Sk * Hkv + hk) * D;
-  float* ob = o + (static_cast<int64_t>(b) * Sq * H + h) * D;
+  const int64_t q_stride = static_cast<int64_t>(H) * DK;    // per position
+  const int64_t k_stride = static_cast<int64_t>(Hkv) * DK;
+  const int64_t v_stride = static_cast<int64_t>(Hkv) * DV;
+  const int64_t o_stride = static_cast<int64_t>(H) * DV;
+  const float* qb = q + (static_cast<int64_t>(b) * Sq * H + h) * DK;
+  const float* kb = k + (static_cast<int64_t>(b) * Sk * Hkv + hk) * DK;
+  const float* vb = v + (static_cast<int64_t>(b) * Sk * Hkv + hk) * DV;
+  float* ob = o + (static_cast<int64_t>(b) * Sq * H + h) * DV;
 
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int i = e / D, d = e - (e / D) * D;
+  for (int e = tid; e < kBQ * DK; e += kThreads) {
+    const int i = e / DK, d = e - (e / DK) * DK;
     const int qi = q0 + i;
     sQ[i * LD + d] = qi < Sq ? qb[qi * q_stride + d] : 0.0f;
   }
@@ -137,12 +144,15 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = k_lo / kBK; t < t_end; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the last tile's K, V and P are no longer read
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int j = e / D, d = e - (e / D) * D;
+    for (int e = tid; e < kBK * DK; e += kThreads) {
+      const int j = e / DK, d = e - (e / DK) * DK;
       const int kj = k0 + j;
-      const bool in = kj < Sk;
-      sK[j * LD + d] = in ? kb[kj * k_stride + d] : 0.0f;
-      sV[j * D + d] = in ? vb[kj * k_stride + d] : 0.0f;
+      sK[j * LD + d] = kj < Sk ? kb[kj * k_stride + d] : 0.0f;
+    }
+    for (int e = tid; e < kBK * DV; e += kThreads) {
+      const int j = e / DV, d = e - (e / DV) * DV;
+      const int kj = k0 + j;
+      sV[j * DV + d] = kj < Sk ? vb[kj * v_stride + d] : 0.0f;
     }
     __syncthreads();
 
@@ -152,7 +162,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DK; ++d) {
       float qv[kRows], kv[kKeys];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) qv[i] = sQ[(r + 8 * i) * LD + d];
@@ -196,7 +206,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kBK; ++j) {
       float vv[NU];
 #pragma unroll
-      for (int u = 0; u < NU; ++u) vv[u] = sV[j * D + c + 16 * u];
+      for (int u = 0; u < NU; ++u) vv[u] = sV[j * DV + c + 16 * u];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const float p = sP[(r + 8 * i) * LDP + j];
@@ -213,22 +223,22 @@ __global__ void __launch_bounds__(kThreads)
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int u = 0; u < NU; ++u)
-      ob[qi * q_stride + c + 16 * u] = acc[i][u] / denom;
+      ob[qi * o_stride + c + 16 * u] = acc[i][u] / denom;
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hkv, int Sq, int Sk, int causal, int window,
            float scale, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attention_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((Sq + kBQ - 1) / kBQ),
                   static_cast<unsigned>(B * H));
-  attention_kernel<D><<<grid, kThreads, smem, s>>>(
+  attention_kernel<DK, DV><<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Sk,
       causal, window, scale);
@@ -237,28 +247,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// float32 q, k, v and o; head_dim one of 32, 64, 128. q and o are
-// (B, Sq, H, head_dim), k and v (B, Sk, Hkv, head_dim), all contiguous,
-// with H % Hkv == 0 and B * H <= 65535. Returns the CUDA error code of the
-// launch (0 = cudaSuccess).
-extern "C" int repro_attention(int head_dim, const void* q, const void* k,
+// float32 q, k, v and o; (dk, dv) one of (32, 32), (64, 64), (128, 128),
+// (192, 128) and (48, 32). q is (B, Sq, H, dk), k (B, Sk, Hkv, dk), v
+// (B, Sk, Hkv, dv) and o (B, Sq, H, dv), all contiguous, with H % Hkv == 0
+// and B * H <= 65535. Returns the CUDA error code of the launch
+// (0 = cudaSuccess).
+extern "C" int repro_attention(int dk, int dv, const void* q, const void* k,
                                const void* v, void* o, int B, int H, int Hkv,
                                int Sq, int Sk, int causal, int window,
                                float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      return launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, scale,
-                        s);
-    case 64:
-      return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, scale,
-                        s);
-    case 128:
-      return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,
-                         scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define REPRO_ATTENTION_CASE(DK, DV)                                       \
+  if (dk == DK && dv == DV)                                                \
+    return launch<DK, DV>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,  \
+                          scale, s);
+  REPRO_ATTENTION_CASE(32, 32)
+  REPRO_ATTENTION_CASE(64, 64)
+  REPRO_ATTENTION_CASE(128, 128)
+  REPRO_ATTENTION_CASE(192, 128)
+  REPRO_ATTENTION_CASE(48, 32)
+#undef REPRO_ATTENTION_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

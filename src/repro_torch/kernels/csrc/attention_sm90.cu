@@ -4,9 +4,11 @@
 //   o[b, i, h, :] = softmax_j(mask(i, j) ? scale * q[b, i, h] . k[b, j, h/G]
 //                                        : -inf) @ v[b, :, h/G, :]
 //
-// q, o (B, Sq, H, D); k, v (B, Sk, Hkv, D); G = H / Hkv; bf16 in and out,
-// D one of 32, 64, 128; scores, the running max and denominator and the
-// accumulator in f32. Query row i sits at position i + Sk - Sq (the causal
+// q (B, Sq, H, DK); k (B, Sk, Hkv, DK); v (B, Sk, Hkv, DV); o (B, Sq, H,
+// DV); G = H / Hkv; bf16 in and out; (DK, DV) one of (32, 32), (64, 64),
+// (128, 128) and (192, 128), the last multi-head latent attention's
+// (DeepSeek-V2: the decoupled rotary part rides on the query/key width);
+// scores, the running max and denominator and the accumulator in f32. Query row i sits at position i + Sk - Sq (the causal
 // diagonal is right-aligned); key j is kept when j < Sk, j <= qpos if
 // causal, and j > qpos - window if window > 0. The f32 case runs the
 // CUDA-core program of attention.cu; the wrapper picks one by dtype.
@@ -82,17 +84,32 @@ constexpr int kStages = 2;                  // the K ring and the V ring
 constexpr float kNegBig = -1e30f;           // the running max's start
 constexpr float kLog2e = 1.4426950408889634f;
 
-// tile geometry at head dim D (bf16)
+// the box geometry of a bf16 row of D columns, as TMA loads it
 template <int D>
-struct Tile {
-  static constexpr int BK = 64;                      // keys per tile
+struct Box {
   static constexpr int ROW = D * 2 < 128 ? D * 2 : 128;  // bytes per box row
   static constexpr int COLS = ROW / 2;               // columns per box
   static constexpr int CHUNKS = D / COLS;            // boxes per row of D
   static constexpr uint32_t LAYOUT = ROW == 128 ? 1 : 2;  // 128B / 64B swizzle
-  static constexpr int Q_BYTES = kBQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;        // K or V, one stage
-  static constexpr int BARS = Q_BYTES + kStages * 2 * KV_BYTES;
+  static_assert(D % COLS == 0 && (ROW == 64 || ROW == 128), "head dim");
+};
+
+// tile geometry at query/key width DK and value width DV (bf16): Q and K
+// rows are boxes of DK, V and O rows boxes of DV. Each consumer warpgroup
+// stages its output in its own rows of the Q tile's boxes, so DV <= DK and
+// both take boxes of the same row width.
+template <int DK, int DV>
+struct Tile {
+  using QK = Box<DK>;
+  using VO = Box<DV>;
+  static_assert(DV <= DK && QK::ROW == VO::ROW,
+                "the output is staged in the Q tile");
+  static constexpr int BK = 64;                      // keys per tile
+  static constexpr int Q_BYTES = kBQ * DK * 2;
+  static constexpr int K_BYTES = BK * DK * 2;        // K, one stage
+  static constexpr int V_BYTES = BK * DV * 2;        // V, one stage
+  static constexpr int STAGE = K_BYTES + V_BYTES;
+  static constexpr int BARS = Q_BYTES + kStages * STAGE;
   static constexpr int SMEM = BARS + 8 * (1 + 4 * kStages) + 1024;  // + align
 };
 
@@ -329,40 +346,41 @@ __device__ __forceinline__ uint32_t swizzle(uint32_t off) {
 
 // issue S = Q K^T for one warpgroup, both K-major: a k-step of 16 columns
 // is 32 bytes into a swizzled row, the next box after ROW bytes
-template <int D>
+template <int DK, int DV>
 __device__ __forceinline__ void issue_scores(float* sc, uint32_t sQg,
                                              uint32_t sK) {
-  using T = Tile<D>;
-  constexpr int BK = T::BK, ROW = T::ROW;
+  using T = Tile<DK, DV>;
+  constexpr int BK = T::BK, ROW = T::QK::ROW;
   static_assert(BK == 64, "the score tile is one m64n64 wgmma wide");
   auto desc = [&](uint32_t tile, int rows, int kk) {
     const uint32_t box = (kk * 32) / ROW, in = (kk * 32) % ROW;
-    return smem_desc(tile + box * rows * ROW + in, 16, 8 * ROW, T::LAYOUT);
+    return smem_desc(tile + box * rows * ROW + in, 16, 8 * ROW,
+                     T::QK::LAYOUT);
   };
   wgmma_fence();
   // the first k-step writes sc (sc is no input, so its registers are free
   // between tiles), the others accumulate
   wgmma_ss_n64_first(sc, desc(sQg, kBQ, 0), desc(sK, BK, 0));
 #pragma unroll
-  for (int kk = 1; kk < D / 16; ++kk)
+  for (int kk = 1; kk < DK / 16; ++kk)
     wgmma_ss_n64(sc, desc(sQg, kBQ, kk), desc(sK, BK, kk));
   wgmma_commit();
 }
 
 // issue O += P_hi V + P_lo V; V is MN-major: a k-step is 16 key rows, the
-// next box of D columns BK rows on
-template <int D>
+// next box of DV columns BK rows on
+template <int DK, int DV>
 __device__ __forceinline__ void issue_pv(float* o, const uint32_t* ph,
                                          const uint32_t* pl, uint32_t sV) {
-  using T = Tile<D>;
-  constexpr int BK = T::BK, ROW = T::ROW;
+  using T = Tile<DK, DV>;
+  constexpr int BK = T::BK, ROW = T::VO::ROW;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
     const uint64_t dv =
-        smem_desc(sV + kk * 16 * ROW, BK * ROW, 8 * ROW, T::LAYOUT);
-    wgmma_rs<D>(o, ph + 4 * kk, dv);
-    wgmma_rs<D>(o, pl + 4 * kk, dv);
+        smem_desc(sV + kk * 16 * ROW, BK * ROW, 8 * ROW, T::VO::LAYOUT);
+    wgmma_rs<DV>(o, ph + 4 * kk, dv);
+    wgmma_rs<DV>(o, pl + 4 * kk, dv);
   }
   wgmma_commit();
 }
@@ -427,7 +445,7 @@ __device__ __forceinline__ void softmax_tile(
   for (int r = 0; r < 2; ++r) lsum[r] = lsum[r] * alpha[r] + ps[r];
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -435,11 +453,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap to, int H,
                           int Hkv, int Sq, int Sk, int causal, int window,
                           float scale) {
-  using T = Tile<D>;
-  constexpr int BK = T::BK, ROW = T::ROW;
+  using T = Tile<DK, DV>;
+  using QK = typename T::QK;
+  using VO = typename T::VO;
+  constexpr int BK = T::BK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
-  // stage s: K at sKV + 2s KV_BYTES, V right after it
+  // stage s: K at sKV + s STAGE, V right after it
   const uint32_t sKV = sQ + T::Q_BYTES;
   const uint32_t q_full = sQ + T::BARS;
   const uint32_t k_full = q_full + 8;             // + 8 s, likewise below
@@ -481,24 +501,25 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (tid == kConsumers) {
       mbar_expect_tx(q_full, T::Q_BYTES);
-      for (int c = 0; c < T::CHUNKS; ++c)
-        tma_load(sQ + c * kBQ * ROW, &tq, q_full, c * T::COLS, h, q0, b);
+      for (int c = 0; c < QK::CHUNKS; ++c)
+        tma_load(sQ + c * kBQ * QK::ROW, &tq, q_full, c * QK::COLS, h, q0,
+                 b);
       // K and V on rings of their own: K(i + 1) loads while V(i - 1) is
       // still being read
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages, k0 = (t_begin + i) * BK;
         const uint32_t parity = ((i / kStages) & 1) ^ 1;
-        const uint32_t sK = sKV + 2 * s * T::KV_BYTES;
+        const uint32_t sK = sKV + s * T::STAGE;
         if (i >= kStages) mbar_wait(k_empty + 8 * s, parity);
-        mbar_expect_tx(k_full + 8 * s, T::KV_BYTES);
-        for (int c = 0; c < T::CHUNKS; ++c)
-          tma_load(sK + c * BK * ROW, &tk, k_full + 8 * s, c * T::COLS, hk,
-                   k0, b);
+        mbar_expect_tx(k_full + 8 * s, T::K_BYTES);
+        for (int c = 0; c < QK::CHUNKS; ++c)
+          tma_load(sK + c * BK * QK::ROW, &tk, k_full + 8 * s, c * QK::COLS,
+                   hk, k0, b);
         if (i >= kStages) mbar_wait(v_empty + 8 * s, parity);
-        mbar_expect_tx(v_full + 8 * s, T::KV_BYTES);
-        for (int c = 0; c < T::CHUNKS; ++c)
-          tma_load(sK + T::KV_BYTES + c * BK * ROW, &tv, v_full + 8 * s,
-                   c * T::COLS, hk, k0, b);
+        mbar_expect_tx(v_full + 8 * s, T::V_BYTES);
+        for (int c = 0; c < VO::CHUNKS; ++c)
+          tma_load(sK + T::K_BYTES + c * BK * VO::ROW, &tv, v_full + 8 * s,
+                   c * VO::COLS, hk, k0, b);
       }
     }
     return;
@@ -513,7 +534,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int cq = 2 * (lane % 4);
   const int pos0 = q_offset + q0 + kHalf * g;  // position of row 0 of the half
   const int qpos[2] = {pos0 + r0, pos0 + r0 + 8};
-  const uint32_t sQg = sQ + g * kHalf * ROW;
+  const uint32_t sQg = sQ + g * kHalf * QK::ROW;
   const float sl2 = scale * kLog2e;
   // a tile needs the mask where it crosses Sk, the causal diagonal or the
   // window's lower edge of this half's rows
@@ -522,9 +543,9 @@ __global__ void __launch_bounds__(kThreads, 1)
            (window > 0 && k0 <= pos0 + kHalf - 1 - window);
   };
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
   float m[2] = {kNegBig, kNegBig}, lsum[2] = {0.0f, 0.0f}, alpha[2];
   float sc[BK / 2];
   // p of two tiles, as bf16 hi and lo A fragments: tile i in buffer i % 2
@@ -537,7 +558,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto scores = [&](int i) {
     const int s = i % kStages, k0 = (t_begin + i) * BK;
     mbar_wait(k_full + 8 * s, (i / kStages) & 1);
-    issue_scores<D>(sc, sQg, sKV + 2 * s * T::KV_BYTES);
+    issue_scores<DK, DV>(sc, sQg, sKV + s * T::STAGE);
     return k0;
   };
   auto step = [&](int i, uint32_t* ph, uint32_t* pl, uint32_t* nh,
@@ -545,7 +566,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = i % kStages, sp = (i - 1) % kStages;
     mbar_wait(v_full + 8 * sp, ((i - 1) / kStages) & 1);
     const int k0 = scores(i);
-    issue_pv<D>(o, ph, pl, sKV + (2 * sp + 1) * T::KV_BYTES);
+    issue_pv<DK, DV>(o, ph, pl, sKV + sp * T::STAGE + T::K_BYTES);
     wgmma_wait<1>();  // the scores have landed; P V may still run
     fence_regs<BK / 2>(sc);
     mbar_arrive(k_empty + 8 * s);
@@ -554,24 +575,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs<BK / 4>(nh);
     fence_regs<BK / 4>(nl);
     wgmma_wait<0>();
-    fence_regs<D / 2>(o);
+    fence_regs<DV / 2>(o);
     mbar_arrive(v_empty + 8 * sp);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         o[4 * j + 2 * r] *= alpha[r];
         o[4 * j + 2 * r + 1] *= alpha[r];
       }
     }
-    fence_regs<D / 2>(o);
+    fence_regs<DV / 2>(o);
   };
   auto last_pv = [&](uint32_t* ph, uint32_t* pl) {
     const int sp = (n_tiles - 1) % kStages;
     mbar_wait(v_full + 8 * sp, ((n_tiles - 1) / kStages) & 1);
-    issue_pv<D>(o, ph, pl, sKV + (2 * sp + 1) * T::KV_BYTES);
+    issue_pv<DK, DV>(o, ph, pl, sKV + sp * T::STAGE + T::K_BYTES);
     wgmma_wait<0>();
-    fence_regs<D / 2>(o);
+    fence_regs<DV / 2>(o);
   };
 
   mbar_wait(q_full, 0);
@@ -594,7 +615,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // normalize, write bf16 rows into this half of the Q tile as the output
-  // map's swizzle expects, and store them by TMA (rows >= Sq are clipped)
+  // map's swizzle expects (boxes of DV columns, laid out as the Q tile's
+  // boxes of DK would be at DV's width), and store them by TMA (rows >= Sq
+  // are clipped)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
@@ -602,15 +625,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     lsum[r] = fmaxf(lsum[r], 1e-30f);
   }
   warpgroup_sync(g);  // every warp of the half is done reading its Q rows
-  uint8_t* base = smem_raw + (sQg - smem_addr(smem_raw));
+  const uint32_t sOg = sQ + g * kHalf * VO::ROW;
+  uint8_t* base = smem_raw + (sOg - smem_addr(smem_raw));
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DV / 8; ++j) {
     const int col = 8 * j + cq;
-    const uint32_t box = col / T::COLS, cc = col % T::COLS;
+    const uint32_t box = col / VO::COLS, cc = col % VO::COLS;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const uint32_t off =
-          box * kBQ * ROW + swizzle<ROW>((r0 + 8 * r) * ROW + 2 * cc);
+      const uint32_t off = box * kBQ * VO::ROW +
+                           swizzle<VO::ROW>((r0 + 8 * r) * VO::ROW + 2 * cc);
       *reinterpret_cast<__nv_bfloat162*>(base + off) = __floats2bfloat162_rn(
           o[4 * j + 2 * r] / lsum[r], o[4 * j + 2 * r + 1] / lsum[r]);
     }
@@ -618,8 +642,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   warpgroup_sync(g);
   if (lt == 0) {
-    for (int c = 0; c < T::CHUNKS; ++c)
-      tma_store(&to, sQg + c * kBQ * ROW, c * T::COLS, h, q0 + kHalf * g, b);
+    for (int c = 0; c < VO::CHUNKS; ++c)
+      tma_store(&to, sOg + c * kBQ * VO::ROW, c * VO::COLS, h, q0 + kHalf * g,
+                b);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
@@ -656,7 +681,7 @@ EncodeTiled encode_tiled() {
 template <int D>
 bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
               int heads, int S, int B, int rows) {
-  using T = Tile<D>;
+  using T = Box<D>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S),
@@ -676,55 +701,53 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hkv, int Sq, int Sk, int causal, int window,
            float scale, cudaStream_t s) {
-  using T = Tile<D>;
+  using T = Tile<DK, DV>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap mq, mk, mv, mo;
-  if (!make_map<D>(encode, &mq, q, H, Sq, B, kBQ) ||
-      !make_map<D>(encode, &mk, k, Hkv, Sk, B, T::BK) ||
-      !make_map<D>(encode, &mv, v, Hkv, Sk, B, T::BK) ||
-      !make_map<D>(encode, &mo, o, H, Sq, B, kHalf))
+  if (!make_map<DK>(encode, &mq, q, H, Sq, B, kBQ) ||
+      !make_map<DK>(encode, &mk, k, Hkv, Sk, B, T::BK) ||
+      !make_map<DV>(encode, &mv, v, Hkv, Sk, B, T::BK) ||
+      !make_map<DV>(encode, &mo, o, H, Sq, B, kHalf))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks =
       static_cast<long long>((Sq + kBQ - 1) / kBQ) * B * H;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM);
+      attention_kernel_sm90<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_kernel_sm90<D><<<static_cast<unsigned>(blocks), kThreads,
-                             T::SMEM, s>>>(mq, mk, mv, mo, H, Hkv, Sq, Sk,
-                                           causal, window, scale);
+  attention_kernel_sm90<DK, DV><<<static_cast<unsigned>(blocks), kThreads,
+                                  T::SMEM, s>>>(mq, mk, mv, mo, H, Hkv, Sq,
+                                                Sk, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 q, k, v and o; head_dim one of 32, 64, 128. q and o are
-// (B, Sq, H, head_dim), k and v (B, Sk, Hkv, head_dim), all contiguous and
-// 16-byte aligned, with H % Hkv == 0. Returns the CUDA error code of the
-// launch (0 = cudaSuccess).
-extern "C" int repro_attention_sm90(int head_dim, const void* q,
+// bf16 q, k, v and o; (dk, dv) one of (32, 32), (64, 64), (128, 128) and
+// (192, 128). q is (B, Sq, H, dk), k (B, Sk, Hkv, dk), v (B, Sk, Hkv, dv)
+// and o (B, Sq, H, dv), all contiguous and 16-byte aligned, with
+// H % Hkv == 0. Returns the CUDA error code of the launch
+// (0 = cudaSuccess).
+extern "C" int repro_attention_sm90(int dk, int dv, const void* q,
                                     const void* k, const void* v, void* o,
                                     int B, int H, int Hkv, int Sq, int Sk,
                                     int causal, int window, float scale,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      return launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, scale,
-                        s);
-    case 64:
-      return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, scale,
-                        s);
-    case 128:
-      return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,
-                         scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define REPRO_ATTENTION_CASE(DK, DV)                                       \
+  if (dk == DK && dv == DV)                                                \
+    return launch<DK, DV>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,  \
+                          scale, s);
+  REPRO_ATTENTION_CASE(32, 32)
+  REPRO_ATTENTION_CASE(64, 64)
+  REPRO_ATTENTION_CASE(128, 128)
+  REPRO_ATTENTION_CASE(192, 128)
+#undef REPRO_ATTENTION_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

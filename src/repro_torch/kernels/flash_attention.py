@@ -6,8 +6,11 @@ Both launch one of two programs of the ``attention`` library, chosen
 by dtype (``PROGRAMS``): bf16 runs ``csrc/attention_sm90.cu`` (TMA-fed
 ``wgmma`` on the tensor cores, p split into two bf16 terms so the
 result keeps the bf16 tolerance), f32 runs ``csrc/attention.cu`` (f32
-FMAs on the CUDA cores: the tensor cores take f32 only as TF32). A dtype
-or head dim that neither takes raises. Both compute online-softmax
+FMAs on the CUDA cores: the tensor cores take f32 only as TF32). Each
+is compiled for the (query/key, value) head widths of ``WIDTHS``: equal
+widths of 32, 64 and 128, and MLA's wider queries and keys (192, 128)
+at deepseek-v2's width; f32 also takes (48, 32), the smoke config's. A
+dtype or width pair that neither takes raises. Both compute online-softmax
 attention with the causal diagonal right-aligned (query row i at
 position ``i + Sk - Sq``), an optional sliding ``window`` and ``scale``,
 f32 statistics and accumulator, output in q's dtype. Both read the GQA
@@ -35,6 +38,10 @@ from repro_torch.kernels import _build
 PROGRAMS = {torch.bfloat16: ("sm90_wgmma_tma", "repro_attention_sm90"),
             torch.float32: ("cuda_core_f32", "repro_attention")}
 HEAD_DIMS = (32, 64, 128)
+# (query/key width, value width) pairs each program is compiled for
+WIDTHS = {torch.bfloat16: {(d, d) for d in HEAD_DIMS} | {(192, 128)},
+          torch.float32: {(d, d) for d in HEAD_DIMS} | {(192, 128),
+                                                        (48, 32)}}
 _MAX_BH = 65535        # the f32 program's grid.y; bf16's grid is 1-D
 
 
@@ -46,28 +53,32 @@ def program(dtype: torch.dtype) -> str:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, window: int, scale: float | None,
               what: str = "flash_attention") -> torch.Tensor:
-    """Launch the kernel on the GQA layout: q (B, Sq, H, d), k/v
-    (B, Sk, Hkv, d) -> (B, Sq, H, d)."""
+    """Launch the kernel on the GQA layout: q (B, Sq, H, d), k
+    (B, Sk, Hkv, d), v (B, Sk, Hkv, dv) -> (B, Sq, H, dv)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(
             f"{what} runs on one CUDA device: q on {q.device}, k on "
             f"{k.device}, v on {v.device}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            k.shape[:3] != v.shape[:3]:
         raise ValueError(
-            f"{what} needs q (B, Sq, H, d) and k, v (B, Sk, Hkv, d): got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+            f"{what} needs q (B, Sq, H, d), k (B, Sk, Hkv, d) and v "
+            f"(B, Sk, Hkv, dv): got {tuple(q.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}")
     B, Sq, H, d = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != d or Hkv < 1 or H % Hkv:
         raise ValueError(
             f"{what}: k, v {tuple(k.shape)} do not match q {tuple(q.shape)} "
             f"(same batch and head dim, H a multiple of Hkv)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what} takes head dims {HEAD_DIMS}, got {d}")
     if q.dtype not in PROGRAMS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"{what} takes float32 or bfloat16, q, k and v alike: got "
             f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if (d, dv) not in WIDTHS[q.dtype]:
+        raise ValueError(
+            f"{what} takes (query/key, value) head dims "
+            f"{sorted(WIDTHS[q.dtype])} in {q.dtype}, got ({d}, {dv})")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what} needs contiguous q, k and v")
     if min(B, Sq, Sk) < 1 or window < 0:
@@ -89,11 +100,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     lib = _build.library("attention")
-    o = torch.empty_like(q)
+    o = q.new_empty((B, Sq, H, dv))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     name, entry = PROGRAMS[q.dtype]
     code = getattr(lib, entry)(
-        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv,
+        d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv,
         Sq, Sk, int(causal), int(window), ctypes.c_float(scale), stream)
     _build.check(lib, code, f"{what} launch ({name})")
     return o
@@ -114,7 +125,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         scale: float | None = None) -> torch.Tensor:
-    """q (B, Sq, H, d), k/v (B, Sk, Hkv, d) -> (B, Sq, H, d), on the
-    card."""
+    """q (B, Sq, H, d), k (B, Sk, Hkv, d), v (B, Sk, Hkv, dv) ->
+    (B, Sq, H, dv), on the card."""
     return attention(q, k, v, causal=causal, window=window, scale=scale,
                      what="flash_attention_gqa")

@@ -92,7 +92,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         scale: float | None = None) -> torch.Tensor:
-    """GQA front end: q (B, S, H, d), k/v (B, S, Hkv, d)."""
+    """GQA front end: q (B, S, H, d), k (B, S, Hkv, d), v (B, S, Hkv, dv)
+    -> (B, S, H, dv); dv = d but for MLA's wider queries and keys."""
     if _on_cpu(q, k, v):
         return ref.flash_attention_gqa_ref(q, k, v, causal=causal,
                                            window=window, scale=scale)

@@ -48,8 +48,9 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         scale: float | None = None) -> torch.Tensor:
-    """Masked softmax attention. q: (B, Sq, d), k/v: (B, Sk, d) ->
-    (B, Sq, d) in q's dtype.
+    """Masked softmax attention. q, k: (B, Sq | Sk, d), v: (B, Sk, dv) ->
+    (B, Sq, dv) in q's dtype (dv = d but for MLA's wider queries and
+    keys).
 
     The causal diagonal is right-aligned (query row i sits at position
     ``i + Sk - Sq``); ``window`` > 0 adds sliding-window masking (key
@@ -73,7 +74,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          k[b:b + step].float()) * scale
         s = torch.where(mask[None], s, NEG_INF)
         p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bqk,bkd->bqd", p,
+        outs.append(torch.einsum("bqk,bke->bqe", p,
                                  v[b:b + step].float()).to(q.dtype))
     return torch.cat(outs) if len(outs) > 1 else outs[0]
 
@@ -84,21 +85,21 @@ def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor,
                             scale: float | None = None) -> torch.Tensor:
     """GQA front end of ``flash_attention_ref``, as
     ``repro.kernels.ops.flash_attention_gqa`` folds it: q (B, Sq, H, d),
-    k/v (B, Sk, Hkv, d) -> (B, Sq, H, d); query head h reads kv head
-    ``h // (H // Hkv)``."""
+    k (B, Sk, Hkv, d), v (B, Sk, Hkv, dv) -> (B, Sq, H, dv); query head h
+    reads kv head ``h // (H // Hkv)``."""
     B, Sq, H, d = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
     qg = q.reshape(B, Sq, Hkv, G, d).permute(0, 2, 3, 1, 4)
     qg = qg.reshape(B * H, Sq, d)
     kg = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).reshape(
         B * H, Sk, d)
     vg = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).reshape(
-        B * H, Sk, d)
+        B * H, Sk, dv)
     out = flash_attention_ref(qg, kg, vg, causal=causal, window=window,
                               scale=scale)
-    out = out.reshape(B, Hkv, G, Sq, d).permute(0, 3, 1, 2, 4)
-    return out.reshape(B, Sq, H, d)
+    out = out.reshape(B, Hkv, G, Sq, dv).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, H, dv)
 
 
 def check_swa_shape(S: int, window: int) -> None:

@@ -1,5 +1,6 @@
-"""Grouped-query attention (optional QKV bias, optional sliding window) —
-the counterpart of ``repro.models.attention``.
+"""Grouped-query attention (optional QKV bias, optional sliding window)
+and multi-head latent attention (MLA, DeepSeek-V2) — the counterpart of
+``repro.models.attention``.
 
 * ``gqa_forward`` — full-sequence causal attention (prefill). The masked
   path goes through ``ops.flash_attention_gqa`` (with the window for a
@@ -11,6 +12,18 @@ the counterpart of ``repro.models.attention``.
   in the reference (which computes it outside any Pallas kernel): the
   cache is a full buffer, or for a sliding-window arch a ring buffer of
   ``window`` slots with ``pos`` tags.
+* ``mla_forward`` — MLA prefill: queries (optionally through a low-rank
+  ``w_dq``/``w_uq``), the latent ``c_kv`` and its up-projections to
+  per-head keys and values, and one rotary key ``k_r`` shared by all
+  heads. The reference adds two score einsums (``q_c k_c`` and
+  ``q_r k_r``); here the kernel takes ``q = [q_c | q_r]`` and
+  ``k = [k_c | k_r]`` (k_r broadcast over the heads), both of width
+  ``hd + rope_head_dim``, against values of width ``hd``, with scale
+  ``1 / sqrt(hd + rope_head_dim)`` — the same scores summed in one
+  product. On the card that is the attention kernel's Dqk != Dv program.
+* ``mla_decode`` — the absorbed step (``W_uk`` folded into the query,
+  scores against the cached latent, ``W_uv`` after the context), plain
+  PyTorch as in the reference, with the cache ``{"ckv", "krope"}``.
 
 Departures from the reference. The kernels mask by sequence index (query
 row i at position ``i + Sk - Sq``), so ``gqa_forward`` takes its mask
@@ -22,8 +35,7 @@ rounds scores to bf16 and casts probabilities to v's dtype, so bf16
 parity with the JAX model is looser than f32's. ``gqa_decode`` updates
 the cache IN PLACE and returns the same dict; it raises once a full
 (non-ring) cache is full, where the reference's ``dynamic_update_slice``
-would clamp the write to the last slot. MLA (``cfg.mla``) is not ported:
-``ModelConfig`` refuses it.
+would clamp the write to the last slot; ``mla_decode`` likewise.
 """
 from __future__ import annotations
 
@@ -42,6 +54,21 @@ def attn_init(cfg: ModelConfig, generator: torch.Generator,
               dtype=torch.float32) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    if cfg.mla is not None:
+        m = cfg.mla
+        p = {"w_dkv": dense_init(generator, d, m.kv_lora_rank, dtype),
+             "w_krope": dense_init(generator, d, m.rope_head_dim, dtype),
+             "w_uk": dense_init(generator, m.kv_lora_rank, H * hd, dtype),
+             "w_uv": dense_init(generator, m.kv_lora_rank, H * hd, dtype),
+             "w_o": dense_init(generator, H * hd, d, dtype)}
+        if m.q_lora_rank:
+            p["w_dq"] = dense_init(generator, d, m.q_lora_rank, dtype)
+            p["w_uq"] = dense_init(generator, m.q_lora_rank,
+                                   H * (hd + m.rope_head_dim), dtype)
+        else:
+            p["w_q"] = dense_init(generator, d, H * (hd + m.rope_head_dim),
+                                  dtype)
+        return p
     p = {
         "w_q": dense_init(generator, d, H * hd, dtype),
         "w_k": dense_init(generator, d, Hkv * hd, dtype),
@@ -129,13 +156,7 @@ def gqa_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     k_new = apply_rope(k_new, posb, cfg.rope_theta)
     Smax = cache["k"].shape[1]
     window = _window(cfg)
-    if window:
-        slot = pos % Smax
-    elif pos < Smax:
-        slot = pos
-    else:
-        raise ValueError(f"the KV cache holds {Smax} positions; position "
-                         f"{pos} does not fit")
+    slot = pos % Smax if window else _slot(pos, Smax)
     cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
     if window:
@@ -151,9 +172,92 @@ def gqa_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     return y, cache
 
 
+def _slot(pos: int, Smax: int) -> int:
+    if pos < Smax:
+        return pos
+    raise ValueError(f"the KV cache holds {Smax} positions; position "
+                     f"{pos} does not fit")
+
+
+def _mla_queries(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                 positions: torch.Tensor):
+    B, S, _ = x.shape
+    m, hd = cfg.mla, cfg.resolved_head_dim
+    if m.q_lora_rank:
+        q = torch.matmul(torch.matmul(x, params["w_dq"]), params["w_uq"])
+    else:
+        q = torch.matmul(x, params["w_q"])
+    q = q.reshape(B, S, cfg.num_heads, hd + m.rope_head_dim)
+    q_c, q_r = q[..., :hd], q[..., hd:]
+    return q_c, apply_rope(q_r, positions, cfg.rope_theta)
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.resolved_head_dim + cfg.mla.rope_head_dim)
+
+
+def mla_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """MLA prefill. x: (B, S, D), positions (B, S) or (S,), contiguous
+    within a row; causal attention through ``ops.flash_attention_gqa``
+    with query/key width ``hd + rope_head_dim`` and value width hd."""
+    B, S, _ = x.shape
+    m, hd, H = cfg.mla, cfg.resolved_head_dim, cfg.num_heads
+    if positions.dim() == 1:
+        positions = positions[None].expand(B, S)
+    q_c, q_r = _mla_queries(cfg, params, x, positions)
+    c_kv = torch.matmul(x, params["w_dkv"])
+    k_r = apply_rope(torch.matmul(x, params["w_krope"])[:, :, None, :],
+                     positions, cfg.rope_theta)                 # (B,S,1,rh)
+    k_c = torch.matmul(c_kv, params["w_uk"]).reshape(B, S, H, hd)
+    v = torch.matmul(c_kv, params["w_uv"]).reshape(B, S, H, hd)
+    q = torch.cat([q_c, q_r], dim=-1)
+    k = torch.cat([k_c, k_r.expand(B, S, H, m.rope_head_dim)], dim=-1)
+    out = ops.flash_attention_gqa(q, k, v.contiguous(), causal=True,
+                                  scale=_mla_scale(cfg))
+    return torch.matmul(out.reshape(B, S, H * hd), params["w_o"])
+
+
+def mla_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
+               cache: dict, pos: int):
+    """Absorbed MLA decode. x: (B, 1, D); cache {"ckv": (B, Smax, r),
+    "krope": (B, Smax, rh)}, written in place at ``pos``. Returns
+    ``(y (B, 1, D), cache)``."""
+    B = x.shape[0]
+    m, hd, H = cfg.mla, cfg.resolved_head_dim, cfg.num_heads
+    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_c, q_r = _mla_queries(cfg, params, x, posb)               # (B,1,H,.)
+    c_new = torch.matmul(x, params["w_dkv"])
+    kr_new = apply_rope(torch.matmul(x, params["w_krope"])[:, :, None, :],
+                        posb, cfg.rope_theta)[:, :, 0, :]
+    ckv, krope = cache["ckv"], cache["krope"]
+    slot = _slot(pos, ckv.shape[1])
+    ckv[:, slot] = c_new[:, 0].to(ckv.dtype)
+    krope[:, slot] = kr_new[:, 0].to(krope.dtype)
+    # absorb W_uk into the query: q_abs (B, H, r)
+    w_uk = params["w_uk"].reshape(m.kv_lora_rank, H, hd)
+    q_abs = torch.einsum("bshd,rhd->bshr", q_c, w_uk)[:, 0]
+    scores = (torch.einsum("bhr,btr->bht", q_abs, ckv)
+              + torch.einsum("bshr,btr->bht", q_r, krope))
+    scores = scores.float() * _mla_scale(cfg)
+    valid = torch.arange(ckv.shape[1], device=x.device) <= pos
+    scores = torch.where(valid[None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(ckv.dtype)
+    ctx = torch.einsum("bht,btr->bhr", probs, ckv)              # latent
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, hd)
+    out = torch.einsum("bhr,rhd->bhd", ctx, w_uv).reshape(B, 1, H * hd)
+    return torch.matmul(out, params["w_o"]), cache
+
+
 def attn_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
                     dtype=torch.float32, device=None) -> dict:
     hd = cfg.resolved_head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": torch.zeros((batch, max_seq, m.kv_lora_rank),
+                                   dtype=dtype, device=device),
+                "krope": torch.zeros((batch, max_seq, m.rope_head_dim),
+                                     dtype=dtype, device=device)}
     if cfg.attn_type == ATTN_SLIDING:
         max_seq = min(max_seq, cfg.sliding_window)
     shape = (batch, max_seq, cfg.num_kv_heads, hd)

@@ -5,8 +5,8 @@ Parameters are plain dicts of tensors; initializers draw from an explicit
 of the paper's models and what the dense decoder LM needs: the embedding
 init, RMS norm (through ``repro_torch.kernels.ops.rmsnorm``, the
 hand-written kernel on the card), rotary position embedding and the
-SwiGLU FFN; the Mamba2 slice adds the depthwise causal conv and its
-decode step. The dense products are ``torch.matmul`` on the reference's
+SwiGLU FFN (also the MoE's shared experts); the Mamba2 slice adds the
+depthwise causal conv and its decode step. The dense products are ``torch.matmul`` on the reference's
 ``(d_in, d_out)`` layout, as the reference leaves them to XLA; FSDP's
 ``gather_weight`` and ``constrain`` are identities on one device and have
 no port. The layer norm and plain MLP come with their slices.

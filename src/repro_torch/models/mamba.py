@@ -15,7 +15,9 @@ runs no kernel there).
 
 Shapes: x (B, S, D); d_inner = expand * D; H = d_inner / head_dim heads of
 dim P; the B/C projections have G groups of state size N shared by
-H / G heads each.
+H / G heads each. The same module is the SSM branch of the Hymba hybrid
+block (``repro_torch.models.blocks``; hymba-1.5b: d_inner 3,200, 50
+heads of 64 in one group, N = 16), which needs nothing more of it.
 
 Departures from the reference: ``mamba_init`` draws ``conv_w`` (scale
 0.1) and the dense weights from an explicit ``torch.Generator`` (the

@@ -1,37 +1,51 @@
 """Decoder-only LM: embeddings -> the stacked blocks -> head — the
-counterpart of ``repro.models.model`` for the text modality.
+counterpart of ``repro.models.model``.
+
+Handles the three modalities of the reference:
+
+* text — tokens (B, S) integers;
+* vision (VLM backbone) — stub patch embeddings ``prefix_embeds``
+  (B, S_img, D) prepended to the text-token embeddings (the ViT and
+  projector are the allowed frontend stub); logits cover prefix and text;
+* audio (MusicGen backbone) — ``AUDIO_CODEBOOKS`` = K codebook token
+  streams (B, S, K); the embedding is the sum over the codebooks' (K, V,
+  D) tables, in codebook order, and the head predicts K vocabularies,
+  logits (B, S, K, V).
 
 The parameter tree is the reference's: plain dicts, with every leaf of
 ``blocks`` stacked on a leading L axis, so ``repro_torch.convert`` carries
-weights across unchanged. The blocks are dense attention blocks
-(``{"norm_mix", "attn", "norm_ffn", "ffn"}``) or Mamba2 SSM blocks
-(``{"norm_mix", "ssm"}``); the decode cache is a KV cache per attention
-block, or per SSM block the SSM state ``(B, H, P, N)`` in f32 and the conv
-state ``(B, d_conv - 1, C)`` in the model's dtype (``max_seq`` unused
-there, as in the reference). The reference's ``lax.scan`` over layers is a
-Python loop over the views ``blocks[...][i]``; ``constrain`` and
-``gather_weight`` are identities on one device and have no port.
+weights across unchanged. A block is any of ``repro_torch.models.blocks``'
+(dense or MoE FFN; GQA, MLA, SSM or hybrid mixer); the decode cache is
+per block a KV cache (MLA: the latent and rotary-key cache), the SSM
+state ``(B, H, P, N)`` in f32 and the conv state ``(B, d_conv - 1, C)`` in
+the model's dtype, or both for a hybrid block. The reference's
+``lax.scan`` over layers is a Python loop over the views
+``blocks[...][i]``, and the auxiliary (MoE load-balance) loss is the sum
+of the layers' in layer order; ``constrain`` and ``gather_weight`` are
+identities on one device and have no port.
 
-Departures: ``lm_apply`` takes tokens only and numbers them from 0 (the
-reference's ``prefix_embeds`` belongs to the vision modality and
-``remat`` to training, neither ported); its auxiliary loss is 0 for the
-dense FFN. ``lm_decode_step`` updates the cache in place and takes
-``pos`` as a host int. ``init_lm_params`` draws from a ``torch.Generator``
-seeded with ``seed`` on the target device (the reference's
-``jax.random`` draws differ; parity tests carry the reference's weights
-across with ``convert``). ``lm_loss`` comes with the training slice.
+Departures: ``lm_apply`` numbers positions from 0 (no ``positions``
+argument) and has no ``remat`` (training's, not ported);
+``lm_decode_step`` updates the cache in place and takes ``pos`` as a host
+int. ``init_lm_params`` draws from a ``torch.Generator`` seeded with
+``seed`` on the target device (the reference's ``jax.random`` draws
+differ; parity tests carry the reference's weights across with
+``convert``). ``lm_loss`` comes with the training slice.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import MODALITY_AUDIO, ModelConfig
 from repro_torch.core.flatten import tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (
     dense_init, embed_init, rmsnorm_apply, rmsnorm_init,
 )
+
+
+AUDIO_CODEBOOKS = 4
 
 
 def init_lm_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
@@ -42,7 +56,13 @@ def init_lm_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     the peak is the model plus one layer."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
-    p = {"embed": embed_init(g, cfg.vocab_size, cfg.d_model, dtype)}
+    audio = cfg.modality == MODALITY_AUDIO
+    if audio:
+        embed = torch.stack([embed_init(g, cfg.vocab_size, cfg.d_model, dtype)
+                             for _ in range(AUDIO_CODEBOOKS)])  # (K, V, D)
+    else:
+        embed = embed_init(g, cfg.vocab_size, cfg.d_model, dtype)
+    p = {"embed": embed}
     stacked = None
     for i in range(cfg.num_layers):
         layer = blk.block_init(cfg, g, dtype)
@@ -56,7 +76,9 @@ def init_lm_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     p["blocks"] = stacked
     p["final_norm"] = rmsnorm_init(cfg.d_model, dtype, dev)
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(g, cfg.d_model, cfg.vocab_size, dtype)
+        p["lm_head"] = dense_init(
+            g, cfg.d_model,
+            cfg.vocab_size * (AUDIO_CODEBOOKS if audio else 1), dtype)
     return p
 
 
@@ -66,29 +88,52 @@ def _layer(tree, i: int):
 
 def _embed_tokens(cfg: ModelConfig, params: dict,
                   tokens: torch.Tensor) -> torch.Tensor:
+    if cfg.modality == MODALITY_AUDIO:
+        # tokens (B, S, K), embed (K, V, D): the sum over codebooks
+        e = params["embed"][0][tokens[..., 0]]
+        for k in range(1, AUDIO_CODEBOOKS):
+            e = e + params["embed"][k][tokens[..., k]]
+        return e
     return params["embed"][tokens]
 
 
 def _head(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return torch.matmul(h, params["embed"].t())
-    return torch.matmul(h, params["lm_head"])
+    logits = torch.matmul(h, params["lm_head"])
+    if cfg.modality == MODALITY_AUDIO:
+        B, S, _ = logits.shape
+        return logits.reshape(B, S, AUDIO_CODEBOOKS, cfg.vocab_size)
+    return logits
 
 
-def lm_apply(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    """Forward pass over tokens (B, S) -> (logits (B, S, V), aux_loss)."""
-    x = _embed_tokens(cfg, params, tokens)
+def lm_apply(cfg: ModelConfig, params: dict, tokens=None, *,
+             prefix_embeds=None):
+    """Forward pass -> (logits, aux_loss f32 scalar): tokens (B, S) (audio:
+    (B, S, K)); ``prefix_embeds`` (B, S_img, D), the vision stub's patch
+    embeddings, prepended to the token embeddings (or alone, without
+    tokens). Logits cover the whole (prefix + text) sequence: (B, S, V),
+    audio (B, S, K, V)."""
+    if tokens is not None:
+        x = _embed_tokens(cfg, params, tokens)
+    else:
+        x, prefix_embeds = prefix_embeds, None
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x = blk.block_forward(cfg, _layer(params["blocks"], i), x, positions)
+        x, a = blk.block_forward(cfg, _layer(params["blocks"], i), x,
+                                 positions)
+        aux = aux + a
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return _head(cfg, params, x), torch.zeros((), device=x.device)
+    return _head(cfg, params, x), aux
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int,
                   dtype=torch.float32, device="cuda") -> dict:
-    """Stacked (L-leading) cache tree, on ``device``: KV caches, or SSM
-    and conv states."""
+    """Stacked (L-leading) cache tree, on ``device``: KV (or MLA latent)
+    caches, SSM and conv states, or both."""
     dev = resolve_device(device)
     one = blk.block_cache_init(cfg, batch, max_seq, dtype, dev)
     return tree_map(lambda a: a[None].repeat(
@@ -97,9 +142,9 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def lm_decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                    cache: dict, pos: int):
-    """One decode step. token: (B,) integers; pos: the tokens already in
-    the cache. Returns (logits (B, V), cache), the cache updated in
-    place."""
+    """One decode step. token: (B,) integers (audio: (B, K)); pos: the
+    tokens already in the cache. Returns (logits (B, V) (audio:
+    (B, K, V)), cache), the cache updated in place."""
     x = _embed_tokens(cfg, params, token[:, None])
     for i in range(cfg.num_layers):
         x, _ = blk.block_decode(cfg, _layer(params["blocks"], i), x,

@@ -6,9 +6,14 @@ counterpart of ``repro.serve.engine``.
 ``ServeEngine`` is the minimal batched-request loop: ``feed`` a prompt
 through decode, then ``generate`` greedily or by temperature sampling.
 
-An attention model decodes against its KV cache; a Mamba2 model carries
-O(1) state per layer (the SSM and conv states), so its step costs the
-same at any position and ``max_seq`` does not bound it.
+An attention model decodes against its KV cache (MLA: its latent and
+rotary-key cache); a Mamba2 model carries O(1) state per layer (the SSM
+and conv states), so its step costs the same at any position and
+``max_seq`` does not bound it; a hybrid model carries both. An audio
+model (MusicGen) feeds and generates a token per codebook each step:
+prompts (B, S, K), steps on (B, K) tokens, logits (B, K, V), generated
+tokens (B, n, K). As in the reference, the engine takes tokens only: a
+vision prefix goes through ``make_prefill``'s forward, not the engine.
 
 Departures from the reference: PyTorch runs eagerly, so there is no
 ``jit`` (each decode step launches its operations from Python); the
@@ -60,8 +65,9 @@ class ServeEngine:
         self._step = make_decode_step(cfg)
 
     def feed(self, tokens) -> torch.Tensor:
-        """Feed prompt tokens (B, S_prompt) through decode, one position
-        at a time; returns the logits (B, V) after the last one."""
+        """Feed prompt tokens (B, S_prompt) (audio: (B, S_prompt, K))
+        through decode, one position at a time; returns the logits (B, V)
+        (audio: (B, K, V)) after the last one."""
         tokens = torch.as_tensor(tokens, device=self.device)
         logits = None
         for t in range(tokens.shape[1]):
@@ -74,7 +80,9 @@ class ServeEngine:
                  temperature: float = 0.0,
                  first_logits: torch.Tensor = None) -> torch.Tensor:
         """Generate ``num_tokens`` per request from ``first_logits`` (what
-        ``feed`` returned) -> (B, num_tokens) token ids."""
+        ``feed`` returned) -> (B, num_tokens) token ids (audio:
+        (B, num_tokens, K)); greedy picks are the argmax over the last
+        axis."""
         if temperature > 0.0 and generator is None:
             raise ValueError("temperature sampling needs a torch.Generator")
         out = []
@@ -84,7 +92,9 @@ class ServeEngine:
                 raise ValueError("call feed() first")
             if temperature > 0.0:
                 probs = torch.softmax(logits.float() / temperature, dim=-1)
-                nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+                nxt = torch.multinomial(
+                    probs.reshape(-1, probs.shape[-1]), 1,
+                    generator=generator).reshape(probs.shape[:-1])
             else:
                 nxt = torch.argmax(logits, dim=-1)
             out.append(nxt)

@@ -11,7 +11,8 @@ and rescale; the mask only on the
 tiles the kernel masks (and an assertion that a skipped mask would have
 kept every key); the probabilities split into p_hi = bf16(p) and
 p_lo = bf16(p - p_hi), each multiplied by V and summed in f32; the
-denominator summed from the f32 p. It lives here and not in the package:
+denominator summed from the f32 p; at MLA's widths (query/key 192,
+value 128) too. It lives here and not in the package:
 ``repro_torch.kernels.ref`` keeps the exact f32 plain version as the one
 plain version.
 
@@ -42,17 +43,18 @@ LOG2E = 1.4426950408889634
 
 
 def tile_model(q, k, v, *, causal, window, bk, split=True):
-    """q (B, Sq, H, d), k/v (B, Sk, Hkv, d) bf16 -> (B, Sq, H, d) bf16,
-    computed as the kernel's tile loop computes it."""
+    """q (B, Sq, H, d), k (B, Sk, Hkv, d), v (B, Sk, Hkv, dv) bf16 ->
+    (B, Sq, H, dv) bf16, computed as the kernel's tile loop computes it
+    (dv = d but for MLA's (192, 128))."""
     B, Sq, H, d = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
     sl2 = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) * torch.tensor(
         LOG2E, dtype=torch.float32)
     qf = q.float().permute(0, 2, 1, 3)                       # (B, H, Sq, d)
     kf = k.float().permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
     vf = v.float().permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
-    out = torch.zeros((B, H, Sq, d), dtype=torch.float32)
+    out = torch.zeros((B, H, Sq, dv), dtype=torch.float32)
     q_off = Sk - Sq
     for q0 in range(0, Sq, BQ):
         # the key range of the whole 128-row tile, as the producer loads it
@@ -68,13 +70,13 @@ def tile_model(q, k, v, *, causal, window, bk, split=True):
             qh[:, :, :n] = qf[:, :, h0:h0 + n]      # rows >= Sq read zeros
             m = torch.full((B, H, HALF), -1e30)
             lsum = torch.zeros((B, H, HALF))
-            o = torch.zeros((B, H, HALF, d))
+            o = torch.zeros((B, H, HALF, dv))
             lo_pos, hi_pos = q_off + h0, q_off + h0 + HALF - 1
             for t in range(k_lo // bk, t_end):
                 k0 = t * bk
                 kpos = torch.arange(k0, k0 + bk)
                 kt = torch.zeros((B, H, bk, d))
-                vt = torch.zeros((B, H, bk, d))
+                vt = torch.zeros((B, H, bk, dv))
                 nk = max(0, min(Sk, k0 + bk) - k0)
                 kt[:, :, :nk], vt[:, :, :nk] = (kf[:, :, k0:k0 + nk],
                                                 vf[:, :, k0:k0 + nk])
@@ -106,10 +108,10 @@ def tile_model(q, k, v, *, causal, window, bk, split=True):
     return out.permute(0, 2, 1, 3).to(torch.bfloat16)
 
 
-def _inputs(B, Sq, Sk, H, Hkv, d, seed):
+def _inputs(B, Sq, Sk, H, Hkv, d, seed, dv=None):
     rng = np.random.default_rng(seed)
     arrs = [rng.standard_normal(s, dtype=np.float32)
-            for s in ((B, Sq, H, d), (B, Sk, Hkv, d), (B, Sk, Hkv, d))]
+            for s in ((B, Sq, H, d), (B, Sk, Hkv, d), (B, Sk, Hkv, dv or d))]
     return ([torch.from_numpy(a).to(torch.bfloat16) for a in arrs],
             [jnp.asarray(a, jnp.bfloat16) for a in arrs])
 
@@ -118,14 +120,15 @@ def _oracle(jq, jk, jv, *, causal, window):
     """``repro.kernels.ref.flash_attention_ref`` per (batch, head), query
     head h reading kv head h // (H // Hkv)."""
     B, Sq, H, d = jq.shape
-    Sk, Hkv = jk.shape[1], jk.shape[2]
+    Sk, Hkv, dv = jk.shape[1], jk.shape[2], jv.shape[3]
     G = H // Hkv
     qg = jq.transpose(0, 2, 1, 3).reshape(B * H, Sq, d)
     kg = jnp.repeat(jk.transpose(0, 2, 1, 3), G, axis=1).reshape(B * H, Sk, d)
-    vg = jnp.repeat(jv.transpose(0, 2, 1, 3), G, axis=1).reshape(B * H, Sk, d)
+    vg = jnp.repeat(jv.transpose(0, 2, 1, 3), G, axis=1).reshape(B * H, Sk,
+                                                                 dv)
     out = jref.flash_attention_ref(qg, kg, vg, causal=causal, window=window)
     return np.asarray(out.astype(jnp.float32)).reshape(
-        B, H, Sq, d).transpose(0, 2, 1, 3)
+        B, H, Sq, dv).transpose(0, 2, 1, 3)
 
 
 @pytest.mark.parametrize("bk", BKS)
@@ -153,6 +156,22 @@ def test_tile_loop_matches_the_reference(B, Sq, Sk, H, Hkv, d, causal,
                                        window=window, block_q=64, block_k=64)
         np.testing.assert_allclose(
             got, np.asarray(out.astype(jnp.float32)), **LM_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,causal", [(1, 200, 4, True),
+                                          (2, 130, 2, True),
+                                          (1, 70, 2, False)])
+def test_mla_widths_tile_loop_matches_the_reference(B, S, H, causal):
+    """MLA's query/key width 192 against value width 128 (deepseek-v2's
+    hd + rope_head_dim and hd): the same loop, with K tiles of 192 and V
+    tiles of 128 columns, the scale 1 / sqrt(192), against the JAX
+    package's plain attention; the ragged non-causal case too (C1)."""
+    (q, k, v), (jq, jk, jv) = _inputs(B, S, S, H, H, 192, S + H, dv=128)
+    got = tile_model(q, k, v, causal=causal, window=0, bk=64)
+    assert got.shape == (B, S, H, 128)
+    np.testing.assert_allclose(got.float().numpy(),
+                               _oracle(jq, jk, jv, causal=causal, window=0),
+                               **LM_TOL)
 
 
 def test_rounding_p_once_breaks_the_tolerance():

@@ -321,6 +321,59 @@ def test_attention_program_edges_match_plain(B, Sq, Sk, H, Hkv, d, causal,
     torch.testing.assert_close(got, want, **LM_TOL["attn", dtype])
 
 
+# the serving zoo's attention layouts (small S): hymba's head dim 64 over
+# a 5:1 group, musicgen's group 1 at 64, llama3-405b's group 16, and MLA's
+# query/key width above its value width: (192, 128) in both programs,
+# deepseek-v2's smoke (48, 32) in f32 only
+ZOO_ATTN = [(2, 150, 150, 25, 5, 64, 64, True, 0),
+            (2, 130, 130, 10, 5, 64, 64, True, 48),
+            (2, 100, 100, 8, 8, 64, 64, True, 0),
+            (1, 140, 140, 32, 2, 128, 128, True, 0),
+            (2, 200, 200, 4, 4, 192, 128, True, 0),
+            (1, 1, 90, 3, 3, 192, 128, True, 0),
+            (1, 40, 70, 2, 2, 192, 128, False, 0),
+            (3, 129, 129, 8, 8, 192, 128, True, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,d,dv,causal,window", ZOO_ATTN + [
+    (2, 70, 70, 4, 4, 48, 32, True, 0)])
+def test_attention_at_the_zoo_layouts_matches_plain(B, Sq, Sk, H, Hkv, d,
+                                                    dv, causal, window,
+                                                    dtype):
+    """Each layout against the plain version, bitwise repeatable; a width
+    pair a program is not compiled for raises (bf16 at (48, 32))."""
+    _need_card()
+    seed = 5 * B + Sq + Sk + H + d + dv + window
+    q = _randn((B, Sq, H, d), dtype, seed)
+    k = _randn((B, Sk, Hkv, d), dtype, seed + 1)
+    v = _randn((B, Sk, Hkv, dv), dtype, seed + 2)
+    if (d, dv) not in flash_attention.WIDTHS[DTYPES[dtype]]:
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention.flash_attention_gqa(q, k, v)
+        return
+    got = _same_twice(flash_attention.flash_attention_gqa, q, k, v,
+                      causal=causal, window=window)
+    assert got.shape == (B, Sq, H, dv)
+    want = ref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, **LM_TOL["attn", dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_swa_at_hymbas_layout(dtype):
+    """The banded path at hymba's head dim 64 and 25 / 5 heads, S = 2w."""
+    _need_card()
+    q = _randn((1, 256, 25, 64), dtype, 1)
+    k = _randn((1, 256, 5, 64), dtype, 2)
+    v = _randn((1, 256, 5, 64), dtype, 3)
+    got = _same_twice(swa_attention.swa_attention, q, k, v, window=128)
+    torch.testing.assert_close(got, ref.swa_attention_ref(q, k, v,
+                                                          window=128),
+                               **LM_TOL["attn", dtype])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("B,S,H,Hkv,w", [(2, 64, 1, 1, 16), (1, 256, 4, 2, 64),
@@ -407,7 +460,8 @@ def _ssd_inputs(BH, S, P, N, dtype, seed, R=1, strong=False):
     (4, 200, 64, 128, 64, 1, False), (6, 77, 64, 32, 16, 1, False),
     (16, 96, 64, 128, 64, 8, False), (5, 128, 64, 128, 64, 1, True),
     (4, 100, 64, 128, 32, 2, True), (3, 64, 37, 20, 16, 1, False),
-    (2, 64, 5, 3, 8, 1, False), (160, 256, 64, 128, 64, 80, False)])
+    (2, 64, 5, 3, 8, 1, False), (160, 256, 64, 128, 64, 80, False),
+    (100, 256, 64, 16, 64, 50, False), (16, 48, 64, 16, 16, 8, False)])
 def test_ssd_scan_kernel_matches_plain(BH, S, P, N, chunk, R, strong, dtype):
     """Ragged S through ops.ssd_scan (padded), chunks 8 to 64, grouped B
     and C (R heads per row, up to mamba2-2.7b's 80), strong decay, odd P
@@ -752,46 +806,181 @@ def test_audit_sync_count_under_sync_debug_mode():
 SHARD_GROSS_REL = 1e-2
 
 
+def _upstream(dl, batch, i=0):
+    """Learner i's own float64 forward of mnist_cnn (log-softmax in
+    float64 too), NCHW/OIHW: the input x, conv1's and conv2's weights and
+    outputs after ReLU, and the loss's gradients at conv1's and conv2's
+    pre-activations, g1 = dL/dz1 and g2 = dL/dz2."""
+    layers = [{k: v[i].double() for k, v in p.items()}
+              for p in dl.params["layers"]]
+    x = batch["x"][i].double().permute(0, 3, 1, 2)
+    w1, w2 = (layers[j]["w"].permute(3, 2, 0, 1) for j in (0, 1))
+    z1 = (F.conv2d(x, w1) + layers[0]["b"][:, None, None]).requires_grad_()
+    a1 = F.relu(z1)
+    z2 = F.conv2d(a1, w2) + layers[1]["b"][:, None, None]
+    z2.retain_grad()
+    a = F.max_pool2d(F.relu(z2), 2, 2).permute(0, 2, 3, 1)
+    a = F.relu(a.reshape(a.shape[0], -1) @ layers[5]["w"] + layers[5]["b"])
+    out = a @ layers[7]["w"] + layers[7]["b"]
+    loss = -torch.mean(torch.gather(torch.log_softmax(out, -1), -1,
+                                    batch["y"][i].long()[:, None]))
+    loss.backward()
+    return (x, w1, w2, a1.detach(), z1.grad, z2.grad)
+
+
 def _conv_op_errors(dl, batch, kernels) -> dict:
-    """mnist_cnn's two convolutions one op at a time, on the learners'
-    float64 activations and a seeded float64 upstream gradient: each
-    op's largest f32 distance from float64 over the largest float64
-    entry, and the device kernels the f32 op runs. The forward of the
-    second convolution grouped over 100 and 25 learners (vmap) and
-    alone (learner 0); its input and weight gradients and the first
-    convolution's weight gradient alone."""
+    """mnist_cnn's two convolutions one op at a time, on learner 0's own
+    float64 activations and its own upstream gradients (``_upstream``):
+    each f32 op's largest distance from float64, over the largest float64
+    entry (``rel_err``) and, entry by entry, over the float64 sum of the
+    magnitudes of the terms the entry sums (``rel_to_terms``: the same op
+    on |inputs|), and the device kernels the f32 op runs. The forward of
+    the second convolution grouped over 100 and 25 learners (vmap, those
+    learners' float64 inputs) and alone; its input and weight gradients,
+    the first convolution's weight gradient and the two bias gradients
+    (sums of g over the batch and positions) alone."""
     from torch.nn.grad import conv2d_input, conv2d_weight
+    x, w1, w2, a1, g1, g2 = _upstream(dl, batch)
     convs = [p for p in dl.params["layers"] if p and p["w"].dim() == 5]
-    w1, w2 = (p["w"].double().permute(0, 4, 3, 1, 2) for p in convs[:2])
-    b1 = convs[0]["b"].double()
-    x = batch["x"].double().permute(0, 1, 4, 2, 3)      # (m, B, C, H, W)
-    a1 = torch.relu(torch.func.vmap(F.conv2d)(x, w1)
-                    + b1[:, None, :, None, None])
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    z2 = F.conv2d(a1[0], w2[0])
-    g2 = torch.randn(z2.shape, generator=gen, device="cuda",
-                     dtype=torch.float64)
-    g1 = torch.randn(a1[0].shape, generator=gen, device="cuda",
-                     dtype=torch.float64)
+    w2s = convs[1]["w"].double().permute(0, 4, 3, 1, 2)
+    w1s = convs[0]["w"].double().permute(0, 4, 3, 1, 2)
+    xs = batch["x"].double().permute(0, 1, 4, 2, 3)      # (m, B, C, H, W)
+    a1s = torch.relu(torch.func.vmap(F.conv2d)(xs, w1s)
+                     + convs[0]["b"].double()[:, None, :, None, None])
     grouped = torch.func.vmap(F.conv2d)
     ops = {
-        "conv2_forward_100": (grouped, a1, w2),
-        "conv2_forward_25": (grouped, a1[:25], w2[:25]),
-        "conv2_forward_alone": (F.conv2d, a1[0], w2[0]),
+        "conv2_forward_100": (grouped, a1s, w2s),
+        "conv2_forward_25": (grouped, a1s[:25], w2s[:25]),
+        "conv2_forward_alone": (F.conv2d, a1, w2),
         "conv2_input_grad_alone": (
-            lambda w, g: conv2d_input(a1[0].shape, w, g), w2[0], g2),
+            lambda w, g: conv2d_input(a1.shape, w, g), w2, g2),
         "conv2_weight_grad_alone": (
-            lambda a, g: conv2d_weight(a, w2[0].shape, g), a1[0], g2),
+            lambda a, g: conv2d_weight(a, w2.shape, g), a1, g2),
+        "conv2_bias_grad_alone": (lambda g: g.sum(dim=(0, 2, 3)), g2),
         "conv1_weight_grad_alone": (
-            lambda a, g: conv2d_weight(a, w1[0].shape, g), x[0], g1)}
+            lambda a, g: conv2d_weight(a, w1.shape, g), x, g1),
+        "conv1_bias_grad_alone": (lambda g: g.sum(dim=(0, 2, 3)), g1)}
     out = {}
     for name, (fn, *args) in ops.items():
         want = fn(*args)
+        terms = fn(*(a.abs() for a in args))
         f32 = [a.float() for a in args]
         got = fn(*f32)
-        out[name] = {"rel_err": float((got.double() - want).abs().max()
-                                      / want.abs().max()),
+        err = (got.double() - want).abs()
+        out[name] = {"rel_err": float(err.max() / want.abs().max()),
+                     "rel_to_terms": float(
+                         (err / terms.clamp_min(1e-300)).max()),
                      "kernels": kernels(lambda: fn(*f32))}
+    return out
+
+
+ARBITER_ROWS = 25            # learners whose gradient the CPU recomputes
+# C5: an f32 gradient of a learner whose f32 forward keeps every ReLU and
+# max-pool decision of the float64 forward sits within this of float64:
+# ~3 eps times the largest sum of term magnitudes an entry reduces (~6,
+# conv1's bias); tests/test_torch_grad_precision.py's F32_ABS on the CPU
+CARD_F32_ABS = 2e-6
+
+
+def _decisions(cfg, params, x):
+    """mnist_cnn's forward over (m, B, 28, 28, 1) inputs, vmapped over the
+    learners as the local step runs it (grouped convolutions): each
+    learner's ReLU signs after conv1, conv2 and the first dense layer and
+    its max-pool picks, flattened per learner."""
+    def fwd(p, xb):
+        layers = p["layers"]
+        h = xb.permute(0, 3, 1, 2)
+        z1 = F.conv2d(h, layers[0]["w"].permute(3, 2, 0, 1)) + \
+            layers[0]["b"][:, None, None]
+        z2 = F.conv2d(F.relu(z1), layers[1]["w"].permute(3, 2, 0, 1)) + \
+            layers[1]["b"][:, None, None]
+        pooled, pick = F.max_pool2d(F.relu(z2), 2, 2, return_indices=True)
+        a = pooled.permute(0, 2, 3, 1).reshape(xb.shape[0], -1)
+        z3 = a @ layers[5]["w"] + layers[5]["b"]
+        return torch.cat([(z1 > 0).reshape(-1), (z2 > 0).reshape(-1),
+                          (z3 > 0).reshape(-1)]), pick.reshape(-1)
+    return torch.func.vmap(fwd)(params, x)
+
+
+def _float64_references(dl, batch, grads, shapes, bounds) -> dict:
+    """Which float64 gradient is right, and where f32 leaves it. Learners
+    0..24's gradients taken wholly in float64 (the log-softmax too, where
+    ``cnn_loss`` takes it in f32) on the CPU, one learner a call, are the
+    arbiter; beside them, per parameter tensor, the largest distance of:
+    the same on the card (one learner a call, ungrouped convolutions);
+    the card's vmapped float64 call of that loss over 25 learners; the
+    probe's own float64 yardstick (``grads(25, float64)``: the vmapped
+    call of ``cnn_loss``, f32 log-softmax); the f32 100-learner call
+    (cuDNN); the f32 call without cuDNN. Then, per learner, the f32
+    100-learner call's largest distance from the arbiter and how many
+    ReLU and max-pool decisions its f32 forward (vmapped over 100, as the
+    step runs it) takes otherwise than the float64 forward. Also each
+    tensor's largest |gradient|, the largest |logit| and sum |dL/dz1| of
+    conv1's bias."""
+    from repro_torch.config import get_arch
+    from repro_torch.core.flatten import tree_leaves, tree_map
+    from repro_torch.models.cnn import cnn_apply
+    cfg = get_arch("mnist_cnn")
+
+    def loss64(p, b):
+        lp = torch.log_softmax(cnn_apply(cfg, p, b["x"]), dim=-1)
+        return -torch.mean(torch.gather(lp, -1, b["y"].long()[:, None]))
+
+    def flat(g):
+        return torch.cat([x.reshape(-1) for x in tree_leaves(g)])
+
+    def one(i, device):
+        p = tree_map(lambda v: v[i].double().to(device), dl.params)
+        b = {"x": batch["x"][i].double().to(device),
+             "y": batch["y"][i].to(device)}
+        return flat(torch.func.grad(loss64)(p, b)).double().cpu()
+
+    k = ARBITER_ROWS
+    cpu = torch.stack([one(i, "cpu") for i in range(k)])
+    cands = {"card_f64_alone": torch.stack([one(i, "cuda")
+                                            for i in range(k)])}
+    p25 = tree_map(lambda v: v[:k].double(), dl.params)
+    b25 = {"x": batch["x"][:k].double(), "y": batch["y"][:k]}
+    g25 = torch.func.vmap(torch.func.grad(loss64))(p25, b25)
+    cands["card_f64_vmap_25"] = torch.cat(
+        [x.reshape(k, -1) for x in tree_leaves(g25)], dim=1).double().cpu()
+    cands["card_f64_cnn_loss_vmap_25"] = grads(25, torch.float64)[:k].cpu()
+    f32 = grads(100)[:k].double().cpu()
+    cands["card_f32_100"] = f32
+    torch.backends.cudnn.enabled = False
+    try:
+        cands["card_f32_100_without_cudnn"] = grads(100)[:k].double().cpu()
+    finally:
+        torch.backends.cudnn.enabled = True
+    names = ["x".join(map(str, s)) for s in shapes]
+    spans = list(zip(names, bounds[:-1], bounds[1:]))
+    out = {"largest_grad": {n: float(cpu[:, a:b].abs().max())
+                            for n, a, b in spans}}
+    for label, g in cands.items():
+        d = (g - cpu).abs()
+        out[label] = {n: float(d[:, a:b].max()) for n, a, b in spans}
+    # per learner: the f32 call's distance, and the decisions it flips
+    s32, p32 = _decisions(cfg, dl.params, batch["x"])
+    s64, p64 = _decisions(cfg, tree_map(lambda v: v.double(), dl.params),
+                          batch["x"].double())
+    flips = ((s32 != s64).sum(dim=1) + (p32 != p64).sum(dim=1))[:k]
+    err = (f32 - cpu).abs().max(dim=1).values
+    out["per_learner"] = [{"learner": i, "f32_err": float(err[i]),
+                           "flipped_decisions": int(flips[i])}
+                          for i in range(k)]
+    keep = flips.cpu() == 0
+    out["f32_err_where_no_decision_flips"] = float(err[keep].max())
+    out["f32_err_where_a_decision_flips"] = (
+        float(err[~keep].max()) if bool((~keep).any()) else None)
+    logits, g1_terms = [], []
+    for i in range(k):
+        g1 = _upstream(dl, batch, i)[4]
+        g1_terms.append(float(g1.abs().sum(dim=(0, 2, 3)).max()))
+        p = tree_map(lambda v: v[i].double(), dl.params)
+        logits.append(float(cnn_apply(cfg, p, batch["x"][i].double())
+                            .abs().max()))
+    out["largest_logit"] = max(logits)
+    out["conv1_bias_terms"] = max(g1_terms)
     return out
 
 
@@ -811,7 +1000,16 @@ def test_gradient_depends_on_the_call_size(record_property):
     gradient taken alone (no vmap, an ungrouped convolution), with cuDNN
     free to pick non-deterministic algorithms, without cuDNN, and at a
     homogeneous model; and each convolution op on its own
-    (``_conv_op_errors``)."""
+    (``_conv_op_errors``).
+
+    C5 (closed): the probe's float64 yardstick (``grads(25, float64)``)
+    runs ``cnn_loss``, whose log-softmax is f32; the arbiter
+    (``_float64_references``) takes learners 0..24 wholly in float64 on
+    the CPU. Asserted: every learner whose f32 forward keeps each ReLU
+    and max-pool decision of the float64 forward is within
+    ``CARD_F32_ABS`` of the arbiter; a learner over it must have one
+    decision flipped (the gradient jumps there; the reference's f32 does
+    the same on the CPU, tests/test_torch_grad_precision.py)."""
     import numpy as np
     from repro_torch.config import ProtocolConfig, get_arch
     from repro_torch.core.flatten import tree_leaves, tree_map
@@ -896,6 +1094,23 @@ def test_gradient_depends_on_the_call_size(record_property):
     finally:
         torch.backends.cudnn.enabled = True
     report["ops"] = _conv_op_errors(dl, batch, kernels)
+    # the composed gradient's conv1 bias (learner 0, the 100-learner
+    # call and alone) over the magnitudes of the terms it sums
+    g1 = _upstream(dl, batch)[4]
+    g1_exact, g1_terms = g1.sum(dim=(0, 2, 3)), g1.abs().sum(dim=(0, 2, 3))
+    k = shapes.index((32,))                       # conv1's bias
+    bias = slice(int(bounds[k]), int(bounds[k + 1]))
+    for label, g in (("100", whole[0]), ("alone", single[0])):
+        err = (g[bias].double() - g1_exact).abs()
+        report.setdefault("conv1_bias_rel_to_terms", {})[label] = float(
+            (err / g1_terms).max())
+    refs = report["float64_references"] = _float64_references(
+        dl, batch, grads, shapes, bounds)
+    # C5: every learner's f32 gradient is float64's to f32 rounding
+    # unless its f32 forward takes a ReLU or max-pool decision otherwise
+    for row in refs["per_learner"]:
+        assert row["flipped_decisions"] > 0 or \
+            row["f32_err"] <= CARD_F32_ABS, row
     dl.X.copy_(dl.X[0].expand_as(dl.X))
     report["homogeneous_f32_vs_f64"] = float(
         (grads(100).double() - grads(25, torch.float64)).abs().max())
