@@ -243,8 +243,10 @@ from repro_torch.kernels import (  # noqa: E402
 )
 from repro_torch.kernels._timing import cuda_ms, profile_calls  # noqa: E402
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn_params  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
-from repro_torch.models.model import init_lm_params, lm_apply  # noqa: E402
+from repro_torch.models.attention import takes_band  # noqa: E402
+from repro_torch.models.model import (  # noqa: E402
+    init_lm_params, lm_apply, lm_forward,
+)
 from repro_torch.network import availability, faults, topology  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, make_prefill  # noqa: E402
 from repro_torch.telemetry.observatory import load_run, summarize  # noqa: E402
@@ -1389,6 +1391,16 @@ ZOO_LAYERS = {"hymba-1.5b": 32, "musicgen-large": 48, "minitron-4b": 32,
               "qwen1.5-110b": 4, "llama3-405b": 2}
 ZOO_PREFIX = 256             # internvl2-76b's NUM_PATCHES
 ZOO_PROMPT, ZOO_GEN = 16, 16
+ZOO_STEADY_CALLS = 3         # prefill calls averaged after the first
+# zoo_serve's engine prompt logits against the prefill's, max |diff| over
+# max |logit|. In f32 the two paths differ only in summation order and
+# route every token to the same experts (as SSM_F32_REL_TOL). In bf16 the
+# dense and MLA configs are held to SERVE_REL_TOL and hymba, with its SSM
+# branch, to SSM_SERVE_REL_TOL; a MoE config's bf16 router logits come
+# from a gemm in the prefill and a gemv in decode, so near-tied experts
+# swap there (a different expert, not a rounding-sized change): its bf16
+# gap is reported, its picks held, and its f32 gap is the gate.
+ZOO_F32_REL_TOL = 1e-4
 
 
 def _zoo_inputs(cfg, B, S, gen, device, prefix=0):
@@ -1534,9 +1546,16 @@ def _zoo_path(cfg, S) -> str:
     """The attention entry point a prefill of S positions takes."""
     if cfg.block_type == "ssm":
         return ""
-    w = cfg.sliding_window if cfg.attn_type == "sliding" else 0
-    return ("swa_attention" if w and S % w == 0 and S >= 2 * w
-            else "flash_attention")
+    return "swa_attention" if takes_band(cfg, S) else "flash_attention"
+
+
+def _zoo_norms(cfg) -> int:
+    """rmsnorm launches of one forward over any number of positions: each
+    layer's mixer norm, its FFN norm, a hybrid block's two branch norms,
+    the SSM branch's gated output norm; then the final norm."""
+    per = 1 + bool(cfg.d_ff or cfg.is_moe) + {
+        "hybrid": 3, "ssm": 1}.get(cfg.block_type, 0)
+    return cfg.num_layers * per + 1
 
 
 def phase_zoo_agree() -> dict:
@@ -1548,15 +1567,13 @@ def phase_zoo_agree() -> dict:
     at capacity factor 1.25, where each layer's kept (token, k) set must
     be the CPU's exactly."""
     def forward(cfg, params, toks, kw, dev):
-        moe.ROUTING = []
         ops.reset_launches()
-        logits, aux = lm_apply(cfg, params, toks.to(dev),
-                               **{k: v.to(dev) for k, v in kw.items()})
+        logits, aux, keeps = lm_forward(
+            cfg, params, toks.to(dev), **{k: v.to(dev) for k, v in kw.items()})
         if dev == "cuda":
             torch.cuda.synchronize()
-        keep = [k.cpu() for k in moe.ROUTING]
-        moe.ROUTING = None
-        return logits.cpu(), aux.cpu(), keep, dict(ops.LAUNCHES)
+        return (logits.cpu(), aux.cpu(), [k.cpu() for k in keeps],
+                dict(ops.LAUNCHES))
 
     out = {}
     S = 32
@@ -1583,7 +1600,7 @@ def phase_zoo_agree() -> dict:
                    "aux_cpu": float(want_aux), "launches": launches}
             L = cfg.num_layers
             path = _zoo_path(cfg, want.shape[1])
-            if (launches[path] != L or launches["rmsnorm"] < 2 * L + 1
+            if (launches[path] != L or launches["rmsnorm"] != _zoo_norms(cfg)
                     or launches["ssd_scan"] != (
                         L if cfg.block_type == "hybrid" else 0)):
                 raise SystemExit(f"{name}{tag}: the card's prefill did not "
@@ -1623,15 +1640,22 @@ def phase_zoo_agree() -> dict:
 def phase_zoo_serve() -> dict:
     """Each zoo config at full width in bf16, weights drawn on the card,
     depth cut only where one card cannot hold the model (``ZOO_LAYERS``):
-    the prefill at (4, 2048) — internvl2-76b 256 stub patch embeddings
-    and 1,792 tokens — timed as the first full call after a short
-    warm-up, then a batch-4 engine feeding 16 prompt tokens and
-    generating 16; each model freed before the next. Per config:
-    prefill ms and tokens/s, decode ms a step beside the bytes bound
-    (the weights read once a step), peak memory, each kernel's launches,
-    and for the MoE configs the share of (token, k) pairs dropped."""
+    a warm-up prefill of 2,048 text tokens at (4, 2048), the timed shape;
+    then the timed prefill at (4, 2048) — internvl2-76b 256 stub patch
+    embeddings and 1,792 tokens — its first call and the mean of
+    ``ZOO_STEADY_CALLS`` more; then a batch-4 engine feeding the first 16
+    tokens and generating 16. The engine's logits at the last prompt
+    position are held against the warm-up prefill's at that position (the
+    same tokens; a prefix-free prefill, as the engine has no prefix path)
+    as ``serve`` holds them, and each path's kernel launches are counted
+    exactly. Each model is freed before the next. Per config: prefill ms
+    and tokens/s, decode ms a step beside the bytes bound, peak memory,
+    each kernel's launches, and for the MoE configs the share of
+    (token, k) pairs dropped. Then the prompt logits again with the same
+    model in f32 (``ZOO_F32_REL_TOL``)."""
     bf = torch.bfloat16
     card = peaks(torch.cuda.get_device_name(0))
+    B, S = SERVE_B, SERVE_S
     records, launches_by_model = {}, {}
     for name in ZOO:
         full = get_arch(name)
@@ -1644,69 +1668,129 @@ def phase_zoo_serve() -> dict:
         weight_bytes = sum(t.numel() * t.element_size()
                            for t in tree_leaves(params))
         # a decode step reads every weight once but the embedding table,
-        # of which it gathers B rows
+        # of which it gathers B rows, and, with experts, only the experts
+        # its B tokens pick: at most min(E, B K) of E a layer (fewer where
+        # tokens share one; the floor counts B K)
         step_bytes = weight_bytes - params["embed"].numel() * 2
+        if cfg.is_moe:
+            E, K = cfg.moe.num_experts, cfg.moe.num_experts_per_tok
+            experts = sum(params["blocks"]["moe"][w].numel() * 2
+                          for w in ("w_gate", "w_up", "w_down"))
+            step_bytes -= experts * (E - min(E, B * K)) // E
         g = torch.Generator(device="cuda").manual_seed(3)
+        text, _ = _zoo_inputs(cfg, B, S, g, "cuda")
         prefix = ZOO_PREFIX if cfg.modality == "vision" else 0
-        toks, kw = _zoo_inputs(cfg, SERVE_B, SERVE_S, g, "cuda",
-                               prefix=prefix)
-        kw = {k: v.to(bf) for k, v in kw.items()}
-        lm_apply(cfg, params, toks[:, :128])                # warm-up
-        moe.ROUTING = [] if cfg.is_moe else None
+        toks, kw = text, {}
+        if prefix:
+            toks, kw = text[:, :S - prefix], {"prefix_embeds": (0.02 * (
+                torch.randn((B, prefix, cfg.d_model), generator=g,
+                            device="cuda"))).to(bf)}
+        n_norm = _zoo_norms(cfg)
+
+        # the warm-up at the timed shape, and the prompt logits to hold
+        # the engine against
+        logits, _, keeps = lm_forward(cfg, params, text)
+        at_prompt = logits[:, ZOO_PROMPT - 1].float()
+        del logits
+        # a pair's bucket slot counts only the pairs before it in its group
+        # (1,024 tokens of one row), so the prompt's 16 positions drop
+        # nothing while the capacity is 16 or more, and the engine (groups
+        # of one token) drops nothing: the comparison is drop-free
+        if not all(bool(k.reshape(B, S, -1)[:, :ZOO_PROMPT].all())
+                   for k in keeps):
+            raise SystemExit(f"{name}: the prefill dropped a prompt token")
         ops.reset_launches()
-        (logits, _), ms, _ = _timed(lambda: lm_apply(cfg, params, toks,
-                                                     **kw))
+        (logits, _, keeps), ms, _ = _timed(
+            lambda: lm_forward(cfg, params, toks, **kw))
         pre_launches = dict(ops.LAUNCHES)
-        keep = moe.ROUTING
-        moe.ROUTING = None
-        want_shape = (SERVE_B, SERVE_S) + (
-            (4, cfg.vocab_size) if cfg.modality == "audio"
-            else (cfg.vocab_size,))
+        want_shape = (B, S) + ((4, cfg.vocab_size) if cfg.modality == "audio"
+                               else (cfg.vocab_size,))
         if tuple(logits.shape) != want_shape or not bool(
                 torch.isfinite(logits).all()):
             raise SystemExit(f"{name}: prefill logits {tuple(logits.shape)} "
                              f"are not finite or not {want_shape}")
-        path = _zoo_path(cfg, SERVE_S)
-        if pre_launches[path] != L or pre_launches["ssd_scan"] != (
-                L if cfg.block_type == "hybrid" else 0):
-            raise SystemExit(f"{name}: prefill launches {pre_launches}")
         del logits
+        path = _zoo_path(cfg, S)
+        if (pre_launches[path] != L or pre_launches["rmsnorm"] != n_norm
+                or pre_launches["ssd_scan"] != (
+                    L if cfg.block_type == "hybrid" else 0)):
+            raise SystemExit(f"{name}: prefill launches {pre_launches}")
+
+        def steady():
+            for _ in range(ZOO_STEADY_CALLS):
+                lm_apply(cfg, params, toks, **kw)
+        _, steady_total, _ = _timed(steady)
+        steady_ms = steady_total / ZOO_STEADY_CALLS
+
         eng = ServeEngine(cfg, params, max_seq=ZOO_PROMPT + ZOO_GEN + 1,
-                          batch=SERVE_B, dtype=bf, device="cuda")
+                          batch=B, dtype=bf, device="cuda")
         ops.reset_launches()
         first, feed_ms, _ = _timed(lambda: eng.feed(toks[:, :ZOO_PROMPT]))
+        feed_launches = dict(ops.LAUNCHES)
+        ops.reset_launches()
         generated, gen_ms, _ = _timed(
             lambda: eng.generate(ZOO_GEN, first_logits=first))
-        dec_launches = dict(ops.LAUNCHES)
-        if not bool(torch.isfinite(first.float()).all()) or not bool(
-                ((generated >= 0) & (generated < cfg.vocab_size)).all()):
-            raise SystemExit(f"{name}: decode gave non-finite logits or "
-                             f"tokens out of range")
+        gen_launches = dict(ops.LAUNCHES)
+        rows = B * (4 if cfg.modality == "audio" else 1)
+        gap = _prompt_gap(first.reshape(rows, -1),
+                          at_prompt.reshape(rows, -1))
+        tol = (None if cfg.is_moe else SSM_SERVE_REL_TOL
+               if cfg.block_type == "hybrid" else SERVE_REL_TOL)
+        if (feed_launches["rmsnorm"] != ZOO_PROMPT * n_norm
+                or gen_launches["rmsnorm"] != ZOO_GEN * n_norm
+                or any(feed_launches[k] or gen_launches[k] for k in (
+                    "flash_attention", "swa_attention", "ssd_scan"))):
+            raise SystemExit(f"{name}: decode launches: feed {feed_launches}"
+                             f", generate {gen_launches}")
+        if (tol is not None and gap["rel"] > tol) or not gap["picks_ok"]:
+            raise SystemExit(f"{name}: the engine's prompt logits differ "
+                             f"from the prefill's: {gap}")
+        if not bool(((generated >= 0) & (generated < cfg.vocab_size)).all()):
+            raise SystemExit(f"{name}: decode gave tokens out of range")
         rec = {"arch": name, "layers": L, "layers_published":
                full.num_layers,
                "cut": (None if L == full.num_layers else
                        f"{L} of {full.num_layers} layers: one card holds "
                        f"~{weight_bytes / 2 ** 30:.1f} GiB of bf16 weights"),
                "weights_bytes": weight_bytes, "init_ms": init_ms,
-               "prefill": {"batch": SERVE_B, "seq": SERVE_S, "ms": ms,
-                           "tokens_per_s": SERVE_B * SERVE_S / ms * 1e3,
-                           "prefix": prefix or None},
-               "decode": {"batch": SERVE_B, "prompt": ZOO_PROMPT,
+               "prefill": {"batch": B, "seq": S, "prefix": prefix or None,
+                           "first_ms": ms, "steady_ms": steady_ms,
+                           "steady_calls": ZOO_STEADY_CALLS,
+                           "tokens_per_s": B * S / steady_ms * 1e3},
+               "decode": {"batch": B, "prompt": ZOO_PROMPT,
                           "generated": ZOO_GEN,
                           "feed_ms_per_step": feed_ms / ZOO_PROMPT,
                           "ms_per_step": gen_ms / ZOO_GEN,
                           "step_bytes": step_bytes,
-                          "step_bytes_bound_ms": step_bytes / card.hbm * 1e3},
+                          "step_bytes_bound_ms": step_bytes / card.hbm * 1e3,
+                          "prompt_logits": {**gap, "tolerance_rel": tol}},
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches": {"prefill": pre_launches, "decode": dec_launches}}
-        if keep:
+               "launches": {"prefill": pre_launches, "feed": feed_launches,
+                            "generate": gen_launches}}
+        if keeps:
             rec["moe_dropped_share"] = 1 - float(sum(
-                k.sum() for k in keep)) / sum(k.numel() for k in keep)
+                k.sum() for k in keeps)) / sum(k.numel() for k in keeps)
+        launches_by_model[name] = {
+            k: pre_launches[k] + feed_launches[k] + gen_launches[k]
+            for k in ops.LAUNCHES}
+        del params, eng, first, generated, toks, kw, keeps
+        torch.cuda.empty_cache()
+
+        params = init_lm_params(cfg, seed=0, device="cuda")
+        logits, _ = lm_apply(cfg, params, text)
+        at_prompt = logits[:, ZOO_PROMPT - 1]
+        del logits
+        eng = ServeEngine(cfg, params, max_seq=ZOO_PROMPT + 1, batch=B,
+                          device="cuda")
+        gap = _prompt_gap(eng.feed(text[:, :ZOO_PROMPT]).reshape(rows, -1),
+                          at_prompt.reshape(rows, -1))
+        rec["f32_prompt_logits"] = {**gap, "tolerance_rel": ZOO_F32_REL_TOL}
+        if gap["rel"] > ZOO_F32_REL_TOL or not gap["picks_ok"]:
+            raise SystemExit(f"{name}: in f32 the engine's prompt logits "
+                             f"differ from the prefill's: {gap}")
         records[name] = rec
-        launches_by_model[name] = {k: pre_launches[k] + dec_launches[k]
-                                   for k in ops.LAUNCHES}
         emit({"phase": "zoo_serve", **rec})
-        del params, eng, first, generated, toks, kw
+        del params, eng, text
         torch.cuda.empty_cache()
     return launches_by_model
 

@@ -4,9 +4,9 @@ and multi-head latent attention (MLA, DeepSeek-V2) — the counterpart of
 
 * ``gqa_forward`` — full-sequence causal attention (prefill). The masked
   path goes through ``ops.flash_attention_gqa`` (with the window for a
-  sliding-window arch), the banded path — a sliding window with
-  ``S % window == 0`` and ``S >= 2 * window``, where the reference takes
-  ``_banded_sdpa`` — through ``ops.swa_attention``. On the card both are
+  sliding-window arch), the banded path (``takes_band``: a sliding window
+  with ``S % window == 0`` and ``S >= 2 * window``, where the reference
+  takes ``_banded_sdpa``) through ``ops.swa_attention``. On the card both are
   the hand-written attention kernel; on the CPU their plain versions.
 * ``gqa_decode`` — one new token against the KV cache, plain PyTorch as
   in the reference (which computes it outside any Pallas kernel): the
@@ -118,6 +118,14 @@ def _window(cfg: ModelConfig) -> int:
     return cfg.sliding_window if cfg.attn_type == ATTN_SLIDING else 0
 
 
+def takes_band(cfg: ModelConfig, S: int) -> bool:
+    """Whether a prefill of S positions takes the banded path
+    (``ops.swa_attention``), where the reference takes ``_banded_sdpa``:
+    a sliding window w with ``S % w == 0`` and ``S >= 2 * w``."""
+    w = _window(cfg)
+    return w > 0 and S % w == 0 and S >= 2 * w
+
+
 def gqa_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence causal attention. x: (B,S,D), positions: (B,S) or
@@ -131,7 +139,7 @@ def gqa_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
     k = apply_rope(k, positions, cfg.rope_theta)
     window = _window(cfg)
     scale = 1.0 / math.sqrt(hd)
-    if window > 0 and S % window == 0 and S >= 2 * window:
+    if takes_band(cfg, S):
         out = ops.swa_attention(q, k, v, window=window, scale=scale)
     else:
         out = ops.flash_attention_gqa(q, k, v, causal=True, window=window,

@@ -8,7 +8,8 @@ normed input in parallel, each branch RMS-normed on its own and the two
 averaged: ``0.5 * (norm_attn_out(a) + norm_ssm_out(s))``. The FFN is a
 SwiGLU, a mixture of experts (``repro_torch.models.moe``) or none.
 ``block_forward`` returns the new residual stream and the MoE auxiliary
-loss (0 without experts), as the reference's does.
+loss (0 without experts), as the reference's does, and the MoE kept
+(token, k) mask (None without experts).
 """
 from __future__ import annotations
 
@@ -67,21 +68,21 @@ def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor):
     h = rmsnorm_apply(p["norm_ffn"], x, cfg.norm_eps)
     if cfg.is_moe:
         return moe_mod.moe_apply(cfg, p["moe"], h)
-    return swiglu_apply(p["ffn"], h), None
+    return swiglu_apply(p["ffn"], h), None, None
 
 
 def block_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   positions: torch.Tensor):
-    """x: (B,S,D) -> (x', aux_loss f32 scalar)."""
+    """x: (B,S,D) -> (x', aux_loss f32 scalar, MoE keep mask or None)."""
     h = rmsnorm_apply(p["norm_mix"], x, cfg.norm_eps)
     x = x + _mixer_forward(cfg, p, h, positions)
-    aux = None
+    aux = keep = None
     if "norm_ffn" in p:
-        f, aux = _ffn(cfg, p, x)
+        f, aux, keep = _ffn(cfg, p, x)
         x = x + f
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux
+    return x, aux, keep
 
 
 def block_cache_init(cfg: ModelConfig, batch: int, max_seq: int,

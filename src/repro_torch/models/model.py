@@ -114,6 +114,16 @@ def lm_apply(cfg: ModelConfig, params: dict, tokens=None, *,
     embeddings, prepended to the token embeddings (or alone, without
     tokens). Logits cover the whole (prefix + text) sequence: (B, S, V),
     audio (B, S, K, V)."""
+    logits, aux, _ = lm_forward(cfg, params, tokens,
+                                prefix_embeds=prefix_embeds)
+    return logits, aux
+
+
+def lm_forward(cfg: ModelConfig, params: dict, tokens=None, *,
+               prefix_embeds=None):
+    """``lm_apply`` with the routing: (logits, aux_loss, keeps), ``keeps``
+    the MoE layers' kept (token, k) masks in layer order (``moe_apply``),
+    empty without experts."""
     if tokens is not None:
         x = _embed_tokens(cfg, params, tokens)
     else:
@@ -122,12 +132,15 @@ def lm_apply(cfg: ModelConfig, params: dict, tokens=None, *,
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    keeps = []
     for i in range(cfg.num_layers):
-        x, a = blk.block_forward(cfg, _layer(params["blocks"], i), x,
-                                 positions)
+        x, a, keep = blk.block_forward(cfg, _layer(params["blocks"], i), x,
+                                       positions)
         aux = aux + a
+        if keep is not None:
+            keeps.append(keep)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return _head(cfg, params, x), aux
+    return _head(cfg, params, x), aux, keeps
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int,

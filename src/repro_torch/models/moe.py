@@ -31,10 +31,10 @@ CUDA): the only scatter writes integer token ids, each kept slot once.
 The expert products are ``torch.bmm`` over E, as the reference leaves
 them to XLA outside any Pallas kernel.
 
-``ROUTING`` is an optional log: set it to a list and every
-``moe_apply`` appends its ``keep`` mask (G, g, K), which (token, k)
-pairs its buckets kept, on the device, so a caller can compare kept
-sets or report the dropped share without a host sync per layer.
+``moe_apply`` also returns its ``keep`` mask (G, g, K), which
+(token, k) pairs its buckets kept, on the device, so a caller can
+compare kept sets or report the dropped share without a host sync per
+layer (``repro_torch.models.model.lm_forward`` gathers one a layer).
 """
 from __future__ import annotations
 
@@ -47,7 +47,6 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.layers import swiglu_apply, swiglu_init
 
 MOE_GROUP_TOKENS = 1024  # tokens per dispatch group (capped by seq len)
-ROUTING = None           # a list to log each call's keep mask, or None
 
 
 def moe_init(cfg: ModelConfig, generator: torch.Generator,
@@ -116,7 +115,8 @@ def moe_route(cfg: ModelConfig, params: dict, xt: torch.Tensor) -> dict:
 
 
 def moe_apply(cfg: ModelConfig, params: dict, x: torch.Tensor):
-    """x: (B, S, D) -> (out (B, S, D), aux_loss f32 scalar)."""
+    """x: (B, S, D) -> (out (B, S, D), aux_loss f32 scalar, keep (G, g, K)
+    bool: the (token, k) pairs the buckets kept)."""
     m = cfg.moe
     B, S, D = x.shape
     K, E = m.num_experts_per_tok, m.num_experts
@@ -129,8 +129,6 @@ def moe_apply(cfg: ModelConfig, params: dict, x: torch.Tensor):
     xt = x.reshape(G, g, D)
     r = moe_route(cfg, params, xt)
     C, keep = r["capacity"], r["keep"]
-    if ROUTING is not None:
-        ROUTING.append(keep)
 
     # dispatch: each kept (token, k) writes its token id into its slot of
     # the (E, C) buckets; empty slots read the zero row g
@@ -158,4 +156,4 @@ def moe_apply(cfg: ModelConfig, params: dict, x: torch.Tensor):
         out = out + vals[:, :, k] * gate[..., k, None]
     if m.num_shared_experts:
         out = out + swiglu_apply(params["shared"], xt)
-    return out.reshape(B, S, D), r["aux"].float()
+    return out.reshape(B, S, D), r["aux"].float(), keep

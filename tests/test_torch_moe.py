@@ -25,7 +25,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch.config import MoEConfig  # noqa: E402
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import model, moe  # noqa: E402
 from test_torch_modalities import TOL, smoke_pair  # noqa: E402
 
 
@@ -67,7 +67,7 @@ def test_moe_apply_matches_reference(name, cf, S):
     jcfg, cfg, jp, tp, x = _moe_inputs(name, 2, S, capacity_factor=cf)
     want, jaux = jax.jit(lambda p, v: jmoe.moe_apply(jcfg, p, v))(
         jp, jnp.asarray(x))
-    got, aux = moe.moe_apply(cfg, tp, torch.from_numpy(x))
+    got, aux, _ = moe.moe_apply(cfg, tp, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(float(aux), float(jaux), **TOL)
     assert aux.dtype == torch.float32
@@ -103,7 +103,7 @@ def test_all_equal_probabilities_pick_the_lowest_experts():
     assert int(r["keep"].sum()) == 2 * K * moe.group_capacity(cfg.moe, 32)
     want, _ = jax.jit(lambda p, v: jmoe.moe_apply(jcfg, p, v))(
         jp, jnp.asarray(x))
-    got, _ = moe.moe_apply(cfg, tp, torch.from_numpy(x))
+    got, _, _ = moe.moe_apply(cfg, tp, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -125,14 +125,29 @@ def test_moe_rejects_ragged_groups():
 def test_routing_log_keeps_each_calls_kept_set():
     _, cfg, _, tp, x = _moe_inputs("mixtral-8x22b", 2, 64,
                                    capacity_factor=1.25)
-    moe.ROUTING = []
-    try:
-        moe.moe_apply(cfg, tp, torch.from_numpy(x))
-        keep, = moe.ROUTING
-    finally:
-        moe.ROUTING = None
+    _, _, keep = moe.moe_apply(cfg, tp, torch.from_numpy(x))
     assert keep.shape == (2, 64, cfg.moe.num_experts_per_tok)
     assert 0 < int(keep.sum()) < keep.numel()
+    r = moe.moe_route(cfg, tp, torch.from_numpy(x))
+    assert torch.equal(keep, r["keep"])
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "deepseek-v2-236b"])
+def test_lm_forward_returns_each_layers_kept_set(name):
+    """``lm_forward`` is ``lm_apply`` with one kept (token, k) mask a MoE
+    layer, in layer order; at capacity factor 1.25 some pairs drop."""
+    _, cfg = smoke_pair(name, moe={"capacity_factor": 1.25})
+    params = model.init_lm_params(cfg, seed=3, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 64)))
+    logits, aux, keeps = model.lm_forward(cfg, params, toks)
+    want, want_aux = model.lm_apply(cfg, params, toks)
+    assert torch.equal(logits, want) and torch.equal(aux, want_aux)
+    assert len(keeps) == cfg.num_layers
+    for keep in keeps:
+        assert keep.dtype == torch.bool
+        assert keep.shape == (2, 64, cfg.moe.num_experts_per_tok)
+    assert not all(bool(k.all()) for k in keeps)
 
 
 def test_convert_carries_stacked_experts_both_ways():
