@@ -63,7 +63,12 @@ per call by its clock, and as device time, CUDA launches and the host's
 time inside them per call from ``torch.profiler``
 (``repro_torch/kernels/_timing.py``, always this checkout's); also
 ``sqdist``'s C entry point called alone, so that the wrapper's host
-time and the launches' can be told apart; then mamba2-2.7b prefills at
+time and the launches' can be told apart; ``rmsnorm`` at (4, 2048, d)
+bf16 for every width d a full-size config norms, on inputs that have
+left the L2, and f32 attention at the layouts
+``chip_smoke.py`` times (llama3-8b's, MLA's, musicgen's, llama3-405b's,
+hymba's window and llama3-8b-swa's S = 16,384, w = 8,192), each beside one PyTorch call (``F.rms_norm``, SDPA
+in f32) by CUDA events and profiler device time; then mamba2-2.7b prefills at
 B = 4, S = 2,048 in bf16 by CUDA events after a 128-token warm-up: the
 first full-size call (``first_ms``, what ``chip_smoke.py`` reports) and
 two more (``steady_ms``). One JSON line each.
@@ -311,6 +316,62 @@ def _bare_sqdist(sqdist, x, r):
     return call
 
 
+# f32 attention layouts: (B, S, H, Hkv, d, dv, window), causal
+ATTN_F32 = ((4, 2048, 32, 8, 128, 128, 0), (4, 2048, 128, 128, 192, 128, 0),
+            (4, 2048, 32, 32, 64, 64, 0), (4, 2048, 128, 8, 128, 128, 0),
+            (4, 2048, 25, 5, 64, 64, 1024), (1, 16384, 32, 8, 128, 128, 8192))
+
+
+def profile_norm_and_f32_attention(F, g) -> list:
+    """``rmsnorm`` and f32 attention beside one PyTorch call each: CUDA
+    events over back-to-back calls and the profiler's device time.
+    rmsnorm takes its x from copies that have left the L2 by their turn
+    (``_timing.cold_inputs``), as between a model's products, and is
+    also timed in a CUDA graph (``_timing.graph_ms``)."""
+    from repro_torch.config import norm_widths
+    from repro_torch.kernels import flash_attention, rmsnorm
+    out = []
+
+    def rec(name, fn, iters, **extra):
+        out.append({"src": SRC, "case": name,
+                    "events_ms": _timing.cuda_ms(fn, iters, 1),
+                    "device_ms": _timing.profile_calls(
+                        fn, max(2, iters // 4))["device_ms"], **extra})
+
+    def rec_norm(name, fn, n):
+        rec(name, fn, 20, cold_inputs=n, graph_ms=_timing.graph_ms(fn))
+    for d in norm_widths():
+        xs = _timing.cold_inputs(lambda: torch.randn(
+            (4, 2048, d), generator=g, device="cuda").bfloat16(),
+            2 * 4 * 2048 * d * 2)
+        s = torch.randn((d,), generator=g, device="cuda").bfloat16()
+        rec_norm(f"rmsnorm (4, 2048, {d}) bf16", _timing.in_turn(
+            lambda x: rmsnorm.rmsnorm(x, s, 1e-5), xs), len(xs))
+        rec_norm(f"F.rms_norm (4, 2048, {d}) bf16", _timing.in_turn(
+            lambda x: F.rms_norm(x, (d,), weight=s, eps=1e-5), xs), len(xs))
+        del xs
+    for B, S, H, Hkv, d, dv, w in ATTN_F32:
+        q = torch.randn((B, S, H, d), generator=g, device="cuda")
+        k = torch.randn((B, S, Hkv, d), generator=g, device="cuda")
+        v = torch.randn((B, S, Hkv, dv), generator=g, device="cuda")
+        qT = q.transpose(1, 2)
+        kT, vT = (t.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                  for t in (k, v))
+        i = torch.arange(S, device="cuda")
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+        shape = f"({B}, {S}, {H}/{Hkv}, {d}/{dv}" + (f", w {w})" if w
+                                                      else ")")
+        rec(f"flash_attention_gqa {shape} f32",
+            lambda: flash_attention.flash_attention_gqa(q, k, v, window=w), 3)
+        rec(f"SDPA {shape} f32, kv heads expanded",
+            lambda: F.scaled_dot_product_attention(
+                qT, kT, vT, **({"attn_mask": band} if w else
+                               {"is_causal": True})), 3)
+        del q, k, v, kT, vT
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_kernels() -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import sqdist, ssd_scan
@@ -344,6 +405,7 @@ def profile_kernels() -> list:
                     **_timing.profile_calls(fn)})
     del X, xs, dts, b, c
     torch.cuda.empty_cache()
+    out += profile_norm_and_f32_attention(F, g)
     cfg = get_arch("mamba2-2.7b")
     params = init_lm_params(cfg, seed=0, dtype=torch.bfloat16)
     tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g,

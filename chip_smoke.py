@@ -28,10 +28,11 @@ and drives both of the port's paths:
   the llama3-8b-swa prefill at B = 1, S = 16,384 through the banded
   kernel, counting each kernel's launches on each path.
 * attention on the tensor cores (slice 4): bf16 attention runs the
-  TMA-fed ``wgmma`` program (``attention_sm90.cu``), f32 the CUDA-core
-  one (``attention.cu``); the serving checks above cover both, with the
-  bf16 program's edges (ragged tiles, Sq = 1, Sk = 129, a one-tile
-  window, head dims 32 and 64, more (batch, head) pairs than SMs).
+  TMA-fed ``wgmma`` program (``attention_sm90.cu``), f32 the split-TF32
+  ``mma.sync`` one (``attention.cu``, slice 13); the serving checks above
+  cover both, with the programs' edges (ragged tiles, Sq = 1, Sk = 129,
+  a one-tile window, head dims 32 and 64, more (batch, head) pairs than
+  SMs, and more than 65,535), and f32 at every width pair it takes.
 * Mamba2 serving (slice 3; the ``ssd_scan`` program redesigned for the
   tensor cores in slice 5, three launches per call): holds the
   ``ssd_scan`` kernel against the
@@ -180,6 +181,18 @@ and drives both of the port's paths:
   (4, 2048), a batch-4 engine feeding 16 tokens and generating 16, with
   ms, tokens/s, decode ms a step beside its bytes bound, peak memory,
   each kernel's launches and the MoE configs' dropped share.
+* two kernels redesigned for Hopper (slice 13): f32 attention on the
+  tensor cores in split TF32 and ``rmsnorm`` with 16-byte loads and a
+  block with 2-4 vectors a thread a row.
+  ``lm_kernels`` also holds ``rmsnorm`` at D not a multiple of 8, on a
+  view one element off (misaligned rows and scale), at decode's (1-4,
+  d) for every width a full-size config norms (``norm_widths``) and at
+  ``MAX_D``, and times f32 attention and swa against SDPA in f32 (kv
+  heads expanded) beside the split-TF32 bound and the CUDA cores' f32
+  bound; ``zoo_kernels`` times f32 attention at every zoo layout and
+  ``rmsnorm`` at every ``norm_widths`` width on inputs that have left
+  the L2; ``zoo_serve`` times each
+  config's f32 prefill (the second call) and counts its launches.
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -220,7 +233,7 @@ from repro_torch import prng  # noqa: E402
 from repro_torch.checkpoint import io  # noqa: E402
 from repro_torch.config import (  # noqa: E402
     AsyncConfig, FaultConfig, HierarchyConfig, NetworkConfig, ProtocolConfig,
-    TelemetryConfig, TrainConfig, get_arch,
+    TelemetryConfig, TrainConfig, get_arch, norm_widths,
 )
 from repro_torch.analysis.roofline import (  # noqa: E402
     attention_work, kernel_bound, peaks, ssd_work,
@@ -241,7 +254,9 @@ from repro_torch.kernels import (  # noqa: E402
     _build, flash_attention, ops, ref, rmsnorm, sqdist, ssd_scan,
     swa_attention,
 )
-from repro_torch.kernels._timing import cuda_ms, profile_calls  # noqa: E402
+from repro_torch.kernels._timing import (  # noqa: E402
+    cold_inputs, cuda_ms, graph_ms, in_turn, profile_calls,
+)
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn_params  # noqa: E402
 from repro_torch.models.attention import takes_band  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
@@ -291,6 +306,17 @@ ATTN_EDGES = [(2, 100, 200, 4, 2, 128, True, 0),
               (2, 200, 200, 4, 2, 32, True, 0),
               (2, 200, 200, 4, 2, 64, True, 48),
               (5, 130, 130, 32, 8, 64, True, 0)]
+# the edges of rmsnorm's forms (rmsnorm.plan): D not a multiple of 8 (a
+# scalar tail; a head too on the rows that start off 16 bytes), a view one
+# element into its buffer (every row and the scale misaligned; at D = 200
+# and D = 7 one warp a row), decode's 1-4 rows at every width a full-size
+# config norms (a few blocks) and MAX_D (the stream form in f32);
+# ((shape), offset), checked in f32 and bf16
+NORM_EDGES = ([((5, 1601), 0), ((3, 4100), 0), ((2, 3, 1601), 1),
+               ((4, 4096), 1), ((3, 16384), 3), ((9, 200), 1), ((4, 7), 1),
+               ((2, rmsnorm.MAX_D), 0), ((2, rmsnorm.MAX_D), 1)]
+              + [((b, 1, d), 0) for d in norm_widths()
+                 for b in (1, 2, 3, 4)])
 # ssd_scan against the sequential plain version: the JAX package's own
 # tolerances for this kernel (tests/test_kernels.py:181-182)
 SSM_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-3),
@@ -709,15 +735,18 @@ def phase_agree() -> dict:
 def phase_lm_kernels(gen) -> dict:
     """rmsnorm, flash_attention(_gqa) and swa_attention against their plain
     versions on the card, f32 and bf16, bitwise equal across two
-    launches, attention also at the edges of its bf16 program
-    (``ATTN_EDGES``); then timed at the serving path's shapes in bf16,
-    and flash_attention also in f32 (the CUDA-core program), beside the
-    plain version and one PyTorch call that the port never makes. Each
-    attention check and time names the program that ran."""
+    launches, attention also at the edges of its programs
+    (``ATTN_EDGES``), f32 at every width pair and B * H above 65,535,
+    rmsnorm at the edges of its forms (``NORM_EDGES``); then timed at the
+    serving path's shapes in bf16, and flash_attention and swa_attention
+    also in f32 (the split-TF32 program, beside its bound and the CUDA
+    cores' f32 bound), beside the plain version and one PyTorch call that
+    the port never makes. Each attention check and time names the program
+    that ran."""
     checks = []
     # the largest error of each kernel, over both dtypes and by dtype
     worst = {k: 0.0 for k in ("rmsnorm", "flash_attention", "swa_attention",
-                              "flash_attention f32")}
+                              "flash_attention f32", "swa_attention f32")}
 
     def randn(shape, dt):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -728,7 +757,7 @@ def phase_lm_kernels(gen) -> dict:
         torch.cuda.synchronize()
         err = float((a.float() - want.float()).abs().max())
         worst[name] = max(worst[name], err)
-        if name == "flash_attention" and args[0].dtype == torch.float32:
+        if kind == "attention" and args[0].dtype == torch.float32:
             worst[name + " f32"] = max(worst[name + " f32"], err)
         repeat = bool(torch.equal(a, b))
         ok = repeat and bool(torch.allclose(
@@ -743,20 +772,25 @@ def phase_lm_kernels(gen) -> dict:
             emit({"phase": "lm_kernels", "failed": checks[-1]})
             raise SystemExit(f"kernel {name} disagrees: {checks[-1]}")
 
-    def norm(shape, dt, label=None):
-        x, s = randn(shape, dt), randn(shape[-1:], dt)
+    def norm(shape, dt, label=None, offset=0):
+        # offset > 0: x and scale are views that many elements into their
+        # buffers, so rows and scale start off their 16-byte boundaries
+        n = math.prod(shape)
+        x = randn((n + offset,), dt)[offset:].view(shape)
+        s = randn((shape[-1] + offset,), dt)[offset:]
         check("rmsnorm", "rmsnorm", rmsnorm.rmsnorm, ref.rmsnorm_ref,
-              (x, s, 1e-5), {}, label or list(shape))
+              (x, s, 1e-5), {}, label or list(shape) + (
+                  [f"offset {offset}"] if offset else []))
         return x, s
 
-    def attn(B, Sq, Sk, H, Hkv, d, causal, window, dt, label=None):
+    def attn(B, Sq, Sk, H, Hkv, d, causal, window, dt, label=None, dv=None):
         q, k, v = (randn((B, Sq, H, d), dt), randn((B, Sk, Hkv, d), dt),
-                   randn((B, Sk, Hkv, d), dt))
+                   randn((B, Sk, Hkv, dv or d), dt))
         kw = dict(causal=causal, window=window)
         check("flash_attention", "attention",
               flash_attention.flash_attention_gqa,
               ref.flash_attention_gqa_ref, (q, k, v), kw,
-              label or [B, Sq, Sk, H, Hkv, d, causal, window])
+              label or [B, Sq, Sk, H, Hkv, d, dv or d, causal, window])
         return q, k, v
 
     def swa(B, S, H, Hkv, d, w, dt, label=None):
@@ -788,10 +822,20 @@ def phase_lm_kernels(gen) -> dict:
         for case in [(2, 64, 1, 1, 32, 16), (1, 256, 4, 2, 128, 64),
                      (1, 1024, 8, 2, 128, 256)]:
             swa(*case, dt)
+        for shape, offset in NORM_EDGES:
+            norm(shape, dt, offset=offset)
+        # more (batch, head) pairs than a 2-D grid's 65,535: one grid axis
+        attn(1, 4, 4, 70_000, 1, 32, True, 0, dt)
+    # f32 at every width pair it takes, past one query tile (128 rows, 192
+    # at head dim 128)
+    for d, dv in sorted(flash_attention.WIDTHS[torch.float32]):
+        attn(2, 200, 230, 4, 2, d, True, 0, torch.float32, dv=dv)
+        attn(1, 70, 90, 2, 2, d, False, 0, torch.float32, dv=dv)
 
     # the serving path's own tensors, bf16: checked, then timed
     bf = torch.bfloat16
-    mem_rate, f32_rate, bf16_rate = peaks(torch.cuda.get_device_name(0))[:3]
+    mem_rate, f32_rate, bf16_rate, tf32_rate = peaks(
+        torch.cuda.get_device_name(0))[:4]
     D, H, Hkv, hd, w = 4096, 32, 8, 128, 8192
     x, s = norm((SERVE_B, SERVE_S, D), bf, "serve (4, 2048, 4096)")
     q, k, v = attn(SERVE_B, SERVE_S, SERVE_S, H, Hkv, hd, True, 0, bf,
@@ -801,6 +845,9 @@ def phase_lm_kernels(gen) -> dict:
     f32 = torch.float32
     qf, kf, vf = attn(SERVE_B, SERVE_S, SERVE_S, H, Hkv, hd, True, 0, f32,
                       "serve prefill shape in f32 (4, 2048, 32/8, 128)")
+    qsf, ksf, vsf = swa(SWA_B, SWA_S, H, Hkv, hd, w, f32,
+                        "swa prefill shape in f32 (1, 16384, 32/8, 128), "
+                        "w 8192")
     # one PyTorch call each, as yardsticks: (B, H, S, d) layouts and, for
     # the band, kv heads expanded and a boolean mask, made before timing
     qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -844,17 +891,35 @@ def phase_lm_kernels(gen) -> dict:
             "F.scaled_dot_product_attention(attn_mask=band), efficient "
             "backend, kv heads expanded"),
     }
-    # the f32 program at the same shape: its bound is the f32 rate of the
-    # CUDA cores (the tensor cores take f32 only as TF32)
+    # the f32 program at the same shapes: three TF32 products a product
+    # at the TF32 rate (kernel_bound), the CUDA cores' f32 bound beside.
+    # SDPA in f32 with the kv heads expanded, as zoo_kernels times it (with
+    # enable_gqa it takes a slower backend in f32: timed beside)
     qfT, kfT, vfT = (t.transpose(1, 2).contiguous() for t in (qf, kf, vf))
+    kfE, vfE = (t.repeat_interleave(H // Hkv, dim=1) for t in (kfT, vfT))
     timed["flash_attention f32"] = (
-        [SERVE_B, SERVE_S, H, Hkv, hd], 2 * f_bytes, f_ops, f32_rate, 3,
+        [SERVE_B, SERVE_S, H, Hkv, hd], 2 * f_bytes, 3 * f_ops, tf32_rate, 3,
         lambda: flash_attention.flash_attention_gqa(qf, kf, vf),
         lambda: ref.flash_attention_gqa_ref(qf, kf, vf),
-        lambda: F.scaled_dot_product_attention(
-            qfT, kfT, vfT, is_causal=True, enable_gqa=True),
-        "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True), "
+        lambda: F.scaled_dot_product_attention(qfT, kfE, vfE, is_causal=True),
+        "F.scaled_dot_product_attention(is_causal=True), kv heads expanded, "
         "f32")
+    qsfT = qsf.transpose(1, 2).contiguous()
+    ksfT, vsfT = (t.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                  .contiguous() for t in (ksf, vsf))
+
+    def swa_library_f32():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qsfT, ksfT, vsfT,
+                                                  attn_mask=band)
+
+    timed["swa_attention f32"] = (
+        [SWA_B, SWA_S, H, Hkv, hd, w], 2 * s_bytes, 3 * s_ops, tf32_rate, 3,
+        lambda: swa_attention.swa_attention(qsf, ksf, vsf, window=w),
+        lambda: ref.swa_attention_ref(qsf, ksf, vsf, window=w),
+        swa_library_f32,
+        "F.scaled_dot_product_attention(attn_mask=band), efficient "
+        "backend, kv heads expanded, f32")
     table = {}
     for name, (shape, nbytes, nops, rate, iters, kernel, plain, library,
                lib_name) in timed.items():
@@ -872,14 +937,21 @@ def phase_lm_kernels(gen) -> dict:
             "bytes": nbytes, "ops": nops}
         if name != "rmsnorm":
             table[name]["program"] = flash_attention.program(dt)
-    table["flash_attention"]["f32"] = table.pop("flash_attention f32")
+        if dt == f32:
+            table[name]["bound_ms_f32_cuda_cores"] = nops / 3 / f32_rate * 1e3
+    table["flash_attention f32"]["library_enable_gqa_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(
+            qfT, kfT, vfT, is_causal=True, enable_gqa=True), 3, 1)
+    del kfE, vfE
+    for name in ("flash_attention", "swa_attention"):
+        table[name]["f32"] = table.pop(name + " f32")
     emit({"phase": "lm_kernels", "checks": len(checks),
           "all_ok": all(c["ok"] for c in checks),
           "tolerances": {f"{k[0]} {str(k[1]).split('.')[1]}": v
                          for k, v in LM_TOL.items()},
           "timed": table,
           "peaks": {"bytes_per_s": mem_rate, "f32_flops": f32_rate,
-                    "bf16_flops": bf16_rate}})
+                    "bf16_flops": bf16_rate, "tf32_flops": tf32_rate}})
     return table
 
 
@@ -1422,9 +1494,11 @@ def phase_zoo_kernels(gen) -> dict:
     version, one PyTorch call and ``kernel_bound``: swa attention at
     hymba's (4, 2048, 25/5, 64), w = 1,024; flash attention at
     musicgen's (4, 2048, 32/32, 64) and llama3-405b's group of 16
-    (4, 2048, 128/8, 128); MLA's (4, 2048, 128 heads, 192/128) in bf16
-    and in f32; ssd_scan at hymba's (200, 2048, 64, 16), 50 heads a
-    group; rmsnorm at d = 1,600, 6,144, 5,120 and 16,384."""
+    (4, 2048, 128/8, 128); MLA's (4, 2048, 128 heads, 192/128); each in
+    bf16 and in f32 (the split-TF32 program, SDPA in f32 beside it);
+    ssd_scan at hymba's (200, 2048, 64, 16), 50 heads a group; rmsnorm at
+    (4, 2048, d) for every width d a full-size config norms
+    (``norm_widths``), on inputs that have left the L2."""
     bf, f32 = torch.bfloat16, torch.float32
     card = peaks(torch.cuda.get_device_name(0))
     B, S = SERVE_B, SERVE_S
@@ -1433,19 +1507,30 @@ def phase_zoo_kernels(gen) -> dict:
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
     def row(kernel, shape, dt, err, run, plain, library, lib_name,
-            bound_shape, iters=5):
+            bound_shape, iters=5, device=False, timed=None):
+        """``timed``: the (run, plain, library) to time, where they are
+        not the checked ones (cold inputs)."""
         a, b = run(), run()
         torch.cuda.synchronize()
         if not torch.equal(a, b):
             raise SystemExit(f"{kernel} {shape}: two launches differ")
+        run, plain, library = timed or (run, plain, library)
         bound = kernel_bound(kernel, bound_shape, dt, card)
-        return {"kernel": kernel, "shape": list(shape),
-                "dtype": str(dt).split(".")[1], "max_abs_err": err,
-                "ms": cuda_ms(run, iters, 1),
-                "plain_ms": cuda_ms(plain, max(1, iters // 2), 1),
-                "library_ms": (None if library is None
-                               else cuda_ms(library, iters, 1)),
-                "library": lib_name, **bound}
+        rec = {"kernel": kernel, "shape": list(shape),
+               "dtype": str(dt).split(".")[1], "max_abs_err": err,
+               "ms": cuda_ms(run, iters, 1),
+               "plain_ms": cuda_ms(plain, max(1, iters // 2), 1),
+               "library_ms": (None if library is None
+                              else cuda_ms(library, iters, 1)),
+               "library": lib_name, **bound}
+        if device:
+            # a short kernel's back-to-back time can be its wrapper's host
+            # time: the device's time of it and of the library in a CUDA
+            # graph, where a call also pays the writes the one before left
+            # in the L2 (a profiler's kernel interval leaves them out)
+            rec["graph_ms"] = graph_ms(run)
+            rec["library_graph_ms"] = graph_ms(library)
+        return rec
 
     def attn_case(kernel, shape, dt, window=0):
         Bq, Sq, H, Hkv, d, dv = shape
@@ -1492,13 +1577,15 @@ def phase_zoo_kernels(gen) -> dict:
         rec["program"] = flash_attention.program(dt)
         return rec
 
-    rows = [
-        attn_case("swa_attention", (B, S, 25, 5, 64, 64), bf, window=1024),
-        attn_case("flash_attention", (B, S, 32, 32, 64, 64), bf),
-        attn_case("flash_attention", (B, S, 128, 8, 128, 128), bf),
-        attn_case("flash_attention", (B, S, 128, 128, 192, 128), bf),
-        attn_case("flash_attention", (B, S, 128, 128, 192, 128), f32)]
-    rows[-2]["label"] = rows[-1]["label"] = "MLA (deepseek-v2-236b)"
+    rows = []
+    for dt in (bf, f32):
+        rows += [
+            attn_case("swa_attention", (B, S, 25, 5, 64, 64), dt,
+                      window=1024),
+            attn_case("flash_attention", (B, S, 32, 32, 64, 64), dt),
+            attn_case("flash_attention", (B, S, 128, 8, 128, 128), dt),
+            attn_case("flash_attention", (B, S, 128, 128, 192, 128), dt)]
+        rows[-1]["label"] = "MLA (deepseek-v2-236b)"
 
     # ssd_scan as hymba's mamba_forward hands it over: 50 heads, 1 group
     BH, P, N, Q, R = B * 50, 64, 16, 64, 50
@@ -1521,19 +1608,27 @@ def phase_zoo_kernels(gen) -> dict:
     rec["program"] = ssd_scan.PROGRAM
     rows.append(rec)
 
-    for d in (1600, 6144, 5120, 16384):
+    # rmsnorm timed on cold inputs: x read from device memory, as between
+    # a model's products, not from the L2 where a repeat would find it
+    for d in norm_widths():
         xn, s = randn((B, S, d), bf), randn((d,), bf)
         got, want = rmsnorm.rmsnorm(xn, s, 1e-5), ref.rmsnorm_ref(xn, s, 1e-5)
         err = float((got.float() - want.float()).abs().max())
         if not torch.allclose(got.float(), want.float(),
                               **LM_TOL["rmsnorm", bf]):
             raise SystemExit(f"rmsnorm at d = {d} disagrees: {err}")
+        xs = cold_inputs(lambda: randn((B, S, d), bf), 2 * xn.nbytes)
         rows.append(row(
             "rmsnorm", (B, S, d), bf, err,
-            lambda: rmsnorm.rmsnorm(xn, s, 1e-5),
-            lambda: ref.rmsnorm_ref(xn, s, 1e-5),
-            lambda: F.rms_norm(xn, (d,), weight=s, eps=1e-5), "F.rms_norm",
-            (B, S, d), iters=20))
+            lambda: rmsnorm.rmsnorm(xn, s, 1e-5), None, None, "F.rms_norm",
+            (B, S, d), iters=20, device=True, timed=(
+                in_turn(lambda x: rmsnorm.rmsnorm(x, s, 1e-5), xs),
+                in_turn(lambda x: ref.rmsnorm_ref(x, s, 1e-5), xs),
+                in_turn(lambda x: F.rms_norm(x, (d,), weight=s, eps=1e-5),
+                        xs))))
+        rows[-1]["plan"] = rmsnorm.plan(d, bf)._asdict()
+        rows[-1]["cold_inputs"] = len(xs)
+        del xs
     emit({"phase": "zoo_kernels", "rows": rows,
           "tolerances": {"attention bf16": LM_TOL["attention", bf],
                          "attention f32": LM_TOL["attention", f32],
@@ -1652,7 +1747,10 @@ def phase_zoo_serve() -> dict:
     and tokens/s, decode ms a step beside the bytes bound, peak memory,
     each kernel's launches, and for the MoE configs the share of
     (token, k) pairs dropped. Then the prompt logits again with the same
-    model in f32 (``ZOO_F32_REL_TOL``)."""
+    model in f32 (``ZOO_F32_REL_TOL``), and the f32 prefill's second call
+    timed with its launches counted exactly (the split-TF32 attention
+    program). A config's launches sum the bf16 paths and the timed f32
+    prefill."""
     bf = torch.bfloat16
     card = peaks(torch.cuda.get_device_name(0))
     B, S = SERVE_B, SERVE_S
@@ -1780,6 +1878,19 @@ def phase_zoo_serve() -> dict:
         logits, _ = lm_apply(cfg, params, text)
         at_prompt = logits[:, ZOO_PROMPT - 1]
         del logits
+        # the f32 prefill timed: its second call, through the split-TF32
+        # attention program
+        ops.reset_launches()
+        _, f32_ms, _ = _timed(lambda: lm_apply(cfg, params, text))
+        f32_launches = dict(ops.LAUNCHES)
+        if (f32_launches[path] != L or f32_launches["rmsnorm"] != n_norm
+                or f32_launches["ssd_scan"] != pre_launches["ssd_scan"]):
+            raise SystemExit(f"{name}: f32 prefill launches {f32_launches}")
+        rec["f32_prefill"] = {"batch": B, "seq": S, "ms": f32_ms,
+                              "tokens_per_s": B * S / f32_ms * 1e3,
+                              "launches": f32_launches}
+        for k in ops.LAUNCHES:
+            launches_by_model[name][k] += f32_launches[k]
         eng = ServeEngine(cfg, params, max_seq=ZOO_PROMPT + 1, batch=B,
                           device="cuda")
         gap = _prompt_gap(eng.feed(text[:, :ZOO_PROMPT]).reshape(rows, -1),
@@ -3860,6 +3971,8 @@ def main() -> None:
          lm_table["flash_attention"]["f32"]),
         ("swa_attention", lm_table["swa_attention"]["shape"], bf16,
          lm_table["swa_attention"]),
+        ("swa_attention", lm_table["swa_attention"]["shape"], f32,
+         lm_table["swa_attention"]["f32"]),
         ("ssd_scan", ssm_table["ssd_scan"]["shape"], f32,
          ssm_table["ssd_scan"])]
     run("analysis", phase_analysis, [
@@ -3876,7 +3989,8 @@ def main() -> None:
         return sum(v[kernel] for v in zoo.values())
 
     def zoo_paths(kernel):
-        return {f"{k} serve": v[kernel] for k, v in zoo.items() if v[kernel]}
+        return {f"{k} serve, f32 prefill": v[kernel] for k, v in zoo.items()
+                if v[kernel]}
 
     def zoo_shapes(kernel):
         return [{k: v for k, v in r.items() if k != "kernel"}

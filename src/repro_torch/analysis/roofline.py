@@ -299,12 +299,17 @@ def kernel_work(name: str, shape, dtype=torch.float32):
     * ``rmsnorm`` (..., D): x read and written, the scale read; 4
       operations per element, f32 statistics;
     * ``flash_attention`` (B, Sq, Sk, H, Hkv, d) or (B, Sq, Sk, H, Hkv,
-      d, dv), causal: bf16 on the tensor cores, f32 on the CUDA cores;
-    * ``swa_attention`` (B, S, H, Hkv, d, window), causal;
+      d, dv), causal: bf16 on the tensor cores; f32 on them in split
+      TF32 (``csrc/attention.cu``), three TF32 products for every
+      product, so the operations are 3 x the flops at the TF32 rate;
+    * ``swa_attention`` (B, S, H, Hkv, d, window), causal, the same
+      programs;
     * ``ssd_scan`` (BH, S, P, N, chunk, R): R heads share a row of b and
       c; the products in TF32 on the tensor cores."""
     item = torch.empty((), dtype=dtype).element_size()
-    tensor_rate = "bf16" if dtype == torch.bfloat16 else "f32"
+    # f32 attention: hi.hi + hi.lo + lo.hi, each a TF32 product
+    split = 1 if dtype == torch.bfloat16 else 3
+    tensor_rate = "bf16" if dtype == torch.bfloat16 else "tf32"
     if name in ("sqdist_rows", "sqdist"):
         m, P, g = ((1, shape[0], 1) if name == "sqdist"
                    else (tuple(shape) + (1,))[:3])
@@ -312,14 +317,16 @@ def kernel_work(name: str, shape, dtype=torch.float32):
     if name == "rmsnorm":
         n, D = math.prod(shape), shape[-1]
         return 2 * n * item + D * item, 4 * n, "f32"
-    if name == "flash_attention":
-        B, Sq, Sk, H, Hkv, d, *dv = shape
-        return (*attention_work(B, Sq, Sk, H, Hkv, d, True, 0, item, *dv),
-                tensor_rate)
-    if name == "swa_attention":
-        B, S, H, Hkv, d, w = shape
-        return (*attention_work(B, S, S, H, Hkv, d, True, w, item),
-                tensor_rate)
+    if name in ("flash_attention", "swa_attention"):
+        if name == "flash_attention":
+            B, Sq, Sk, H, Hkv, d, *dv = shape
+            w = 0
+        else:
+            (B, Sq, H, Hkv, d, w), dv = shape, []
+            Sk = Sq
+        nbytes, flops = attention_work(B, Sq, Sk, H, Hkv, d, True, w, item,
+                                       *dv)
+        return nbytes, split * flops, tensor_rate
     if name == "ssd_scan":
         BH, S, P, N, Q, R = shape
         return (*ssd_work(BH, S, P, N, BH // R, Q, item), "tf32")
@@ -329,9 +336,15 @@ def kernel_work(name: str, shape, dtype=torch.float32):
 def kernel_bound(name: str, shape, dtype=torch.float32,
                  card: Peaks = H100) -> dict:
     """The least time of one call of kernel ``name`` at ``shape`` on
-    ``card``: ``{"bytes", "ops", "bound_ms", "bound_by"}``."""
+    ``card``: ``{"bytes", "ops", "bound_ms", "bound_by"}``; f32 attention
+    adds ``bound_ms_f32_cuda_cores``, its flops (a third of its TF32
+    operations) over the CUDA cores' f32 rate, the bound of plain f32
+    FMAs, which the split-TF32 bound sits below."""
     nbytes, ops, rate = kernel_work(name, shape, dtype)
     t_bytes = nbytes / card.hbm * 1e3
     t_ops = ops / getattr(card, rate) * 1e3
-    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    out = {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if name.endswith("attention") and dtype == torch.float32:
+        out["bound_ms_f32_cuda_cores"] = ops / 3 / card.f32 * 1e3
+    return out

@@ -594,3 +594,19 @@ def get_arch(name: str, smoke: bool = False) -> ModelConfig:
     full_fn, smoke_fn = _ARCH_REGISTRY[name]
     return smoke_fn() if smoke else full_fn()
 
+
+def norm_widths() -> Tuple[int, ...]:
+    """Every width at which a registered language model, at full size,
+    runs an RMS norm: each d_model, and each SSM branch's d_inner (its
+    gated ``out_norm``)."""
+    import repro_torch.configs  # noqa: F401  (triggers registration)
+    widths = set()
+    for name in _ARCH_REGISTRY:
+        cfg = get_arch(name)
+        if cfg.family == "cnn":
+            continue
+        widths.add(cfg.d_model)
+        if cfg.ssm is not None:
+            widths.add(cfg.ssm.expand * cfg.d_model)
+    return tuple(sorted(widths))
+

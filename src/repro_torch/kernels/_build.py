@@ -45,7 +45,8 @@ SIGNATURES = {
         **_ERR,
     },
     "rmsnorm": {
-        "repro_rmsnorm": (_I, [_I, _P, _P, _P, _LL, _I, _F, _P]),
+        "repro_rmsnorm": (_I, [_I, _I, _I, _I, _P, _P, _P, _LL, _I, _F,
+                               _P]),
         **_ERR,
     },
     "attention": {
@@ -144,6 +145,14 @@ def library(name: str) -> ctypes.CDLL:
         f.restype, f.argtypes = restype, argtypes
     _LOADED[name] = lib
     return lib
+
+
+def current_stream(device_index: int) -> int:
+    """The handle of ``device_index``'s current CUDA stream, what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a ``Stream`` object, which costs a short kernel's wrapper a
+    large share of its host time."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

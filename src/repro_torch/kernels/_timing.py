@@ -5,10 +5,13 @@ code. Imports only torch; the profiler is imported where it runs.
 """
 from __future__ import annotations
 
+import itertools
 import re
 import time
 
 import torch
+
+L2_BYTES = 50 * 2 ** 20     # an H100's L2 cache
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -25,6 +28,52 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 10, replays: int = 5) -> float:
+    """Mean ms of one ``fn()`` with ``calls`` of them captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events: the device's
+    time alone, with no host time between launches, and each call paying
+    for the writes the call before left in the L2, which a profiler's
+    kernel interval leaves out. ``fn`` must launch on the current stream
+    and not synchronize; the outputs of the captured calls stay in the
+    graph's memory until it goes."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def cold_inputs(make, nbytes: int) -> list:
+    """Copies made by ``make()`` of an input that a call moves ``nbytes``
+    with (its reads and writes): enough that the other copies' calls
+    between two turns of one move at least twice ``L2_BYTES``, so that a
+    call of ``in_turn`` over them reads its input from device memory, as
+    a model's norm between two matrix products does."""
+    return [make() for _ in range(2 + 2 * L2_BYTES // nbytes)]
+
+
+def in_turn(fn, inputs: list):
+    """A call of ``fn`` on the next of ``inputs`` each time, round."""
+    it = itertools.cycle(inputs)
+    return lambda: fn(next(it))
 
 
 def host_us(fn, calls: int = 200, warmup: int = 3) -> float:

@@ -1,17 +1,17 @@
-// Masked online-softmax attention with grouped KV heads in f32, on the
-// CUDA cores (sm_90a): the f32 program. bf16 runs the tensor-core program
-// of attention_sm90.cu; the wrapper (flash_attention.py) picks one by dtype.
+// Masked online-softmax attention with grouped KV heads in f32, on Hopper's
+// tensor cores in split TF32 (sm_90a): the f32 program. bf16 runs the
+// program of attention_sm90.cu; the wrapper (flash_attention.py) picks one
+// by dtype.
 //
 //   o[b, i, h, :] = softmax_j(mask(i, j) ? scale * q[b, i, h] . k[b, j, h/G]
 //                                        : -1e30) @ v[b, :, h/G, :]
 //
 // q (B, Sq, H, DK); k (B, Sk, Hkv, DK); v (B, Sk, Hkv, DV); o (B, Sq, H, DV);
-// G = H / Hkv; f32 throughout. DK = DV but for multi-head latent attention
+// G = H / Hkv; f32 in and out. DK = DV but for multi-head latent attention
 // (DeepSeek-V2), whose queries and keys carry the decoupled rotary part on
 // top of the value width: (192, 128) at full width, (48, 32) at the smoke
-// config's.
-// Query row i sits at position i + Sk - Sq (the causal diagonal is
-// right-aligned); key j is kept when j < Sk, j <= qpos if causal, and
+// config's. Query row i sits at position i + Sk - Sq (the causal diagonal
+// is right-aligned); key j is kept when j < Sk, j <= qpos if causal, and
 // j > qpos - window if window > 0.
 //
 // Replaces, for f32, two Pallas kernels:
@@ -25,91 +25,200 @@
 //     block is the whole window.
 //
 // Bound: the arithmetic, 2 (DK + DV) flops per kept query-key pair and
-// head. The tensor cores take f32 only as TF32, which keeps ~3
-// digits and would miss the f32 tolerance (rtol 1e-4), so the products
-// stay f32 FMAs on the CUDA cores (67 TFLOP/s peak).
+// head. The tensor cores take f32 only as TF32 (10 mantissa bits); one
+// TF32 product keeps ~3 digits and misses the f32 tolerance (rtol 1e-4;
+// tests/test_torch_attention_f32_tiles.py shows it), so every product is
+// split TF32 (3xTF32): v = hi + lo, hi = v rounded to TF32 (cvt.rna's
+// rounding, by two integer operations), lo = v - hi, exact in f32 and read
+// by the tensor cores as TF32; a b = a_lo b_hi + a_hi b_lo + a_hi b_hi in
+// f32, the small terms first, as ssd_scan.cu does. That is 3 TF32 products
+// a product: the bound is 3 x the flops over the TF32 rate (495 TFLOP/s),
+// beside the flops over the CUDA cores' f32 rate (67 TFLOP/s), the bound
+// of plain f32 FMAs.
+// The softmax, the running max, the rescale and the denominator stay f32.
 //
-// Design. A block of 128 threads owns one (batch, head) and a tile of 64
-// query rows, and loops over 64-key tiles inside the block; that loop takes
-// the place of the TPU's sequential k grid axis, whose running state lived
-// in VMEM scratch. Each thread owns 8 query rows (r + 8i) and, per row, 4
-// keys of the score tile (c + 16j) and DV/16 columns of the accumulator
-// (c + 16u), where r = tid / 16 and c = tid % 16; the 16 threads of a row
-// group form half a warp, so the row max and row sum are shuffle
-// butterflies in a fixed order and every thread of the group holds the same
-// m and l. The Q tile stays in shared memory for the whole loop; K, V and
-// the probabilities of the current tile are staged there (rows padded by
-// one float against bank conflicts): 113 KB at D = 128 and 145 KB at
-// (192, 128), so it is dynamic shared memory. Tiles that lie wholly outside the causal or window range
-// of the query tile are skipped. Key positions >= Sk are masked in the
-// kernel, so a ragged non-causal Sk is right (the Pallas kernel pads keys
-// with zeros and lets them into the softmax, ROADMAP C1). A masked entry
-// has p = 0 even while the row's running max is still -1e30 (as
-// flash_attention.py:61 does), so a row whose first tiles are all masked
-// accumulates nothing from them. The KV head is read as h / G; nothing is
-// repeated in memory. The grid is (query tiles, B * H), so B * H is at most
-// 65535. No atomics: a given card gives the same bits on every run.
+// Design. A block of W warps owns one (batch, head) and a tile of 16 W
+// query rows, 16 a warp (mma's M): W = 12 at (128, 128), 8 otherwise. It
+// walks 32-key tiles of the block's key range. The grid is
+// one-dimensional, (batch, head) fastest and the last query tile first,
+// so the longest causal tiles start first and B * H has no limit of its
+// own.
+//   * Products: mma.sync.m16n8k8 TF32. wgmma takes TF32 operands K-major
+//     only, from shared memory: Q K^T would fit as it is, but P V needs V
+//     with the keys contiguous (its transpose bit exists only for 16-bit
+//     types), and at (192, 128) the hi and lo images of Q and of a
+//     double-buffered K and V come to ~370 KB for 8 warps. With mma.sync
+//     each thread loads its own fragments from the f32 tiles and splits
+//     them in registers; nothing is transposed in memory.
+//   * S = Q K^T. The k-step's 8 head dims are taken in the order
+//     (0, 2, 4, 6 | 1, 3, 5, 7): fragment element t reads dim 2t and
+//     element t + 4 dim 2t + 1 of Q and of K alike, so each is one 8-byte
+//     shared load. Q (rows padded to DK + 8 floats) stays in shared memory
+//     for the whole loop; its fragment is split once a k-step and used for
+//     the 4 key n-tiles.
+//   * Softmax on the accumulator fragment, in log2 units (the scores times
+//     scale * log2(e), then exp2): a row lives in a quad of lanes,
+//     so the row max is two xor shuffles; the denominator is summed per
+//     thread and reduced over the quad once, at the end. The mask runs
+//     only on tiles that cross Sk, the causal diagonal or the window's
+//     lower edge of the warp's 16 rows; a masked score is -1e30 and its p
+//     is 0 even while the running max is still -1e30 (as
+//     flash_attention.py:61 does), so a row whose first tiles are all
+//     masked accumulates nothing from them. A warp skips a tile that none
+//     of its rows keeps (all its p would be 0 and its rescale 1, so the
+//     state would not change by a bit).
+//   * O += P V. The S accumulator of n-tile j holds keys 8j + 2t and
+//     8j + 2t + 1 of rows g and g + 8; taken as the A fragment of k-step j
+//     with the keys in the order (0, 2, 4, 6 | 1, 3, 5, 7), it needs no
+//     shuffle: the B fragment reads V rows 8j + 2t and 8j + 2t + 1 (rows
+//     padded to DV + 4 floats, so the 32 lanes hit 32 banks).
+//   * Copies. K and V tiles arrive by cp.async (16 bytes, zero-filled past
+//     Sk) into a ring of three stages, the next two tiles' copies in flight
+//     while the current tile is computed; one barrier a tile. Q arrives the
+//     same way once, zero-filled past Sq.
+//   * Occupancy. Each warp keeps its 16 rows of Q, 16 (DK + 8) floats, in
+//     shared memory for the whole loop, beside the ring: 4 (16 W (DK + 8)
+//     + 3 * 32 (DK + 8 + DV + 4)) bytes. (32, 32) 49,664, (48, 32) 64,000
+//     and (64, 64) 90,624: two blocks of 8 warps an SM (at most 128
+//     registers). (128, 128) 207,360: one block of 12 warps (158 registers
+//     x 384 threads of the 65,536). (192, 128) 229,888 of the 232,448 a
+//     block may use: one block of 8 warps (165 registers); 12 would need
+//     a Q tile of 153,600 bytes.
+//   * Tried on an H100 (PERF.md §6): 12 warps instead of 8 at
+//     (128, 128) are faster. 16 at the small widths, two stages against
+//     three, one or two accumulators a key n-tile, unrolling the Q K^T
+//     loop, and K and V split once a tile into shared memory (two barriers
+//     a tile) are no faster or slower.
+// Key positions >= Sk are masked in the kernel, so a ragged non-causal Sk is
+// right (the Pallas kernel pads keys with zeros and lets them into the
+// softmax, ROADMAP C1). The KV head is read as h / G; nothing is repeated
+// in memory. No atomics and fixed reduction orders: a given card gives the
+// same bits on every run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 128;  // 8 row groups x 16 threads
-constexpr int kRows = 8;       // query rows per thread
-constexpr int kKeys = 4;       // keys per thread per tile
+constexpr int kBK = 32;                 // keys per tile
+constexpr int kStages = 3;              // the K / V ring
 constexpr float kNegInf = -1e30f;
 
-// max / sum over the 16 threads of a row group (lanes that differ in bits
-// 0..3); every lane ends with the same bits
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+template <int DK, int DV>
+struct Plan {
+  static constexpr int kWarps = DK == 128 ? 12 : 8;  // 16 query rows each
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBQ = 16 * kWarps;        // query rows per block
+  static constexpr int LDK = DK + 8;    // floats a row of the Q and K tiles
+  static constexpr int LDV = DV + 4;    // floats a row of the V tile
+  static constexpr int kMinBlocks = DK >= 128 ? 1 : 2;
+  static constexpr size_t kBytes =
+      sizeof(float) *
+      (static_cast<size_t>(kBQ) * LDK + kStages * kBK * (LDK + LDV));
+};
+
+// 16 bytes from global to shared memory without registers; zeros when
+// !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile(
+      "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+          static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+      "l"(src), "r"(valid ? 16 : 0));
 }
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows x COLS floats (source row stride sld floats) into shared memory with
+// row stride LD; rows >= valid are zero-filled
+template <int ROWS, int COLS, int LD, int kThreads>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int64_t sld, int valid, int tid) {
+  constexpr int C4 = COLS / 4;
+#pragma unroll 4
+  for (int e = tid; e < ROWS * C4; e += kThreads) {
+    const int r = e / C4, c = (e - r * C4) * 4;
+    const bool ok = r < valid;
+    cp_async16(dst + r * LD + c, ok ? src + r * sld + c : src, ok);
+  }
+}
+
+// v = hi + lo: hi is v rounded to TF32, to nearest with ties away from zero
+// (cvt.rna.tf32.f32's rounding, by two integer operations); lo = v - hi is
+// exact in f32 and goes to the tensor cores unrounded, which read its TF32
+// part (what they drop is below 2^-21 |v|)
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+// d (16 x 8) += a (16 x 8, row) b (8 x 8, col), one TF32 product
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a b in split TF32, the small terms first; b = (b0, b1) unsplit
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(d, al, bh0, bh1);
+  mma(d, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
+}
+// The m16n8k8 fragments (PTX ISA, "Matrix Fragments for mma.m16n8k8"), with
+// g = lane / 4 and t = lane % 4: A (16 x 8) holds (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); B (8 x 8) holds (t, g), (t + 4, g); the
+// accumulator holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 template <int DK, int DV>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (kBQ * (DK + 1) + kBK * (DK + 1) + kBK * DV + kBQ * (kBK + 1));
-}
-
-template <int DK, int DV>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Plan<DK, DV>::kThreads,
+                                  Plan<DK, DV>::kMinBlocks)
     attention_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int H,
-                     int Hkv, int Sq, int Sk, int causal, int window,
-                     float scale) {
-  static_assert(DK % 16 == 0 && DV % 16 == 0,
-                "head dims must be multiples of 16");
-  constexpr int LD = DK + 1;    // padded row stride of the Q and K tiles
-  constexpr int LDP = kBK + 1;  // padded row stride of the P tile
-  constexpr int NU = DV / 16;   // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;              // kBQ x LD
-  float* sK = sQ + kBQ * LD;     // kBK x LD
-  float* sV = sK + kBK * LD;     // kBK x DV
-  float* sP = sV + kBK * DV;     // kBQ x LDP
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int BH, int H, int Hkv, int Sq, int Sk, int causal,
+                     int window, float scale) {
+  static_assert(DK % 8 == 0 && DV % 8 == 0,
+                "head dims must be multiples of 8");
+  constexpr int LDK = Plan<DK, DV>::LDK, LDV = Plan<DK, DV>::LDV;
+  constexpr int kThreads = Plan<DK, DV>::kThreads, kBQ = Plan<DK, DV>::kBQ;
+  constexpr int KD = DK / 8;   // k-steps of S
+  constexpr int NJ = kBK / 8;  // key n-tiles of S = k-steps of P V
+  constexpr int NU = DV / 8;   // n-tiles of O
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                       // kBQ x LDK
+  float* sK = sQ + kBQ * LDK;             // kStages x kBK x LDK
+  float* sV = sK + kStages * kBK * LDK;   // kStages x kBK x LDV
 
-  const int bh = blockIdx.y;
+  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  const int bh = static_cast<int>(blockIdx.x % BH);
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x / BH)) * kBQ;
   const int b = bh / H;
   const int h = bh - b * H;
   const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x;
-  const int r = tid >> 4;
-  const int c = tid & 15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
 
-  const int64_t q_stride = static_cast<int64_t>(H) * DK;    // per position
+  const int64_t q_stride = static_cast<int64_t>(H) * DK;  // per position
   const int64_t k_stride = static_cast<int64_t>(Hkv) * DK;
   const int64_t v_stride = static_cast<int64_t>(Hkv) * DV;
   const int64_t o_stride = static_cast<int64_t>(H) * DV;
@@ -118,112 +227,171 @@ __global__ void __launch_bounds__(kThreads)
   const float* vb = v + (static_cast<int64_t>(b) * Sk * Hkv + hk) * DV;
   float* ob = o + (static_cast<int64_t>(b) * Sq * H + h) * DV;
 
-  for (int e = tid; e < kBQ * DK; e += kThreads) {
-    const int i = e / DK, d = e - (e / DK) * DK;
-    const int qi = q0 + i;
-    sQ[i * LD + d] = qi < Sq ? qb[qi * q_stride + d] : 0.0f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][NU];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int u = 0; u < NU; ++u) acc[i][u] = 0.0f;
-  }
-
-  // the key positions any row of this query tile may keep: [k_lo, k_hi)
+  // the key tiles any row of this query tile may keep: [t_lo, t_lo + n_t)
   const int q_offset = Sk - Sq;
   const int q_last = min(q0 + kBQ, Sq) - 1;
   int k_lo = 0, k_hi = Sk;
   if (causal) k_hi = min(Sk, q_offset + q_last + 1);
   if (window > 0) k_lo = max(0, q_offset + q0 - window + 1);
-  const int t_end = k_hi > 0 ? (k_hi + kBK - 1) / kBK : 0;
+  const int t_lo = k_lo / kBK;
+  const int n_t = k_hi > k_lo ? (k_hi + kBK - 1) / kBK - t_lo : 0;
 
-  for (int t = k_lo / kBK; t < t_end; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the last tile's K, V and P are no longer read
-    for (int e = tid; e < kBK * DK; e += kThreads) {
-      const int j = e / DK, d = e - (e / DK) * DK;
-      const int kj = k0 + j;
-      sK[j * LD + d] = kj < Sk ? kb[kj * k_stride + d] : 0.0f;
-    }
-    for (int e = tid; e < kBK * DV; e += kThreads) {
-      const int j = e / DV, d = e - (e / DV) * DV;
-      const int kj = k0 + j;
-      sV[j * DV + d] = kj < Sk ? vb[kj * v_stride + d] : 0.0f;
-    }
-    __syncthreads();
-
-    float s[kRows][kKeys];
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = tile * kBK;
+    const int valid = min(kBK, Sk - k0);
+    load_tile<kBK, DK, LDK, kThreads>(sK + stage * kBK * LDK,
+                                      kb + k0 * k_stride, k_stride, valid,
+                                      tid);
+    load_tile<kBK, DV, LDV, kThreads>(sV + stage * kBK * LDV,
+                                      vb + k0 * v_stride, v_stride, valid,
+                                      tid);
+  };
+  load_tile<kBQ, DK, LDK, kThreads>(sQ, qb + q0 * q_stride, q_stride,
+                                    min(kBQ, Sq - q0), tid);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DK; ++d) {
-      float qv[kRows], kv[kKeys];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = sQ[(r + 8 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) kv[j] = sK[(c + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kKeys; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q_offset + q0 + r + 8 * i;
-      bool keep[kKeys];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const int kpos = k0 + c + 16 * j;
-        keep[j] = kpos < Sk && (!causal || kpos <= qpos) &&
-                  (window <= 0 || kpos > qpos - window);
-        s[i][j] = keep[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float ps = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float p = keep[j] ? expf(s[i][j] - m_new) : 0.0f;
-        sP[(r + 8 * i) * LDP + c + 16 * j] = p;
-        ps += p;
-      }
-      l[i] = l[i] * alpha + group_sum(ps);
-      m[i] = m_new;
-#pragma unroll
-      for (int u = 0; u < NU; ++u) acc[i][u] *= alpha;
-    }
-    __syncwarp();  // a row's P is written and read by its own half-warp
-
-    for (int j = 0; j < kBK; ++j) {
-      float vv[NU];
-#pragma unroll
-      for (int u = 0; u < NU; ++u) vv[u] = sV[j * DV + c + 16 * u];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = sP[(r + 8 * i) * LDP + j];
-#pragma unroll
-        for (int u = 0; u < NU; ++u) acc[i][u] = fmaf(p, vv[u], acc[i][u]);
-      }
-    }
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_t) load_kv(t_lo + s, s);
+    cp_async_commit();
   }
 
+  // this warp's rows: r0 + g and r0 + g + 8
+  const int r0 = q0 + 16 * warp;
+  const int pos0 = q_offset + r0;  // the position of row r0
+  const int qp0 = pos0 + g, qp1 = qp0 + 8;
+  const float* wq = sQ + (16 * warp + g) * LDK + 2 * t;
+  const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
+
+  float acc[NU][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + r + 8 * i;
-    if (qi >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+  for (int u = 0; u < NU; ++u)
+    acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+
+  for (int it = 0; it < n_t; ++it) {
+    cp_async_wait<kStages - 2>();
+    // every thread's copies of this tile have landed, and no warp still
+    // reads the stage the next copies overwrite
+    __syncthreads();
+    if (it + kStages - 1 < n_t)
+      load_kv(t_lo + it + kStages - 1, (it + kStages - 1) % kStages);
+    cp_async_commit();
+
+    const int k0 = (t_lo + it) * kBK;
+    if (r0 >= Sq || (causal && k0 > pos0 + 15) ||
+        (window > 0 && k0 + kBK - 1 <= pos0 - window))
+      continue;  // no row of this warp keeps a key of this tile
+    const float* tK = sK + (it % kStages) * kBK * LDK + g * LDK + 2 * t;
+    const float* tV = sV + (it % kStages) * kBK * LDV + 2 * t * LDV + g;
+
+    // S = Q K^T
+    float s[NJ][4];
 #pragma unroll
-    for (int u = 0; u < NU; ++u)
-      ob[qi * o_stride + c + 16 * u] = acc[i][u] / denom;
+    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+    // whole when DK is a multiple of 32; at (48, 32) that spills under
+    // the two-blocks-an-SM register cap
+#pragma unroll (DK % 32 == 0 ? DK / 8 : 3)
+    for (int kk = 0; kk < KD; ++kk) {
+      const float2 x0 = *reinterpret_cast<const float2*>(wq + 8 * kk);
+      const float2 x1 =
+          *reinterpret_cast<const float2*>(wq + 8 * LDK + 8 * kk);
+      uint32_t ah[4], al[4];
+      split(x0.x, ah[0], al[0]);
+      split(x1.x, ah[1], al[1]);
+      split(x0.y, ah[2], al[2]);
+      split(x1.y, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 y =
+            *reinterpret_cast<const float2*>(tK + 8 * j * LDK + 8 * kk);
+        mma3(s[j], ah, al, y.x, y.y);
+      }
+    }
+
+    // the online softmax; bit 4j + e of `kept`: s[j][e] is kept
+    uint32_t kept = 0xffffu;
+    if (k0 + kBK > Sk || (causal && k0 + kBK - 1 > pos0) ||
+        (window > 0 && k0 <= pos0 + 15 - window)) {
+      kept = 0u;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          const int qp = e < 2 ? qp0 : qp1;
+          const bool keep = kpos < Sk && (!causal || kpos <= qp) &&
+                            (window <= 0 || kpos > qp - window);
+          kept |= static_cast<uint32_t>(keep) << (4 * j + e);
+        }
+    }
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = (kept >> (4 * j + e)) & 1u ? s[j][e] * sl2 : kNegInf;
+        if (e < 2)
+          mx0 = fmaxf(mx0, s[j][e]);
+        else
+          mx1 = fmaxf(mx1, s[j][e]);
+      }
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = (kept >> (4 * j + e)) & 1u
+                            ? exp2f(s[j][e] - (e < 2 ? mn0 : mn1))
+                            : 0.0f;
+        s[j][e] = p;
+        if (e < 2)
+          ps0 += p;
+        else
+          ps1 += p;
+      }
+    l0 = l0 * alpha0 + ps0;
+    l1 = l1 * alpha1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      acc[u][0] *= alpha0;
+      acc[u][1] *= alpha0;
+      acc[u][2] *= alpha1;
+      acc[u][3] *= alpha1;
+    }
+
+    // O += P V: n-tile j of S is k-step j, keys in the order
+    // (0, 2, 4, 6 | 1, 3, 5, 7)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t ph[4], pl[4];
+      split(s[j][0], ph[0], pl[0]);
+      split(s[j][2], ph[1], pl[1]);
+      split(s[j][1], ph[2], pl[2]);
+      split(s[j][3], ph[3], pl[3]);
+      const float* vj = tV + 8 * j * LDV;
+#pragma unroll
+      for (int u = 0; u < NU; ++u)
+        mma3(acc[u], ph, pl, vj[8 * u], vj[LDV + 8 * u]);
+    }
+  }
+  cp_async_wait<0>();
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  const int i0 = r0 + g, i1 = i0 + 8;
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    if (i0 < Sq)
+      *reinterpret_cast<float2*>(ob + i0 * o_stride + 8 * u + 2 * t) =
+          make_float2(acc[u][0] / d0, acc[u][1] / d0);
+    if (i1 < Sq)
+      *reinterpret_cast<float2*>(ob + i1 * o_stride + 8 * u + 2 * t) =
+          make_float2(acc[u][2] / d1, acc[u][3] / d1);
   }
 }
 
@@ -231,17 +399,20 @@ template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hkv, int Sq, int Sk, int causal, int window,
            float scale, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<DK, DV>();
+  constexpr size_t smem = Plan<DK, DV>::kBytes;
+  constexpr int kBQ = Plan<DK, DV>::kBQ, kThreads = Plan<DK, DV>::kThreads;
+  const long long blocks = static_cast<long long>(B) * H *
+                           ((Sq + kBQ - 1) / kBQ);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((Sq + kBQ - 1) / kBQ),
-                  static_cast<unsigned>(B * H));
-  attention_kernel<DK, DV><<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Sk,
-      causal, window, scale);
+  attention_kernel<DK, DV>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), B * H, H,
+          Hkv, Sq, Sk, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -249,8 +420,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 // float32 q, k, v and o; (dk, dv) one of (32, 32), (64, 64), (128, 128),
 // (192, 128) and (48, 32). q is (B, Sq, H, dk), k (B, Sk, Hkv, dk), v
-// (B, Sk, Hkv, dv) and o (B, Sq, H, dv), all contiguous, with H % Hkv == 0
-// and B * H <= 65535. Returns the CUDA error code of the launch
+// (B, Sk, Hkv, dv) and o (B, Sq, H, dv), all contiguous and 16-byte
+// aligned, with H % Hkv == 0. Returns the CUDA error code of the launch
 // (0 = cudaSuccess).
 extern "C" int repro_attention(int dk, int dv, const void* q, const void* k,
                                const void* v, void* o, int B, int H, int Hkv,

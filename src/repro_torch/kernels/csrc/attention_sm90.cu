@@ -11,7 +11,7 @@
 // scores, the running max and denominator and the accumulator in f32. Query row i sits at position i + Sk - Sq (the causal
 // diagonal is right-aligned); key j is kept when j < Sk, j <= qpos if
 // causal, and j > qpos - window if window > 0. The f32 case runs the
-// CUDA-core program of attention.cu; the wrapper picks one by dtype.
+// split-TF32 program of attention.cu; the wrapper picks one by dtype.
 //
 // Replaces, for bf16, the same two Pallas kernels as attention.cu:
 // src/repro/kernels/flash_attention.py (flash_attention, with the GQA front

@@ -5,10 +5,12 @@
 Both launch one of two programs of the ``attention`` library, chosen
 by dtype (``PROGRAMS``): bf16 runs ``csrc/attention_sm90.cu`` (TMA-fed
 ``wgmma`` on the tensor cores, p split into two bf16 terms so the
-result keeps the bf16 tolerance), f32 runs ``csrc/attention.cu`` (f32
-FMAs on the CUDA cores: the tensor cores take f32 only as TF32). Each
-is compiled for the (query/key, value) head widths of ``WIDTHS``: equal
-widths of 32, 64 and 128, and MLA's wider queries and keys (192, 128)
+result keeps the bf16 tolerance), f32 runs ``csrc/attention.cu``
+(``mma.sync`` on the tensor cores in split TF32, three TF32 products a
+product, fed by ``cp.async``: one TF32 product would miss the f32
+tolerance). Each is compiled for the (query/key, value) head widths of
+``WIDTHS``: equal widths of 32, 64 and 128, and MLA's wider queries and
+keys (192, 128)
 at deepseek-v2's width; f32 also takes (48, 32), the smoke config's. A
 dtype or width pair that neither takes raises. Both compute online-softmax
 attention with the causal diagonal right-aligned (query row i at
@@ -21,9 +23,10 @@ repeats k and v). ``flash_attention`` on ``(B, S, d)`` is the case H = Hkv = 1. 
 positions ``>= Sk`` are masked in the kernel, so a ragged non-causal
 ``Sk`` is right, unlike the Pallas kernel (ROADMAP C1).
 
-The wrappers take CUDA tensors only: they check device, dtype, shape and
-contiguity, allocate the output, launch on the current stream, and raise
-on a launch error. ``repro_torch.kernels.ops`` picks them for CUDA
+The wrappers take CUDA tensors only: they check device, dtype, shape,
+contiguity and 16-byte alignment, allocate the output, launch on the
+current stream, and raise on a launch error. Both programs run a
+one-dimensional grid, so B * H has no limit of its own. ``repro_torch.kernels.ops`` picks them for CUDA
 tensors and the plain versions for CPU tensors.
 """
 from __future__ import annotations
@@ -36,13 +39,12 @@ from repro_torch.kernels import _build
 
 # dtype -> (the program's name, its C entry point)
 PROGRAMS = {torch.bfloat16: ("sm90_wgmma_tma", "repro_attention_sm90"),
-            torch.float32: ("cuda_core_f32", "repro_attention")}
+            torch.float32: ("sm90_mma_tf32x3", "repro_attention")}
 HEAD_DIMS = (32, 64, 128)
 # (query/key width, value width) pairs each program is compiled for
 WIDTHS = {torch.bfloat16: {(d, d) for d in HEAD_DIMS} | {(192, 128)},
           torch.float32: {(d, d) for d in HEAD_DIMS} | {(192, 128),
                                                         (48, 32)}}
-_MAX_BH = 65535        # the f32 program's grid.y; bf16's grid is 1-D
 
 
 def program(dtype: torch.dtype) -> str:
@@ -85,13 +87,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(
             f"{what}: empty input or a negative window: q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, window {window}")
-    if q.dtype == torch.float32 and B * H > _MAX_BH:
-        raise ValueError(
-            f"{what}: the f32 program takes at most {_MAX_BH} (batch, head) "
-            f"pairs, got {B * H}")
-    # TMA reads the bf16 tensors from 16-byte aligned addresses
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 for t in (q, k, v)):
+    # TMA (bf16) and cp.async (f32) read 16-byte aligned addresses
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{what} needs 16-byte aligned q, k and v")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(
@@ -101,7 +98,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale = 1.0 / (d ** 0.5)
     lib = _build.library("attention")
     o = q.new_empty((B, Sq, H, dv))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.current_stream(q.device.index)
     name, entry = PROGRAMS[q.dtype]
     code = getattr(lib, entry)(
         d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv,

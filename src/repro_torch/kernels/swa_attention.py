@@ -2,7 +2,7 @@
 counterpart of ``repro.kernels.swa_attention``.
 
 ``swa_attention`` is the attention kernel of ``flash_attention.py`` (the
-tensor-core program for bf16, the CUDA-core one for f32) with
+``wgmma`` program for bf16, the split-TF32 ``mma.sync`` one for f32) with
 ``causal=True`` and the window: its key loop reads only the key tiles
 that overlap ``(q - window, q]``. The Pallas kernel stages a whole
 window-sized block per step (k blocks i-1 and i of query block i); at

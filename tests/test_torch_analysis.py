@@ -395,13 +395,23 @@ P_MNIST = 1_199_882
     ("sqdist_rows", (100, 348_219), torch.float32, 0.0420),
     ("rmsnorm", (4, 2048, 4096), torch.bfloat16, 0.0401),
     ("flash_attention", (4, 2048, 2048, 32, 8, 128), torch.bfloat16, 0.1390),
+    ("flash_attention", (4, 2048, 2048, 32, 8, 128), torch.float32, 0.833),
+    ("flash_attention", (4, 2048, 2048, 128, 128, 192, 128), torch.float32,
+     4.17),
     ("swa_attention", (1, 16384, 32, 8, 128, 8192), torch.bfloat16, 1.6677),
     ("ssd_scan", (320, 2048, 64, 128, 64, 80), torch.float32, 0.1066),
 ])
 def test_kernel_bound_matches_perf_md(name, shape, dtype, want):
-    """PERF.md §6's bound column, to 3 significant figures."""
-    got = roofline.kernel_bound(name, shape, dtype)["bound_ms"]
-    assert float(f"{got:.3g}") == float(f"{want:.3g}"), got
+    """PERF.md §6's bound column, to 3 significant figures; f32 attention
+    counts its three TF32 products a product at the TF32 rate, with the
+    CUDA cores' f32 bound beside it (PERF.md's 2.052 and 10.26)."""
+    got = roofline.kernel_bound(name, shape, dtype)
+    assert float(f"{got['bound_ms']:.3g}") == float(f"{want:.3g}"), got
+    if name.endswith("attention") and dtype == torch.float32:
+        assert got["ops"] == 3 * roofline.attention_work(
+            *shape[:6], True, 0, 4, *shape[6:])[1]
+        cuda_cores = {0.833: 2.052, 4.17: 10.26}[want]
+        assert float(f"{got['bound_ms_f32_cuda_cores']:.4g}") == cuda_cores
 
 
 def test_analyze_places_a_call_on_the_roofline():

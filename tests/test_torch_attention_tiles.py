@@ -200,10 +200,11 @@ def test_model_has_the_kernels_geometry():
 
 
 def test_dtype_picks_the_program():
-    """bf16 runs the tensor-core program, f32 the CUDA-core one; both are
-    entry points of the one attention library, each in its own source."""
+    """bf16 runs the wgmma program, f32 the split-TF32 mma.sync one; both
+    are entry points of the one attention library, each in its own
+    source."""
     assert flash_attention.program(torch.bfloat16) == "sm90_wgmma_tma"
-    assert flash_attention.program(torch.float32) == "cuda_core_f32"
+    assert flash_attention.program(torch.float32) == "sm90_mma_tf32x3"
     assert set(flash_attention.PROGRAMS) == {torch.bfloat16, torch.float32}
     assert _build.SOURCES["attention"] == ("attention.cu", "attention_sm90.cu")
     for (_, entry), src in zip(

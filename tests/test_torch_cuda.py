@@ -15,6 +15,8 @@ zeroed rows, ``sqdist_rows`` gives NaN and +Inf where its plain version
 does (compared with ``equal_nan``); the robust aggregates give the CPU's
 bits on the card, and one quarantine round the CPU's integers.
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -23,8 +25,10 @@ torch.set_num_threads(2)
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import prng  # noqa: E402
+from repro_torch.config import norm_widths  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    flash_attention, ops, ref, rmsnorm, sqdist, ssd_scan, swa_attention,
+    _build, flash_attention, ops, ref, rmsnorm, sqdist, ssd_scan,
+    swa_attention,
 )
 from repro_torch.kernels._timing import profile_calls  # noqa: E402
 
@@ -265,6 +269,70 @@ def test_rmsnorm_kernel_matches_plain(shape, dtype):
 
 
 @pytest.mark.cuda
+def test_wrappers_launch_on_the_current_stream():
+    """``_build.current_stream`` is torch's current stream, a side stream
+    inside ``torch.cuda.stream``; rmsnorm and f32 attention launched there
+    give the default stream's bits."""
+    _need_card()
+    dev = torch.cuda.current_device()
+    assert _build.current_stream(dev) == torch.cuda.current_stream().cuda_stream
+    x = _randn((64, 1600), "bfloat16", 5)
+    q = _randn((1, 130, 4, 64), "float32", 6)
+    kv = q[:, :, :2].contiguous()
+    want = (rmsnorm.rmsnorm(x, x[0]),
+            flash_attention.flash_attention_gqa(q, kv, kv))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert _build.current_stream(dev) == side.cuda_stream
+        got = (rmsnorm.rmsnorm(x, x[0]),
+               flash_attention.flash_attention_gqa(q, kv, kv))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# the edges of rmsnorm's forms (rmsnorm.plan): D not a multiple of 8 (a
+# scalar tail, and a head on the rows that start off 16 bytes), views
+# `offset` elements into their buffers (every row and the scale off 16
+# bytes), rows shorter than a vector and of one warp, MAX_D (the stream
+# form in f32); then decode's 1-4 rows at every width a full-size config
+# norms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,offset", [
+    ((5, 1601), 0), ((3, 4100), 0), ((2, 3, 1601), 1), ((4, 4096), 1),
+    ((3, 16384), 3), ((9, 200), 1), ((4, 7), 1), ((2, rmsnorm.MAX_D), 0),
+    ((2, rmsnorm.MAX_D), 1)])
+def test_rmsnorm_edges_match_plain(shape, offset, dtype):
+    _need_card()
+    n = math.prod(shape)
+    x = _randn((n + offset,), dtype, n)[offset:].view(shape)
+    s = _randn((shape[-1] + offset,), dtype, 2)[offset:]
+    if offset:
+        assert x.data_ptr() % 16 and s.data_ptr() % 16
+    got = _same_twice(rmsnorm.rmsnorm, x, s, 1e-5)
+    torch.testing.assert_close(got, ref.rmsnorm_ref(x, s, 1e-5),
+                               **LM_TOL["norm", dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", norm_widths())
+def test_rmsnorm_at_decode_rows_matches_plain(d, dtype):
+    """A decode step's (B, 1, d), B = 1..4: a few blocks."""
+    _need_card()
+    for rows in (1, 2, 3, 4):
+        x = _randn((rows, 1, d), dtype, d + rows)
+        s = _randn((d,), dtype, 3)
+        got = _same_twice(rmsnorm.rmsnorm, x, s, 1e-5)
+        torch.testing.assert_close(got, ref.rmsnorm_ref(x, s, 1e-5),
+                                   **LM_TOL["norm", dtype])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,d,causal,window", [
     (2, 64, 64, 1, 1, 32, True, 0), (2, 100, 100, 4, 2, 64, True, 0),
@@ -310,7 +378,7 @@ def test_attention_program_edges_match_plain(B, Sq, Sk, H, Hkv, d, causal,
     against the plain version and bitwise repeatable."""
     _need_card()
     assert flash_attention.program(DTYPES[dtype]) == {
-        "bfloat16": "sm90_wgmma_tma", "float32": "cuda_core_f32"}[dtype]
+        "bfloat16": "sm90_wgmma_tma", "float32": "sm90_mma_tf32x3"}[dtype]
     seed = 7 * B + Sq + 3 * Sk + H + d + window
     q = _randn((B, Sq, H, d), dtype, seed)
     k = _randn((B, Sk, Hkv, d), dtype, seed + 1)
@@ -358,6 +426,38 @@ def test_attention_at_the_zoo_layouts_matches_plain(B, Sq, Sk, H, Hkv, d,
     assert got.shape == (B, Sq, H, dv)
     want = ref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got, want, **LM_TOL["attn", dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dv", sorted(flash_attention.WIDTHS[torch.float32]))
+def test_f32_program_at_every_width_pair(d, dv, causal):
+    """The split-TF32 program at each (query/key, value) width pair it is
+    compiled for, ragged tiles past one query tile (128 rows, 192 at head
+    dim 128)."""
+    _need_card()
+    assert flash_attention.program(torch.float32) == "sm90_mma_tf32x3"
+    q = _randn((2, 200, 4, d), "float32", d + dv)
+    k = _randn((2, 230, 2, d), "float32", d + dv + 1)
+    v = _randn((2, 230, 2, dv), "float32", d + dv + 2)
+    got = _same_twice(flash_attention.flash_attention_gqa, q, k, v,
+                      causal=causal)
+    want = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, **LM_TOL["attn", "float32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_attention_takes_more_heads_than_a_2d_grid(dtype):
+    """B * H = 70,000, above the 65,535 of a grid's second axis: both
+    programs run one grid axis."""
+    _need_card()
+    q = _randn((1, 4, 70_000, 32), dtype, 1)
+    k = _randn((1, 4, 1, 32), dtype, 2)
+    v = _randn((1, 4, 1, 32), dtype, 3)
+    got = _same_twice(flash_attention.flash_attention_gqa, q, k, v)
+    torch.testing.assert_close(got, ref.flash_attention_gqa_ref(q, k, v),
+                               **LM_TOL["attn", dtype])
 
 
 @pytest.mark.cuda
@@ -424,6 +524,10 @@ def test_lm_kernels_count_launches_and_reject_what_they_do_not_take():
                                             kv[..., :16].contiguous())
     with pytest.raises(ValueError, match="multiple of"):
         flash_attention.flash_attention_gqa(q[:, :, :3].contiguous(), kv, kv)
+    # a contiguous view one float into its buffer: cp.async reads 16 bytes
+    off = _randn((q.numel() + 1,), "float32", 4)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention.flash_attention_gqa(off, kv, kv)
     with pytest.raises(ValueError, match="multiple of the window"):
         swa_attention.swa_attention(q, kv, kv, window=24)
 
