@@ -44,6 +44,13 @@ trace covers rounds 21-40, so two of its syncs and their sorts). Each
 line adds the device time under ``round.faults`` (the restart zeroing
 and the perturbation) and the host-to-device copies a round.
 
+    python3 benchmarks/torch_profile.py --lm-train
+
+traces only the LM training cells of ``chip_smoke.py``'s ``lm_train``
+(slice 14): five steps of fleet-llm-100m's dynamic run at m = 4 and one
+σ_1 step of llama3-8b at full width (2 of 32 layers, f32, (1, 4096)),
+each after a warm-up, the port's backward kernels among the kinds.
+
     python3 benchmarks/torch_profile.py --paper
 
 traces only the training cells, the MNIST ones and the deep-driving
@@ -89,6 +96,7 @@ from torch.profiler import ProfilerActivity, profile
 KERNELS_ONLY = "--kernels" in sys.argv[1:]
 PAPER_ONLY = "--paper" in sys.argv[1:]
 FAULTS_ONLY = "--faults" in sys.argv[1:]
+LM_TRAIN_ONLY = "--lm-train" in sys.argv[1:]
 OWN_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                        "src")
 SRC = (sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv[1:]
@@ -200,8 +208,10 @@ def profile_protocol(name: str, proto: ProtocolConfig,
 # attention programs (attention_kernel, attention_kernel_sm90) before
 # "sm90_" claims cuBLAS's own kernels
 KINDS = (("attention kernel", ("attention_kernel",)),
+         ("attention_bwd kernel", ("attention_bwd_",)),
          ("ssd_scan kernel", ("ssd_scan_",)),
          ("rmsnorm kernel", ("rmsnorm_kernel",)),
+         ("rmsnorm_bwd kernel", ("rmsnorm_bwd_",)),
          ("cuBLAS products", ("nvjet", "gemm", "gemv", "xmma", "cutlass",
                               "sm90_")))
 
@@ -279,6 +289,68 @@ def profile_ssm_serve() -> list:
     eng.generate(2, first_logits=logits)                # warm-up
     out.append({"cell": "mamba2-2.7b decode batch 4, after 34 tokens",
                 **_trace(lambda: eng.generate(8, first_logits=logits), 8)})
+    return out
+
+
+def profile_lm_train() -> list:
+    """The two LM training cells of ``chip_smoke.py``'s ``lm_train``,
+    traced after a warm-up: fleet-llm-100m at m = 4 under
+    ``make_dynamic_train_step`` (b = 10, Δ = 5; 3 warm-up steps, then 5
+    traced) and one σ_1 ``make_train_step`` step of llama3-8b at full
+    width, 2 of 32 layers, f32, (1, 4096) (1 warm-up step)."""
+    import dataclasses
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "..", "examples"))
+    from torch_fleet_llm import fleet_model, stacked_batch
+    from repro_torch import prng
+    from repro_torch.core import distributed
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models.model import lm_loss
+    from repro_torch.train import make_train_step
+    out = []
+    cfg = fleet_model(big=True)
+    streams = [TokenStream(seed=100 + i, vocab=cfg.vocab_size,
+                           device="cuda") for i in range(4)]
+    batches = [stacked_batch(streams, prng.fold_in(prng.key(1), t),
+                             "cuda") for t in range(8)]
+    del streams
+    train = TrainConfig(optimizer="adam", learning_rate=3e-4)
+    step = distributed.make_dynamic_train_step(
+        lambda p, b: lm_loss(cfg, p, b),
+        ProtocolConfig(kind="dynamic", b=10, delta=45.0), train, 4)
+    init = init_lm_params(cfg, seed=0, device="cuda")
+    state = distributed.init_dynamic_state(
+        lambda g: init, torch.Generator(device="cuda").manual_seed(0), 4,
+        train, device="cuda")
+    for b in batches[:3]:
+        state, _ = step(state, b)
+
+    def fleet_steps():
+        nonlocal state
+        for b in batches[3:]:
+            state, _ = step(state, b)
+
+    out.append({"cell": "fleet-llm-100m dynamic m=4, 4x128 tokens a "
+                        "learner", **_trace(fleet_steps, 5)})
+    del state, init, step, batches
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_arch("llama3-8b"), num_layers=2)
+    init_state, step = make_train_step(lambda p, b: lm_loss(cfg, p, b),
+                                       TrainConfig(optimizer="adam",
+                                                   learning_rate=1e-3))
+    state = init_state(init_lm_params(cfg, seed=0, device="cuda"))
+    toks = prng.randint(prng.key(3), (1, 4097), 0, cfg.vocab_size).long()
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    state, _ = step(state, batch)
+
+    def llama_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    out.append({"cell": "llama3-8b train step, 2 of 32 layers, f32, "
+                        "(1, 4096), adam", **_trace(llama_step)})
     return out
 
 
@@ -428,6 +500,14 @@ def main() -> None:
         sys.exit("torch_profile.py needs a CUDA device")
     if KERNELS_ONLY:
         for rec in profile_kernels():
+            print(json.dumps(rec), flush=True)
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), flush=True)
+        return
+    if LM_TRAIN_ONLY:
+        for rec in profile_lm_train():
             print(json.dumps(rec), flush=True)
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -193,6 +193,25 @@ and drives both of the port's paths:
   ``rmsnorm`` at every ``norm_widths`` width on inputs that have left
   the L2; ``zoo_serve`` times each
   config's f32 prefill (the second call) and counts its launches.
+* LM training through the kernels (slice 14): two backward kernels
+  (``attention_bwd.cu``, f32 on the CUDA cores; ``rmsnorm_bwd.cu``, a
+  grouped dscale), the f32 attention program writing each row's
+  log-sum-exp for them, and the norm's grouped scale.
+  ``lm_train_kernels`` holds each backward kernel against the autograd
+  gradient of its plain version in f32 and float64, bitwise across two
+  launches, at llama3-8b's (1, 4096, 32/8, 128), the fleet's folded
+  (16, 128, 12/4, 128) and at head dim 64, ragged S, GQA groups 1 and 4, a window and a
+  non-causal Sk != Sq; the norm at (4096, 4096) with 1 and 4 groups,
+  the fleet's rows and rows off 16 bytes; times them beside the plain
+  version, SDPA's / ``F.rms_norm``'s backward and ``kernel_bound``.
+  ``lm_train`` trains llama3-8b at full width (2 of 32 layers, f32,
+  S = 4,096) through ``make_train_step(lm_loss)``, its step-1 gradient
+  held against the plain versions', and fleet-llm-100m at full width
+  and depth, m = 4, dynamic and periodic for 60 steps each, with exact
+  launches (one per layer and op for the four learners) and the
+  dynamic run repeated bit for bit; ``lm_train_agree`` holds
+  llama3-8b-smoke's three step factories on the card to the CPU and
+  runs the launcher twin's ``--smoke`` modes on the card.
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -248,14 +267,14 @@ from repro_torch.core.sync.spec import ProtocolSpec, resolve_spec  # noqa: E402
 from repro_torch.data.pipeline import LearnerStreams  # noqa: E402
 from repro_torch.device import versions  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
-    DeepDriveStream, GraphicalModelStream, SyntheticMNIST,
+    DeepDriveStream, GraphicalModelStream, SyntheticMNIST, TokenStream,
 )
 from repro_torch.kernels import (  # noqa: E402
     _build, flash_attention, ops, ref, rmsnorm, sqdist, ssd_scan,
     swa_attention,
 )
 from repro_torch.kernels._timing import (  # noqa: E402
-    cold_inputs, cuda_ms, graph_ms, in_turn, profile_calls,
+    cold_inputs, cuda_ms, graph_ms, host_us, in_turn, profile_calls,
 )
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn_params  # noqa: E402
 from repro_torch.models.attention import takes_band  # noqa: E402
@@ -3815,6 +3834,542 @@ def phase_figures() -> tuple:
     return launches, rec
 
 
+# ---------------------------------------------------------------------------
+# LM training (slice 14): the backward kernels, llama3-8b at full width and
+# the fleet LM of examples/torch_fleet_llm.py
+# ---------------------------------------------------------------------------
+
+# a backward kernel's gradient against the autograd gradient of its plain
+# version, in f32 and in float64: max |diff| over max |want|, each of dq,
+# dk, dv (dx, dscale). f32 on both sides, summed in other orders (a query
+# row's sums run over up to 4,096 keys): the f32 forward's rtol, 1e-4
+TRAIN_GRAD_REL = 1e-4
+# the forward's log-sum-exp against logsumexp of the plain scores
+LSE_TOL = dict(rtol=1e-5, atol=1e-5)
+# (B, Sq, Sk, H, Hkv, d, causal, window, label); the first two are timed,
+# TIME_REPEATS times each by CUDA events (median and spread)
+TIME_REPEATS = 7
+TRAIN_ATTN_CASES = [
+    (1, 4096, 4096, 32, 8, 128, True, 0, "llama3-8b (1, 4096, 32/8, 128)"),
+    # fleet-llm-100m keeps llama3-8b's head_dim of 128
+    # (examples/fleet_llm.py replaces the widths, not head_dim)
+    (16, 128, 128, 12, 4, 128, True, 0,
+     "fleet-llm-100m, 4 learners folded (16, 128, 12/4, 128)"),
+    (16, 128, 128, 12, 4, 64, True, 0, "(16, 128, 12/4, 64)"),
+    (2, 100, 100, 4, 4, 64, True, 0, "ragged S, GQA group 1"),
+    (1, 130, 130, 8, 2, 128, True, 0, "ragged S, GQA group 4"),
+    (1, 300, 300, 8, 2, 64, True, 64, "a window of 64"),
+    (2, 70, 90, 4, 1, 32, False, 0, "non-causal, Sk != Sq"),
+]
+# (rows, D, groups, offset, label); offset > 0: rows off 16 bytes
+TRAIN_NORM_CASES = [
+    (4096, 4096, 1, 0, "(4096, 4096), one scale"),
+    (4096, 4096, 4, 0, "(4096, 4096), m = 4 groups"),
+    (2048, 768, 4, 0, "fleet-llm-100m's (4 x 512, 768), 4 groups"),
+    (33, 1601, 1, 1, "rows off 16 bytes"),
+    (12, 200, 3, 3, "rows off 16 bytes, 3 groups"),
+]
+LM_TRAIN_LAYERS, LM_TRAIN_S, LM_TRAIN_STEPS = 2, 4096, 6
+# step 1's gradient through the kernels against the plain versions', as
+# the relative L2 over the whole model (the two differ only in the
+# attention's and the norms' f32 summation orders)
+LM_TRAIN_GRAD_L2 = 1e-4
+# Δ among the checked distances (the largest learner's squared distance
+# from the reference) of a run that syncs at every check: 131.7 at the
+# first, falling to 26.3 at the sixth on the H100 at b = 10. fleet_llm.py's
+# default Δ = 5 lies below them all, which makes the run periodic
+# averaging; at 45 it must both sync and hold, 0 < syncs < checks
+FLEET_M, FLEET_STEPS, FLEET_PERIOD, FLEET_DELTA = 4, 60, 10, 45.0
+# lm_train_agree: llama3-8b-smoke, card vs CPU for 20 adam steps (lr
+# 1e-3). adam moves a weight whose gradient is at f32's noise level by up
+# to lr a step, so the kernels' last bits move such weights by up to lr:
+# planes within 1e-3 of their norm and 2 lr x 20 entry by entry, losses
+# within rtol 1e-4 (tests/test_torch_lm_train.py's bounds, jax vs port)
+AGREE_STEPS, AGREE_LR = 20, 1e-3
+AGREE_PLANE_REL, AGREE_PLANE_ABS = 1e-3, 2 * AGREE_LR * AGREE_STEPS
+AGREE_DYNAMIC = (2, 1.5)         # (b, delta) of the agree dynamic run
+
+
+def _median_spread(key: str, times: list) -> dict:
+    """``key``: the median of repeated timings, ``key_spread``: their
+    least and greatest."""
+    return {key: float(np.median(times)),
+            f"{key}_spread": [min(times), max(times)]}
+
+
+def _rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+def _hold_grads(checks, name, label, got, again, want32, want64) -> None:
+    """A backward kernel's gradients against the plain version's in f32
+    and float64, and bitwise against a second launch."""
+    err32 = [_rel_max(a, w) for a, w in zip(got, want32)]
+    err64 = [_rel_max(a, w) for a, w in zip(got, want64)]
+    plain64 = [_rel_max(w, w64) for w, w64 in zip(want32, want64)]
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = repeat and max(err32 + err64) <= TRAIN_GRAD_REL
+    checks.append({"kernel": name, "inputs": label,
+                   "rel_err_vs_plain_f32": err32,
+                   "rel_err_vs_plain_f64": err64,
+                   "plain_f32_rel_err_vs_f64": plain64,
+                   "max_abs_err": max(float((a - w).abs().max())
+                                      for a, w in zip(got, want32)),
+                   "bitwise_repeat": repeat, "ok": ok})
+    if not ok:
+        emit({"phase": "lm_train_kernels", "failed": checks[-1]})
+        raise SystemExit(f"{name} disagrees: {checks[-1]}")
+
+
+def phase_lm_train_kernels(gen) -> dict:
+    """The two backward kernels (``attention_bwd``, ``rmsnorm_bwd``)
+    against the autograd gradient of their plain versions on the card, in
+    f32 and float64 (TRAIN_GRAD_REL), bitwise across two launches, at the
+    training paths' shapes and the kernels' edges; the f32 forward's
+    log-sum-exp against ``logsumexp`` of the plain scores; the grouped
+    forward norm against one call per group, bit for bit. Timed at
+    llama3-8b's and the fleet's shapes beside the plain version, one
+    PyTorch call (SDPA's f32 backward with the kv heads expanded,
+    ``F.rms_norm``'s backward; their forward outside the timing) and
+    ``kernel_bound`` (split TF32 and the CUDA cores' f32)."""
+    card = peaks(torch.cuda.get_device_name(0))
+    checks, lse_errs, timed = [], [], {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    for B, Sq, Sk, H, Hkv, d, causal, w, label in TRAIN_ATTN_CASES:
+        q, k, v = randn(B, Sq, H, d), randn(B, Sk, Hkv, d), randn(B, Sk, Hkv, d)
+        do = randn(B, Sq, H, d)
+        kw = dict(causal=causal, window=w, scale=None)
+        o, lse = flash_attention.attention(q, k, v, with_lse=True, **kw)
+        lse_want = ref.attention_lse_ref(q, k, causal=causal, window=w)
+        lse_errs.append(float((lse - lse_want).abs().max()))
+        if not torch.allclose(lse, lse_want, **LSE_TOL):
+            raise SystemExit(f"the forward's log-sum-exp at {label}: "
+                             f"{lse_errs[-1]}")
+        if not torch.equal(o, flash_attention.flash_attention_gqa(
+                q, k, v, causal=causal, window=w)):
+            raise SystemExit(f"the forward with the log-sum-exp gives "
+                             f"another output at {label}")
+        got = flash_attention.attention_bwd(q, k, v, o, lse, do, **kw)
+        again = flash_attention.attention_bwd(q, k, v, o, lse, do, **kw)
+        want32 = ref.flash_attention_gqa_bwd_ref(q, k, v, do, **kw)
+        want64 = ref.flash_attention_gqa_bwd_ref(
+            q.double(), k.double(), v.double(), do.double(), **kw)
+        torch.cuda.synchronize()
+        _hold_grads(checks, "attention_bwd", label, got, again, want32,
+                    want64)
+        del again, want32, want64
+        if len(timed) < 2:
+            G = H // Hkv
+            qT, kE, vE = (t.transpose(1, 2) for t in (q, k, v))
+            qT = qT.contiguous().requires_grad_()
+            kE, vE = (t.repeat_interleave(G, dim=1).contiguous()
+                      .requires_grad_() for t in (kE, vE))
+            out = F.scaled_dot_product_attention(qT, kE, vE,
+                                                 is_causal=causal)
+            doT = do.transpose(1, 2).contiguous()
+            shape = [B, Sq, Sk, H, Hkv, d]
+            bwd = lambda: flash_attention.attention_bwd(  # noqa: E731
+                q, k, v, o, lse, do, **kw)
+            lib = lambda: torch.autograd.grad(  # noqa: E731
+                out, (qT, kE, vE), doT, retain_graph=True)
+            reps, lib_reps = ([cuda_ms(f, 5, 1) for _ in range(TIME_REPEATS)]
+                              for f in (bwd, lib))
+            timed[label] = {
+                "shape": shape, "dtype": "float32",
+                **_median_spread("ms", reps),
+                # the device's time alone, and the host's time in a call:
+                # the larger of the two sets the back-to-back time
+                "graph_ms": graph_ms(bwd, *((2, 3) if min(reps) > 1
+                                            else (10, 5))),
+                "host_ms": host_us(bwd, 20, 2) / 1e3,
+                "plain_ms": cuda_ms(lambda: ref.flash_attention_gqa_bwd_ref(
+                    q, k, v, do, **kw), 3, 1),
+                **_median_spread("library_ms", lib_reps),
+                "library": "autograd.grad of F.scaled_dot_product_attention"
+                           "(is_causal=True), kv heads expanded, f32 "
+                           "(its forward untimed)",
+                "forward_ms": cuda_ms(lambda: flash_attention.attention(
+                    q, k, v, with_lse=True, **kw), 5, 1),
+                **kernel_bound("attention_bwd", shape, torch.float32, card)}
+            row = timed[label]
+            row["time_set_by"] = ("host" if row["host_ms"] > row["graph_ms"]
+                                  else "device")
+            del qT, kE, vE, out, doT, bwd, lib
+        del q, k, v, do, o, lse, got
+        torch.cuda.empty_cache()
+    attn_rows = list(timed.values())
+
+    timed = {}
+    for rows, D, g, off, label in TRAIN_NORM_CASES:
+        x = randn(rows * D + off)[off:].view(rows, D)
+        s = 1.0 + 0.1 * (randn(g, D) if g > 1 else randn(D))
+        dy = randn(rows, D)
+        got = rmsnorm.rmsnorm_bwd(x, s, dy, 1e-5)
+        again = rmsnorm.rmsnorm_bwd(x, s, dy, 1e-5)
+        want32 = ref.rmsnorm_bwd_ref(x, s, dy, 1e-5)
+        want64 = ref.rmsnorm_bwd_ref(x.double(), s.double(), dy.double(),
+                                     1e-5)
+        torch.cuda.synchronize()
+        _hold_grads(checks, "rmsnorm_bwd", label, got, again, want32, want64)
+        if g > 1:   # the grouped forward: one call per group, bit for bit
+            y = rmsnorm.rmsnorm(x, s, 1e-5)
+            R = rows // g
+            if not all(torch.equal(y[i * R:(i + 1) * R], rmsnorm.rmsnorm(
+                    x[i * R:(i + 1) * R].contiguous(), s[i], 1e-5))
+                    for i in range(g)):
+                raise SystemExit(f"the grouped rmsnorm at {label} is not "
+                                 f"one call per group bit for bit")
+        if rows * D >= 2048 * 768 and off == 0:
+            xg = x.clone().requires_grad_()
+            sg = s.clone().requires_grad_()
+            shape = [rows, D] + ([g] if g > 1 else [])
+            rec = {"shape": shape, "dtype": "float32",
+                   "ms": cuda_ms(lambda: rmsnorm.rmsnorm_bwd(x, s, dy, 1e-5)),
+                   "plain_ms": cuda_ms(lambda: ref.rmsnorm_bwd_ref(
+                       x, s, dy, 1e-5), 5, 1),
+                   "forward_ms": cuda_ms(lambda: rmsnorm.rmsnorm(x, s,
+                                                                 1e-5)),
+                   **kernel_bound("rmsnorm_bwd", shape, torch.float32, card)}
+            if g == 1:
+                y = F.rms_norm(xg, (D,), weight=sg, eps=1e-5)
+                rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    y, (xg, sg), dy, retain_graph=True))
+                rec["library"] = ("autograd.grad of F.rms_norm, f32 (its "
+                                  "forward untimed)")
+                del y
+            else:
+                rec["library_ms"] = None
+                rec["library"] = "none: no PyTorch call takes grouped scales"
+            timed[label] = rec
+            del xg, sg
+        del x, s, dy, got, again, want32, want64
+    norm_rows = list(timed.values())
+    worst = {n: max(c["max_abs_err"] for c in checks if c["kernel"] == n)
+             for n in ("attention_bwd", "rmsnorm_bwd")}
+    emit({"phase": "lm_train_kernels", "checks": checks,
+          "lse_max_abs_err": max(lse_errs),
+          "tolerance_rel_of_max": TRAIN_GRAD_REL, "lse_tolerance": LSE_TOL,
+          "timed": {"attention_bwd": attn_rows, "rmsnorm_bwd": norm_rows}})
+    return {"attention_bwd": {**attn_rows[0],
+                              "max_abs_err": worst["attention_bwd"],
+                              "at_fleet_shape": attn_rows[1]},
+            "rmsnorm_bwd": {**norm_rows[0],
+                            "max_abs_err": worst["rmsnorm_bwd"],
+                            "other_shapes": norm_rows[1:]}}
+
+
+def _lm_batch(cfg, B, S, seed):
+    """Uniform tokens by ``prng.randint`` on the card (the reference
+    launcher's audio draw: llama3-8b's TokenStream would hold V^2 =
+    1.6e10 logits), labels the next token."""
+    toks = prng.randint(prng.key(seed), (B, S + 1), 0,
+                        cfg.vocab_size).long()
+    return {"tokens": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous()}
+
+
+def _launches_ok(got: dict, L: int, calls: int) -> bool:
+    per = {"rmsnorm": 2 * L + 1, "flash_attention": L,
+           "rmsnorm_bwd": 2 * L + 1, "attention_bwd": L}
+    return all(got[k] == v * calls for k, v in per.items()) and \
+        got["swa_attention"] == got["ssd_scan"] == 0
+
+
+def _llama_train(layers: int) -> dict:
+    """llama3-8b at full width and ``layers`` layers, f32: step 1's
+    gradient through the kernels against the plain versions', then
+    LM_TRAIN_STEPS adam steps of ``make_train_step(lm_loss)`` on one
+    batch."""
+    from repro_torch.models.model import lm_loss
+    from repro_torch.train import make_train_step
+    cfg = dataclasses.replace(get_arch("llama3-8b"), num_layers=layers)
+    params = init_lm_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    batch = _lm_batch(cfg, 1, LM_TRAIN_S, 3)
+    loss_fn = lambda p, b: lm_loss(cfg, p, b)          # noqa: E731
+    ops.reset_launches()
+    row_k = _row_of(torch.func.grad(loss_fn)(params, batch))
+    one_grad = dict(ops.LAUNCHES)
+    # the plain versions on the card: every op takes its CPU route
+    on_cpu, ops._on_cpu = ops._on_cpu, lambda *t: True
+    try:
+        row_p = _row_of(torch.func.grad(loss_fn)(params, batch))
+    finally:
+        ops._on_cpu = on_cpu
+    grad = {"rel_l2": _rel_l2(row_k, row_p),
+            "max_abs_err": float((row_k - row_p).abs().max()),
+            "tolerance_rel_l2": LM_TRAIN_GRAD_L2,
+            "launches": one_grad}
+    del row_k, row_p
+    torch.cuda.empty_cache()
+    init_state, step = make_train_step(
+        loss_fn, TrainConfig(optimizer="adam", learning_rate=1e-3),
+        device="cuda")
+    state = init_state(params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, ms = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        (state, metrics), step_ms, _ = _timed(lambda: step(state, batch))
+        losses.append(float(metrics["loss"]))
+        ms.append(step_ms)
+    launches = dict(ops.LAUNCHES)
+    rec = {"arch": cfg.name, "layers": layers, "of_layers": 32,
+           "weights": cfg.param_count(), "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "batch": 1, "seq": LM_TRAIN_S,
+           "dtype": "float32", "optimizer": "adam", "lr": 1e-3,
+           "step1_grad_vs_plain": grad, "losses": losses,
+           "ms_per_step_after_warmup": sum(ms[1:]) / (len(ms) - 1),
+           "ms_first_step": ms[0],
+           "tokens_per_s": LM_TRAIN_S / (sum(ms[1:]) / (len(ms) - 1)) * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches}
+    del state
+    torch.cuda.empty_cache()
+    if not (_launches_ok(launches, layers, LM_TRAIN_STEPS)
+            and _launches_ok(one_grad, layers, 1)
+            and grad["rel_l2"] <= LM_TRAIN_GRAD_L2
+            and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        emit({"phase": "lm_train", "failed": rec})
+        raise SystemExit(f"lm_train llama3-8b: {rec}")
+    return rec
+
+
+def _fleet_run(cfg, init, batches, kind) -> dict:
+    from repro_torch.models.model import lm_loss
+    loss_fn = lambda p, b: lm_loss(cfg, p, b)          # noqa: E731
+    train = TrainConfig(optimizer="adam", learning_rate=3e-4)
+    proto = ProtocolConfig(kind="dynamic", b=FLEET_PERIOD, delta=FLEET_DELTA)
+    mk = (distributed.make_dynamic_train_step if kind == "dynamic"
+          else distributed.make_periodic_train_step)
+    step = mk(loss_fn, proto, train, FLEET_M)
+    state = distributed.init_dynamic_state(
+        lambda g: init, torch.Generator(device="cuda").manual_seed(0),
+        FLEET_M, train, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    synced, losses, maxd = [], [], []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for t, batch in enumerate(batches):
+        if t == 1:
+            start.record()
+        state, metrics = step(state, batch)
+        synced.append(int(metrics["synced"]))
+        losses.append(metrics["loss"])
+        maxd.append(metrics.get("max_sq_dist"))
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (len(batches) - 1)
+    P = state.plane.shape[1]
+    tokens = FLEET_M * batches[0]["tokens"][0].numel()
+    return {"kind": kind, "steps": len(batches), "syncs": state.syncs,
+            "checks": state.checks, "synced": synced,
+            "losses": [float(x) for x in losses[::10]] + [float(losses[-1])],
+            "max_sq_dist_checked": [float(d) for d in maxd
+                                    if d is not None and float(d) > 0],
+            "ms_per_step_after_warmup": ms,
+            "tokens_per_step": tokens, "tokens_per_s": tokens / ms * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": dict(ops.LAUNCHES),
+            "sqdist_rows_at_m_P": ops.ROWS_LAUNCHES[(FLEET_M, P, 1)],
+            "weights": P, "plane": state.plane}
+
+
+def phase_lm_train() -> dict:
+    """LM training through the kernels on the card. (a) llama3-8b at full
+    width (d 4096, 32/8 heads of 128, d_ff 14,336, vocab 128,256), 2 of
+    32 layers (LM_TRAIN_LAYERS), f32, B = 1, S = 4,096: step 1's
+    gradient through the kernels against the plain versions' on the same
+    weights and batch (LM_TRAIN_GRAD_L2), then 6 adam steps (lr 1e-3) of
+    ``make_train_step(lm_loss)`` on one batch: the loss falls, ms a step
+    after the first, tokens/s, peak memory, and exact launches (forward
+    rmsnorm 2L + 1 and attention L a step, the backward kernels the
+    same). (b) fleet-llm-100m (examples/torch_fleet_llm.py --big) at full
+    width and depth, m = 4 learners of 4 x 128 tokens from
+    ``TokenStream(seed=100 + i)``: ``make_dynamic_train_step`` (b = 10,
+    Δ = 45) and ``make_periodic_train_step``, 60 steps each, with syncs
+    and checks (the dynamic run both syncs and holds), ``sqdist_rows`` exactly once per check at (4, P), every
+    norm and attention one launch a layer for the four learners (the
+    vmap rules), and the dynamic run repeated bit for bit."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "examples"))
+    from torch_fleet_llm import fleet_model, stacked_batch
+    llama = _llama_train(LM_TRAIN_LAYERS)
+    emit({"phase": "lm_train", "llama3-8b": llama})
+
+    cfg = fleet_model(big=True)
+    streams = [TokenStream(seed=100 + i, vocab=cfg.vocab_size,
+                           device="cuda") for i in range(FLEET_M)]
+    key, batches = prng.key(1), []
+    for _ in range(FLEET_STEPS):
+        key, sub = prng.split(key, 2)
+        batches.append(stacked_batch(streams, sub, "cuda"))
+    del streams
+    init = init_lm_params(cfg, seed=0, device="cuda")
+    runs = {kind: _fleet_run(cfg, init, batches, kind)
+            for kind in ("dynamic", "periodic")}
+    again = _fleet_run(cfg, init, batches, "dynamic")
+    repeat = (again["synced"] == runs["dynamic"]["synced"]
+              and torch.equal(again["plane"], runs["dynamic"]["plane"]))
+    L = cfg.num_layers
+    for run in runs.values():
+        run.pop("plane")
+    fleet = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+             "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff,
+             "vocab": cfg.vocab_size, "m": FLEET_M, "b": FLEET_PERIOD,
+             "delta": FLEET_DELTA, "runs": runs,
+             "dynamic_repeats_bitwise": repeat}
+    emit({"phase": "lm_train", "fleet-llm-100m": fleet})
+    dyn, per = runs["dynamic"], runs["periodic"]
+    if not (repeat and dyn["checks"] == FLEET_STEPS // FLEET_PERIOD
+            and 0 < dyn["syncs"] < dyn["checks"]
+            and dyn["sqdist_rows_at_m_P"] == dyn["checks"]
+            and dyn["launches"]["sqdist_rows"] == dyn["checks"]
+            and per["launches"]["sqdist_rows"] == 0
+            and per["syncs"] == FLEET_STEPS // FLEET_PERIOD
+            and all(_launches_ok(r["launches"], L, FLEET_STEPS)
+                    for r in runs.values())
+            and all(math.isfinite(x) for r in runs.values()
+                    for x in r["losses"])):
+        raise SystemExit(f"lm_train fleet-llm-100m: {fleet}")
+    return {"llama3-8b": llama, "fleet-llm-100m": fleet}
+
+
+def _agree_runs(cfg, init_np, fleet, single, device) -> dict:
+    """llama3-8b-smoke's three step factories for AGREE_STEPS steps on
+    ``device`` from the same numpy weights and batches."""
+    from repro_torch.models.model import lm_loss
+    from repro_torch.train import make_train_step
+    loss_fn = lambda p, b: lm_loss(cfg, p, b)          # noqa: E731
+    train = TrainConfig(optimizer="adam", learning_rate=AGREE_LR)
+    dev = torch.device(device)
+    out = {}
+    init_state, step = make_train_step(loss_fn, train, device=device)
+    state = init_state(params_from_numpy(init_np, device=device))
+    losses = []
+    for b in single:
+        state, metrics = step(state, {k: v.to(dev) for k, v in b.items()})
+        losses.append(float(metrics["loss"]))
+    out["train"] = {"losses": losses, "plane": _row_of(state.params).cpu()}
+    for kind, (b, delta) in (("dynamic", AGREE_DYNAMIC),
+                             ("periodic", (3, 1.0))):
+        mk = (distributed.make_dynamic_train_step if kind == "dynamic"
+              else distributed.make_periodic_train_step)
+        step = mk(loss_fn, ProtocolConfig(kind="dynamic", b=b, delta=delta),
+                  train, FLEET_M)
+        state = distributed.init_dynamic_state(
+            lambda g: params_from_numpy(init_np, device=device),
+            torch.Generator(device=device).manual_seed(0), FLEET_M, train,
+            device=device)
+        synced, losses, dists = [], [], []
+        for batch in fleet:
+            state, metrics = step(state, {k: v.to(dev)
+                                          for k, v in batch.items()})
+            synced.append(int(metrics["synced"]))
+            losses.append(float(metrics["loss"]))
+            if "max_sq_dist" in metrics:
+                dists.append(float(metrics["max_sq_dist"]))
+        out[kind] = {"synced": synced, "syncs": state.syncs,
+                     "checks": state.checks, "losses": losses,
+                     "max_sq_dist": dists, "plane": state.plane.cpu()}
+    return out
+
+
+def phase_lm_train_agree() -> dict:
+    """llama3-8b-smoke trained on the card and on the CPU from the same
+    weights and batches (4 learners of 2 x 32 tokens from their
+    TokenStreams; the single step on the 8 x 32 they make): the three
+    modes for 20 adam steps, ``synced``, syncs and checks identical, the
+    planes and losses within the AGREE_PLANE_* / rtol 1e-4 bounds, and no
+    checked distance within 1e-4·Δ of Δ. Then the launcher twin's
+    ``--smoke`` run of each mode on the card, 5 steps, its events the
+    reference launcher's (``train_step`` with step, loss and, for the
+    fleet modes, synced; then ``train_done``)."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.telemetry import get_logger
+    cfg = get_arch("llama3-8b", smoke=True)
+    init_np = params_to_numpy(init_lm_params(cfg, seed=0, device="cpu"))
+    streams = [TokenStream(seed=100 + i, vocab=cfg.vocab_size, device="cpu")
+               for i in range(FLEET_M)]
+    fleet, single = [], []
+    for t in range(AGREE_STEPS):
+        key = prng.fold_in(prng.key(1, "cpu"), t, "cpu")
+        bs = [s.sample(prng.fold_in(key, i, "cpu"), 2, 32)
+              for i, s in enumerate(streams)]
+        fleet.append({k: torch.stack([b[k] for b in bs]) for k in bs[0]})
+        single.append({k: v.reshape((-1,) + v.shape[2:])
+                       for k, v in fleet[-1].items()})
+    cpu = _agree_runs(cfg, init_np, fleet, single, "cpu")
+    gpu = _agree_runs(cfg, init_np, fleet, single, "cuda")
+    rec, ok = {}, True
+    b, delta = AGREE_DYNAMIC
+    for kind in ("train", "dynamic", "periodic"):
+        c, g = cpu[kind], gpu[kind]
+        diff = (g["plane"] - c["plane"]).abs()
+        r = {"plane_rel_l2": _rel_l2(g["plane"], c["plane"]),
+             "plane_max_abs": float(diff.max()),
+             "loss_max_rel": max(abs(x - y) / abs(y) for x, y in
+                                 zip(g["losses"], c["losses"]))}
+        ok &= (r["plane_rel_l2"] <= AGREE_PLANE_REL
+               and r["plane_max_abs"] <= AGREE_PLANE_ABS
+               and r["loss_max_rel"] <= 1e-4)
+        if kind != "train":
+            r.update(synced=g["synced"], syncs=[g["syncs"], c["syncs"]],
+                     checks=[g["checks"], c["checks"]])
+            ok &= g["synced"] == c["synced"] and \
+                (g["syncs"], g["checks"]) == (c["syncs"], c["checks"])
+        if kind == "dynamic":
+            checked = [d for t, d in enumerate(c["max_sq_dist"])
+                       if (t + 1) % b == 0]
+            r["closest_to_delta_rel"] = min(abs(d - delta) / delta
+                                            for d in checked)
+            ok &= r["closest_to_delta_rel"] >= 1e-4 and \
+                0 < c["syncs"] < c["checks"]
+        rec[kind] = r
+
+    launched = {}
+    for mode in ("train", "train_dynamic", "train_periodic"):
+        events = []
+        log = get_logger()
+        handler = log.add_handler(events.append)
+        try:
+            with contextlib.redirect_stdout(StringIO()):
+                launcher.main(["--arch", "llama3-8b", "--smoke", "--mode",
+                               mode, "--steps", "5"])
+        finally:
+            log.remove_handler(handler)
+        keys = {"step", "loss"} | ({"synced"} if mode != "train" else set())
+        steps = [e for e in events if e["kind"] == "train_step"]
+        good = ([e["kind"] for e in events] == ["train_step"] * 5
+                + ["train_done"]
+                and all(set(e) - {"kind"} == keys for e in steps)
+                and [e["step"] for e in steps] == [1, 2, 3, 4, 5]
+                and all(math.isfinite(e["loss"]) for e in steps)
+                and events[-1]["mode"] == mode)
+        launched[mode] = {"losses": [e["loss"] for e in steps],
+                          "synced": [e.get("synced") for e in steps],
+                          "ok": good}
+        ok &= good
+    out = {"phase": "lm_train_agree", "arch": cfg.name, "steps": AGREE_STEPS,
+           "m": FLEET_M, "runs": rec, "launcher_smoke": launched,
+           "tolerances": {"plane_rel_l2": AGREE_PLANE_REL,
+                          "plane_max_abs": AGREE_PLANE_ABS,
+                          "loss_rel": 1e-4}}
+    emit(out)
+    if not ok:
+        raise SystemExit(f"lm_train_agree: {out}")
+    return out
+
+
 def phase_analysis(kernel_rows: list) -> dict:
     """The analysis tools on the card's tree and the card: the lint of the
     port and this script and the contract matrix (``--check-all``'s
@@ -3952,6 +4507,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     sharded = run("shard_train", phase_shard_train)
     run("train_step", phase_train_step)
+    torch.cuda.empty_cache()
+    bwd_table = run("lm_train_kernels", phase_lm_train_kernels, gen)
+    lm_train = run("lm_train", phase_lm_train)
+    run("lm_train_agree", phase_lm_train_agree)
+    torch.cuda.empty_cache()
     fig_launches, _ = run("figures", phase_figures)
     f32, bf16 = "float32", "bfloat16"
     fa = lm_table["flash_attention"]["shape"]
@@ -3974,7 +4534,11 @@ def main() -> None:
         ("swa_attention", lm_table["swa_attention"]["shape"], f32,
          lm_table["swa_attention"]["f32"]),
         ("ssd_scan", ssm_table["ssd_scan"]["shape"], f32,
-         ssm_table["ssd_scan"])]
+         ssm_table["ssd_scan"]),
+        ("attention_bwd", bwd_table["attention_bwd"]["shape"], f32,
+         bwd_table["attention_bwd"]),
+        ("rmsnorm_bwd", bwd_table["rmsnorm_bwd"]["shape"], f32,
+         bwd_table["rmsnorm_bwd"])]
     run("analysis", phase_analysis, [
         {"kernel": k, "shape": list(shape), "dtype": dt, "ms": t["ms"],
          "bound_ms": t["bound_ms"]} for k, shape, dt, t in timed_rows])
@@ -4066,6 +4630,33 @@ def main() -> None:
                               **zoo_paths("ssd_scan")},
          **ssm_table["ssd_scan"], "zoo_shapes": zoo_shapes("ssd_scan")},
     ]
+    llama, fleet = lm_train["llama3-8b"], lm_train["fleet-llm-100m"]
+
+    def train_launches(kernel):
+        by_path = {f"llama3-8b train ({llama['layers']} layers, "
+                   f"{LM_TRAIN_STEPS} steps)": llama["launches"][kernel],
+                   **{f"fleet-llm-100m {k} (m = {FLEET_M}, "
+                      f"{FLEET_STEPS} steps)": r["launches"][kernel]
+                      for k, r in fleet["runs"].items()}}
+        return sum(by_path.values()), by_path
+
+    for name in ("rmsnorm", "flash_attention"):
+        row = next(r for r in kernels if r["name"] == name)
+        n, by_path = train_launches(name)
+        row["launches"] += n
+        row["launches_by_path"].update(by_path)
+    no_tpu = ("none: the JAX package has no backward Pallas kernel (it "
+              "differentiates jnp {}); this is the gradient of {}")
+    for name, src, fwd, what in (
+            ("attention_bwd", "attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:77", "attention"),
+            ("rmsnorm_bwd", "rmsnorm_bwd.cu",
+             "src/repro/kernels/rmsnorm.py:25", "norms")):
+        n, by_path = train_launches(name)
+        kernels.append({"name": name, "route": "cuda", "source": csrc + src,
+                        "replaces": no_tpu.format(what, fwd),
+                        "launches": n, "launches_by_path": by_path,
+                        **bwd_table[name]})
     emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -305,7 +305,17 @@ def kernel_work(name: str, shape, dtype=torch.float32):
     * ``swa_attention`` (B, S, H, Hkv, d, window), causal, the same
       programs;
     * ``ssd_scan`` (BH, S, P, N, chunk, R): R heads share a row of b and
-      c; the products in TF32 on the tensor cores."""
+      c; the products in TF32 on the tensor cores;
+    * ``attention_bwd`` (B, Sq, Sk, H, Hkv, d[, window]), causal, f32: q,
+      k, v, o, do and the (B, H, Sq) log-sum-exp read once, dq, dk and dv
+      written once; 5 products of 2 d flops per kept pair and head (s
+      again, dp, dv, dk, dq), 2.5 times the forward's; as the f32
+      forward's rows, in split TF32 (3 x the flops at the TF32 rate),
+      with the CUDA cores' f32 bound beside (``kernel_bound``), on which
+      the kernel runs;
+    * ``rmsnorm_bwd`` (rows, D) or (rows, D, g), f32: x and dy read, dx
+      written, the (g, D) scale read and dscale written; 12 operations an
+      element (the two row sums, dx and the dscale term), f32."""
     item = torch.empty((), dtype=dtype).element_size()
     # f32 attention: hi.hi + hi.lo + lo.hi, each a TF32 product
     split = 1 if dtype == torch.bfloat16 else 3
@@ -330,6 +340,17 @@ def kernel_work(name: str, shape, dtype=torch.float32):
     if name == "ssd_scan":
         BH, S, P, N, Q, R = shape
         return (*ssd_work(BH, S, P, N, BH // R, Q, item), "tf32")
+    if name == "attention_bwd":
+        B, Sq, Sk, H, Hkv, d, *w = shape
+        nbytes, flops = attention_work(B, Sq, Sk, H, Hkv, d, True,
+                                       w[0] if w else 0, item)
+        # the forward's bytes (q, k, v in, o out) + o and do in again as
+        # the backward reads o, do and lse and writes dq, dk, dv
+        nbytes = 2 * nbytes + B * H * Sq * 4
+        return nbytes, 3 * (flops * 5) // 2, "tf32"
+    if name == "rmsnorm_bwd":
+        rows, D, g = (tuple(shape) + (1,))[:3]
+        return 3 * rows * D * item + 2 * g * D * item, 12 * rows * D, "f32"
     raise KeyError(f"no bound for kernel {name!r}")
 
 
@@ -337,7 +358,7 @@ def kernel_bound(name: str, shape, dtype=torch.float32,
                  card: Peaks = H100) -> dict:
     """The least time of one call of kernel ``name`` at ``shape`` on
     ``card``: ``{"bytes", "ops", "bound_ms", "bound_by"}``; f32 attention
-    adds ``bound_ms_f32_cuda_cores``, its flops (a third of its TF32
+    and its backward add ``bound_ms_f32_cuda_cores``, its flops (a third of its TF32
     operations) over the CUDA cores' f32 rate, the bound of plain f32
     FMAs, which the split-TF32 bound sits below."""
     nbytes, ops, rate = kernel_work(name, shape, dtype)
@@ -345,6 +366,7 @@ def kernel_bound(name: str, shape, dtype=torch.float32,
     t_ops = ops / getattr(card, rate) * 1e3
     out = {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    if name.endswith("attention") and dtype == torch.float32:
+    if name.endswith(("attention", "attention_bwd")) and \
+            dtype == torch.float32:
         out["bound_ms_f32_cuda_cores"] = ops / 3 / card.f32 * 1e3
     return out

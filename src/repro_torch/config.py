@@ -15,7 +15,8 @@ parallel) and the vision and audio modalities, with
 period at 1 (its ``block_init`` makes every layer MoE whatever the
 period), and the port's layer loop is a Python loop.
 ``TrainConfig`` keeps
-the optimizer settings and ``ProtocolConfig`` the sync protocol.
+the optimizer settings, ``ProtocolConfig`` the sync protocol, and
+``ShapeConfig`` / ``INPUT_SHAPES`` the launcher's input shapes.
 
 ``ProtocolConfig`` validates exactly as the reference does (the same
 ``ValueError``s for a bad period, fraction, threshold, augmentation,
@@ -209,6 +210,27 @@ class ModelConfig:
         if self.d_ff:
             per_layer += 3 * d * self.d_ff                  # swiglu
         return n + L * per_layer
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (``repro.config.ShapeConfig`` and ``INPUT_SHAPES``, field
+# for field; the launcher reads them)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

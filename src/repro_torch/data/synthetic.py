@@ -18,13 +18,26 @@ are equal bit for bit. The per-sample draws come from a
 ``torch.Generator`` on the device (``sample(generator, batch, lead=...)``
 draws ``(*lead, batch, ...)`` at once) and do not match the reference's
 ``jax.random`` draws; parity tests feed the reference's own batches
-instead. ``TokenStream`` waits for LM training (ROADMAP Queue A 24).
+instead.
+
+``TokenStream`` — the bigram Markov chain of LM training: its logits are
+``np.random.RandomState(seed).randn(V, V) * temp`` in f32, bit for bit,
+and ``force_drift`` draws the next ones. Its tokens come from
+``repro_torch.prng`` with the reference's keys and its ``categorical``
+(``argmax(gumbel + logits)``, gumbel = ``-log(-log(u))``), so they are
+the reference's tokens where PyTorch's ``log`` gives XLA's bits
+(``tests/test_torch_lm_train.py`` reports any draw that differs). The
+chain holds V^2 logits on the host and the device: 537 MB in f64 on the
+host at fleet-llm-100m's V = 8,192, and 131.6 GB at llama3-8b's 128,256,
+which no host holds (the reference's fault too, ROADMAP); a launcher at
+that vocabulary draws uniform tokens instead.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.device import resolve_device
 
 
@@ -155,3 +168,58 @@ class DeepDriveStream:
         steering = -2.0 * curv - 0.5 * offset
         return {"x": rgb.reshape(*shape, self.h, self.w, 3),
                 "y": steering.reshape(shape)}
+
+
+class TokenStream:
+    """Bigram Markov token stream for LM training; a drift resamples the
+    chain. ``sample(key, batch, seq_len)`` takes a ``prng`` key (the
+    reference's ``jax.random`` key, bit for bit) and returns ``{"tokens":
+    (B, S), "labels": (B, S)}`` int64 on this stream's device: chain b
+    starts at a uniform token, ``labels`` are the chain's next S tokens
+    and ``tokens`` the chain's first S (``tokens[:, 1:] ==
+    labels[:, :-1]``)."""
+
+    def __init__(self, seed: int = 0, vocab: int = 512, temp: float = 1.0,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.vocab = vocab
+        self._rng = np.random.RandomState(seed)
+        self.temp = temp
+        self._resample()
+
+    def _resample(self):
+        logits = self._rng.randn(self.vocab, self.vocab) * self.temp
+        self.logits = torch.as_tensor(logits.astype(np.float32),
+                                      device=self.device)
+
+    def force_drift(self):
+        self._resample()
+
+    def concept(self) -> torch.Tensor:
+        return self.logits
+
+    def sample_from(self, concept: torch.Tensor, key, batch: int,
+                    seq_len: int) -> dict:
+        """The reference's ``vmap(chain)`` over ``split(key, batch)``: the
+        B chains run together, one position at a time. Every position's
+        gumbel noise is drawn at once, ``(B, S, V)`` f32, from the keys
+        ``split(k, seq_len)`` that the reference's ``scan`` walks."""
+        dev, V = self.device, self.vocab
+        keys = prng.split(key, batch, dev)                    # (B, 2)
+        pair = prng.split(keys, 2, dev)                       # (B, 2, 2)
+        first = prng.randint(pair[:, 0], (), 0, V, dev).long()  # (B,)
+        steps = prng.split(pair[:, 1], seq_len, dev)          # (B, S, 2)
+        tiny = float(np.finfo(np.float32).tiny)
+        u = prng.uniform(steps, (V,), tiny, 1.0, dev)         # (B, S, V)
+        gumbel = -torch.log(-torch.log(u))
+        del u
+        tok, out = first, []
+        for t in range(seq_len):
+            tok = torch.argmax(gumbel[:, t] + concept[tok], dim=-1)
+            out.append(tok)
+        labels = torch.stack(out, dim=1)
+        tokens = torch.cat([first[:, None], labels[:, :-1]], dim=1)
+        return {"tokens": tokens, "labels": labels}
+
+    def sample(self, key, batch: int, seq_len: int) -> dict:
+        return self.sample_from(self.concept(), key, batch, seq_len)

@@ -11,6 +11,10 @@ rebuilt and a stale library is never loaded. It is loaded with
 Nothing here includes PyTorch's headers, so a build takes seconds, and
 nothing needs ``ninja``. A missing card, a missing ``nvcc`` or a failed
 build raises: no caller falls back to the plain versions.
+
+It also holds what the wrappers share: ``LAUNCHES``, the launch counts
+(``ops.LAUNCHES``), and ``batch_first`` for the autograd Functions'
+vmap rules.
 """
 from __future__ import annotations
 
@@ -30,8 +34,10 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 # library name -> its source files under csrc/
-SOURCES = {"sqdist": ("sqdist.cu",), "rmsnorm": ("rmsnorm.cu",),
-           "attention": ("attention.cu", "attention_sm90.cu"),
+SOURCES = {"sqdist": ("sqdist.cu",),
+           "rmsnorm": ("rmsnorm.cu", "rmsnorm_bwd.cu"),
+           "attention": ("attention.cu", "attention_sm90.cu",
+                         "attention_bwd.cu"),
            "ssd_scan": ("ssd_scan.cu",)}
 
 # library name -> the C functions it exports: (restype, argtypes)
@@ -45,15 +51,20 @@ SIGNATURES = {
         **_ERR,
     },
     "rmsnorm": {
-        "repro_rmsnorm": (_I, [_I, _I, _I, _I, _P, _P, _P, _LL, _I, _F,
-                               _P]),
+        "repro_rmsnorm": (_I, [_I, _I, _I, _I, _P, _P, _P, _LL, _I, _LL,
+                               _F, _P]),
+        "repro_rmsnorm_bwd": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I,
+                                   _I, _F, _P]),
         **_ERR,
     },
     "attention": {
-        "repro_attention": (_I, [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _F, _P]),
+        "repro_attention": (_I, [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _F, _P]),
         "repro_attention_sm90": (_I, [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _I, _F, _P]),
+        "repro_attention_bwd": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                     _P]),
         **_ERR,
     },
     "ssd_scan": {
@@ -65,6 +76,21 @@ SIGNATURES = {
 }
 
 _LOADED: dict = {}
+
+# launches by kernel (``ops.LAUNCHES`` is this dict): the wrappers in
+# ``ops`` and the autograd Functions of ``flash_attention`` and ``rmsnorm``
+# add one where they launch
+LAUNCHES = {"sqdist_rows": 0, "sqdist": 0, "rmsnorm": 0,
+            "flash_attention": 0, "swa_attention": 0, "ssd_scan": 0,
+            "attention_bwd": 0, "rmsnorm_bwd": 0}
+
+
+def batch_first(x: torch.Tensor, dim, n: int) -> torch.Tensor:
+    """A ``torch.func.vmap`` rule's argument with its vmapped axis first
+    (``dim`` None: broadcast to n), contiguous, for the autograd
+    Functions' vmap rules to fold into one launch."""
+    x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x.contiguous()
 
 
 def nvcc_path() -> str:

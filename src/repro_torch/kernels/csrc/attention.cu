@@ -96,6 +96,7 @@
 // same bits on every run.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -103,6 +104,7 @@ namespace {
 constexpr int kBK = 32;                 // keys per tile
 constexpr int kStages = 3;              // the K / V ring
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DK, int DV>
 struct Plan {
@@ -189,14 +191,17 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int DK, int DV>
+// kLse: write each row's log-sum-exp (a gradient's forward). A separate
+// instantiation, so the serving forms are the code they were without it
+// (a runtime branch cost MLA's (192, 128) form 1% on an H100).
+template <int DK, int DV, bool kLse>
 __global__ void __launch_bounds__(Plan<DK, DV>::kThreads,
                                   Plan<DK, DV>::kMinBlocks)
     attention_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int BH, int H, int Hkv, int Sq, int Sk, int causal,
-                     int window, float scale) {
+                     float* __restrict__ lse, int BH, int H, int Hkv, int Sq,
+                     int Sk, int causal, int window, float scale) {
   static_assert(DK % 8 == 0 && DV % 8 == 0,
                 "head dims must be multiples of 8");
   constexpr int LDK = Plan<DK, DV>::LDK, LDV = Plan<DK, DV>::LDV;
@@ -384,6 +389,13 @@ __global__ void __launch_bounds__(Plan<DK, DV>::kThreads,
   l1 = quad_sum(l1);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   const int i0 = r0 + g, i1 = i0 + 8;
+  // the rows' log-sum-exp of the scaled scores, natural log, for the
+  // backward (attention_bwd.cu); -inf for a row that keeps no key
+  if (kLse && t == 0) {
+    float* lr = lse + static_cast<int64_t>(bh) * Sq;
+    if (i0 < Sq) lr[i0] = l0 > 0.0f ? (m0 + log2f(l0)) * kLn2 : -INFINITY;
+    if (i1 < Sq) lr[i1] = l1 > 0.0f ? (m1 + log2f(l1)) * kLn2 : -INFINITY;
+  }
 #pragma unroll
   for (int u = 0; u < NU; ++u) {
     if (i0 < Sq)
@@ -395,9 +407,9 @@ __global__ void __launch_bounds__(Plan<DK, DV>::kThreads,
   }
 }
 
-template <int DK, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hkv, int Sq, int Sk, int causal, int window,
+template <int DK, int DV, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int H, int Hkv, int Sq, int Sk, int causal, int window,
            float scale, cudaStream_t s) {
   constexpr size_t smem = Plan<DK, DV>::kBytes;
   constexpr int kBQ = Plan<DK, DV>::kBQ, kThreads = Plan<DK, DV>::kThreads;
@@ -405,14 +417,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
                            ((Sq + kBQ - 1) / kBQ);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      attention_kernel<DK, DV, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_kernel<DK, DV>
+  attention_kernel<DK, DV, kLse>
       <<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<float*>(o), B * H, H,
-          Hkv, Sq, Sk, causal, window, scale);
+          static_cast<const float*>(v), static_cast<float*>(o),
+          static_cast<float*>(lse), B * H, H, Hkv, Sq, Sk, causal, window,
+          scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -421,23 +434,33 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // float32 q, k, v and o; (dk, dv) one of (32, 32), (64, 64), (128, 128),
 // (192, 128) and (48, 32). q is (B, Sq, H, dk), k (B, Sk, Hkv, dk), v
 // (B, Sk, Hkv, dv) and o (B, Sq, H, dv), all contiguous and 16-byte
-// aligned, with H % Hkv == 0. Returns the CUDA error code of the launch
-// (0 = cudaSuccess).
+// aligned, with H % Hkv == 0. lse is null, or (B, H, Sq) f32 that
+// receives each row's log-sum-exp (a gradient's forward; equal widths of
+// 32, 64 and 128 only, the backward's). Returns the CUDA error code of the
+// launch (0 = cudaSuccess).
 extern "C" int repro_attention(int dk, int dv, const void* q, const void* k,
-                               const void* v, void* o, int B, int H, int Hkv,
-                               int Sq, int Sk, int causal, int window,
-                               float scale, void* stream) {
+                               const void* v, void* o, void* lse, int B,
+                               int H, int Hkv, int Sq, int Sk, int causal,
+                               int window, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_ATTENTION_CASE(DK, DV)                                       \
-  if (dk == DK && dv == DV)                                                \
-    return launch<DK, DV>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,  \
-                          scale, s);
+  if (dk == DK && dv == DV && lse == nullptr)                              \
+    return launch<DK, DV, false>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,       \
+                                 causal, window, scale, s);
   REPRO_ATTENTION_CASE(32, 32)
   REPRO_ATTENTION_CASE(64, 64)
   REPRO_ATTENTION_CASE(128, 128)
   REPRO_ATTENTION_CASE(192, 128)
   REPRO_ATTENTION_CASE(48, 32)
 #undef REPRO_ATTENTION_CASE
+#define REPRO_ATTENTION_LSE_CASE(D)                                        \
+  if (dk == D && dv == D && lse != nullptr)                                \
+    return launch<D, D, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal,  \
+                              window, scale, s);
+  REPRO_ATTENTION_LSE_CASE(32)
+  REPRO_ATTENTION_LSE_CASE(64)
+  REPRO_ATTENTION_LSE_CASE(128)
+#undef REPRO_ATTENTION_LSE_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,8 +1,11 @@
 // RMS normalization over the last axis, for Hopper (sm_90a).
 //
-//   y[i, :] = x[i, :] * rsqrt(mean(x[i, :]^2) + eps) * scale     x (rows, D)
+//   y[i, :] = x[i, :] * rsqrt(mean(x[i, :]^2) + eps) * scale[i / R]
 //
-// statistics in f32, y in x's dtype (f32 or bf16; scale has x's dtype).
+// x (rows, D); scale (g, D), g groups of R = rows / g consecutive rows (g =
+// 1 for a model's norm; g = m when m learners' norms run as one launch
+// under the learners' vmap). Statistics in f32, y in x's dtype (f32 or
+// bf16; scale has x's dtype).
 //
 // Replaces the Pallas kernel of src/repro/kernels/rmsnorm.py (rmsnorm,
 // _rmsnorm_kernel). The decoder LM runs it 2L + 1 times per forward and per
@@ -120,10 +123,14 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 // vectors a thread the kernel is held to 32 registers, so two 1,024-thread
 // blocks (64 warps) fit an SM: at 40 registers one did, and (4, 2048,
 // 16,384) bf16 took 0.228 ms, not 0.181 (chip_smoke.py).
-template <typename T, int NV, int kForm>
+// kGrouped: scale has a row per group of group_rows rows (a separate
+// instantiation, so the one-scale forms keep their registers: the group's
+// offset cost the bf16 two-vector form a 12-byte spill at 32 registers).
+template <typename T, int NV, int kForm, bool kGrouped>
 __global__ void __launch_bounds__(kMaxThreads, NV <= 2 ? 2 : 1)
-    rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                   T* __restrict__ y, int D, float eps) {
+    rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scales,
+                   T* __restrict__ y, int D, unsigned group_rows,
+                   float eps) {
   constexpr int V = Vec<T>::N;
   __shared__ float warp_sums[kMaxThreads / 32];
   __shared__ float row_sum;
@@ -132,6 +139,10 @@ __global__ void __launch_bounds__(kMaxThreads, NV <= 2 ? 2 : 1)
   const long long row = blockIdx.x;
   const T* xr = x + row * D;
   T* yr = y + row * D;
+  // this row's group (rows < 2^31, so 32-bit division)
+  const T* scale =
+      kGrouped ? scales + static_cast<long long>(blockIdx.x / group_rows) * D
+               : scales;
   // the row: a scalar head of h values up to its first 16-byte boundary,
   // nb whole vectors, a scalar tail of nt values
   const int mis = static_cast<int>(
@@ -220,51 +231,63 @@ __global__ void __launch_bounds__(kMaxThreads, NV <= 2 ? 2 : 1)
 
 template <typename T, int NV, int kForm>
 int launch(const void* x, const void* scale, void* y, long long rows, int D,
-           float eps, int threads, cudaStream_t s) {
+           long long group_rows, float eps, int threads, cudaStream_t s) {
   if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  rmsnorm_kernel<T, NV, kForm>
-      <<<static_cast<unsigned>(rows), threads, 0, s>>>(
-          static_cast<const T*>(x), static_cast<const T*>(scale),
-          static_cast<T*>(y), D, eps);
+  const dim3 grid(static_cast<unsigned>(rows));
+  if (group_rows == rows)
+    rmsnorm_kernel<T, NV, kForm, false><<<grid, threads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(scale),
+        static_cast<T*>(y), D, 0u, eps);
+  else
+    rmsnorm_kernel<T, NV, kForm, true><<<grid, threads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(scale),
+        static_cast<T*>(y), D, static_cast<unsigned>(group_rows), eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int form, int nv, int threads, const void* x, const void* scale,
-             void* y, long long rows, int D, float eps, cudaStream_t s) {
+             void* y, long long rows, int D, long long group_rows, float eps,
+             cudaStream_t s) {
   constexpr int V = Vec<T>::N;
   const long long nb = D / V;  // whole vectors a row holds at most
   if (threads < 32 || threads > kMaxThreads || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (form == 0 && nb <= 1LL * threads * nv) {
-    if (nv == 2) return launch<T, 2, 0>(x, scale, y, rows, D, eps, threads, s);
-    if (nv == 4) return launch<T, 4, 0>(x, scale, y, rows, D, eps, threads, s);
+    if (nv == 2) return launch<T, 2, 0>(x, scale, y, rows, D, group_rows, eps,
+                                       threads, s);
+    if (nv == 4) return launch<T, 4, 0>(x, scale, y, rows, D, group_rows, eps,
+                                       threads, s);
   }
   if (form == 1)
-    return launch<T, 1, 1>(x, scale, y, rows, D, eps, threads, s);
+    return launch<T, 1, 1>(x, scale, y, rows, D, group_rows, eps, threads,
+                           s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, scale and y share it). x and y are
-// (rows, D) contiguous, scale (D,); any alignment of x and scale that
-// their dtype allows. form, nv, threads: the plan (rmsnorm.py::plan), with
+// (rows, D) contiguous, scale (rows / group_rows, D), row i normed with
+// scale row i / group_rows (group_rows = rows: one scale); any alignment
+// of x and scale that their dtype allows. form, nv, threads: the plan (rmsnorm.py::plan), with
 // n = D / (16 / itemsize) the whole vectors of a row: form 0 = one block
 // of `threads` a row, the row in registers (nv 2 or 4, n <= nv threads);
 // form 1 = one block of `threads` a row, read twice. Returns the CUDA
 // error code of the launch (0 = cudaSuccess).
 extern "C" int repro_rmsnorm(int dtype, int form, int nv, int threads,
                              const void* x, const void* scale, void* y,
-                             long long rows, int D, float eps,
-                             void* stream) {
+                             long long rows, int D, long long group_rows,
+                             float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D < 1 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || rows < 1 || group_rows < 1 || rows % group_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch<float>(form, nv, threads, x, scale, y, rows, D, eps, s);
+    return dispatch<float>(form, nv, threads, x, scale, y, rows, D,
+                           group_rows, eps, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(form, nv, threads, x, scale, y, rows, D,
-                                   eps, s);
+                                   group_rows, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

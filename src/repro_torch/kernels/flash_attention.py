@@ -28,6 +28,21 @@ contiguity and 16-byte alignment, allocate the output, launch on the
 current stream, and raise on a launch error. Both programs run a
 one-dimensional grid, so B * H has no limit of its own. ``repro_torch.kernels.ops`` picks them for CUDA
 tensors and the plain versions for CPU tensors.
+
+The gradient. The JAX package has no backward Pallas kernel (its
+training differentiates jnp attention), so ``attention_bwd`` replaces
+none: ``csrc/attention_bwd.cu`` computes dq, dk and dv in f32 on the
+CUDA cores from q, k, v, o, do and the per-row log-sum-exp that the f32
+program writes when ``with_lse`` asks for it (the serving path asks for
+none and launches as before). ``AttentionFn`` is the autograd Function
+that ``ops`` routes a CUDA call through when a gradient is wanted (an
+input requires grad, or is a ``torch.func`` transform's tensor): its
+backward calls ``AttentionBwdFn``, and each has a ``vmap`` rule that
+folds the vmapped (learner) axis into the batch, so m learners are one
+launch. They launch through the module's ``launch_forward`` and
+``launch_backward``, which the CPU tests replace with stand-ins. A bf16
+or MLA-width input under a gradient raises ``NotImplementedError``
+(``differentiable``).
 """
 from __future__ import annotations
 
@@ -47,6 +62,12 @@ WIDTHS = {torch.bfloat16: {(d, d) for d in HEAD_DIMS} | {(192, 128)},
                                                         (48, 32)}}
 
 
+# head dims the backward takes (queries, keys and values alike), f32 only
+BWD_HEAD_DIMS = (32, 64, 128)
+NO_BF16_BWD = "ROADMAP A28 (the bf16 attention and rmsnorm backward)"
+NO_MLA_BWD = "ROADMAP A31 (the attention backward at MLA's widths)"
+
+
 def program(dtype: torch.dtype) -> str:
     """The name of the program that runs attention in ``dtype``."""
     return PROGRAMS[dtype][0]
@@ -54,9 +75,11 @@ def program(dtype: torch.dtype) -> str:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, window: int, scale: float | None,
-              what: str = "flash_attention") -> torch.Tensor:
+              what: str = "flash_attention", with_lse: bool = False):
     """Launch the kernel on the GQA layout: q (B, Sq, H, d), k
-    (B, Sk, Hkv, d), v (B, Sk, Hkv, dv) -> (B, Sq, H, dv)."""
+    (B, Sk, Hkv, d), v (B, Sk, Hkv, dv) -> (B, Sq, H, dv); with
+    ``with_lse`` (f32 only) -> (o, lse (B, H, Sq) f32), lse each row's
+    log-sum-exp of its scaled kept scores, -inf where it keeps none."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(
             f"{what} runs on one CUDA device: q on {q.device}, k on "
@@ -96,15 +119,178 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"(cuda:{torch.cuda.current_device()}), q is on {q.device}")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
+    if with_lse:        # the f32 program writes it at the backward's widths
+        differentiable(q, k, v, what)
     lib = _build.library("attention")
     o = q.new_empty((B, Sq, H, dv))
     stream = _build.current_stream(q.device.index)
     name, entry = PROGRAMS[q.dtype]
-    code = getattr(lib, entry)(
-        d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv,
-        Sq, Sk, int(causal), int(window), ctypes.c_float(scale), stream)
+    if q.dtype == torch.float32:
+        lse = q.new_empty((B, H, Sq)) if with_lse else None
+        code = lib.repro_attention(
+            d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, Hkv, Sq, Sk,
+            int(causal), int(window), ctypes.c_float(scale), stream)
+    else:
+        code = getattr(lib, entry)(
+            d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
+            H, Hkv, Sq, Sk, int(causal), int(window), ctypes.c_float(scale),
+            stream)
     _build.check(lib, code, f"{what} launch ({name})")
-    return o
+    return (o, lse) if with_lse else o
+
+
+def differentiable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   what: str = "flash_attention") -> None:
+    """Raise ``NotImplementedError`` where the backward kernel does not
+    take these inputs: bf16, or widths other than ``BWD_HEAD_DIMS`` with
+    equal query/key and value widths (MLA's)."""
+    if q.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{what} has no backward kernel in {q.dtype}: {NO_BF16_BWD}")
+    d, dv = q.shape[-1], v.shape[-1]
+    if d != dv or d not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{what} has no backward kernel at (query/key, value) widths "
+            f"({d}, {dv}); it takes equal widths {BWD_HEAD_DIMS}: "
+            f"{NO_MLA_BWD}")
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                  causal: bool, window: int, scale: float | None):
+    """The backward kernel: (dq, dk, dv) of ``attention`` at q (B, Sq, H,
+    d), k, v (B, Sk, Hkv, d), o and do (B, Sq, H, d), lse (B, H, Sq), all
+    f32 on the card. Three CUDA launches (delta, dk/dv, dq), no atomics:
+    the same inputs give the same bits."""
+    differentiable(q, k, v, "attention_bwd")
+    B, Sq, H, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    tensors = (q, k, v, o, lse, do)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(
+            f"attention_bwd runs on one CUDA device: got "
+            f"{[str(t.device) for t in tensors]}")
+    if (k.shape != (B, Sk, Hkv, d) or v.shape != k.shape
+            or o.shape != q.shape or do.shape != q.shape
+            or lse.shape != (B, H, Sq) or Hkv < 1 or H % Hkv):
+        raise ValueError(
+            f"attention_bwd needs q, o, do (B, Sq, H, d), k, v (B, Sk, Hkv, "
+            f"d) and lse (B, H, Sq): got {[tuple(t.shape) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"attention_bwd takes float32: got "
+                        f"{[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("attention_bwd needs contiguous inputs")
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("attention_bwd needs 16-byte aligned q, k, v, do")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"attention_bwd launches on the current device "
+            f"(cuda:{torch.cuda.current_device()}), q is on {q.device}")
+    if window < 0:
+        raise ValueError(f"attention_bwd: a negative window {window}")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    lib = _build.library("attention")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = lse.new_empty((B, H, Sq))
+    code = lib.repro_attention_bwd(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), B, H, Hkv, Sq, Sk, int(causal),
+        int(window), ctypes.c_float(scale),
+        _build.current_stream(q.device.index))
+    _build.check(lib, code, "attention_bwd launch")
+    return dq, dk, dv
+
+
+def launch_forward(q, k, v, causal, window, scale):
+    """The forward kernel with the log-sum-exp: (o, lse)."""
+    _build.LAUNCHES["flash_attention"] += 1
+    return attention(q, k, v, causal=causal, window=window, scale=scale,
+                     what="flash_attention_gqa", with_lse=True)
+
+
+def launch_backward(q, k, v, o, lse, do, causal, window, scale):
+    """The backward kernel: (dq, dk, dv)."""
+    _build.LAUNCHES["attention_bwd"] += 1
+    return attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                         scale=scale)
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """(n, B, ...) -> (n B, ...)."""
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+
+
+def _unfold(x: torch.Tensor, n: int) -> torch.Tensor:
+    return x.reshape(n, x.shape[0] // n, *x.shape[1:])
+
+
+class AttentionFn(torch.autograd.Function):
+    """``attention`` with its gradient: ``apply(q, k, v, causal, window,
+    scale) -> (o, lse)``, lse not differentiable. Composes with
+    ``loss.backward()``, ``torch.func.grad`` and ``torch.func.vmap``; the
+    ``vmap`` rule folds the vmapped axis into the batch axis, one launch
+    a call whatever its size."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, scale):
+        return launch_forward(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal, window, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, scale = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = AttentionBwdFn.apply(q, k, v, o, lse, do, *ctx.mask)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, scale):
+        n = info.batch_size
+        q, k, v = (_fold(_build.batch_first(x, d, n))
+                   for x, d in zip((q, k, v), in_dims[:3]))
+        o, lse = launch_forward(q, k, v, causal, window, scale)
+        return (_unfold(o, n), _unfold(lse, n)), (0, 0)
+
+
+class AttentionBwdFn(torch.autograd.Function):
+    """The backward kernel as a Function, so that it runs once per call
+    under ``torch.func.vmap`` too: ``apply(q, k, v, o, lse, do, causal,
+    window, scale) -> (dq, dk, dv)``. It has no gradient of its own."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, causal, window, scale):
+        return launch_backward(q.contiguous(), k.contiguous(),
+                               v.contiguous(), o.contiguous(),
+                               lse.contiguous(), do.contiguous(), causal,
+                               window, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "attention has no second derivative on the card")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, do, causal, window, scale):
+        n = info.batch_size
+        args = [_fold(_build.batch_first(x, d, n))
+                for x, d in zip((q, k, v, o, lse, do), in_dims[:6])]
+        grads = launch_backward(*args, causal, window, scale)
+        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

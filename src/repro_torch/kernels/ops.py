@@ -13,6 +13,17 @@ hierarchy's clusters); ``reset_launches`` zeroes both.
 ``flash_attention`` and its GQA front end ``flash_attention_gqa`` launch
 the same kernel and count under ``"flash_attention"``. Plain-version
 calls are not counted.
+
+Gradients. Where a gradient is wanted on the card (an input requires
+grad under grad mode, or is a ``torch.func`` transform's tensor),
+``rmsnorm`` and f32 ``flash_attention(_gqa)`` at equal head widths of
+32, 64 or 128 run through their autograd Functions
+(``rmsnorm.RMSNormFn``, ``flash_attention.AttentionFn``), whose backward
+is a kernel too (``"rmsnorm_bwd"``, ``"attention_bwd"`` in
+``LAUNCHES``) and whose ``vmap`` rule makes one launch a call whatever
+the vmapped size. Every other kernel raises ``NotImplementedError``
+there, naming its ROADMAP item, so no gradient is silently missing. On
+the CPU the plain versions are differentiated as they are.
 """
 from __future__ import annotations
 
@@ -20,7 +31,9 @@ from collections import Counter
 
 import torch
 import torch.nn.functional as F
+from torch._C._functorch import is_functorch_wrapped_tensor
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
@@ -28,9 +41,12 @@ from repro_torch.kernels import sqdist as _sqdist
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import swa_attention as _swa
 
-LAUNCHES = {"sqdist_rows": 0, "sqdist": 0, "rmsnorm": 0,
-            "flash_attention": 0, "swa_attention": 0, "ssd_scan": 0}
+LAUNCHES = _build.LAUNCHES
 ROWS_LAUNCHES: Counter = Counter()
+NO_SWA_BWD = "ROADMAP A29 (the swa_attention backward)"
+NO_SSD_BWD = "ROADMAP A30 (the ssd_scan backward)"
+NO_SQDIST_BWD = ("no ROADMAP item: the protocol reads distances and "
+                 "differentiates none")
 
 
 def reset_launches() -> None:
@@ -43,6 +59,20 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """Whether a gradient may flow through these inputs: one requires grad
+    under grad mode, or one is a ``torch.func`` transform's tensor."""
+    return any(is_functorch_wrapped_tensor(t) for t in tensors) or (
+        torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+
+
+def _no_backward(what: str, item: str, *tensors: torch.Tensor) -> None:
+    if wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{what} has no backward kernel on the card, and a gradient or "
+            f"a torch.func transform reaches it: {item}")
+
+
 def sqdist_rows(X: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Batched local condition over the flat fleet plane:
     ``(m, P) x (P,) -> (m,)`` row-wise squared distances in f32; with r
@@ -50,6 +80,7 @@ def sqdist_rows(X: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     clusters of consecutive rows), in the same one launch."""
     if _on_cpu(X, r):
         return ref.sqdist_rows_ref(X, r)
+    _no_backward("sqdist_rows", NO_SQDIST_BWD, X, r)
     out = _sqdist.sqdist_rows(X, r)
     LAUNCHES["sqdist_rows"] += 1
     ROWS_LAUNCHES[(*X.shape, 1 if r.dim() == 1 else r.shape[0])] += 1
@@ -60,6 +91,7 @@ def sqdist(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """``||x - r||^2`` over flattened same-shape inputs, in f32."""
     if _on_cpu(x, r):
         return ref.sqdist_ref(x, r)
+    _no_backward("sqdist", NO_SQDIST_BWD, x, r)
     out = _sqdist.sqdist(x, r)
     LAUNCHES["sqdist"] += 1
     return out
@@ -70,6 +102,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     """Row-wise RMS norm over the last axis: f32 statistics, x's dtype."""
     if _on_cpu(x, scale):
         return ref.rmsnorm_ref(x, scale, eps)
+    if wants_grad(x, scale):
+        _rmsnorm.differentiable(x)
+        return _rmsnorm.RMSNormFn.apply(x, scale, eps)
     out = _rmsnorm.rmsnorm(x, scale, eps)
     LAUNCHES["rmsnorm"] += 1
     return out
@@ -83,6 +118,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
+    if wants_grad(q, k, v):
+        return flash_attention_gqa(q[:, :, None], k[:, :, None],
+                                   v[:, :, None], causal=causal,
+                                   window=window, scale=scale)[:, :, 0]
     out = _flash.flash_attention(q, k, v, causal=causal, window=window,
                                  scale=scale)
     LAUNCHES["flash_attention"] += 1
@@ -97,6 +136,9 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cpu(q, k, v):
         return ref.flash_attention_gqa_ref(q, k, v, causal=causal,
                                            window=window, scale=scale)
+    if wants_grad(q, k, v):
+        _flash.differentiable(q, k, v, "flash_attention_gqa")
+        return _flash.AttentionFn.apply(q, k, v, causal, window, scale)[0]
     out = _flash.flash_attention_gqa(q, k, v, causal=causal, window=window,
                                      scale=scale)
     LAUNCHES["flash_attention"] += 1
@@ -109,6 +151,7 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v (B, S, d) or q (B, S, H, d), k/v (B, S, Hkv, d)."""
     if _on_cpu(q, k, v):
         return ref.swa_attention_ref(q, k, v, window=window, scale=scale)
+    _no_backward("swa_attention", NO_SWA_BWD, q, k, v)
     out = _swa.swa_attention(q, k, v, window=window, scale=scale)
     LAUNCHES["swa_attention"] += 1
     return out
@@ -134,6 +177,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             b, c = b.repeat_interleave(R, dim=0), c.repeat_interleave(R, dim=0)
         y, h = ref.ssd_scan_ref(x, dt, a, b, c, chunk=chunk)
     else:
+        _no_backward("ssd_scan", NO_SSD_BWD, x, dt, a, b, c)
         y, h = _ssd.ssd_scan(x, dt, a, b, c, chunk=chunk)
         LAUNCHES["ssd_scan"] += 1
     if pad:

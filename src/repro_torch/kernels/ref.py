@@ -12,6 +12,8 @@ the reference's arithmetic unchanged.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 NEG_INF = -1e30
@@ -37,12 +39,28 @@ def sqdist_rows_ref(X: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
-    """Row-wise RMS normalization. x: (..., D), scale: (D,); statistics
-    in f32, the result in x's dtype."""
+    """Row-wise RMS normalization. x: (..., D), scale: (D,), or (g, D)
+    for g equal groups of consecutive rows (the kernel's grouped form);
+    statistics in f32, the result in x's dtype."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
+    if scale.dim() == 2:
+        g, D = scale.shape
+        y = y.reshape(g, -1, D) * scale.float()[:, None]
+        return y.reshape(x.shape).to(x.dtype)
     return (y * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-5):
+    """The plain version of the ``rmsnorm_bwd`` kernel: (dx, dscale), the
+    autograd gradient of ``rmsnorm_ref`` at dy."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_()
+        sg = scale.detach().requires_grad_()
+        dx, ds = torch.autograd.grad(rmsnorm_ref(xg, sg, eps), (xg, sg), dy)
+    return dx, ds
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -100,6 +118,45 @@ def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor,
                               scale=scale)
     out = out.reshape(B, Hkv, G, Sq, dv).permute(0, 3, 1, 2, 4)
     return out.reshape(B, Sq, H, dv)
+
+
+def flash_attention_gqa_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, do: torch.Tensor, *,
+                                causal: bool = True, window: int = 0,
+                                scale: float | None = None):
+    """The plain version of the ``attention_bwd`` kernel: (dq, dk, dv),
+    the autograd gradient of ``flash_attention_gqa_ref`` at do."""
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        o = flash_attention_gqa_ref(qg, kg, vg, causal=causal, window=window,
+                                    scale=scale)
+        return torch.autograd.grad(o, (qg, kg, vg), do)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      scale: float | None = None) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scaled kept scores, f32, (B, H,
+    Sq) for q (B, Sq, H, d) and k (B, Sk, Hkv, d): what the f32 attention
+    program writes for the backward (-inf for a row that keeps nothing)."""
+    B, Sq, H, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    kx = k.float().repeat_interleave(H // Hkv, dim=2)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    out = []
+    for h in range(H):
+        s = torch.einsum("bqd,bkd->bqk", q[:, :, h].float(),
+                         kx[:, :, h]) * scale
+        out.append(torch.logsumexp(torch.where(mask, s, -math.inf), -1))
+    return torch.stack(out, dim=1)
 
 
 def check_swa_shape(S: int, window: int) -> None:

@@ -10,10 +10,26 @@ with 2 or 4 vectors of 16 bytes a thread, or, for rows longer than
 tiles rows in ``block_rows`` and pads the ragged tail; here every row is
 its own block, so there is no padding.
 
+The scale may be grouped: ``scale (g, D)`` norms the i-th of g equal
+groups of consecutive rows with ``scale[i]`` (``sqdist_rows`` takes its
+grouped references the same way), so m learners' norms under the
+learners' vmap are one launch.
+
 The wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates the output, launches on the current stream, and
 raises on a launch error. ``repro_torch.kernels.ops`` picks it for CUDA
 tensors and the plain version for CPU tensors.
+
+The gradient. The JAX package has no backward Pallas kernel, so
+``rmsnorm_bwd`` replaces none: ``csrc/rmsnorm_bwd.cu`` computes dx and
+the grouped dscale in f32 (bf16 raises, ``differentiable``), with no
+atomics (``bwd_plan`` fixes its partition from the shapes alone).
+``RMSNormFn`` is the autograd Function ``ops`` routes a CUDA call
+through when a gradient is wanted; its backward calls ``RMSNormBwdFn``;
+each has a ``vmap`` rule that folds the vmapped (learner) axis into the
+rows with the scale as the group, one launch whatever the axis's size.
+They launch through ``launch_forward`` and ``launch_backward``, which
+the CPU tests replace with stand-ins.
 """
 from __future__ import annotations
 
@@ -30,6 +46,13 @@ FORMS = {"block": 0, "stream": 1}
 BLOCK_VECTORS = (2, 4)  # vectors a thread keeps, block form
 MAX_THREADS = 1024
 MAX_D = 65_536          # the wrapper's limit (the stream form has none)
+# the backward: threads a block at most, the blocks its partition aims at,
+# and its widest row (a block keeps a D-float dscale partial in shared
+# memory)
+BWD_THREADS = 512
+BWD_BLOCKS = 264
+MAX_BWD_D = 16_384
+NO_BF16_BWD = "ROADMAP A28 (the bf16 attention and rmsnorm backward)"
 
 
 class Plan(NamedTuple):
@@ -56,20 +79,24 @@ def plan(D: int, dtype: torch.dtype) -> Plan:
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
-    """``x * rsqrt(mean(x^2, -1) + eps) * scale`` on the card. The checks
-    read plain ints where they can: at (4, 2048, 1,600) bf16 the kernel
-    takes ~19 µs on an H100 and the call's host time is about as long
-    (PERF.md §6)."""
+    """``x * rsqrt(mean(x^2, -1) + eps) * scale`` on the card; scale
+    (D,), or (g, D) for g equal groups of x's rows. The checks read plain
+    ints where they can: at (4, 2048, 1,600) bf16 the kernel takes ~19 µs
+    on an H100 and the call's host time is about as long (PERF.md §6)."""
     dev = x.get_device()                     # -1 for a CPU tensor
     if dev < 0 or scale.get_device() != dev:
         raise ValueError(
             f"rmsnorm runs on one CUDA device: x on {x.device}, scale on "
             f"{scale.device}")
     D = x.shape[-1] if x.dim() else 0
-    if D == 0 or scale.dim() != 1 or scale.shape[0] != D:
+    g = scale.shape[0] if scale.dim() == 2 else 1
+    rows = x.numel() // D if D else 0
+    if (D == 0 or scale.dim() not in (1, 2) or scale.shape[-1] != D
+            or rows % g):
         raise ValueError(
-            f"rmsnorm needs x (..., D) and scale (D,): got "
-            f"{tuple(x.shape)} and {tuple(scale.shape)}")
+            f"rmsnorm needs x (..., D) and scale (D,) or (g, D) with g "
+            f"dividing x's rows: got {tuple(x.shape)} and "
+            f"{tuple(scale.shape)}")
     dtype = _DTYPES.get(x.dtype)
     if dtype is None or scale.dtype != x.dtype:
         raise TypeError(
@@ -90,6 +117,154 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     form, vectors, threads = plan(D, x.dtype)
     code = lib.repro_rmsnorm(dtype, FORMS[form], vectors, threads,
                              x.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                             n // D, D, eps, _build.current_stream(dev))
+                             rows, D, rows // g, eps,
+                             _build.current_stream(dev))
     _build.check(lib, code, "rmsnorm launch")
     return y
+
+
+class BwdPlan(NamedTuple):
+    threads: int        # threads a block
+    chunk_rows: int     # consecutive rows of one group a block takes
+    chunks: int         # blocks a group
+
+
+def bwd_plan(rows: int, D: int, g: int = 1) -> BwdPlan:
+    """The backward's partition, from the shapes alone (so the same
+    shapes give the same bits on every card): one thread per 4 columns
+    up to ``BWD_THREADS``, and chunks of rows that make about
+    ``BWD_BLOCKS`` blocks, none across a group's edge."""
+    threads = min(BWD_THREADS, 32 * max(1, -(-D // 128)))
+    chunk = min(max(1, -(-rows // BWD_BLOCKS)), rows // g)
+    return BwdPlan(threads, chunk, -(-(rows // g) // chunk))
+
+
+def differentiable(x: torch.Tensor, what: str = "rmsnorm") -> None:
+    """Raise ``NotImplementedError`` where the backward kernel does not
+    take x: bf16, or rows wider than ``MAX_BWD_D``."""
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{what} has no backward kernel in {x.dtype}: {NO_BF16_BWD}")
+    if x.shape[-1] > MAX_BWD_D:
+        raise NotImplementedError(
+            f"{what}'s backward kernel takes D <= {MAX_BWD_D}, got "
+            f"{x.shape[-1]}")
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-5):
+    """The backward kernel: (dx (..., D), dscale shaped as scale) of
+    ``rmsnorm(x, scale, eps)`` at the output gradient dy, f32 on the
+    card; scale (D,) or grouped (g, D). Two CUDA launches (the rows with
+    a dscale partial a block, then each group's partials summed in
+    order), no atomics."""
+    differentiable(x, "rmsnorm_bwd")
+    dev = x.get_device()
+    if dev < 0 or scale.get_device() != dev or dy.get_device() != dev:
+        raise ValueError(
+            f"rmsnorm_bwd runs on one CUDA device: x on {x.device}, scale "
+            f"on {scale.device}, dy on {dy.device}")
+    D = x.shape[-1]
+    g = scale.shape[0] if scale.dim() == 2 else 1
+    rows = x.numel() // D
+    if (dy.shape != x.shape or scale.dim() not in (1, 2)
+            or scale.shape[-1] != D or rows % g or rows == 0):
+        raise ValueError(
+            f"rmsnorm_bwd needs x and dy (..., D) and scale (D,) or (g, D) "
+            f"with g dividing the rows: got {tuple(x.shape)}, "
+            f"{tuple(dy.shape)}, {tuple(scale.shape)}")
+    if scale.dtype != torch.float32 or dy.dtype != torch.float32:
+        raise TypeError(f"rmsnorm_bwd takes float32: got {x.dtype}, "
+                        f"{scale.dtype}, {dy.dtype}")
+    if not (x.is_contiguous() and scale.is_contiguous()
+            and dy.is_contiguous()):
+        raise ValueError("rmsnorm_bwd needs contiguous x, scale and dy")
+    if dev != torch.cuda.current_device():
+        raise ValueError(
+            f"rmsnorm_bwd launches on the current device "
+            f"(cuda:{torch.cuda.current_device()}), x is on {x.device}")
+    threads, chunk, chunks = bwd_plan(rows, D, g)
+    lib = _build.library("rmsnorm")
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    partial = x.new_empty((g * chunks, D))
+    code = lib.repro_rmsnorm_bwd(
+        x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        dscale.data_ptr(), partial.data_ptr(), rows, D, rows // g, chunk,
+        threads, eps, _build.current_stream(dev))
+    _build.check(lib, code, "rmsnorm_bwd launch")
+    return dx, dscale
+
+
+def launch_forward(x, scale, eps):
+    """The forward kernel (scale (D,) or grouped (g, D))."""
+    _build.LAUNCHES["rmsnorm"] += 1
+    return rmsnorm(x, scale, eps)
+
+
+def launch_backward(x, scale, dy, eps):
+    """The backward kernel: (dx, dscale)."""
+    _build.LAUNCHES["rmsnorm_bwd"] += 1
+    return rmsnorm_bwd(x, scale, dy, eps)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """``rmsnorm`` with its gradient: ``apply(x, scale, eps) -> y`` for x
+    (..., D) and scale (D,). Composes with ``loss.backward()``,
+    ``torch.func.grad`` and ``torch.func.vmap``; the ``vmap`` rule norms
+    the n vmapped rows-sets as one grouped launch, scale (n, D) (or the
+    shared (D,) scale where only x is vmapped)."""
+
+    @staticmethod
+    def forward(x, scale, eps):
+        return launch_forward(x.contiguous(), scale.contiguous(), eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, eps = inputs
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = RMSNormBwdFn.apply(x, scale, dy, ctx.eps)
+        return dx, dscale, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, scale, eps):
+        n = info.batch_size
+        x = _build.batch_first(x, in_dims[0], n)
+        if in_dims[1] is not None:
+            scale = scale.movedim(in_dims[1], 0).contiguous()
+        return launch_forward(x, scale.contiguous(), eps), 0
+
+
+class RMSNormBwdFn(torch.autograd.Function):
+    """The backward kernel as a Function, so that it runs once per call
+    under ``torch.func.vmap`` too: ``apply(x, scale, dy, eps) -> (dx,
+    dscale)``. It has no gradient of its own."""
+
+    @staticmethod
+    def forward(x, scale, dy, eps):
+        return launch_backward(x.contiguous(), scale.contiguous(),
+                               dy.contiguous(), eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "rmsnorm has no second derivative on the card")
+
+    @staticmethod
+    def vmap(info, in_dims, x, scale, dy, eps):
+        n = info.batch_size
+        x = _build.batch_first(x, in_dims[0], n)
+        dy = _build.batch_first(dy, in_dims[2], n)
+        # a dscale per vmapped entry: the scale as n groups even where it
+        # is shared
+        scale = _build.batch_first(scale, in_dims[1], n)
+        return launch_backward(x, scale, dy, eps), (0, 0)

@@ -24,13 +24,23 @@ the model's dtype, or both for a hybrid block. The reference's
 of the layers' in layer order; ``constrain`` and ``gather_weight`` are
 identities on one device and have no port.
 
+``lm_loss`` is the reference's next-token cross-entropy in f32 (with
+``loss_mask``, the vision prefix's logits dropped, audio's (B, S, K)
+labels, plus the auxiliary loss); ``_xent`` is plain PyTorch, as the
+reference computes it outside any Pallas kernel. On the card its
+gradient flows through the kernels' backward kernels
+(``repro_torch.kernels.ops``), under ``loss.backward()``,
+``torch.func.grad`` and the learners' ``torch.func.vmap`` alike.
+
 Departures: ``lm_apply`` numbers positions from 0 (no ``positions``
-argument) and has no ``remat`` (training's, not ported);
-``lm_decode_step`` updates the cache in place and takes ``pos`` as a host
-int. ``init_lm_params`` draws from a ``torch.Generator`` seeded with
-``seed`` on the target device (the reference's ``jax.random`` draws
-differ; parity tests carry the reference's weights across with
-``convert``). ``lm_loss`` comes with the training slice.
+argument) and has no ``remat``, and ``lm_loss(remat=True)`` raises
+(ROADMAP A33); ``lm_decode_step`` updates the cache in place and takes
+``pos`` as a host int. ``init_lm_params`` draws from a
+``torch.Generator`` seeded with ``seed`` on the target device (the
+reference's ``jax.random`` draws differ; parity tests carry the
+reference's weights across with ``convert``). ``_xent`` picks the
+label's logit with ``gather`` where the reference sums a masked row
+(its form for a vocab sharded over a mesh): the same value, one term.
 """
 from __future__ import annotations
 
@@ -141,6 +151,44 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens=None, *,
             keeps.append(keep)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return _head(cfg, params, x), aux, keeps
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position cross-entropy in f32: ``logsumexp(logits) -
+    logits[label]`` over the last axis."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return lse - picked
+
+
+def lm_loss(cfg: ModelConfig, params: dict, batch: dict,
+            remat: bool = False) -> torch.Tensor:
+    """Next-token cross-entropy, the f32 scalar mean, plus the auxiliary
+    (MoE load-balance) loss: ``batch`` holds ``tokens`` and ``labels``
+    (audio: (B, S, K) both) and optionally ``prefix_embeds`` (whose
+    positions' logits are dropped) and ``loss_mask`` (B, S) (the masked
+    mean, over at least 1)."""
+    if remat:
+        raise NotImplementedError(
+            "lm_loss(remat=True): rematerialized layers are not ported "
+            "(ROADMAP A33)")
+    prefix = batch.get("prefix_embeds")
+    logits, aux = lm_apply(cfg, params, batch.get("tokens"),
+                           prefix_embeds=prefix)
+    labels = batch["labels"]
+    if cfg.modality == MODALITY_AUDIO:
+        nll = torch.mean(_xent(logits, labels))
+    else:
+        if prefix is not None:
+            logits = logits[:, prefix.shape[1]:, :]
+        nll = _xent(logits, labels)
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            nll = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        else:
+            nll = torch.mean(nll)
+    return nll + aux.float()
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int,

@@ -400,6 +400,9 @@ P_MNIST = 1_199_882
      4.17),
     ("swa_attention", (1, 16384, 32, 8, 128, 8192), torch.bfloat16, 1.6677),
     ("ssd_scan", (320, 2048, 64, 128, 64, 80), torch.float32, 0.1066),
+    ("attention_bwd", (1, 4096, 4096, 32, 8, 128), torch.float32, 2.083),
+    ("rmsnorm_bwd", (4096, 4096), torch.float32, 0.0601),
+    ("rmsnorm_bwd", (4096, 4096, 4), torch.float32, 0.0601),
 ])
 def test_kernel_bound_matches_perf_md(name, shape, dtype, want):
     """PERF.md §6's bound column, to 3 significant figures; f32 attention
@@ -412,6 +415,11 @@ def test_kernel_bound_matches_perf_md(name, shape, dtype, want):
             *shape[:6], True, 0, 4, *shape[6:])[1]
         cuda_cores = {0.833: 2.052, 4.17: 10.26}[want]
         assert float(f"{got['bound_ms_f32_cuda_cores']:.4g}") == cuda_cores
+    if name == "attention_bwd":
+        # five products against the forward's two, at the forward's pairs
+        fwd = roofline.attention_work(*shape[:6], True, 0, 4)[1]
+        assert got["ops"] == 3 * fwd * 5 // 2
+        assert float(f"{got['bound_ms_f32_cuda_cores']:.4g}") == 5.130
 
 
 def test_analyze_places_a_call_on_the_roofline():

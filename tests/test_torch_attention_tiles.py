@@ -206,7 +206,11 @@ def test_dtype_picks_the_program():
     assert flash_attention.program(torch.bfloat16) == "sm90_wgmma_tma"
     assert flash_attention.program(torch.float32) == "sm90_mma_tf32x3"
     assert set(flash_attention.PROGRAMS) == {torch.bfloat16, torch.float32}
-    assert _build.SOURCES["attention"] == ("attention.cu", "attention_sm90.cu")
+    # the third source is the f32 gradient's (attention_bwd.cu)
+    assert _build.SOURCES["attention"] == ("attention.cu", "attention_sm90.cu",
+                                           "attention_bwd.cu")
+    assert 'extern "C" int repro_attention_bwd(' in (
+        _build.CSRC / "attention_bwd.cu").read_text()
     for (_, entry), src in zip(
             (flash_attention.PROGRAMS[t] for t in (torch.float32,
                                                    torch.bfloat16)),

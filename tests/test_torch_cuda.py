@@ -1220,3 +1220,136 @@ def test_gradient_depends_on_the_call_size(record_property):
         (grads(100).double() - grads(25, torch.float64)).abs().max())
     record_property("gradient_call_size", report)
     print(f"gradient call-size dependence at (100, 1199882): {report}")
+
+
+# the backward kernels (attention_bwd.cu, rmsnorm_bwd.cu) against the
+# autograd gradient of their plain versions: f32 on both sides, summed in
+# other orders, each gradient within GRAD_REL of its largest entry
+GRAD_REL = 1e-5
+
+
+def _grad_gap(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,d,causal,window", [
+    (2, 100, 100, 4, 4, 64, True, 0), (1, 130, 130, 8, 2, 128, True, 0),
+    (2, 70, 90, 4, 1, 32, False, 0), (1, 200, 200, 8, 2, 64, True, 48),
+    (1, 64, 200, 4, 1, 128, True, 0)])
+def test_attention_bwd_matches_plain_autograd(B, Sq, Sk, H, Hkv, d, causal,
+                                              window):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(Sq + Sk + d)
+    q = torch.randn((B, Sq, H, d), generator=gen, device="cuda")
+    k = torch.randn((B, Sk, Hkv, d), generator=gen, device="cuda")
+    v = torch.randn((B, Sk, Hkv, d), generator=gen, device="cuda")
+    do = torch.randn((B, Sq, H, d), generator=gen, device="cuda")
+    o, lse = flash_attention.attention(q, k, v, causal=causal, window=window,
+                                       scale=None, with_lse=True)
+    torch.testing.assert_close(
+        lse, ref.attention_lse_ref(q, k, causal=causal, window=window),
+        rtol=1e-5, atol=1e-5)
+    kw = dict(causal=causal, window=window, scale=None)
+    got = flash_attention.attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention.attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_attention_gqa_bwd_ref(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert _grad_gap(a, w) <= GRAD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,D,g,offset", [
+    (64, 768, 1, 0), (64, 768, 4, 0), (512, 4096, 1, 0), (512, 4096, 4, 0),
+    (33, 1601, 1, 1), (12, 200, 3, 3)])
+def test_rmsnorm_bwd_matches_plain_autograd(rows, D, g, offset):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(rows + D + g)
+    # offset > 0: rows that start off their 16-byte boundaries
+    x = torch.randn((rows * D + offset,), generator=gen,
+                    device="cuda")[offset:].view(rows, D)
+    scale = torch.randn((g, D) if g > 1 else (D,), generator=gen,
+                        device="cuda")
+    dy = torch.randn((rows, D), generator=gen, device="cuda")
+    got = rmsnorm.rmsnorm_bwd(x, scale, dy, 1e-5)
+    again = rmsnorm.rmsnorm_bwd(x, scale, dy, 1e-5)
+    want = ref.rmsnorm_bwd_ref(x, scale, dy, 1e-5)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert a.shape == w.shape
+        assert torch.equal(a, b)
+        assert _grad_gap(a, w) <= GRAD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("m,rows,D", [(4, 6, 768), (3, 5, 1601),
+                                      (2, 4, 4096)])
+def test_grouped_rmsnorm_is_m_single_scale_calls(m, rows, D, dtype):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(m * rows + D)
+    x = torch.randn((m, rows, D), generator=gen,
+                    device="cuda").to(DTYPES[dtype])
+    scale = torch.randn((m, D), generator=gen, device="cuda").to(
+        DTYPES[dtype])
+    got = rmsnorm.rmsnorm(x, scale, 1e-5)
+    for i in range(m):
+        assert torch.equal(got[i], rmsnorm.rmsnorm(x[i], scale[i], 1e-5))
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_raise_under_grad():
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = randn(1, 64, 4, 64), randn(1, 64, 2, 64), randn(1, 64, 2, 64)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    qm, km, vm = randn(1, 64, 2, 48), randn(1, 64, 2, 48), randn(1, 64, 2, 32)
+    x, dt = randn(4, 64, 16), randn(4, 64).abs()
+    a, b, c = -randn(4).abs(), randn(4, 64, 8), randn(4, 64, 8)
+    cases = {
+        "bf16 attention": (lambda q: ops.flash_attention_gqa(q, kb, vb),
+                           qb),
+        "MLA widths": (lambda q: ops.flash_attention_gqa(q, km, vm), qm),
+        "swa_attention": (lambda q: ops.swa_attention(q, k, v, window=32),
+                          q),
+        "ssd_scan": (lambda x: ops.ssd_scan(x, dt, a, b, c, chunk=16)[0], x),
+        "bf16 rmsnorm": (lambda x: ops.rmsnorm(
+            x, torch.ones(64, device="cuda", dtype=torch.bfloat16)),
+            randn(3, 64, dtype=torch.bfloat16)),
+        "sqdist_rows": (lambda x: ops.sqdist_rows(x, x[0].detach()),
+                        randn(3, 40)),
+    }
+    for name, (fn, arg) in cases.items():
+        with pytest.raises(NotImplementedError):
+            torch.func.grad(lambda t: fn(t).float().sum())(arg)
+        with pytest.raises(NotImplementedError):
+            fn(arg.clone().requires_grad_()).float().sum().backward()
+        # without a gradient the kernel runs as before
+        fn(arg)
+
+
+@pytest.mark.cuda
+def test_backward_through_ops_matches_plain():
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((2, 96, 8, 64), generator=gen, device="cuda")
+    k = torch.randn((2, 96, 2, 64), generator=gen, device="cuda")
+    v = torch.randn((2, 96, 2, 64), generator=gen, device="cuda")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launches()
+    out = ops.flash_attention_gqa(*leaves)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    assert (ops.LAUNCHES["flash_attention"],
+            ops.LAUNCHES["attention_bwd"]) == (1, 1)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.flash_attention_gqa_ref(*plain).square().sum().backward()
+    for got, want in zip(leaves, plain):
+        assert float(got.grad.abs().max()) > 0
+        assert _grad_gap(got.grad, want.grad) <= GRAD_REL

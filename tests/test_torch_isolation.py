@@ -2,7 +2,8 @@
 
 ``src/repro_torch``, ``chip_smoke.py``, the port's examples
 (``examples/torch_quickstart.py``, ``examples/torch_network_regimes.py``,
-``examples/torch_faulty_fleet.py``) and the port's benchmarks
+``examples/torch_faulty_fleet.py``, ``examples/torch_fleet_llm.py``)
+and the port's benchmarks
 (``benchmarks/torch_*.py``: the figure twins, their runner and helpers,
 ``torch_profile.py``) import torch and numpy, never jax and nothing of
 ``repro``; the port's entry points run on the card by
@@ -35,7 +36,8 @@ PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
     ROOT / "examples" / "torch_network_regimes.py",
-    ROOT / "examples" / "torch_faulty_fleet.py"] + sorted(
+    ROOT / "examples" / "torch_faulty_fleet.py",
+    ROOT / "examples" / "torch_fleet_llm.py"] + sorted(
     (ROOT / "benchmarks").glob("torch_*.py"))
 
 
@@ -180,6 +182,21 @@ def test_step_and_figure_entry_points_default_to_the_card():
     init_state, _ = make_train_step(loss, TrainConfig(), device="cpu")
     state = init_state(init_cnn_params(cfg, torch.Generator()))
     assert state.step.device.type == "cpu"
+
+
+def test_lm_training_entry_points_default_to_the_card():
+    """``TokenStream``, the launcher and the fleet LM example run on the
+    card unless the caller asks for the CPU, and raise without one."""
+    _need_no_card()
+    import examples.torch_fleet_llm as fleet_llm
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch import train
+    for make in (lambda: TokenStream(vocab=8),
+                 lambda: train.main(["--arch", "llama3-8b", "--smoke"]),
+                 lambda: fleet_llm.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert TokenStream(vocab=8, device="cpu").logits.device.type == "cpu"
 
 
 def test_unknown_devices_are_rejected():

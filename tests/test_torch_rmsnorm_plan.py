@@ -78,7 +78,11 @@ def test_source_compiles_every_form_the_plan_picks():
     for form, vectors in (("block", 2), ("block", 4), ("stream", 1)):
         assert (str(vectors), str(rmsnorm.FORMS[form])) in launched
     assert "repro_rmsnorm" in _build.SIGNATURES["rmsnorm"]
-    assert len(_build.SIGNATURES["rmsnorm"]["repro_rmsnorm"][1]) == 11
+    # the forward takes the rows of a scale group since the grouped scale
+    assert len(_build.SIGNATURES["rmsnorm"]["repro_rmsnorm"][1]) == 12
+    assert _build.SOURCES["rmsnorm"] == ("rmsnorm.cu", "rmsnorm_bwd.cu")
+    assert 'extern "C" int repro_rmsnorm_bwd(' in (
+        _build.CSRC / "rmsnorm_bwd.cu").read_text()
 
 
 def _butterfly(v):
