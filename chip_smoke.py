@@ -194,8 +194,8 @@ and drives both of the port's paths:
   the L2; ``zoo_serve`` times each
   config's f32 prefill (the second call) and counts its launches.
 * LM training through the kernels (slice 14): two backward kernels
-  (``attention_bwd.cu``, f32 on the CUDA cores; ``rmsnorm_bwd.cu``, a
-  grouped dscale), the f32 attention program writing each row's
+  (``attention_bwd.cu``, f32; ``rmsnorm_bwd.cu``, a grouped dscale),
+  the f32 attention program writing each row's
   log-sum-exp for them, and the norm's grouped scale.
   ``lm_train_kernels`` holds each backward kernel against the autograd
   gradient of its plain version in f32 and float64, bitwise across two
@@ -212,6 +212,12 @@ and drives both of the port's paths:
   dynamic run repeated bit for bit; ``lm_train_agree`` holds
   llama3-8b-smoke's three step factories on the card to the CPU and
   runs the launcher twin's ``--smoke`` modes on the card.
+* ``attention_bwd`` redesigned for Hopper (slice 15): every product on
+  the tensor cores in split TF32 (``mma.sync``, the f32 forward's
+  program, ``sm90_mma_tf32x3``), dk and dv of a GQA group summed from
+  per-head partials in head order; ``lm_train_kernels`` names the
+  program and each of its kernels' registers and spills from the build
+  phase.
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -421,6 +427,26 @@ def ptxas_line(line: str) -> str:
             args = re.match(r"I\w*?E", name[at:])
             return "entry " + ident + (args.group() if args else "")
     return line
+
+
+def kernel_resources(ptxas: list, prefix: str) -> dict:
+    """Registers and spill bytes of each kernel whose name starts with
+    ``prefix``, from the build phase's ``-Xptxas=-v`` lines (entry,
+    then its stack frame and spills, then its registers):
+    ``{kernel: {"registers": n, "spill_stores": b, "spill_loads": b}}``."""
+    out, name = {}, None
+    for line in ptxas:
+        if line.startswith("entry "):
+            name = line[6:] if line[6:].startswith(prefix) else None
+            if name:
+                out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", line)):
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def phase_build() -> dict:
@@ -3922,7 +3948,7 @@ def _hold_grads(checks, name, label, got, again, want32, want64) -> None:
         raise SystemExit(f"{name} disagrees: {checks[-1]}")
 
 
-def phase_lm_train_kernels(gen) -> dict:
+def phase_lm_train_kernels(gen, ptxas: list) -> dict:
     """The two backward kernels (``attention_bwd``, ``rmsnorm_bwd``)
     against the autograd gradient of their plain versions on the card, in
     f32 and float64 (TRAIN_GRAD_REL), bitwise across two launches, at the
@@ -3932,7 +3958,10 @@ def phase_lm_train_kernels(gen) -> dict:
     llama3-8b's and the fleet's shapes beside the plain version, one
     PyTorch call (SDPA's f32 backward with the kv heads expanded,
     ``F.rms_norm``'s backward; their forward outside the timing) and
-    ``kernel_bound`` (split TF32 and the CUDA cores' f32)."""
+    ``kernel_bound`` (split TF32 and the CUDA cores' f32). The
+    attention rows name the program (split-TF32 ``mma.sync``, as the f32
+    forward's) and its kernels' registers and spills (``ptxas``, the
+    build phase's lines)."""
     card = peaks(torch.cuda.get_device_name(0))
     checks, lse_errs, timed = [], [], {}
 
@@ -3980,6 +4009,7 @@ def phase_lm_train_kernels(gen) -> dict:
                               for f in (bwd, lib))
             timed[label] = {
                 "shape": shape, "dtype": "float32",
+                "program": flash_attention.BWD_PROGRAM,
                 **_median_spread("ms", reps),
                 # the device's time alone, and the host's time in a call:
                 # the larger of the two sets the back-to-back time
@@ -4050,13 +4080,16 @@ def phase_lm_train_kernels(gen) -> dict:
     norm_rows = list(timed.values())
     worst = {n: max(c["max_abs_err"] for c in checks if c["kernel"] == n)
              for n in ("attention_bwd", "rmsnorm_bwd")}
+    bwd_kernels = kernel_resources(ptxas, "attention_bwd_")
     emit({"phase": "lm_train_kernels", "checks": checks,
           "lse_max_abs_err": max(lse_errs),
           "tolerance_rel_of_max": TRAIN_GRAD_REL, "lse_tolerance": LSE_TOL,
-          "timed": {"attention_bwd": attn_rows, "rmsnorm_bwd": norm_rows}})
+          "timed": {"attention_bwd": attn_rows, "rmsnorm_bwd": norm_rows},
+          "attention_bwd_ptxas": bwd_kernels})
     return {"attention_bwd": {**attn_rows[0],
                               "max_abs_err": worst["attention_bwd"],
-                              "at_fleet_shape": attn_rows[1]},
+                              "at_fleet_shape": attn_rows[1],
+                              "ptxas_by_kernel": bwd_kernels},
             "rmsnorm_bwd": {**norm_rows[0],
                             "max_abs_err": worst["rmsnorm_bwd"],
                             "other_shapes": norm_rows[1:]}}
@@ -4478,7 +4511,7 @@ def main() -> None:
         return out
 
     env = run("env", phase_env)
-    run("build", phase_build)
+    build = run("build", phase_build)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     table = run("kernels", phase_kernels, gen)
@@ -4508,7 +4541,8 @@ def main() -> None:
     sharded = run("shard_train", phase_shard_train)
     run("train_step", phase_train_step)
     torch.cuda.empty_cache()
-    bwd_table = run("lm_train_kernels", phase_lm_train_kernels, gen)
+    bwd_table = run("lm_train_kernels", phase_lm_train_kernels, gen,
+                    build["ptxas"])
     lm_train = run("lm_train", phase_lm_train)
     run("lm_train_agree", phase_lm_train_agree)
     torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
 // The gradient of masked softmax attention with grouped KV heads, in f32 on
-// Hopper's CUDA cores (sm_90a): dq, dk and dv from q, k, v, the forward's
-// output o and per-row log-sum-exp, and the output's gradient do.
+// Hopper's tensor cores in split TF32 (sm_90a): dq, dk and dv from q, k, v,
+// the forward's output o and per-row log-sum-exp, and the output's
+// gradient do.
 //
 //   s[i, j] = scale q[i] . k[j],  p[i, j] = mask(i, j) ? exp(s - lse[i]) : 0
 //   dv[j]   = sum_i p[i, j] do[i]
@@ -21,32 +22,71 @@
 // the card the port's forward is a hand-written kernel (attention.cu), so
 // its gradient is one too.
 //
-// Bound: the arithmetic, 5 products of 2 D flops per kept query-key pair
-// and query head (s = q k^T again, dp = do v^T, dv += p^T do, dk += ds^T q,
-// dq += ds k), 2.5 times the forward's; on the CUDA cores, in plain f32
-// FMAs (one TF32 product would miss the f32 tolerance, ROADMAP "One
-// rounding misses the tolerance"), over the f32 rate.
+// Bound: the arithmetic. The gradient needs 5 products of 2 D flops per
+// kept query-key pair and query head (s = q k^T again, dp = do v^T,
+// dv += p^T do, dk += ds^T q, dq += ds k), 2.5 times the forward's
+// (analysis/roofline.py counts these). The tensor cores take f32 only as
+// TF32, and one TF32 product misses the f32 tolerance (ROADMAP "One
+// rounding misses the tolerance"; tests/test_torch_backward_tiles.py shows
+// it), so every product is split TF32 as in attention.cu: v = hi + lo,
+// a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, three TF32 products a product,
+// over the TF32 rate (495 TFLOP/s). This design, two passes and no
+// atomics, computes s and dp in both passes: 7 products, 7/5 of that
+// bound.
 //
-// Design: three launches, no atomics, every sum in a fixed order, so a
-// given card gives the same bits on every run (gradients feed the
-// divergence trigger through the parameter plane).
+// Design: every product is mma.sync.m16n8k8 TF32 on the fragment
+// conventions of attention.cu; three or four launches; no atomics and every
+// sum in a fixed order, so a given card gives the same bits on every run
+// (gradients feed the divergence trigger through the parameter plane).
 //   1. delta: one warp a row, lanes over D, an xor butterfly.
-//   2. dk, dv: one block of 256 threads per (batch, kv head, 64-key tile),
-//      (batch, kv head) fastest, the first key tiles (the longest under a
-//      causal mask) first. It keeps the tile's k and v in shared memory,
-//      walks its group's query heads in order and, for each, the 64-row
-//      query tiles that keep any of its keys, in order: s and dp as 4 x 4
-//      blocks a thread, p and ds into shared memory, then dv and dk as 4
-//      keys x D / 16 dims a thread in registers.
-//   3. dq: one block of 256 threads per (batch, head, 64-row query tile),
-//      the last query tile first; it keeps q and do, walks the key tiles
-//      that any of its rows keeps in order, and sums dq as 4 rows x D / 16
-//      dims a thread in registers.
-// Tiles sit in shared memory with rows of D + 1 floats, so a thread's
-// rows i + 16 r (or keys j + 16 c) fall in 16 different banks. Every load
-// of a tile is a 16-byte vector from device memory, zero past Sq or Sk.
-// This is the simple, right kernel: one block an SM (~150-166 KB of shared
-// memory at D = 128), single-buffered tiles.
+//   2. dk, dv: a block of 6 warp pairs owns 96 keys of one (batch, kv
+//      head), a pair 16 (mma's M), and walks query tiles of 32 rows. With
+//      the keys as rows it computes S^T = K Q^T and dP^T = V dO^T: K and V
+//      are the A operand, from the block's resident tiles; the Q and dO
+//      tiles are the B operand, read by rows as the forward reads K. Then,
+//      on the accumulator fragments, P^T = exp2(S^T scale log2(e) - lse
+//      log2(e)) with the masks, and dS^T = P^T (dP^T - delta). dV += P^T
+//      dO and dK += dS^T Q take the accumulators as the A operand with the
+//      queries in the k order (0, 2, 4, 6 | 1, 3, 5, 7), as the forward's
+//      P V does: no shuffle, nothing transposed in memory. Q, dO, lse and
+//      delta arrive by a two-stage ring (cp.async for the tiles). A block
+//      takes one query head; where G > 1 it writes that head's dk and dv
+//      partials to a (B, Sk, H, D) scratch, and 4. a fourth launch sums
+//      each kv head's G partials in head order and scales dk. Blocks run
+//      (batch, head) fastest and the first key tiles (the longest under a
+//      causal mask) first.
+//   3. dq: a block of 6 warp pairs owns 96 query rows of one (batch, head),
+//      a pair 16, and walks the 32-key tiles of the forward's key range on
+//      a two-stage K / V ring, the last query tile first: the forward's
+//      loop with S = Q K^T, dP = dO V^T, dS = P (dP - delta), dQ += dS K.
+// The two warps of a pair split D: each computes the S and dP products
+// over its half, the pair swaps the partials through shared memory (a
+// named barrier of 64 threads), and each computes dV, dK or dQ for its
+// half of the columns. The dV, dK and dQ products of a tile are summed
+// from zero, D / 16 independent sums a warp, and then added to the running
+// sums in f32 (tile_product: the tensor cores' accumulation truncates).
+// A pair skips a tile none of its pairs keeps and masks only a tile that
+// crosses Sk, the causal diagonal or the window's edge. Every tile row is
+// D + 4 floats, so every fragment load, by rows (A and the S products'
+// B: row g, column t) or by columns (the dV, dK and dQ products' B: rows
+// 2t and 2t + 1, column g), hits 32 banks with one 4-byte load a lane.
+// Budget at D = 128, one block of 12 warps an SM: 218,624 bytes of shared
+// memory (the 96 resident rows of two tiles, a two-stage ring of two
+// 32-row tiles, a 4 KB swap slot a warp) and at most 168 registers a
+// thread (a dk / dv warp's dK and dV for 16 keys x 64 columns are 64).
+// Tried on an H100 at llama3-8b's (1, 4096, 32/8, 128) (PERF.md, PR 25):
+// 8 warps of 16 rows x the whole D (128 accumulator registers for dK and
+// dV, 243-255 registers, 203 KB) were faster with the running sums
+// kept in the tensor cores' accumulators, but their truncation left dk
+// and dv an order of magnitude further off the plain version, and as fast
+// as the pairs with the tile sums added in f32, but slower at the
+// fleet's (16, 128, 12/4, 128). A block walking its kv head's G query
+// heads (the CUDA-core kernel's way, no scratch) is slower at both shapes.
+// Unrolling the pair's S^T loop by 2 or 4, splitting it into an S^T and a
+// dP^T loop, tile sums over two k-steps, and a tile product that chains
+// each column n-tile's four k-steps are no faster or slower. The dk / dv
+// form keeps 16 bytes of spill stores at D = 128 (every form tried that
+// has none is slower).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,118 +94,173 @@
 
 namespace {
 
-constexpr int kB = 64;           // query rows and keys a tile
-constexpr int kThreads = 256;
-constexpr int kLP = kB + 1;      // floats a row of the p and ds tiles
+constexpr int kPairs = 6;           // warp pairs a block, 16 rows each
+constexpr int kWarps = 2 * kPairs;  // a pair's warps take half of D each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBR = 16 * kPairs;    // resident rows a block (keys or queries)
+constexpr int kBT = 32;             // streamed rows a tile
+constexpr int kStages = 2;          // the ring of streamed tiles
+constexpr int kSwap = 2 * kBT * 16; // floats a warp's slot: its two partials
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-struct Tiles {
-  static constexpr int LD = D + 1;            // floats a row of a D tile
-  static constexpr int E = D / 16;            // dims a thread sums
-  static constexpr size_t kKV =               // dk / dv pass
-      sizeof(float) * (4 * kB * LD + 2 * kB * kLP + 2 * kB);
-  static constexpr size_t kQ =                // dq pass
-      sizeof(float) * (4 * kB * LD + kB * kLP + 2 * kB);
+struct Plan {
+  static constexpr int LD = D + 4;  // floats a row of every tile
+  // two resident tiles; a ring of two streamed tiles (+ lse, delta rows);
+  // a slot a warp for its partial sums
+  static constexpr size_t kBytes =
+      sizeof(float) * (2 * kBR * LD + kStages * (2 * kBT * LD + 2 * kBT) +
+                       kWarps * kSwap);
 };
 
-// rows [r0, r0 + kB) x D of a (.., rows, heads, D) tensor (row stride
-// `stride` floats, from `src`, the head's first row) into shared memory
-// with rows of D + 1 floats; rows >= n are zero
-template <int D>
+// 16 bytes from global to shared memory without registers; zeros when
+// !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile(
+      "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+          static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+      "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ROWS x D floats of a (.., rows, heads, D) tensor (row stride `stride`
+// floats, from `src`, the head's first row) into shared memory with rows
+// of D + 4 floats; rows >= valid are zero-filled
+template <int ROWS, int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t stride, int n) {
+                                          int64_t stride, int valid,
+                                          int tid) {
   constexpr int C4 = D / 4;
-  for (int e = threadIdx.x; e < kB * C4; e += kThreads) {
+#pragma unroll 4
+  for (int e = tid; e < ROWS * C4; e += kThreads) {
     const int r = e / C4, c = (e - r * C4) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n) v = __ldg(reinterpret_cast<const float4*>(src + r * stride + c));
-    float* d = dst + r * (D + 1) + c;
-    d[0] = v.x;
-    d[1] = v.y;
-    d[2] = v.z;
-    d[3] = v.w;
+    const bool ok = r < valid;
+    cp_async16(dst + r * (D + 4) + c, ok ? src + r * stride + c : src, ok);
   }
 }
 
-// the per-row terms of query rows [q0, q0 + kB): lse in log2 units (+inf
-// where the row keeps nothing or lies past Sq, so its p is 0) and delta
-__device__ __forceinline__ void load_rows(float* sL, float* sD,
-                                          const float* lse,
-                                          const float* delta, int q0,
-                                          int Sq) {
-  for (int r = threadIdx.x; r < kB; r += kThreads) {
-    const int i = q0 + r;
-    float l = INFINITY, d = 0.0f;
-    if (i < Sq) {
-      const float v = lse[i];
-      l = isinf(v) ? INFINITY : v * kLog2e;
-      d = delta[i];
-    }
-    sL[r] = l;
-    sD[r] = d;
+// a row's lse in log2 units: +inf where the row keeps nothing, so its p is 0
+__device__ __forceinline__ float lse2_of(float v) {
+  return isinf(v) ? INFINITY : v * kLog2e;
+}
+
+// v = hi + lo: hi is v rounded to TF32, to nearest with ties away from zero
+// (cvt.rna.tf32.f32's rounding, by two integer operations); lo = v - hi is
+// exact in f32 and goes to the tensor cores unrounded, which read its TF32
+// part (what they drop is below 2^-21 |v|)
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+// d (16 x 8) += a (16 x 8, row) b (8 x 8, col), one TF32 product
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a b in split TF32, the small terms first; b = (b0, b1) unsplit
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(d, al, bh0, bh1);
+  mma(d, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
+}
+// The m16n8k8 fragments (PTX ISA, "Matrix Fragments for mma.m16n8k8"), with
+// g = lane / 4 and t = lane % 4: A (16 x 8) holds (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); B (8 x 8) holds (t, g), (t + 4, g); the
+// accumulator holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+
+// the A fragment of a warp's 16 resident rows at k-step kk, split; `w`
+// points at row g, column t
+__device__ __forceinline__ void a_rows(const float* w, int ld, int kk,
+                                       uint32_t (&h)[4], uint32_t (&l)[4]) {
+  split(w[8 * kk], h[0], l[0]);
+  split(w[8 * ld + 8 * kk], h[1], l[1]);
+  split(w[8 * kk + 4], h[2], l[2]);
+  split(w[8 * ld + 8 * kk + 4], h[3], l[3]);
+}
+// an accumulator n-tile as the A fragment of a k-step, its columns in the
+// k order (0, 2, 4, 6 | 1, 3, 5, 7), split
+__device__ __forceinline__ void a_acc(const float (&c)[4], uint32_t (&h)[4],
+                                      uint32_t (&l)[4]) {
+  split(c[0], h[0], l[0]);
+  split(c[2], h[1], l[1]);
+  split(c[1], h[2], l[2]);
+  split(c[3], h[3], l[3]);
+}
+
+// acc (16 x 8 NN) += c (16 x kBT, accumulator n-tiles) b (kBT x 8 NN rows
+// of a tile, `b` at row 2t, column g): the kBT / 8 k-steps' split products
+// summed from zero by the tensor cores, NN independent sums, then added to
+// acc in f32. The tensor cores add into their accumulator truncating, not
+// rounding, so a sum over S rows kept in one accumulator can drift by up to
+// 3 (S / 8) 2^-23 of itself (2e-4 at S = 4,096); this way each truncates
+// over one tile only.
+template <int NN, int LD>
+__device__ __forceinline__ void tile_product(float (&acc)[NN][4],
+                                             const float (&c)[kBT / 8][4],
+                                             const float* b) {
+  float x[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kBT / 8; ++j) {
+    uint32_t ch[4], cl[4];
+    a_acc(c[j], ch, cl);
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+      mma3(x[n], ch, cl, b[8 * j * LD + 8 * n], b[(8 * j + 1) * LD + 8 * n]);
   }
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += x[n][e];
+}
+
+// The two warps of a pair share 16 rows and split D: each sums the S and
+// dP products over its half of D, then the pair swaps partials through
+// shared memory so that both hold the whole sums, half 0's plus half 1's
+// (the same bits in both warps: f32 addition commutes).
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
+}
+__device__ __forceinline__ void pair_sum(float (&s)[kBT / 8][4],
+                                         float (&d)[kBT / 8][4], float* mine,
+                                         const float* other, int pair,
+                                         int lane) {
+#pragma unroll
+  for (int j = 0; j < kBT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      mine[(4 * j + e) * 32 + lane] = s[j][e];
+      mine[(kBT / 2 + 4 * j + e) * 32 + lane] = d[j][e];
+    }
+  pair_sync(pair);
+#pragma unroll
+  for (int j = 0; j < kBT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] += other[(4 * j + e) * 32 + lane];
+      d[j][e] += other[(kBT / 2 + 4 * j + e) * 32 + lane];
+    }
 }
 
 __device__ __forceinline__ bool keeps(int qpos, int kpos, int Sk, int causal,
                                       int window) {
   return kpos < Sk && (!causal || kpos <= qpos) &&
          (window <= 0 || kpos > qpos - window);
-}
-
-// p and ds of a 64 x 64 tile: thread (ti, tj) = (t / 16, t % 16) takes rows
-// ti + 16 r and keys tj + 16 c; the dot products sum over d in order. p is
-// written to sP when it is not null, ds to sS.
-template <int D>
-__device__ __forceinline__ void p_ds(const float* sQ, const float* sdO,
-                                     const float* sK, const float* sV,
-                                     const float* sL, const float* sD,
-                                     float* sP, float* sS, int q0, int k0,
-                                     int off, int Sk, int causal, int window,
-                                     float sl2) {
-  constexpr int LD = D + 1;
-  const int ti = threadIdx.x >> 4, tj = threadIdx.x & 15;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], g[4], b[4], w[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      a[r] = sQ[(ti + 16 * r) * LD + d];
-      g[r] = sdO[(ti + 16 * r) * LD + d];
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      b[c] = sK[(tj + 16 * c) * LD + d];
-      w[c] = sV[(tj + 16 * c) * LD + d];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = fmaf(a[r], b[c], s[r][c]);
-        dp[r][c] = fmaf(g[r], w[c], dp[r][c]);
-      }
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int ri = ti + 16 * r;
-    const int qpos = q0 + ri + off;
-    const float l = sL[ri], dl = sD[ri];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int cj = tj + 16 * c;
-      const float p = keeps(qpos, k0 + cj, Sk, causal, window)
-                          ? exp2f(s[r][c] * sl2 - l)
-                          : 0.0f;
-      if (sP != nullptr) sP[ri * kLP + cj] = p;
-      sS[ri * kLP + cj] = p * (dp[r][c] - dl);
-    }
-  }
 }
 
 // delta[b, h, i] = do[b, i, h] . o[b, i, h]: one warp a row
@@ -175,7 +270,7 @@ __global__ void __launch_bounds__(kThreads)
                                float* __restrict__ delta, long long rows,
                                int Sq, int H, int D) {
   const long long row =
-      static_cast<long long>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
   const float* a = o + row * D;
@@ -192,6 +287,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// dk, dv. A block owns keys [k0, k0 + kBR) of one (batch, query head) and
+// writes them to dk_out, dv_out (B, Sk, H, D), dk times dk_scale: dk and
+// dv themselves where H = Hkv, else the head's partials.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_bwd_dkv_kernel(const float* __restrict__ q,
@@ -200,98 +298,169 @@ __global__ void __launch_bounds__(kThreads, 1)
                              const float* __restrict__ dO,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
-                             float* __restrict__ dk, float* __restrict__ dv,
-                             int BHkv, int H, int Hkv, int Sq, int Sk,
-                             int causal, int window, float scale) {
-  constexpr int LD = Tiles<D>::LD, E = Tiles<D>::E;
+                             float* __restrict__ dk_out,
+                             float* __restrict__ dv_out, int BH, int H,
+                             int Hkv, int Sq, int Sk, int causal,
+                             int window, float scale, float dk_scale) {
+  constexpr int LD = Plan<D>::LD;
+  constexpr int KH = D / 16;  // a half's k-steps of S^T, n-tiles of dK, dV
+  constexpr int NJ = kBT / 8;      // query n-tiles of S^T = k-steps of dV
   extern __shared__ __align__(16) float smem[];
-  float* sK = smem;
-  float* sV = sK + kB * LD;
-  float* sQ = sV + kB * LD;
-  float* sdO = sQ + kB * LD;
-  float* sP = sdO + kB * LD;
-  float* sS = sP + kB * kLP;
-  float* sL = sS + kB * kLP;
-  float* sD = sL + kB;
+  float* sK = smem;                          // kBR x LD
+  float* sV = sK + kBR * LD;                 // kBR x LD
+  float* sQ = sV + kBR * LD;                 // kStages x kBT x LD
+  float* sdO = sQ + kStages * kBT * LD;      // kStages x kBT x LD
+  float* sL = sdO + kStages * kBT * LD;      // kStages x kBT, lse2
+  float* sDl = sL + kStages * kBT;           // kStages x kBT, delta
+  float* sX = sDl + kStages * kBT;           // kWarps x kSwap
 
-  const int bhk = static_cast<int>(blockIdx.x % BHkv);
-  const int k0 = static_cast<int>(blockIdx.x / BHkv) * kB;
-  const int b = bhk / Hkv, hk = bhk - b * Hkv;
-  const int G = H / Hkv;
+  const int bh = static_cast<int>(blockIdx.x % BH);
+  const int k0 = static_cast<int>(blockIdx.x / BH) * kBR;
+  const int b = bh / H, h = bh - b * H;
+  const int hk = h / (H / Hkv);
   const int off = Sk - Sq;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int64_t q_stride = static_cast<int64_t>(H) * D;
   const int64_t k_stride = static_cast<int64_t>(Hkv) * D;
   const int64_t kv0 = (static_cast<int64_t>(b) * Sk * Hkv + hk) * D;
-  load_tile<D>(sK, k + kv0 + k0 * k_stride, k_stride, min(kB, Sk - k0));
-  load_tile<D>(sV, v + kv0 + k0 * k_stride, k_stride, min(kB, Sk - k0));
 
-  // the query rows that may keep a key of [k0, k0 + kB)
+  // the query rows that may keep a key of [k0, k0 + kBR)
   int i_lo = 0, i_hi = Sq;
   if (causal) i_lo = max(0, k0 - off);
-  if (window > 0) i_hi = min(Sq, k0 + kB - 1 + window - off);
-  const int t_lo = i_lo / kB;
-  const int t_hi = i_hi > i_lo ? (i_hi + kB - 1) / kB : t_lo;
+  if (window > 0) i_hi = min(Sq, k0 + kBR - 1 + window - off);
+  const int t_lo = i_lo / kBT;
+  const int n_t = i_hi > i_lo ? (i_hi + kBT - 1) / kBT - t_lo : 0;
+  const int64_t qh = (static_cast<int64_t>(b) * Sq * H + h) * D;
 
-  // this thread's keys tj + 16 c and dims td + 16 e
-  const int tj = threadIdx.x & 15, td = threadIdx.x >> 4;
-  float acc_v[4][E], acc_k[4][E];
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc_v[c][e] = acc_k[c][e] = 0.0f;
-  const float sl2 = scale * kLog2e;
+  auto load_step = [&](int s, int stage) {
+    const int q0 = (t_lo + s) * kBT;
+    const int valid = min(kBT, Sq - q0);
+    load_tile<kBT, D>(sQ + stage * kBT * LD, q + qh + q0 * q_stride,
+                      q_stride, valid, tid);
+    load_tile<kBT, D>(sdO + stage * kBT * LD, dO + qh + q0 * q_stride,
+                      q_stride, valid, tid);
+    if (tid < kBT) {
+      const int i = q0 + tid;
+      const int64_t at = static_cast<int64_t>(bh) * Sq + i;
+      sL[stage * kBT + tid] = i < Sq ? lse2_of(lse[at]) : INFINITY;
+      sDl[stage * kBT + tid] = i < Sq ? delta[at] : 0.0f;
+    }
+  };
+  const int kvalid = min(kBR, Sk - k0);
+  load_tile<kBR, D>(sK, k + kv0 + k0 * k_stride, k_stride, kvalid, tid);
+  load_tile<kBR, D>(sV, v + kv0 + k0 * k_stride, k_stride, kvalid, tid);
+  if (n_t > 0) load_step(0, 0);
+  cp_async_commit();
 
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = hk * G + hh;
-    const int64_t q0_off = (static_cast<int64_t>(b) * Sq * H + h) * D;
-    const float* lse_h = lse + (static_cast<int64_t>(b) * H + h) * Sq;
-    const float* delta_h = delta + (static_cast<int64_t>(b) * H + h) * Sq;
-    for (int qt = t_lo; qt < t_hi; ++qt) {
-      const int q0 = qt * kB;
-      __syncthreads();  // the tiles of the step before are read
-      load_tile<D>(sQ, q + q0_off + q0 * q_stride, q_stride, min(kB, Sq - q0));
-      load_tile<D>(sdO, dO + q0_off + q0 * q_stride, q_stride,
-                   min(kB, Sq - q0));
-      load_rows(sL, sD, lse_h, delta_h, q0, Sq);
-      __syncthreads();
-      p_ds<D>(sQ, sdO, sK, sV, sL, sD, sP, sS, q0, k0, off, Sk, causal,
-              window, sl2);
-      __syncthreads();
-      for (int i = 0; i < kB; ++i) {
-        float pc[4], sc[4], g[E], x[E];
+  // this warp's keys, kw + g and kw + g + 8, and columns [c0, c0 + D / 2)
+  const int pair = warp >> 1, c0 = (warp & 1) * (D / 2);
+  const int kw = k0 + 16 * pair;
+  const float* wk = sK + (16 * pair + g) * LD + c0 + t;
+  const float* wv = sV + (16 * pair + g) * LD + c0 + t;
+  float* mine = sX + warp * kSwap;
+  const float* other = sX + (warp ^ 1) * kSwap;
+  const float sl2 = scale * kLog2e;   // scores in log2 units
+
+  float acc_v[KH][4], acc_k[KH][4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          pc[c] = sP[i * kLP + tj + 16 * c];
-          sc[c] = sS[i * kLP + tj + 16 * c];
-        }
+  for (int n = 0; n < KH; ++n)
 #pragma unroll
-        for (int e = 0; e < E; ++e) {
-          g[e] = sdO[i * LD + td + 16 * e];
-          x[e] = sQ[i * LD + td + 16 * e];
-        }
+    for (int e = 0; e < 4; ++e) acc_v[n][e] = acc_k[n][e] = 0.0f;
+
+  for (int s = 0; s < n_t; ++s) {
+    cp_async_wait_all();
+    // this step's copies have landed, and no warp still reads the stage
+    // the next copies overwrite
+    __syncthreads();
+    if (s + 1 < n_t) load_step(s + 1, (s + 1) % kStages);
+    cp_async_commit();
+
+    const int stage = s % kStages;
+    const int q0 = (t_lo + s) * kBT;
+    const int pos_lo = q0 + off, pos_hi = pos_lo + kBT - 1;
+    if (kw >= Sk || (causal && kw > pos_hi) ||
+        (window > 0 && kw + 15 <= pos_lo - window))
+      continue;  // no key of this pair is kept by a row of this tile
+    const float* tQ = sQ + stage * kBT * LD;
+    const float* tdO = sdO + stage * kBT * LD;
+
+    // S^T = K Q^T, dP^T = V dO^T: keys as rows, the tile's queries as
+    // columns, over this warp's half of D, then the pair's sums
+    float st[NJ][4], dt[NJ][4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-          for (int e = 0; e < E; ++e) {
-            acc_v[c][e] = fmaf(pc[c], g[e], acc_v[c][e]);
-            acc_k[c][e] = fmaf(sc[c], x[e], acc_k[c][e]);
-          }
+      for (int e = 0; e < 4; ++e) st[j][e] = dt[j][e] = 0.0f;
+    const float* bq = tQ + g * LD + c0 + t;
+    const float* bo = tdO + g * LD + c0 + t;
+#pragma unroll
+    for (int kk = 0; kk < KH; ++kk) {
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      a_rows(wk, LD, kk, kh, kl);
+      a_rows(wv, LD, kk, vh, vl);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        mma3(st[j], kh, kl, bq[8 * j * LD + 8 * kk],
+             bq[8 * j * LD + 8 * kk + 4]);
+        mma3(dt[j], vh, vl, bo[8 * j * LD + 8 * kk],
+             bo[8 * j * LD + 8 * kk + 4]);
       }
     }
+    pair_sum(st, dt, mine, other, pair, lane);
+
+    // P^T and dS^T on the fragments, in both warps of the pair: element e
+    // of n-tile j is key kw + g + 8 (e / 2), query q0 + 8j + 2t + e % 2
+    const bool edge = kw + 15 >= Sk || (causal && kw + 15 > pos_lo) ||
+                      (window > 0 && kw <= pos_hi - window);
+    const float* tl = sL + stage * kBT + 2 * t;
+    const float* tdl = sDl + stage * kBT + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(tl + 8 * j);
+      const float2 dl = *reinterpret_cast<const float2*>(tdl + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(st[j][e], sl2, -(e & 1 ? l.y : l.x)));
+        if (edge && !keeps(pos_lo + 8 * j + 2 * t + (e & 1),
+                           kw + g + 8 * (e >> 1), Sk, causal, window))
+          p = 0.0f;
+        st[j][e] = p;
+        dt[j][e] = p * (dt[j][e] - (e & 1 ? dl.y : dl.x));
+      }
+    }
+
+    // dV += P^T dO, then dK += dS^T Q: query n-tile j of S^T is k-step
+    // j; each tile's product is summed from zero and added in f32
+    const float* cO = tdO + 2 * t * LD + c0 + g;
+    const float* cQ = tQ + 2 * t * LD + c0 + g;
+    tile_product<KH, LD>(acc_v, st, cO);
+    tile_product<KH, LD>(acc_k, dt, cQ);
   }
+  cp_async_wait_all();
+
+  const int64_t o_stride = static_cast<int64_t>(H) * D;
+  const int64_t ob =
+      (static_cast<int64_t>(b) * Sk * H + h) * D + c0 + 2 * t;
+  const int j0 = kw + g, j1 = j0 + 8;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int j = k0 + tj + 16 * c;
-    if (j >= Sk) continue;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int64_t at = kv0 + j * k_stride + td + 16 * e;
-      dv[at] = acc_v[c][e];
-      dk[at] = acc_k[c][e] * scale;
+  for (int n = 0; n < KH; ++n) {
+    if (j0 < Sk) {
+      *reinterpret_cast<float2*>(dv_out + ob + j0 * o_stride + 8 * n) =
+          make_float2(acc_v[n][0], acc_v[n][1]);
+      *reinterpret_cast<float2*>(dk_out + ob + j0 * o_stride + 8 * n) =
+          make_float2(acc_k[n][0] * dk_scale, acc_k[n][1] * dk_scale);
+    }
+    if (j1 < Sk) {
+      *reinterpret_cast<float2*>(dv_out + ob + j1 * o_stride + 8 * n) =
+          make_float2(acc_v[n][2], acc_v[n][3]);
+      *reinterpret_cast<float2*>(dk_out + ob + j1 * o_stride + 8 * n) =
+          make_float2(acc_k[n][2] * dk_scale, acc_k[n][3] * dk_scale);
     }
   }
 }
 
+// dq. A block owns query rows [q0, q0 + kBR) of one (batch, head).
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_bwd_dq_kernel(const float* __restrict__ q,
@@ -303,115 +472,224 @@ __global__ void __launch_bounds__(kThreads, 1)
                             float* __restrict__ dq, int BH, int H, int Hkv,
                             int Sq, int Sk, int causal, int window,
                             float scale) {
-  constexpr int LD = Tiles<D>::LD, E = Tiles<D>::E;
+  constexpr int LD = Plan<D>::LD;
+  constexpr int KH = D / 16;       // a half's k-steps of S, n-tiles of dQ
+  constexpr int NJ = kBT / 8;      // key n-tiles of S = k-steps of dQ
   extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sdO = sQ + kB * LD;
-  float* sK = sdO + kB * LD;
-  float* sV = sK + kB * LD;
-  float* sS = sV + kB * LD;
-  float* sL = sS + kB * kLP;
-  float* sD = sL + kB;
+  float* sQ = smem;                          // kBR x LD
+  float* sdO = sQ + kBR * LD;                // kBR x LD
+  float* sK = sdO + kBR * LD;                // kStages x kBT x LD
+  float* sV = sK + kStages * kBT * LD;       // kStages x kBT x LD
+  float* sX = sV + kStages * kBT * LD + kStages * 2 * kBT;  // kWarps x kSwap
 
-  const int n_qt = (Sq + kB - 1) / kB;
+  const int n_qt = (Sq + kBR - 1) / kBR;
   const int bh = static_cast<int>(blockIdx.x % BH);
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x / BH)) * kB;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x / BH)) * kBR;
   const int b = bh / H, h = bh - b * H;
   const int hk = h / (H / Hkv);
   const int off = Sk - Sq;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int64_t q_stride = static_cast<int64_t>(H) * D;
   const int64_t k_stride = static_cast<int64_t>(Hkv) * D;
   const int64_t qh = (static_cast<int64_t>(b) * Sq * H + h) * D;
   const int64_t kv0 = (static_cast<int64_t>(b) * Sk * Hkv + hk) * D;
-  load_tile<D>(sQ, q + qh + q0 * q_stride, q_stride, min(kB, Sq - q0));
-  load_tile<D>(sdO, dO + qh + q0 * q_stride, q_stride, min(kB, Sq - q0));
-  load_rows(sL, sD, lse + static_cast<int64_t>(bh) * Sq,
-            delta + static_cast<int64_t>(bh) * Sq, q0, Sq);
 
   // the key tiles any row of this tile may keep, as the forward's
-  const int q_last = min(q0 + kB, Sq) - 1;
+  const int q_last = min(q0 + kBR, Sq) - 1;
   int k_lo = 0, k_hi = Sk;
   if (causal) k_hi = min(Sk, off + q_last + 1);
   if (window > 0) k_lo = max(0, off + q0 - window + 1);
-  const int t_lo = k_lo / kB;
-  const int t_hi = k_hi > k_lo ? (k_hi + kB - 1) / kB : t_lo;
+  const int t_lo = k_lo / kBT;
+  const int n_t = k_hi > k_lo ? (k_hi + kBT - 1) / kBT - t_lo : 0;
 
-  // this thread's rows ti + 16 r and dims td + 16 e
-  const int ti = threadIdx.x & 15, td = threadIdx.x >> 4;
-  float acc[4][E];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[r][e] = 0.0f;
+  auto load_step = [&](int s, int stage) {
+    const int k0 = (t_lo + s) * kBT;
+    const int valid = min(kBT, Sk - k0);
+    load_tile<kBT, D>(sK + stage * kBT * LD, k + kv0 + k0 * k_stride,
+                      k_stride, valid, tid);
+    load_tile<kBT, D>(sV + stage * kBT * LD, v + kv0 + k0 * k_stride,
+                      k_stride, valid, tid);
+  };
+  const int qvalid = min(kBR, Sq - q0);
+  load_tile<kBR, D>(sQ, q + qh + q0 * q_stride, q_stride, qvalid, tid);
+  load_tile<kBR, D>(sdO, dO + qh + q0 * q_stride, q_stride, qvalid, tid);
+  if (n_t > 0) load_step(0, 0);
+  cp_async_commit();
+
+  // this warp's rows, r0 + g and r0 + g + 8, and columns [c0, c0 + D / 2)
+  const int pair = warp >> 1, c0 = (warp & 1) * (D / 2);
+  const int r0 = q0 + 16 * pair;
+  const int pos0 = off + r0;
+  const int qp0 = pos0 + g, qp1 = qp0 + 8;
+  const float* lr = lse + static_cast<int64_t>(bh) * Sq;
+  const float* dr = delta + static_cast<int64_t>(bh) * Sq;
+  const float l0 = r0 + g < Sq ? lse2_of(lr[r0 + g]) : INFINITY;
+  const float l1 = r0 + g + 8 < Sq ? lse2_of(lr[r0 + g + 8]) : INFINITY;
+  const float dl0 = r0 + g < Sq ? dr[r0 + g] : 0.0f;
+  const float dl1 = r0 + g + 8 < Sq ? dr[r0 + g + 8] : 0.0f;
+  const float* wq = sQ + (16 * pair + g) * LD + c0 + t;
+  const float* wo = sdO + (16 * pair + g) * LD + c0 + t;
+  float* mine = sX + warp * kSwap;
+  const float* other = sX + (warp ^ 1) * kSwap;
   const float sl2 = scale * kLog2e;
 
-  for (int kt = t_lo; kt < t_hi; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();  // the tiles of the step before are read
-    load_tile<D>(sK, k + kv0 + k0 * k_stride, k_stride, min(kB, Sk - k0));
-    load_tile<D>(sV, v + kv0 + k0 * k_stride, k_stride, min(kB, Sk - k0));
+  float acc[KH][4];
+#pragma unroll
+  for (int n = 0; n < KH; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  for (int s = 0; s < n_t; ++s) {
+    cp_async_wait_all();
     __syncthreads();
-    p_ds<D>(sQ, sdO, sK, sV, sL, sD, nullptr, sS, q0, k0, off, Sk, causal,
-            window, sl2);
-    __syncthreads();
-    for (int j = 0; j < kB; ++j) {
-      float sc[4], x[E];
+    if (s + 1 < n_t) load_step(s + 1, (s + 1) % kStages);
+    cp_async_commit();
+
+    const int k0 = (t_lo + s) * kBT;
+    if (r0 >= Sq || (causal && k0 > pos0 + 15) ||
+        (window > 0 && k0 + kBT - 1 <= pos0 - window))
+      continue;  // no row of this pair keeps a key of this tile
+    const float* tK = sK + (s % kStages) * kBT * LD;
+    const float* tV = sV + (s % kStages) * kBT * LD;
+
+    // S = Q K^T, dP = dO V^T over this warp's half of D, then the pair's
+    // sums
+    float sc[NJ][4], dp[NJ][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) sc[r] = sS[(ti + 16 * r) * kLP + j];
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int e = 0; e < E; ++e) x[e] = sK[j * LD + td + 16 * e];
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.0f;
+    const float* bk = tK + g * LD + c0 + t;
+    const float* bv = tV + g * LD + c0 + t;
+#pragma unroll 4   // whole, it spills 12 bytes at D = 128
+    for (int kk = 0; kk < KH; ++kk) {
+      uint32_t qh_[4], ql[4], oh[4], ol[4];
+      a_rows(wq, LD, kk, qh_, ql);
+      a_rows(wo, LD, kk, oh, ol);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[r][e] = fmaf(sc[r], x[e], acc[r][e]);
+      for (int j = 0; j < NJ; ++j) {
+        mma3(sc[j], qh_, ql, bk[8 * j * LD + 8 * kk],
+             bk[8 * j * LD + 8 * kk + 4]);
+        mma3(dp[j], oh, ol, bv[8 * j * LD + 8 * kk],
+             bv[8 * j * LD + 8 * kk + 4]);
+      }
     }
-  }
+    pair_sum(sc, dp, mine, other, pair, lane);
+
+    // P and dS: element e of n-tile j is row r0 + g + 8 (e / 2), key
+    // k0 + 8j + 2t + e % 2
+    const bool edge = k0 + kBT > Sk || (causal && k0 + kBT - 1 > pos0) ||
+                      (window > 0 && k0 <= pos0 + 15 - window);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = q0 + ti + 16 * r;
-    if (i >= Sq) continue;
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      dq[qh + i * q_stride + td + 16 * e] = acc[r][e] * scale;
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(sc[j][e], sl2, -(e < 2 ? l0 : l1)));
+        if (edge && !keeps(e < 2 ? qp0 : qp1, k0 + 8 * j + 2 * t + (e & 1),
+                           Sk, causal, window))
+          p = 0.0f;
+        sc[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1));
+      }
+
+    // dQ += dS K: key n-tile j of dS is k-step j
+    tile_product<KH, LD>(acc, sc, tK + 2 * t * LD + c0 + g);
   }
+  cp_async_wait_all();
+
+  const int i0 = r0 + g, i1 = i0 + 8;
+  float* ob = dq + qh + c0 + 2 * t;
+#pragma unroll
+  for (int n = 0; n < KH; ++n) {
+    if (i0 < Sq)
+      *reinterpret_cast<float2*>(ob + i0 * q_stride + 8 * n) =
+          make_float2(acc[n][0] * scale, acc[n][1] * scale);
+    if (i1 < Sq)
+      *reinterpret_cast<float2*>(ob + i1 * q_stride + 8 * n) =
+          make_float2(acc[n][2] * scale, acc[n][3] * scale);
+  }
+}
+
+// dk, dv (B, Sk, Hkv, D) from the query heads' partials (B, Sk, H, D): each
+// kv head's G partials summed in head order, dk times scale; 16 bytes a
+// thread
+__global__ void __launch_bounds__(kThreads)
+    attention_bwd_sum_kernel(const float4* __restrict__ pk,
+                             const float4* __restrict__ pv,
+                             float4* __restrict__ dk,
+                             float4* __restrict__ dv, long long n4, int G,
+                             int D4, float scale) {
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (e >= n4) return;
+  // e = ((b Sk + j) Hkv + hk) D4 + c reads ((b Sk + j) H + hk G + hh) D4 + c
+  const long long r = e / D4, c = e - r * D4;
+  const long long at = r * G * D4 + c;
+  float4 a = pk[at], w = pv[at];
+  for (int hh = 1; hh < G; ++hh) {
+    const float4 x = pk[at + hh * D4], y = pv[at + hh * D4];
+    a.x += x.x;
+    a.y += x.y;
+    a.z += x.z;
+    a.w += x.w;
+    w.x += y.x;
+    w.y += y.y;
+    w.z += y.z;
+    w.w += y.w;
+  }
+  dk[e] = make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale);
+  dv[e] = w;
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* lse, const float* dO, float* dq, float* dk, float* dv,
-           float* delta, int B, int H, int Hkv, int Sq, int Sk, int causal,
-           int window, float scale, cudaStream_t s) {
+           float* delta, float* part, int B, int H, int Hkv, int Sq, int Sk,
+           int causal, int window, float scale, cudaStream_t s) {
+  constexpr size_t smem = Plan<D>::kBytes;
+  const int G = H / Hkv;
+  if (G > 1 && part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(B) * Sq * H;
-  const long long d_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  const long long d_blocks = (rows + kWarps - 1) / kWarps;
   const long long kv_blocks =
-      static_cast<long long>(B) * Hkv * ((Sk + kB - 1) / kB);
+      static_cast<long long>(B) * H * ((Sk + kBR - 1) / kBR);
   const long long q_blocks =
-      static_cast<long long>(B) * H * ((Sq + kB - 1) / kB);
+      static_cast<long long>(B) * H * ((Sq + kBR - 1) / kBR);
+  const long long n4 = static_cast<long long>(B) * Sk * Hkv * (D / 4);
+  const long long s_blocks = (n4 + kThreads - 1) / kThreads;
   if (d_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL ||
-      q_blocks > 0x7fffffffLL)
+      q_blocks > 0x7fffffffLL || s_blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       attention_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Tiles<D>::kKV));
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(attention_bwd_dq_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(Tiles<D>::kQ));
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   attention_bwd_delta_kernel<<<static_cast<unsigned>(d_blocks), kThreads, 0,
                                s>>>(o, dO, delta, rows, Sq, H, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  float* pk = G > 1 ? part : dk;
+  float* pv = G > 1 ? part + static_cast<size_t>(B) * Sk * H * D : dv;
   attention_bwd_dkv_kernel<D>
-      <<<static_cast<unsigned>(kv_blocks), kThreads, Tiles<D>::kKV, s>>>(
-          q, k, v, dO, lse, delta, dk, dv, B * Hkv, H, Hkv, Sq, Sk, causal,
-          window, scale);
+      <<<static_cast<unsigned>(kv_blocks), kThreads, smem, s>>>(
+          q, k, v, dO, lse, delta, pk, pv, B * H, H, Hkv, Sq, Sk, causal,
+          window, scale, G > 1 ? 1.0f : scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   attention_bwd_dq_kernel<D>
-      <<<static_cast<unsigned>(q_blocks), kThreads, Tiles<D>::kQ, s>>>(
+      <<<static_cast<unsigned>(q_blocks), kThreads, smem, s>>>(
           q, k, v, dO, lse, delta, dq, B * H, H, Hkv, Sq, Sk, causal, window,
           scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || G == 1) return static_cast<int>(err);
+  attention_bwd_sum_kernel<<<static_cast<unsigned>(s_blocks), kThreads, 0,
+                             s>>>(
+      reinterpret_cast<const float4*>(pk), reinterpret_cast<const float4*>(pv),
+      reinterpret_cast<float4*>(dk), reinterpret_cast<float4*>(dv), n4, G,
+      D / 4, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -419,16 +697,19 @@ int launch(const float* q, const float* k, const float* v, const float* o,
 
 // float32 throughout; d one of 32, 64 and 128 (queries, keys and values
 // alike). q, o, dO and dq are (B, Sq, H, d); k, v, dk and dv (B, Sk, Hkv,
-// d); lse and delta (B, H, Sq), delta scratch the launcher fills. All
-// contiguous and 16-byte aligned, H % Hkv == 0. Three launches on
-// `stream`; returns the CUDA error code of the first that fails (0 =
-// cudaSuccess).
+// d); lse and delta (B, H, Sq), delta scratch the launcher fills; where
+// H > Hkv, `part` is scratch of 2 B Sk H d floats for the query heads' dk
+// and dv partials, which a fourth launch sums over each group (null where
+// H = Hkv). All contiguous and 16-byte aligned, H % Hkv == 0. Three or four
+// launches on `stream`; returns the CUDA error code of the first that
+// fails (0 = cudaSuccess).
 extern "C" int repro_attention_bwd(int d, const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* lse, const void* dO, void* dq,
-                                   void* dk, void* dv, void* delta, int B,
-                                   int H, int Hkv, int Sq, int Sk, int causal,
-                                   int window, float scale, void* stream) {
+                                   void* dk, void* dv, void* delta,
+                                   void* part, int B, int H, int Hkv, int Sq,
+                                   int Sk, int causal, int window,
+                                   float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -439,8 +720,9 @@ extern "C" int repro_attention_bwd(int d, const void* q, const void* k,
         static_cast<const float*>(v), static_cast<const float*>(o),         \
         static_cast<const float*>(lse), static_cast<const float*>(dO),      \
         static_cast<float*>(dq), static_cast<float*>(dk),                   \
-        static_cast<float*>(dv), static_cast<float*>(delta), B, H, Hkv, Sq, \
-        Sk, causal, window, scale, s);
+        static_cast<float*>(dv), static_cast<float*>(delta),                \
+        static_cast<float*>(part), B, H, Hkv, Sq, Sk, causal, window,       \
+        scale, s);
   REPRO_ATTENTION_BWD_CASE(32)
   REPRO_ATTENTION_BWD_CASE(64)
   REPRO_ATTENTION_BWD_CASE(128)

@@ -32,9 +32,10 @@ tensors and the plain versions for CPU tensors.
 The gradient. The JAX package has no backward Pallas kernel (its
 training differentiates jnp attention), so ``attention_bwd`` replaces
 none: ``csrc/attention_bwd.cu`` computes dq, dk and dv in f32 on the
-CUDA cores from q, k, v, o, do and the per-row log-sum-exp that the f32
-program writes when ``with_lse`` asks for it (the serving path asks for
-none and launches as before). ``AttentionFn`` is the autograd Function
+tensor cores in split TF32 (``mma.sync``, as the f32 forward) from q, k,
+v, o, do and the per-row log-sum-exp that the f32 program writes when
+``with_lse`` asks for it (the serving path asks for none and launches as
+before). ``AttentionFn`` is the autograd Function
 that ``ops`` routes a CUDA call through when a gradient is wanted (an
 input requires grad, or is a ``torch.func`` transform's tensor): its
 backward calls ``AttentionBwdFn``, and each has a ``vmap`` rule that
@@ -62,8 +63,10 @@ WIDTHS = {torch.bfloat16: {(d, d) for d in HEAD_DIMS} | {(192, 128)},
                                                         (48, 32)}}
 
 
-# head dims the backward takes (queries, keys and values alike), f32 only
+# head dims the backward takes (queries, keys and values alike), f32 only,
+# and its program: split-TF32 mma.sync, as the f32 forward's
 BWD_HEAD_DIMS = (32, 64, 128)
+BWD_PROGRAM = "sm90_mma_tf32x3"
 NO_BF16_BWD = "ROADMAP A28 (the bf16 attention and rmsnorm backward)"
 NO_MLA_BWD = "ROADMAP A31 (the attention backward at MLA's widths)"
 
@@ -161,8 +164,9 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, window: int, scale: float | None):
     """The backward kernel: (dq, dk, dv) of ``attention`` at q (B, Sq, H,
     d), k, v (B, Sk, Hkv, d), o and do (B, Sq, H, d), lse (B, H, Sq), all
-    f32 on the card. Three CUDA launches (delta, dk/dv, dq), no atomics:
-    the same inputs give the same bits."""
+    f32 on the card. Three CUDA launches (delta, dk/dv, dq) and, where H
+    > Hkv, a fourth that sums the query heads' dk and dv partials in head
+    order; no atomics: the same inputs give the same bits."""
     differentiable(q, k, v, "attention_bwd")
     B, Sq, H, d = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -195,11 +199,13 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.library("attention")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = lse.new_empty((B, H, Sq))
+    part = q.new_empty((2, B, Sk, H, d)) if H > Hkv else None
     code = lib.repro_attention_bwd(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), B, H, Hkv, Sq, Sk, int(causal),
-        int(window), ctypes.c_float(scale),
+        dv.data_ptr(), delta.data_ptr(),
+        None if part is None else part.data_ptr(), B, H, Hkv, Sq, Sk,
+        int(causal), int(window), ctypes.c_float(scale),
         _build.current_stream(q.device.index))
     _build.check(lib, code, "attention_bwd launch")
     return dq, dk, dv

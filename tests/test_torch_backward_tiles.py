@@ -2,19 +2,29 @@
 CPU and held against ``jax.grad`` of the JAX package's jnp attention and
 RMS norm, and the autograd / vmap plumbing around them.
 
-* ``attention_bwd`` (``csrc/attention_bwd.cu``): delta = rowsum(do o);
-  the dk/dv pass, one block per (batch, kv head, 64-key tile), walking
-  its group's query heads in order and, for each, the 64-row query tiles
-  the kernel's range bounds give, in order; the dq pass, one block per
-  (batch, head, 64-row query tile), walking the key tiles of the
-  forward's range. p = exp2(s scale log2(e) - lse log2(e)) with the
-  masks applied, lse the forward's log-sum-exp (+inf in log2 units for
-  a row that keeps nothing). The model also checks the ranges: the
-  kept (query, key, head) triples it visits are every kept triple, each
-  once, in each pass. Cases: ragged S (100, 130), GQA groups 1 and 4,
-  head dims 32, 64 and 128, a window, non-causal with Sk != Sq.
-  Tolerance: dq, dk and dv within ``GRAD_TOL`` of the largest entry
-  of each (f32 on both sides, summed in other orders).
+* ``attention_bwd`` (``csrc/attention_bwd.cu``), its split-TF32 program:
+  delta = rowsum(do o); the dk/dv pass, blocks of 96 keys (six warp
+  pairs of 16) of one query head, each walking the 32-row query tiles of
+  the range the kernel bounds, the query heads' partials then summed
+  over each kv head's group in head order; the dq pass, blocks of 96
+  query rows walking the 32-key tiles of the forward's range.
+  Every product (S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q;
+  S, dP and dQ += dS K) in split TF32 with the rounding emulated on the
+  f32 bits (hi = v rounded to TF32, to nearest with ties away from zero,
+  lo = v - hi read by the tensor cores as TF32, a b = a_lo b_hi + a_hi
+  b_lo + a_hi b_hi); S and dP as a pair's two warps sum them, each over
+  half of d, half 0's plus half 1's; each tile's dV, dK and dQ product
+  added to the running sums in f32; p = exp2(fma(s, scale log2(e), -lse
+  log2(e))) with the masks, lse the forward's log-sum-exp (+inf in log2
+  units for a row that keeps nothing). On every tile the model checks
+  the kernel's per-pair shortcuts (16 rows it skips keep no pair, a tile
+  it does not mask keeps every pair) and counts the pairs each pass
+  visits: every kept (query, key, head) triple once. Cases: ragged S
+  (100, 130), GQA groups 1 and 4, head dims 32, 64 and 128, a window,
+  non-causal with Sk != Sq, a right-aligned diagonal. Tolerance: dq, dk
+  and dv within ``GRAD_TOL`` of the largest entry of each (f32 on both
+  sides, summed in other orders); one case shows that one TF32 product
+  a product misses it.
 * ``rmsnorm_bwd`` (``csrc/rmsnorm_bwd.cu``): ``rmsnorm.bwd_plan``'s
   partition (chunks of rows within a group, threads of 4 columns), each
   thread's strided column sums in order with f32 multiply-adds, the
@@ -32,6 +42,7 @@ RMS norm, and the autograd / vmap plumbing around them.
   and ``loss.backward()`` equals ``torch.func.grad``.
 """
 import math
+import re
 
 import numpy as np
 import pytest
@@ -43,12 +54,13 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 
 GRAD_TOL = 1e-5
-TILE = 64
+BR, BT, WARP = 96, 32, 16    # resident rows a block, streamed rows a tile
 LOG2E = 1.4426950408889634
 
 
@@ -73,7 +85,8 @@ def _jax_gqa(q, k, v, causal, window):
 
 
 def _kept(qpos, kpos, Sk, causal, window):
-    keep = (kpos < Sk) & (qpos >= qpos.min())     # (queries, keys)
+    """The forward's mask at positions qpos, kpos (broadcast)."""
+    keep = (kpos < Sk) & (qpos >= qpos.min())
     if causal:
         keep = keep & (kpos <= qpos)
     if window > 0:
@@ -81,135 +94,238 @@ def _kept(qpos, kpos, Sk, causal, window):
     return keep
 
 
-def _tile_p_ds(qt, dot, kt, vt, lse2, delta, q0, k0, off, Sk, causal,
-               window, sl2):
-    """p and ds of one (query tile, key tile), rows past Sq carrying
-    lse2 = +inf (so p = 0), as the kernel's ``p_ds``."""
-    qpos = torch.arange(q0, q0 + TILE)[:, None] + off
-    kpos = torch.arange(k0, k0 + TILE)[None, :]
-    keep = _kept(qpos, kpos, Sk, causal, window)
-    s = qt @ kt.T
-    dp = dot @ vt.T
-    p = torch.where(keep, torch.exp2(s * sl2 - lse2[:, None]),
-                    torch.zeros(()))
-    return p, p * (dp - delta[:, None]), keep & torch.isfinite(lse2)[:, None]
+def _bits(v):
+    return v.contiguous().view(torch.int32)
 
 
-def _tile(x, r0, n_rows):
-    """Rows [r0, r0 + TILE) of x (rows, d), zero past n_rows."""
-    out = torch.zeros((TILE, x.shape[1]))
-    hi = min(r0 + TILE, n_rows)
+def tf32_rna(v):
+    """v rounded to TF32, to nearest with ties away from zero."""
+    return ((_bits(v) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_trunc(v):
+    """v as the tensor cores read an unrounded TF32 operand."""
+    return (_bits(v) & ~0x1FFF).view(torch.float32)
+
+
+def product(a, b, split=True):
+    """a @ b as mma.sync computes it: split TF32, the small terms first,
+    or with ``split=False`` one TF32 product of the rounded operands."""
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    if not split:
+        return ah @ bh
+    al, bl = tf32_trunc(a - ah), tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _fma_f32(a, b, c):
+    """fmaf(a, b, c) on f32 tensors: the product is exact in float64."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _rows(x, r0, n, n_rows, fill=0.0):
+    """Rows [r0, r0 + n) of x (..., rows, *) on dim 2, ``fill`` past
+    n_rows."""
+    out = torch.full((*x.shape[:2], n, *x.shape[3:]), fill)
+    hi = min(r0 + n, n_rows)
     if hi > r0:
-        out[:hi - r0] = x[r0:hi]
+        out[:, :, :hi - r0] = x[:, :, r0:hi]
     return out
 
 
-def attention_bwd_model(q, k, v, o, lse, do, causal, window):
-    """The kernel's three passes on (B, S, heads, d) f32 tensors; also
-    returns the kept triples each pass visited."""
+def _warps(keep, n_real, starts, skip, edge):
+    """The kernel's per-warp shortcuts on one tile: ``keep`` (rows, cols)
+    over the block's 16-row warps, whose flags ``skip`` and ``edge``
+    come from their first row ``starts``; rows from ``n_real`` on lie
+    past the tensor. Returns the rows the kernel computes."""
+    active = torch.zeros(keep.shape[0], dtype=torch.bool)
+    for w, r in enumerate(starts):
+        kw = keep[WARP * w:WARP * (w + 1)]
+        if skip(r):
+            assert not bool(kw[:max(0, n_real - WARP * w)].any()), \
+                "a skipped warp keeps a pair"
+            continue
+        if not edge(r):
+            assert bool(kw.all()), "an unmasked tile drops a pair"
+        active[WARP * w:WARP * (w + 1)] = True
+    return active
+
+
+def attention_bwd_model(q, k, v, o, lse, do, causal, window, *,
+                        split=True):
+    """The kernel's passes on (B, S, heads, d) f32 tensors: (dq, dk, dv)
+    and the visits of each pass, (B, H, Sq, Sk) counts of the pairs it
+    computed that the mask keeps."""
     B, Sq, H, d = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G, off = H // Hkv, Sk - Sq
-    scale = 1.0 / math.sqrt(d)
-    sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
-    delta = (do * o).sum(-1).permute(0, 2, 1)              # (B, H, Sq)
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    sl2 = scale * torch.tensor(LOG2E, dtype=torch.float32)
+    qf, of, dof = (x.permute(0, 2, 1, 3) for x in (q, o, do))  # (B, H, S, d)
+    kf = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    vf = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    delta = (dof * of).sum(-1)                                 # (B, H, Sq)
     lse2 = torch.where(torch.isinf(lse), torch.tensor(math.inf),
-                       lse * LOG2E)
-    pad = lambda t: torch.cat([t, torch.full((TILE,), math.inf)])  # noqa
-    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
-    seen_kv, seen_q = 0, 0
-    for b in range(B):
-        for hk in range(Hkv):
-            for kt0 in range(0, Sk, TILE):
-                i_lo, i_hi = 0, Sq
-                if causal:
-                    i_lo = max(0, kt0 - off)
-                if window > 0:
-                    i_hi = min(Sq, kt0 + TILE - 1 + window - off)
-                t_lo = i_lo // TILE
-                t_hi = -(-i_hi // TILE) if i_hi > i_lo else t_lo
-                kt = _tile(k[b, :, hk], kt0, Sk)
-                vt = _tile(v[b, :, hk], kt0, Sk)
-                acc_k = torch.zeros((TILE, d))
-                acc_v = torch.zeros((TILE, d))
-                for hh in range(G):
-                    h = hk * G + hh
-                    for qi in range(t_lo, t_hi):
-                        q0 = qi * TILE
-                        p, ds, kept = _tile_p_ds(
-                            _tile(q[b, :, h], q0, Sq),
-                            _tile(do[b, :, h], q0, Sq), kt, vt,
-                            pad(lse2[b, h])[q0:q0 + TILE],
-                            torch.cat([delta[b, h], torch.zeros(TILE)])[
-                                q0:q0 + TILE],
-                            q0, kt0, off, Sk, causal, window, sl2)
-                        seen_kv += int(kept[:max(0, min(TILE, Sq - q0))]
-                                       .sum())
-                        acc_v += p.T @ _tile(do[b, :, h], q0, Sq)
-                        acc_k += ds.T @ _tile(q[b, :, h], q0, Sq)
-                n = min(TILE, Sk - kt0)
-                dv[b, kt0:kt0 + n, hk] = acc_v[:n]
-                dk[b, kt0:kt0 + n, hk] = acc_k[:n] * scale
-        for h in range(H):
-            hk = h // G
-            for q0 in range(0, Sq, TILE):
-                q_last = min(q0 + TILE, Sq) - 1
-                k_lo, k_hi = 0, Sk
-                if causal:
-                    k_hi = min(Sk, off + q_last + 1)
-                if window > 0:
-                    k_lo = max(0, off + q0 - window + 1)
-                t_lo = k_lo // TILE
-                t_hi = -(-k_hi // TILE) if k_hi > k_lo else t_lo
-                qt = _tile(q[b, :, h], q0, Sq)
-                dot = _tile(do[b, :, h], q0, Sq)
-                l2 = pad(lse2[b, h])[q0:q0 + TILE]
-                dl = torch.cat([delta[b, h], torch.zeros(TILE)])[q0:q0 + TILE]
-                acc = torch.zeros((TILE, d))
-                for ki in range(t_lo, t_hi):
-                    kt = _tile(k[b, :, hk], ki * TILE, Sk)
-                    vt = _tile(v[b, :, hk], ki * TILE, Sk)
-                    _, ds, kept = _tile_p_ds(qt, dot, kt, vt, l2, dl, q0,
-                                             ki * TILE, off, Sk, causal,
-                                             window, sl2)
-                    seen_q += int(kept[:max(0, min(TILE, Sq - q0))].sum())
-                    acc += ds @ kt
-                n = min(TILE, Sq - q0)
-                dq[b, q0:q0 + n, h] = acc[:n] * scale
-    return (dq, dk, dv), (seen_kv, seen_q)
+                       lse * torch.tensor(LOG2E, dtype=torch.float32))
+    seen_kv = torch.zeros((B, H, Sq, Sk), dtype=torch.int32)
+    seen_q = torch.zeros_like(seen_kv)
+    prod = lambda a, b: product(a, b, split=split)  # noqa: E731
+
+    def pair(a, b):
+        """a @ b^T over d as a warp pair sums it: each warp over its half
+        of d, then half 0's sum plus half 1's."""
+        h = d // 2
+        return (prod(a[..., :h], b[..., :h].transpose(-1, -2))
+                + prod(a[..., h:], b[..., h:].transpose(-1, -2)))
+
+    # dk, dv: blocks of BR keys of one query head
+    part_k = torch.zeros((B, H, Sk, d))
+    part_v = torch.zeros((B, H, Sk, d))
+    for k0 in range(0, Sk, BR):
+        i_lo = max(0, k0 - off) if causal else 0
+        i_hi = min(Sq, k0 + BR - 1 + window - off) if window > 0 else Sq
+        t_lo = i_lo // BT
+        n_t = -(-i_hi // BT) - t_lo if i_hi > i_lo else 0
+        nk = min(BR, Sk - k0)
+        kpos = torch.arange(k0, k0 + BR)[:, None]
+        kt, vt = _rows(kf, k0, BR, Sk), _rows(vf, k0, BR, Sk)
+        acc_k = torch.zeros((B, H, BR, d))
+        acc_v = torch.zeros((B, H, BR, d))
+        for t in range(t_lo, t_lo + n_t):
+            q0 = t * BT
+            qt, dot = _rows(qf, q0, BT, Sq), _rows(dof, q0, BT, Sq)
+            l2 = _rows(lse2[..., None], q0, BT, Sq, math.inf)[..., 0]
+            dl = _rows(delta[..., None], q0, BT, Sq)[..., 0]
+            lo, hi = q0 + off, q0 + off + BT - 1
+            keep = _kept(torch.arange(lo, hi + 1)[None, :], kpos, Sk, causal,
+                         window)
+            active = _warps(
+                keep, nk, range(k0, k0 + BR, WARP),
+                lambda r: r >= Sk or (causal and r > hi) or (
+                    window > 0 and r + WARP - 1 <= lo - window),
+                lambda r: r + WARP - 1 >= Sk or (
+                    causal and r + WARP - 1 > lo) or (
+                    window > 0 and r <= hi - window))
+            on = keep & active[:, None]
+            st, dpt = pair(kt, qt), pair(vt, dot)
+            p = torch.exp2(_fma_f32(st, sl2, -l2[..., None, :]))
+            p = torch.where(on, p, torch.zeros(()))
+            ds = p * (dpt - dl[..., None, :])
+            acc_v = acc_v + prod(p, dot)
+            acc_k = acc_k + prod(ds, qt)
+            nq = min(BT, Sq - q0)
+            seen_kv[:, :, q0:q0 + nq, k0:k0 + nk] += on[:nk, :nq].T.int()
+        part_k[:, :, k0:k0 + nk] = acc_k[:, :, :nk]
+        part_v[:, :, k0:k0 + nk] = acc_v[:, :, :nk]
+    # the fourth launch (G > 1): each group's partials summed in head order
+    dk, dv = part_k[:, ::G].clone(), part_v[:, ::G].clone()
+    for hh in range(1, G):
+        dk = dk + part_k[:, hh::G]
+        dv = dv + part_v[:, hh::G]
+    dk = dk * scale
+
+    # dq: blocks of BR query rows walking BT-key tiles
+    dq = torch.zeros((B, H, Sq, d))
+    for q0 in range(0, Sq, BR):
+        q_last = min(q0 + BR, Sq) - 1
+        k_hi = min(Sk, off + q_last + 1) if causal else Sk
+        k_lo = max(0, off + q0 - window + 1) if window > 0 else 0
+        t_lo = k_lo // BT
+        n_t = -(-k_hi // BT) - t_lo if k_hi > k_lo else 0
+        nq = min(BR, Sq - q0)
+        qt, dot = _rows(qf, q0, BR, Sq), _rows(dof, q0, BR, Sq)
+        l2 = _rows(lse2[..., None], q0, BR, Sq, math.inf)
+        dl = _rows(delta[..., None], q0, BR, Sq)
+        qpos = torch.arange(q0, q0 + BR)[:, None] + off
+        acc = torch.zeros((B, H, BR, d))
+        for t in range(t_lo, t_lo + n_t):
+            k0 = t * BT
+            kt, vt = _rows(kf, k0, BT, Sk), _rows(vf, k0, BT, Sk)
+            keep = _kept(qpos, torch.arange(k0, k0 + BT)[None, :], Sk,
+                         causal, window)
+            active = _warps(
+                keep, nq, range(q0, q0 + BR, WARP),
+                lambda r: r >= Sq or (causal and k0 > r + off + WARP - 1) or (
+                    window > 0 and k0 + BT - 1 <= r + off - window),
+                lambda r: k0 + BT > Sk or (causal and k0 + BT - 1 > r + off)
+                or (window > 0 and k0 <= r + off + WARP - 1 - window))
+            on = keep & active[:, None]
+            s, dp = pair(qt, kt), pair(dot, vt)
+            p = torch.where(on, torch.exp2(_fma_f32(s, sl2, -l2)),
+                            torch.zeros(()))
+            acc = acc + prod(p * (dp - dl), kt)
+            nk = min(BT, Sk - k0)
+            seen_q[:, :, q0:q0 + nq, k0:k0 + nk] += on[:nq, :nk].int()
+        dq[:, :, q0:q0 + nq] = acc[:, :, :nq] * scale
+    grads = (dq.permute(0, 2, 1, 3), dk.permute(0, 2, 1, 3),
+             dv.permute(0, 2, 1, 3))
+    return grads, (seen_kv, seen_q)
 
 
 ATTN_CASES = [  # B, Sq, Sk, H, Hkv, d, causal, window
     (2, 100, 100, 4, 4, 64, True, 0),      # ragged S, group 1
-    (1, 130, 130, 8, 2, 128, True, 0),     # ragged past two tiles, group 4
+    (1, 130, 130, 8, 2, 128, True, 0),     # ragged past one block, group 4
     (1, 150, 150, 4, 1, 64, True, 40),     # a window, group 4
     (2, 70, 100, 2, 2, 32, False, 0),      # non-causal, Sk != Sq
     (1, 90, 200, 4, 1, 128, True, 0),      # right-aligned diagonal
 ]
 
 
-@pytest.mark.parametrize("case", ATTN_CASES)
-def test_attention_bwd_model_matches_jax_grad(case):
+def _attn_case(case, **kw):
+    """The model's gradients at ``case``, its visits, and the JAX
+    package's gradients."""
     B, Sq, Sk, H, Hkv, d, causal, window = case
     rng = np.random.default_rng(sum(case[:6]))
     q, k, v, do = (_rand(rng, B, Sq, H, d), _rand(rng, B, Sk, Hkv, d),
                    _rand(rng, B, Sk, Hkv, d), _rand(rng, B, Sq, H, d))
     o, vjp = jax.vjp(lambda *a: _jax_gqa(*a, causal, window), q, k, v)
     want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
-    o = np.array(o)
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
     lse = ref.attention_lse_ref(tq, tk, causal=causal, window=window)
-    got, (seen_kv, seen_q) = attention_bwd_model(
-        tq, tk, tv, torch.from_numpy(o), lse, tdo, causal,
-        window)
-    qpos = np.arange(Sq)[:, None] + Sk - Sq
-    kpos = np.arange(Sk)[None, :]
-    kept = int(_kept(torch.from_numpy(qpos), torch.from_numpy(kpos), Sk,
-                     causal, window).sum()) * B * H
-    assert seen_kv == seen_q == kept
-    for g, w in zip(got, want):
-        assert float(np.abs(g.numpy() - w).max()) <= \
-            GRAD_TOL * float(np.abs(w).max())
+    got, seen = attention_bwd_model(tq, tk, tv, torch.from_numpy(np.array(o)),
+                                    lse, tdo, causal, window, **kw)
+    return got, seen, want
+
+
+def _gaps(got, want):
+    return [float(np.abs(g.numpy() - w).max()) / float(np.abs(w).max())
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_bwd_model_matches_jax_grad(case):
+    B, Sq, Sk, H, Hkv, d, causal, window = case
+    got, seen, want = _attn_case(case)
+    kept = _kept(torch.arange(Sq)[:, None] + Sk - Sq,
+                 torch.arange(Sk)[None, :], Sk, causal, window)
+    for visits in seen:       # every kept triple once, in each pass
+        assert torch.equal(visits, kept.int().expand(B, H, Sq, Sk))
+    assert max(_gaps(got, want)) <= GRAD_TOL
+
+
+def test_attention_bwd_model_has_the_kernels_geometry():
+    """The blocks, tiles and rounding modelled here are the ones the
+    kernel source declares; its products run on the tensor cores and no
+    float sum goes through an atomic."""
+    src = (_build.CSRC / "attention_bwd.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert 16 * const("kPairs") == BR and const("kBT") == BT
+    assert "constexpr int kBR = 16 * kPairs;" in src
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert "0x1000u) & 0xffffe000u" in src
+    assert "exp2f(fmaf(" in src and "1.4426950408889634f" in src
+    assert "atomicAdd" not in src and "atom." not in src
+    for d in fa.BWD_HEAD_DIMS:
+        assert f"REPRO_ATTENTION_BWD_CASE({d})" in src
+
+
+def test_attention_bwd_one_tf32_product_misses():
+    """Why every product is split: one TF32 product a product misses
+    GRAD_TOL by more than an order of magnitude."""
+    got, _, want = _attn_case(ATTN_CASES[1], split=False)
+    assert max(_gaps(got, want)) > 10 * GRAD_TOL
 
 
 # -------------------------------------------------------------- rmsnorm

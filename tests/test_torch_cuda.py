@@ -1236,7 +1236,10 @@ def _grad_gap(got, want) -> float:
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,d,causal,window", [
     (2, 100, 100, 4, 4, 64, True, 0), (1, 130, 130, 8, 2, 128, True, 0),
     (2, 70, 90, 4, 1, 32, False, 0), (1, 200, 200, 8, 2, 64, True, 48),
-    (1, 64, 200, 4, 1, 128, True, 0)])
+    (1, 64, 200, 4, 1, 128, True, 0),
+    # fleet-llm-100m's four learners folded; a ragged Sk at d = 128 with
+    # a window, past two 96-key blocks
+    (16, 128, 128, 12, 4, 128, True, 0), (1, 150, 230, 8, 2, 128, True, 64)])
 def test_attention_bwd_matches_plain_autograd(B, Sq, Sk, H, Hkv, d, causal,
                                               window):
     _need_card()
