@@ -48,8 +48,11 @@ and the perturbation) and the host-to-device copies a round.
 
 traces only the LM training cells of ``chip_smoke.py``'s ``lm_train``
 (slice 14): five steps of fleet-llm-100m's dynamic run at m = 4 and one
-σ_1 step of llama3-8b at full width (2 of 32 layers, f32, (1, 4096)),
-each after a warm-up, the port's backward kernels among the kinds.
+σ_1 step each of llama3-8b, mamba2-2.7b and hymba-1.5b at full width (2
+layers, f32, (1, 4096); slice 16 added the last two), each after a
+warm-up, the port's backward kernels among the kinds; then
+``ssd_scan_bwd`` at the two SSD cells' shapes by CUDA events and, per
+CUDA launch, by ``torch.profiler`` (the walk, the chunks, the sums).
 
     python3 benchmarks/torch_profile.py --paper
 
@@ -209,6 +212,7 @@ def profile_protocol(name: str, proto: ProtocolConfig,
 # "sm90_" claims cuBLAS's own kernels
 KINDS = (("attention kernel", ("attention_kernel",)),
          ("attention_bwd kernel", ("attention_bwd_",)),
+         ("ssd_scan_bwd kernel", ("ssd_scan_bwd_",)),
          ("ssd_scan kernel", ("ssd_scan_",)),
          ("rmsnorm kernel", ("rmsnorm_kernel",)),
          ("rmsnorm_bwd kernel", ("rmsnorm_bwd_",)),
@@ -335,22 +339,59 @@ def profile_lm_train() -> list:
     del state, init, step, batches
     torch.cuda.empty_cache()
 
-    cfg = dataclasses.replace(get_arch("llama3-8b"), num_layers=2)
-    init_state, step = make_train_step(lambda p, b: lm_loss(cfg, p, b),
-                                       TrainConfig(optimizer="adam",
-                                                   learning_rate=1e-3))
-    state = init_state(init_lm_params(cfg, seed=0, device="cuda"))
-    toks = prng.randint(prng.key(3), (1, 4097), 0, cfg.vocab_size).long()
-    batch = {"tokens": toks[:, :-1].contiguous(),
-             "labels": toks[:, 1:].contiguous()}
-    state, _ = step(state, batch)
-
-    def llama_step():
-        nonlocal state
+    for arch in ("llama3-8b", "mamba2-2.7b", "hymba-1.5b"):
+        full = get_arch(arch)
+        cfg = dataclasses.replace(full, num_layers=2)
+        init_state, step = make_train_step(
+            lambda p, b, cfg=cfg: lm_loss(cfg, p, b),
+            TrainConfig(optimizer="adam", learning_rate=1e-3))
+        state = init_state(init_lm_params(cfg, seed=0, device="cuda"))
+        toks = prng.randint(prng.key(3), (1, 4097), 0,
+                            cfg.vocab_size).long()
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "labels": toks[:, 1:].contiguous()}
         state, _ = step(state, batch)
 
-    out.append({"cell": "llama3-8b train step, 2 of 32 layers, f32, "
-                        "(1, 4096), adam", **_trace(llama_step)})
+        def one_step():
+            nonlocal state
+            state, _ = step(state, batch)
+
+        out.append({"cell": f"{arch} train step, 2 of {full.num_layers} "
+                            f"layers, f32, (1, 4096), adam",
+                    **_trace(one_step)})
+        del state, init_state, step
+        torch.cuda.empty_cache()
+    return out + _ssd_bwd_launches()
+
+
+def _ssd_bwd_launches() -> list:
+    """``ssd_scan_bwd`` at mamba2-2.7b's and hymba-1.5b's training shapes
+    (one layer, B = 1, S = 4,096, chunk 64, one row of B and C): CUDA
+    events over back-to-back calls and each CUDA launch's device time."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssd_scan
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for BH, N in ((80, 128), (50, 16)):
+        S, P, Q = 4096, 64, 64
+        x, dy = (torch.randn((BH, S, P), generator=g, device="cuda")
+                 for _ in range(2))
+        dt = F.softplus(torch.randn((BH, S), generator=g, device="cuda"))
+        a = -torch.exp(torch.randn((BH,), generator=g, device="cuda"))
+        b, c = (torch.randn((1, S, N), generator=g, device="cuda")
+                for _ in range(2))
+        _, _, states = ssd_scan.ssd_scan(x, dt, a, b, c, chunk=Q,
+                                         keep_states=True)
+
+        def bwd():
+            return ssd_scan.ssd_scan_bwd(x, dt, a, b, c, states, dy, None,
+                                         chunk=Q)
+        out.append({"case": f"ssd_scan_bwd ({BH}, {S}, {P}, {N}), chunk "
+                            f"{Q}, {BH} heads a row, f32",
+                    "events_ms": _timing.cuda_ms(bwd, 5, 1),
+                    **_timing.profile_calls(bwd, 3)})
+        del x, dy, dt, a, b, c, states
+        torch.cuda.empty_cache()
     return out
 
 

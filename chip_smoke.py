@@ -218,6 +218,24 @@ and drives both of the port's paths:
   per-head partials in head order; ``lm_train_kernels`` names the
   program and each of its kernels' registers and spills from the build
   phase.
+* SSM and hybrid LM training on the card (slice 16): ``ssd_scan_bwd.cu``
+  (f32 on the CUDA cores: the reverse state walk, the chunks in
+  parallel, db/dc summed over a row's heads and da over the chunks in
+  fixed order) behind ``ssd_scan.SSDScanFn``, and the banded attention's
+  gradient through ``AttentionFn`` with the window (``ops.swa_attention``
+  under a gradient). ``lm_train_kernels`` holds ``ssd_scan_bwd`` against
+  the autograd gradient of the sequential plain version in f32 and
+  float64, bitwise across two launches, at mamba2-2.7b's (80, 4096, 64,
+  128) and hymba-1.5b's (50, 4096, 64, 16) training shapes (one row of b
+  and c for all heads, chunk 64) and at chunks 8 / 16 / 32, R = 1, P =
+  32, N = 64, with and without dh and under strong decay, and a padded S
+  through ``ops``; ``torch.func.vmap`` over 4 learners is the
+  per-learner calls bit for bit in one launch; the banded backward at
+  hymba's (1, 4096, 25/5, 64), w 1,024, through ``ops.swa_attention``;
+  each timed beside its plain version and ``kernel_bound``. ``lm_train``
+  adds mamba2-2.7b and hymba-1.5b σ_1 cells beside llama3-8b's (full
+  width, 2 layers, f32, S = 4,096, 6 adam steps): step-1 gradient
+  against the plain versions', exact launches of every kernel.
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -230,6 +248,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -3881,12 +3900,40 @@ TRAIN_ATTN_CASES = [
     # (examples/fleet_llm.py replaces the widths, not head_dim)
     (16, 128, 128, 12, 4, 128, True, 0,
      "fleet-llm-100m, 4 learners folded (16, 128, 12/4, 128)"),
+    # hymba-1.5b's banded attention, also through ops.swa_attention under a
+    # gradient (TRAIN_ATTN_BANDED)
+    (1, 4096, 4096, 25, 5, 64, True, 1024,
+     "hymba-1.5b banded (1, 4096, 25/5, 64), w 1,024"),
     (16, 128, 128, 12, 4, 64, True, 0, "(16, 128, 12/4, 64)"),
     (2, 100, 100, 4, 4, 64, True, 0, "ragged S, GQA group 1"),
     (1, 130, 130, 8, 2, 128, True, 0, "ragged S, GQA group 4"),
     (1, 300, 300, 8, 2, 64, True, 64, "a window of 64"),
     (2, 70, 90, 4, 1, 32, False, 0, "non-causal, Sk != Sq"),
 ]
+TRAIN_ATTN_TIMED = 3            # the first cases, each timed
+TRAIN_ATTN_BANDED = "hymba-1.5b banded (1, 4096, 25/5, 64), w 1,024"
+# ssd_scan_bwd: (BH, S, P, N, chunk, R, dh, strong decay, label); the
+# first two are timed. Inputs as ssm_kernels draws them: x, b, c, dy ~
+# N(0, 1), dt = softplus(N(0, 1)), a = -exp(N(0, 1)); strong: dt 4 + 1
+# and a 4, dt |a| about 15 a step (a chunk's cum to about -120, so exp
+# above the diagonal would overflow), strong enough to test the mask and
+# weak enough that the decays of neighbouring steps, which da's gradient
+# sums, stay above f32's smallest normal
+SSD_BWD_CASES = [
+    (80, 4096, 64, 128, 64, 80, False, False,
+     "mamba2-2.7b (80, 4096, 64, 128), chunk 64, R 80"),
+    (50, 4096, 64, 16, 64, 50, False, False,
+     "hymba-1.5b (50, 4096, 64, 16), chunk 64, R 50"),
+    (8, 256, 64, 128, 8, 4, True, False, "chunk 8, R 4, dh"),
+    (6, 512, 32, 64, 16, 1, False, False, "chunk 16, R 1, P 32, N 64"),
+    (4, 384, 64, 16, 32, 2, True, False, "chunk 32, R 2, dh"),
+    (3, 200, 48, 20, 8, 3, True, True, "chunk 8, P 48, N 20, strong decay"),
+]
+SSD_BWD_TIMED = 2
+# vmap over learners: (m, BH, S, P, N, chunk, R)
+SSD_BWD_VMAP = (4, 16, 512, 64, 128, 64, 16)
+# a padded S through ops.ssd_scan: (BH, S, P, N, chunk, R)
+SSD_BWD_PADDED = (4, 300, 64, 128, 64, 4)
 # (rows, D, groups, offset, label); offset > 0: rows off 16 bytes
 TRAIN_NORM_CASES = [
     (4096, 4096, 1, 0, "(4096, 4096), one scale"),
@@ -3896,6 +3943,8 @@ TRAIN_NORM_CASES = [
     (12, 200, 3, 3, "rows off 16 bytes, 3 groups"),
 ]
 LM_TRAIN_LAYERS, LM_TRAIN_S, LM_TRAIN_STEPS = 2, 4096, 6
+# the σ_1 cells, each at full width and LM_TRAIN_LAYERS layers
+LM_TRAIN_ARCHS = ("llama3-8b", "mamba2-2.7b", "hymba-1.5b")
 # step 1's gradient through the kernels against the plain versions', as
 # the relative L2 over the whole model (the two differ only in the
 # attention's and the norms' f32 summation orders)
@@ -3991,16 +4040,23 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
         _hold_grads(checks, "attention_bwd", label, got, again, want32,
                     want64)
         del again, want32, want64
-        if len(timed) < 2:
+        if label == TRAIN_ATTN_BANDED:
+            banded_route = _swa_route(q, k, v, o, do, w, got)
+        if len(timed) < TRAIN_ATTN_TIMED:
             G = H // Hkv
             qT, kE, vE = (t.transpose(1, 2) for t in (q, k, v))
             qT = qT.contiguous().requires_grad_()
             kE, vE = (t.repeat_interleave(G, dim=1).contiguous()
                       .requires_grad_() for t in (kE, vE))
-            out = F.scaled_dot_product_attention(qT, kE, vE,
-                                                 is_causal=causal)
+            band = None
+            if w:
+                pos = torch.arange(Sq, device="cuda")
+                band = ((pos[None, :] <= pos[:, None])
+                        & (pos[None, :] > pos[:, None] - w))
+            out = F.scaled_dot_product_attention(
+                qT, kE, vE, attn_mask=band, is_causal=causal and band is None)
             doT = do.transpose(1, 2).contiguous()
-            shape = [B, Sq, Sk, H, Hkv, d]
+            shape = [B, Sq, Sk, H, Hkv, d] + ([w] if w else [])
             bwd = lambda: flash_attention.attention_bwd(  # noqa: E731
                 q, k, v, o, lse, do, **kw)
             lib = lambda: torch.autograd.grad(  # noqa: E731
@@ -4020,18 +4076,21 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
                     q, k, v, do, **kw), 3, 1),
                 **_median_spread("library_ms", lib_reps),
                 "library": "autograd.grad of F.scaled_dot_product_attention"
-                           "(is_causal=True), kv heads expanded, f32 "
-                           "(its forward untimed)",
+                           + ("(band mask)" if w else "(is_causal=True)")
+                           + ", kv heads expanded, f32 (its forward "
+                           "untimed)",
                 "forward_ms": cuda_ms(lambda: flash_attention.attention(
                     q, k, v, with_lse=True, **kw), 5, 1),
                 **kernel_bound("attention_bwd", shape, torch.float32, card)}
             row = timed[label]
             row["time_set_by"] = ("host" if row["host_ms"] > row["graph_ms"]
                                   else "device")
-            del qT, kE, vE, out, doT, bwd, lib
+            del qT, kE, vE, out, doT, bwd, lib, band
         del q, k, v, do, o, lse, got
         torch.cuda.empty_cache()
     attn_rows = list(timed.values())
+    attn_rows[TRAIN_ATTN_TIMED - 1]["through_ops_swa_attention"] = \
+        banded_route
 
     timed = {}
     for rows, D, g, off, label in TRAIN_NORM_CASES:
@@ -4078,21 +4137,159 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
             del xg, sg
         del x, s, dy, got, again, want32, want64
     norm_rows = list(timed.values())
+    ssd_rows, ssd_extra = _ssd_bwd_checks(randn, checks, card)
     worst = {n: max(c["max_abs_err"] for c in checks if c["kernel"] == n)
-             for n in ("attention_bwd", "rmsnorm_bwd")}
+             for n in ("attention_bwd", "rmsnorm_bwd", "ssd_scan_bwd")}
     bwd_kernels = kernel_resources(ptxas, "attention_bwd_")
+    ssd_kernels = kernel_resources(ptxas, "ssd_scan_bwd_")
     emit({"phase": "lm_train_kernels", "checks": checks,
           "lse_max_abs_err": max(lse_errs),
           "tolerance_rel_of_max": TRAIN_GRAD_REL, "lse_tolerance": LSE_TOL,
-          "timed": {"attention_bwd": attn_rows, "rmsnorm_bwd": norm_rows},
-          "attention_bwd_ptxas": bwd_kernels})
+          "timed": {"attention_bwd": attn_rows, "rmsnorm_bwd": norm_rows,
+                    "ssd_scan_bwd": ssd_rows},
+          "ssd_scan_bwd_vmap_and_padded": ssd_extra,
+          "attention_bwd_ptxas": bwd_kernels,
+          "ssd_scan_bwd_ptxas": ssd_kernels})
     return {"attention_bwd": {**attn_rows[0],
                               "max_abs_err": worst["attention_bwd"],
                               "at_fleet_shape": attn_rows[1],
+                              "banded": attn_rows[2],
                               "ptxas_by_kernel": bwd_kernels},
             "rmsnorm_bwd": {**norm_rows[0],
                             "max_abs_err": worst["rmsnorm_bwd"],
-                            "other_shapes": norm_rows[1:]}}
+                            "other_shapes": norm_rows[1:]},
+            "ssd_scan_bwd": {**ssd_rows[0],
+                             "max_abs_err": worst["ssd_scan_bwd"],
+                             "at_hymba_shape": ssd_rows[1],
+                             **ssd_extra, "ptxas_by_kernel": ssd_kernels}}
+
+
+def _swa_route(q, k, v, o, do, w, direct) -> dict:
+    """``ops.swa_attention`` under a gradient at the banded case: one
+    forward launch counted as ``swa_attention`` and one ``attention_bwd``,
+    its output and gradients bit for bit the direct calls'."""
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launches()
+    out = ops.swa_attention(*leaves, window=w)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = {k_: n for k_, n in ops.LAUNCHES.items() if n}
+    same = torch.equal(out.detach(), o) and all(
+        torch.equal(t.grad, g) for t, g in zip(leaves, direct))
+    rec = {"launches": launches, "bitwise_the_direct_calls": same}
+    if not same or launches != {"swa_attention": 1, "attention_bwd": 1}:
+        emit({"phase": "lm_train_kernels", "failed": {"swa_route": rec}})
+        raise SystemExit(f"ops.swa_attention under a gradient: {rec}")
+    return rec
+
+
+def _ssd_inputs(randn, BH, S, P, N, R, strong=False):
+    x, dt, a = randn(BH, S, P), F.softplus(randn(BH, S)), -torch.exp(
+        randn(BH))
+    if strong:
+        dt, a = dt * 4 + 1, a * 4
+    return x, dt, a, randn(BH // R, S, N), randn(BH // R, S, N)
+
+
+def _ssd_bwd_checks(randn, checks, card) -> tuple:
+    """``ssd_scan_bwd`` against the autograd gradient of the sequential
+    plain version in f32 and float64 and bitwise across two launches at
+    SSD_BWD_CASES, the first SSD_BWD_TIMED timed beside the plain version
+    and ``kernel_bound`` (no PyTorch call computes the SSD's gradient);
+    ``torch.func.vmap(grad)`` over SSD_BWD_VMAP's learners bit for bit
+    the per-learner calls, in one launch of each kernel; a padded S
+    through ``ops.ssd_scan`` under a gradient against the plain route."""
+    rows = []
+    for BH, S, P, N, Q, R, with_dh, strong, label in SSD_BWD_CASES:
+        x, dt, a, b, c = _ssd_inputs(randn, BH, S, P, N, R, strong)
+        dy = randn(BH, S, P)
+        dh = randn(BH, P, N) if with_dh else None
+        _, _, states = ssd_scan.ssd_scan(x, dt, a, b, c, chunk=Q,
+                                         keep_states=True)
+        bwd = lambda: ssd_scan.ssd_scan_bwd(  # noqa: E731
+            x, dt, a, b, c, states, dy, dh, chunk=Q)
+        got, again = bwd(), bwd()
+        want32 = ref.ssd_scan_bwd_ref(x, dt, a, b, c, dy, dh)
+        torch.cuda.empty_cache()
+        want64 = ref.ssd_scan_bwd_ref(
+            *(t.double() for t in (x, dt, a, b, c, dy)),
+            None if dh is None else dh.double())
+        torch.cuda.synchronize()
+        _hold_grads(checks, "ssd_scan_bwd", label, got, again, want32,
+                    want64)
+        checks[-1]["finite"] = all(bool(torch.isfinite(g).all())
+                                   for g in got)
+        if not checks[-1]["finite"]:
+            raise SystemExit(f"ssd_scan_bwd gives non-finite values at "
+                             f"{label}")
+        del again, want32, want64
+        torch.cuda.empty_cache()
+        if len(rows) < SSD_BWD_TIMED:
+            shape = [BH, S, P, N, Q, R]
+            rows.append({
+                "shape": shape, "label": label, "dtype": "float32",
+                "program": ssd_scan.BWD_PROGRAM,
+                **_median_spread("ms", [cuda_ms(bwd, 5, 1)
+                                        for _ in range(3)]),
+                "plain_ms": cuda_ms(lambda: ref.ssd_scan_bwd_ref(
+                    x, dt, a, b, c, dy, dh), 1, 0),
+                "forward_ms": cuda_ms(lambda: ssd_scan.ssd_scan(
+                    x, dt, a, b, c, chunk=Q, keep_states=True), 5, 1),
+                "library_ms": None,
+                "library": "none: no PyTorch call computes the SSD or "
+                           "its gradient",
+                **kernel_bound("ssd_scan_bwd", shape, torch.float32, card)})
+        del x, dt, a, b, c, dy, dh, states, got, bwd
+        torch.cuda.empty_cache()
+    return rows, {"vmap": _ssd_bwd_vmap(randn),
+                  "padded_through_ops": _ssd_bwd_padded(randn)}
+
+
+def _ssd_bwd_vmap(randn) -> dict:
+    m, BH, S, P, N, Q, R = SSD_BWD_VMAP
+    ins = [torch.stack(t) for t in zip(*(
+        _ssd_inputs(randn, BH, S, P, N, R) for _ in range(m)))]
+    dy = randn(m, BH, S, P)
+
+    def loss(x, dt, a, b, c, dy):
+        y, _, _ = ssd_scan.SSDScanFn.apply(x, dt, a, b, c, Q)
+        return (y * dy).sum()
+    ops.reset_launches()
+    got = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2, 3, 4)))(
+        *ins, dy)
+    launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+    same = True
+    for i in range(m):
+        xi = [t[i] for t in ins]
+        _, _, st = ssd_scan.ssd_scan(*xi, chunk=Q, keep_states=True)
+        one = ssd_scan.ssd_scan_bwd(*xi, st, dy[i], None, chunk=Q)
+        same = same and all(torch.equal(g[i], w) for g, w in zip(got, one))
+    rec = {"learners": m, "shape": [BH, S, P, N, Q, R],
+           "launches": launches, "bitwise_the_per_learner_calls": same}
+    if not same or launches != {"ssd_scan": 1, "ssd_scan_bwd": 1}:
+        emit({"phase": "lm_train_kernels", "failed": {"ssd_vmap": rec}})
+        raise SystemExit(f"ssd_scan_bwd under vmap: {rec}")
+    return rec
+
+
+def _ssd_bwd_padded(randn) -> dict:
+    BH, S, P, N, Q, R = SSD_BWD_PADDED
+    ins = _ssd_inputs(randn, BH, S, P, N, R)
+    dy, dh = randn(BH, S, P), randn(BH, P, N)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    ops.reset_launches()
+    y, h = ops.ssd_scan(*leaves, chunk=Q)
+    torch.autograd.backward((y, h), (dy, dh))
+    launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+    want = ref.ssd_scan_bwd_ref(*ins, dy, dh)
+    errs = [_rel_max(t.grad, w) for t, w in zip(leaves, want)]
+    rec = {"shape": [BH, S, P, N, Q, R], "launches": launches,
+           "rel_err_vs_plain_f32": errs}
+    if max(errs) > TRAIN_GRAD_REL or launches != {"ssd_scan": 1,
+                                                  "ssd_scan_bwd": 1}:
+        emit({"phase": "lm_train_kernels", "failed": {"ssd_padded": rec}})
+        raise SystemExit(f"ops.ssd_scan padded under a gradient: {rec}")
+    return rec
 
 
 def _lm_batch(cfg, B, S, seed):
@@ -4105,31 +4302,49 @@ def _lm_batch(cfg, B, S, seed):
             "labels": toks[:, 1:].contiguous()}
 
 
-def _launches_ok(got: dict, L: int, calls: int) -> bool:
-    per = {"rmsnorm": 2 * L + 1, "flash_attention": L,
-           "rmsnorm_bwd": 2 * L + 1, "attention_bwd": L}
-    return all(got[k] == v * calls for k, v in per.items()) and \
-        got["swa_attention"] == got["ssd_scan"] == 0
+def _launches_ok(got: dict, cfg, L: int, calls: int) -> bool:
+    """Exact launches of ``calls`` training steps of ``cfg`` at L layers
+    and S = LM_TRAIN_S: per step the forward kernels and their backward
+    ones, by the block's family (a hybrid block norms five times, and its
+    attention takes the banded route at S = 4,096, w = 1,024)."""
+    norms = 5 * L + 1 if cfg.family == "hybrid" else 2 * L + 1
+    attn = 0 if cfg.family == "ssm" else L
+    banded = cfg.family == "hybrid" and takes_band(cfg, LM_TRAIN_S)
+    ssd = L if cfg.family in ("ssm", "hybrid") else 0
+    per = {"rmsnorm": norms, "rmsnorm_bwd": norms, "attention_bwd": attn,
+           "flash_attention": 0 if banded else attn,
+           "swa_attention": attn if banded else 0,
+           "ssd_scan": ssd, "ssd_scan_bwd": ssd}
+    return all(got[k] == v * calls for k, v in per.items())
 
 
-def _llama_train(layers: int) -> dict:
-    """llama3-8b at full width and ``layers`` layers, f32: step 1's
-    gradient through the kernels against the plain versions', then
-    LM_TRAIN_STEPS adam steps of ``make_train_step(lm_loss)`` on one
-    batch."""
+def _lm_train_cell(arch: str, layers: int) -> dict:
+    """``arch`` at full width and ``layers`` layers, f32, B = 1, S =
+    LM_TRAIN_S: step 1's gradient through the kernels against the plain
+    versions', then LM_TRAIN_STEPS adam steps of
+    ``make_train_step(lm_loss)`` on one batch."""
     from repro_torch.models.model import lm_loss
     from repro_torch.train import make_train_step
-    cfg = dataclasses.replace(get_arch("llama3-8b"), num_layers=layers)
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
     params = init_lm_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     batch = _lm_batch(cfg, 1, LM_TRAIN_S, 3)
     loss_fn = lambda p, b: lm_loss(cfg, p, b)          # noqa: E731
     ops.reset_launches()
     row_k = _row_of(torch.func.grad(loss_fn)(params, batch))
     one_grad = dict(ops.LAUNCHES)
-    # the plain versions on the card: every op takes its CPU route
+    # the plain versions on the card: every op takes its CPU route. By
+    # loss.backward(), which frees each step's saved tensors as it goes:
+    # torch.func.grad differentiates with create_graph, which keeps them
+    # and records the backward too, past the card's 80 GB for the plain
+    # sequential SSD at mamba2's shape (~21 GB a layer saved by the
+    # forward alone)
     on_cpu, ops._on_cpu = ops._on_cpu, lambda *t: True
     try:
-        row_p = _row_of(torch.func.grad(loss_fn)(params, batch))
+        leaves = tree_map(lambda v: v.detach().requires_grad_(), params)
+        loss_fn(leaves, batch).backward()
+        row_p = _row_of(tree_map(lambda v: v.grad, leaves))
+        del leaves
     finally:
         ops._on_cpu = on_cpu
     grad = {"rel_l2": _rel_l2(row_k, row_p),
@@ -4152,7 +4367,7 @@ def _llama_train(layers: int) -> dict:
         losses.append(float(metrics["loss"]))
         ms.append(step_ms)
     launches = dict(ops.LAUNCHES)
-    rec = {"arch": cfg.name, "layers": layers, "of_layers": 32,
+    rec = {"arch": cfg.name, "layers": layers, "of_layers": full.num_layers,
            "weights": cfg.param_count(), "d_model": cfg.d_model,
            "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff,
            "vocab": cfg.vocab_size, "batch": 1, "seq": LM_TRAIN_S,
@@ -4163,15 +4378,21 @@ def _llama_train(layers: int) -> dict:
            "tokens_per_s": LM_TRAIN_S / (sum(ms[1:]) / (len(ms) - 1)) * 1e3,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches}
+    if cfg.ssm is not None:
+        rec["ssm"] = {"d_state": cfg.ssm.d_state, "head_dim": cfg.ssm.head_dim,
+                      "heads": cfg.ssm.expand * cfg.d_model
+                      // cfg.ssm.head_dim, "chunk": cfg.ssm.chunk_size}
+    if takes_band(cfg, LM_TRAIN_S):
+        rec["banded_window"] = cfg.sliding_window
     del state
     torch.cuda.empty_cache()
-    if not (_launches_ok(launches, layers, LM_TRAIN_STEPS)
-            and _launches_ok(one_grad, layers, 1)
+    if not (_launches_ok(launches, cfg, layers, LM_TRAIN_STEPS)
+            and _launches_ok(one_grad, cfg, layers, 1)
             and grad["rel_l2"] <= LM_TRAIN_GRAD_L2
             and all(math.isfinite(x) for x in losses)
             and losses[-1] < losses[0]):
         emit({"phase": "lm_train", "failed": rec})
-        raise SystemExit(f"lm_train llama3-8b: {rec}")
+        raise SystemExit(f"lm_train {arch}: {rec}")
     return rec
 
 
@@ -4218,16 +4439,22 @@ def _fleet_run(cfg, init, batches, kind) -> dict:
 
 
 def phase_lm_train() -> dict:
-    """LM training through the kernels on the card. (a) llama3-8b at full
-    width (d 4096, 32/8 heads of 128, d_ff 14,336, vocab 128,256), 2 of
-    32 layers (LM_TRAIN_LAYERS), f32, B = 1, S = 4,096: step 1's
-    gradient through the kernels against the plain versions' on the same
-    weights and batch (LM_TRAIN_GRAD_L2), then 6 adam steps (lr 1e-3) of
-    ``make_train_step(lm_loss)`` on one batch: the loss falls, ms a step
-    after the first, tokens/s, peak memory, and exact launches (forward
-    rmsnorm 2L + 1 and attention L a step, the backward kernels the
-    same). (b) fleet-llm-100m (examples/torch_fleet_llm.py --big) at full
-    width and depth, m = 4 learners of 4 x 128 tokens from
+    """LM training through the kernels on the card. (a) The σ_1 cells of
+    LM_TRAIN_ARCHS at full width, 2 layers (LM_TRAIN_LAYERS), f32, B = 1,
+    S = 4,096: llama3-8b (d 4096, 32/8 heads of 128, d_ff 14,336, vocab
+    128,256; 2 of 32 layers), mamba2-2.7b (d 2,560, 80 SSD heads of 64,
+    N 128, vocab 50,280; 2 of 64) and hymba-1.5b (d 1,600, 25/5 heads of
+    64 banded at w 1,024 beside 50 SSD heads at N 16, d_ff 5,504, vocab
+    32,001; 2 of 32): step 1's gradient through the kernels against the
+    plain versions' on the same weights and batch (LM_TRAIN_GRAD_L2),
+    then 6 adam steps (lr 1e-3) of ``make_train_step(lm_loss)`` on one
+    batch: the loss falls, ms a step after the first, tokens/s, peak
+    memory, and exact launches (``_launches_ok``: forward rmsnorm 2L + 1,
+    5L + 1 for the hybrid, attention or ssd_scan L a step, the backward
+    kernels the same). The plain SSD's autograd keeps two (BH, P, N)
+    f32 tensors a step, about 21 GB a layer at mamba2's shape, which
+    holds the cell at 2 layers. (b) fleet-llm-100m
+    (examples/torch_fleet_llm.py --big) at full width and depth, m = 4 learners of 4 x 128 tokens from
     ``TokenStream(seed=100 + i)``: ``make_dynamic_train_step`` (b = 10,
     Δ = 45) and ``make_periodic_train_step``, 60 steps each, with syncs
     and checks (the dynamic run both syncs and holds), ``sqdist_rows`` exactly once per check at (4, P), every
@@ -4236,8 +4463,10 @@ def phase_lm_train() -> dict:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "examples"))
     from torch_fleet_llm import fleet_model, stacked_batch
-    llama = _llama_train(LM_TRAIN_LAYERS)
-    emit({"phase": "lm_train", "llama3-8b": llama})
+    cells = {}
+    for arch in LM_TRAIN_ARCHS:
+        cells[arch] = _lm_train_cell(arch, LM_TRAIN_LAYERS)
+        emit({"phase": "lm_train", arch: cells[arch]})
 
     cfg = fleet_model(big=True)
     streams = [TokenStream(seed=100 + i, vocab=cfg.vocab_size,
@@ -4269,12 +4498,12 @@ def phase_lm_train() -> dict:
             and dyn["launches"]["sqdist_rows"] == dyn["checks"]
             and per["launches"]["sqdist_rows"] == 0
             and per["syncs"] == FLEET_STEPS // FLEET_PERIOD
-            and all(_launches_ok(r["launches"], L, FLEET_STEPS)
+            and all(_launches_ok(r["launches"], cfg, L, FLEET_STEPS)
                     for r in runs.values())
             and all(math.isfinite(x) for r in runs.values()
                     for x in r["losses"])):
         raise SystemExit(f"lm_train fleet-llm-100m: {fleet}")
-    return {"llama3-8b": llama, "fleet-llm-100m": fleet}
+    return {**cells, "fleet-llm-100m": fleet}
 
 
 def _agree_runs(cfg, init_np, fleet, single, device) -> dict:
@@ -4324,9 +4553,11 @@ def phase_lm_train_agree() -> dict:
     modes for 20 adam steps, ``synced``, syncs and checks identical, the
     planes and losses within the AGREE_PLANE_* / rtol 1e-4 bounds, and no
     checked distance within 1e-4·Δ of Δ. Then the launcher twin's
-    ``--smoke`` run of each mode on the card, 5 steps, its events the
-    reference launcher's (``train_step`` with step, loss and, for the
-    fleet modes, synced; then ``train_done``)."""
+    ``--smoke`` run of each mode on the card for each arch of
+    LM_TRAIN_ARCHS, 5 steps, its events the reference launcher's
+    (``train_step`` with step, loss and, for the fleet modes, synced;
+    then ``train_done``), each backward kernel of the arch's path
+    launched (the fleet modes through the vmap rules)."""
     from repro_torch.launch import train as launcher
     from repro_torch.telemetry import get_logger
     cfg = get_arch("llama3-8b", smoke=True)
@@ -4370,27 +4601,36 @@ def phase_lm_train_agree() -> dict:
         rec[kind] = r
 
     launched = {}
-    for mode in ("train", "train_dynamic", "train_periodic"):
+    for arch, mode in itertools.product(LM_TRAIN_ARCHS, (
+            "train", "train_dynamic", "train_periodic")):
         events = []
         log = get_logger()
         handler = log.add_handler(events.append)
+        ops.reset_launches()
         try:
             with contextlib.redirect_stdout(StringIO()):
-                launcher.main(["--arch", "llama3-8b", "--smoke", "--mode",
+                launcher.main(["--arch", arch, "--smoke", "--mode",
                                mode, "--steps", "5"])
         finally:
             log.remove_handler(handler)
+        launches = {k: n for k, n in ops.LAUNCHES.items() if n}
         keys = {"step", "loss"} | ({"synced"} if mode != "train" else set())
         steps = [e for e in events if e["kind"] == "train_step"]
+        family = get_arch(arch).family
+        # every forward kernel of the arch's path has its backward launched
+        bwd = {"attention_bwd"} if family != "ssm" else set()
+        bwd |= {"ssd_scan_bwd"} if family in ("ssm", "hybrid") else set()
         good = ([e["kind"] for e in events] == ["train_step"] * 5
                 + ["train_done"]
                 and all(set(e) - {"kind"} == keys for e in steps)
                 and [e["step"] for e in steps] == [1, 2, 3, 4, 5]
                 and all(math.isfinite(e["loss"]) for e in steps)
-                and events[-1]["mode"] == mode)
-        launched[mode] = {"losses": [e["loss"] for e in steps],
-                          "synced": [e.get("synced") for e in steps],
-                          "ok": good}
+                and events[-1]["mode"] == mode
+                and all(launches.get(k, 0) > 0 for k in bwd | {"rmsnorm_bwd"}))
+        launched[f"{arch} {mode}"] = {
+            "losses": [e["loss"] for e in steps],
+            "synced": [e.get("synced") for e in steps],
+            "launches": launches, "ok": good}
         ok &= good
     out = {"phase": "lm_train_agree", "arch": cfg.name, "steps": AGREE_STEPS,
            "m": FLEET_M, "runs": rec, "launcher_smoke": launched,
@@ -4572,7 +4812,11 @@ def main() -> None:
         ("attention_bwd", bwd_table["attention_bwd"]["shape"], f32,
          bwd_table["attention_bwd"]),
         ("rmsnorm_bwd", bwd_table["rmsnorm_bwd"]["shape"], f32,
-         bwd_table["rmsnorm_bwd"])]
+         bwd_table["rmsnorm_bwd"]),
+        ("ssd_scan_bwd", bwd_table["ssd_scan_bwd"]["shape"], f32,
+         bwd_table["ssd_scan_bwd"]),
+        ("ssd_scan_bwd", bwd_table["ssd_scan_bwd"]["at_hymba_shape"]["shape"],
+         f32, bwd_table["ssd_scan_bwd"]["at_hymba_shape"])]
     run("analysis", phase_analysis, [
         {"kernel": k, "shape": list(shape), "dtype": dt, "ms": t["ms"],
          "bound_ms": t["bound_ms"]} for k, shape, dt, t in timed_rows])
@@ -4664,17 +4908,20 @@ def main() -> None:
                               **zoo_paths("ssd_scan")},
          **ssm_table["ssd_scan"], "zoo_shapes": zoo_shapes("ssd_scan")},
     ]
-    llama, fleet = lm_train["llama3-8b"], lm_train["fleet-llm-100m"]
+    fleet = lm_train["fleet-llm-100m"]
 
     def train_launches(kernel):
-        by_path = {f"llama3-8b train ({llama['layers']} layers, "
-                   f"{LM_TRAIN_STEPS} steps)": llama["launches"][kernel],
+        by_path = {**{f"{a} train ({lm_train[a]['layers']} layers, "
+                      f"{LM_TRAIN_STEPS} steps)":
+                      lm_train[a]["launches"][kernel]
+                      for a in LM_TRAIN_ARCHS},
                    **{f"fleet-llm-100m {k} (m = {FLEET_M}, "
                       f"{FLEET_STEPS} steps)": r["launches"][kernel]
                       for k, r in fleet["runs"].items()}}
+        by_path = {k: n for k, n in by_path.items() if n}
         return sum(by_path.values()), by_path
 
-    for name in ("rmsnorm", "flash_attention"):
+    for name in ("rmsnorm", "flash_attention", "swa_attention", "ssd_scan"):
         row = next(r for r in kernels if r["name"] == name)
         n, by_path = train_launches(name)
         row["launches"] += n
@@ -4685,7 +4932,9 @@ def main() -> None:
             ("attention_bwd", "attention_bwd.cu",
              "src/repro/kernels/flash_attention.py:77", "attention"),
             ("rmsnorm_bwd", "rmsnorm_bwd.cu",
-             "src/repro/kernels/rmsnorm.py:25", "norms")):
+             "src/repro/kernels/rmsnorm.py:25", "norms"),
+            ("ssd_scan_bwd", "ssd_scan_bwd.cu",
+             "src/repro/kernels/ssd_scan.py:74", "SSD (_ssd_chunked)")):
         n, by_path = train_launches(name)
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": no_tpu.format(what, fwd),

@@ -288,6 +288,22 @@ def ssd_work(BH, S, P, N, bc_rows, chunk, itemsize):
     return nbytes, min(chunked, 5 * P * N * S * BH)
 
 
+def ssd_bwd_work(BH, S, P, N, bc_rows, chunk, itemsize):
+    """(bytes, flops) of the SSD's gradient at these shapes: x, dt, b, c
+    and dy read once, dx, ddt, db, dc and da written once (and a read);
+    the flops of the chunked form, per chunk of Q steps: the causal
+    triangle of C B^T once per row of b and c, Q (Q + 1) N; per head the
+    triangles of dY U^T and of the du, dc and db products, 2 Q (Q + 1)
+    (P + N), and four full (Q, P, N) products, 8 Q P N (H_c^T dy,
+    G_c b, G_c^T u, and the reverse walk's dy c^T)."""
+    nbytes = ((3 * BH * S * P + 2 * BH * S + 4 * bc_rows * S * N)
+              * itemsize + 8 * BH)
+    Q = chunk
+    flops = (bc_rows * Q * (Q + 1) * N
+             + BH * (2 * Q * (Q + 1) * (P + N) + 8 * Q * P * N)) * (S // Q)
+    return nbytes, flops
+
+
 def kernel_work(name: str, shape, dtype=torch.float32):
     """(bytes, operations, FLOP/s attribute of ``Peaks``) of one call of
     the port's kernel ``name`` at ``shape``:
@@ -315,7 +331,11 @@ def kernel_work(name: str, shape, dtype=torch.float32):
       the kernel runs;
     * ``rmsnorm_bwd`` (rows, D) or (rows, D, g), f32: x and dy read, dx
       written, the (g, D) scale read and dscale written; 12 operations an
-      element (the two row sums, dx and the dscale term), f32."""
+      element (the two row sums, dx and the dscale term), f32;
+    * ``ssd_scan_bwd`` (BH, S, P, N, chunk, R), f32 (``ssd_bwd_work``):
+      as the f32 attention rows, in split TF32 (3 x the flops at the
+      TF32 rate), with the CUDA cores' f32 bound beside
+      (``kernel_bound``), on which the kernel runs."""
     item = torch.empty((), dtype=dtype).element_size()
     # f32 attention: hi.hi + hi.lo + lo.hi, each a TF32 product
     split = 1 if dtype == torch.bfloat16 else 3
@@ -348,6 +368,10 @@ def kernel_work(name: str, shape, dtype=torch.float32):
         # the backward reads o, do and lse and writes dq, dk, dv
         nbytes = 2 * nbytes + B * H * Sq * 4
         return nbytes, 3 * (flops * 5) // 2, "tf32"
+    if name == "ssd_scan_bwd":
+        BH, S, P, N, Q, R = shape
+        nbytes, flops = ssd_bwd_work(BH, S, P, N, BH // R, Q, item)
+        return nbytes, 3 * flops, "tf32"
     if name == "rmsnorm_bwd":
         rows, D, g = (tuple(shape) + (1,))[:3]
         return 3 * rows * D * item + 2 * g * D * item, 12 * rows * D, "f32"
@@ -357,16 +381,16 @@ def kernel_work(name: str, shape, dtype=torch.float32):
 def kernel_bound(name: str, shape, dtype=torch.float32,
                  card: Peaks = H100) -> dict:
     """The least time of one call of kernel ``name`` at ``shape`` on
-    ``card``: ``{"bytes", "ops", "bound_ms", "bound_by"}``; f32 attention
-    and its backward add ``bound_ms_f32_cuda_cores``, its flops (a third of its TF32
-    operations) over the CUDA cores' f32 rate, the bound of plain f32
-    FMAs, which the split-TF32 bound sits below."""
+    ``card``: ``{"bytes", "ops", "bound_ms", "bound_by"}``; f32 attention,
+    its backward and the SSD's add ``bound_ms_f32_cuda_cores``, its flops
+    (a third of its TF32 operations) over the CUDA cores' f32 rate, the
+    bound of plain f32 FMAs, which the split-TF32 bound sits below."""
     nbytes, ops, rate = kernel_work(name, shape, dtype)
     t_bytes = nbytes / card.hbm * 1e3
     t_ops = ops / getattr(card, rate) * 1e3
     out = {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    if name.endswith(("attention", "attention_bwd")) and \
+    if name.endswith(("attention", "attention_bwd", "ssd_scan_bwd")) and \
             dtype == torch.float32:
         out["bound_ms_f32_cuda_cores"] = ops / 3 / card.f32 * 1e3
     return out

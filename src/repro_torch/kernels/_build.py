@@ -13,8 +13,8 @@ nothing needs ``ninja``. A missing card, a missing ``nvcc`` or a failed
 build raises: no caller falls back to the plain versions.
 
 It also holds what the wrappers share: ``LAUNCHES``, the launch counts
-(``ops.LAUNCHES``), and ``batch_first`` for the autograd Functions'
-vmap rules.
+(``ops.LAUNCHES``), and ``batch_first``, ``fold`` and ``unfold`` for
+the autograd Functions' vmap rules.
 """
 from __future__ import annotations
 
@@ -38,7 +38,8 @@ SOURCES = {"sqdist": ("sqdist.cu",),
            "rmsnorm": ("rmsnorm.cu", "rmsnorm_bwd.cu"),
            "attention": ("attention.cu", "attention_sm90.cu",
                          "attention_bwd.cu"),
-           "ssd_scan": ("ssd_scan.cu",)}
+           "ssd_scan": ("ssd_scan.cu",),
+           "ssd_scan_bwd": ("ssd_scan_bwd.cu",)}
 
 # library name -> the C functions it exports: (restype, argtypes)
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -73,16 +74,24 @@ SIGNATURES = {
         "repro_ssd_scan_bt_bytes": (_I, [_I]),
         **_ERR,
     },
+    "ssd_scan_bwd": {
+        "repro_ssd_scan_bwd": (_I, [_I, *[_P] * 17, _I, _I, _I, _I, _I, _P]),
+        **_ERR,
+    },
 }
 
 _LOADED: dict = {}
 
+# what a bf16 input under a gradient raises with, whichever kernel
+NO_BF16_BWD = ("ROADMAP A28 (the bf16 attention, rmsnorm and ssd_scan "
+               "backward)")
+
 # launches by kernel (``ops.LAUNCHES`` is this dict): the wrappers in
-# ``ops`` and the autograd Functions of ``flash_attention`` and ``rmsnorm``
-# add one where they launch
+# ``ops`` and the autograd Functions of ``flash_attention``, ``rmsnorm``
+# and ``ssd_scan`` add one where they launch
 LAUNCHES = {"sqdist_rows": 0, "sqdist": 0, "rmsnorm": 0,
             "flash_attention": 0, "swa_attention": 0, "ssd_scan": 0,
-            "attention_bwd": 0, "rmsnorm_bwd": 0}
+            "attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0}
 
 
 def batch_first(x: torch.Tensor, dim, n: int) -> torch.Tensor:
@@ -91,6 +100,17 @@ def batch_first(x: torch.Tensor, dim, n: int) -> torch.Tensor:
     Functions' vmap rules to fold into one launch."""
     x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
     return x.contiguous()
+
+
+def fold(x: torch.Tensor) -> torch.Tensor:
+    """(n, B, ...) -> (n B, ...): a vmap rule's batch-first argument with
+    its vmapped axis folded into the next."""
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+
+
+def unfold(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(n B, ...) -> (n, B, ...), ``fold``'s inverse."""
+    return x.reshape(n, x.shape[0] // n, *x.shape[1:])
 
 
 def nvcc_path() -> str:

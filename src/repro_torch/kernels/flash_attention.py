@@ -67,7 +67,6 @@ WIDTHS = {torch.bfloat16: {(d, d) for d in HEAD_DIMS} | {(192, 128)},
 # and its program: split-TF32 mma.sync, as the f32 forward's
 BWD_HEAD_DIMS = (32, 64, 128)
 BWD_PROGRAM = "sm90_mma_tf32x3"
-NO_BF16_BWD = "ROADMAP A28 (the bf16 attention and rmsnorm backward)"
 NO_MLA_BWD = "ROADMAP A31 (the attention backward at MLA's widths)"
 
 
@@ -150,7 +149,8 @@ def differentiable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     equal query/key and value widths (MLA's)."""
     if q.dtype != torch.float32:
         raise NotImplementedError(
-            f"{what} has no backward kernel in {q.dtype}: {NO_BF16_BWD}")
+            f"{what} has no backward kernel in {q.dtype}: "
+            f"{_build.NO_BF16_BWD}")
     d, dv = q.shape[-1], v.shape[-1]
     if d != dv or d not in BWD_HEAD_DIMS:
         raise NotImplementedError(
@@ -212,8 +212,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def launch_forward(q, k, v, causal, window, scale):
-    """The forward kernel with the log-sum-exp: (o, lse)."""
-    _build.LAUNCHES["flash_attention"] += 1
+    """The forward kernel with the log-sum-exp: (o, lse); ``AttentionFn``
+    counts the launch under the kernel it was called as."""
     return attention(q, k, v, causal=causal, window=window, scale=scale,
                      what="flash_attention_gqa", with_lse=True)
 
@@ -225,30 +225,24 @@ def launch_backward(q, k, v, o, lse, do, causal, window, scale):
                          scale=scale)
 
 
-def _fold(x: torch.Tensor) -> torch.Tensor:
-    """(n, B, ...) -> (n B, ...)."""
-    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
-
-
-def _unfold(x: torch.Tensor, n: int) -> torch.Tensor:
-    return x.reshape(n, x.shape[0] // n, *x.shape[1:])
-
-
 class AttentionFn(torch.autograd.Function):
     """``attention`` with its gradient: ``apply(q, k, v, causal, window,
-    scale) -> (o, lse)``, lse not differentiable. Composes with
-    ``loss.backward()``, ``torch.func.grad`` and ``torch.func.vmap``; the
-    ``vmap`` rule folds the vmapped axis into the batch axis, one launch
-    a call whatever its size."""
+    scale[, kernel]) -> (o, lse)``, lse not differentiable; the launch is
+    counted under ``kernel``, ``"flash_attention"`` or the banded route's
+    ``"swa_attention"``. Composes with ``loss.backward()``,
+    ``torch.func.grad`` and ``torch.func.vmap``; the ``vmap`` rule folds
+    the vmapped axis into the batch axis, one launch a call whatever its
+    size."""
 
     @staticmethod
-    def forward(q, k, v, causal, window, scale):
+    def forward(q, k, v, causal, window, scale, kernel="flash_attention"):
+        _build.LAUNCHES[kernel] += 1
         return launch_forward(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal, window, scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window, scale = inputs
+        q, k, v, causal, window, scale = inputs[:6]
         o, lse = output
         ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -258,15 +252,17 @@ class AttentionFn(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = AttentionBwdFn.apply(q, k, v, o, lse, do, *ctx.mask)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, causal, window, scale):
+    def vmap(info, in_dims, q, k, v, causal, window, scale,
+             kernel="flash_attention"):
         n = info.batch_size
-        q, k, v = (_fold(_build.batch_first(x, d, n))
+        _build.LAUNCHES[kernel] += 1
+        q, k, v = (_build.fold(_build.batch_first(x, d, n))
                    for x, d in zip((q, k, v), in_dims[:3]))
         o, lse = launch_forward(q, k, v, causal, window, scale)
-        return (_unfold(o, n), _unfold(lse, n)), (0, 0)
+        return (_build.unfold(o, n), _build.unfold(lse, n)), (0, 0)
 
 
 class AttentionBwdFn(torch.autograd.Function):
@@ -293,10 +289,10 @@ class AttentionBwdFn(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, q, k, v, o, lse, do, causal, window, scale):
         n = info.batch_size
-        args = [_fold(_build.batch_first(x, d, n))
+        args = [_build.fold(_build.batch_first(x, d, n))
                 for x, d in zip((q, k, v, o, lse, do), in_dims[:6])]
         grads = launch_backward(*args, causal, window, scale)
-        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
+        return tuple(_build.unfold(g, n) for g in grads), (0, 0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -16,14 +16,18 @@ calls are not counted.
 
 Gradients. Where a gradient is wanted on the card (an input requires
 grad under grad mode, or is a ``torch.func`` transform's tensor),
-``rmsnorm`` and f32 ``flash_attention(_gqa)`` at equal head widths of
-32, 64 or 128 run through their autograd Functions
-(``rmsnorm.RMSNormFn``, ``flash_attention.AttentionFn``), whose backward
-is a kernel too (``"rmsnorm_bwd"``, ``"attention_bwd"`` in
-``LAUNCHES``) and whose ``vmap`` rule makes one launch a call whatever
-the vmapped size. Every other kernel raises ``NotImplementedError``
-there, naming its ROADMAP item, so no gradient is silently missing. On
-the CPU the plain versions are differentiated as they are.
+``rmsnorm``, f32 ``flash_attention(_gqa)`` and ``swa_attention`` at
+equal head widths of 32, 64 or 128, and f32 ``ssd_scan`` run through
+their autograd Functions (``rmsnorm.RMSNormFn``,
+``flash_attention.AttentionFn``, the banded route with the window and
+counted under ``"swa_attention"``, and ``ssd_scan.SSDScanFn`` after the
+padding), whose backward is a kernel too (``"rmsnorm_bwd"``,
+``"attention_bwd"``, ``"ssd_scan_bwd"`` in ``LAUNCHES``) and whose
+``vmap`` rule makes one launch a call whatever the vmapped size. A bf16
+input, MLA's widths and the distance kernels raise
+``NotImplementedError`` there, naming their ROADMAP item or why none
+is needed, so no gradient is silently missing. On the CPU the plain
+versions are differentiated as they are.
 """
 from __future__ import annotations
 
@@ -43,8 +47,6 @@ from repro_torch.kernels import swa_attention as _swa
 
 LAUNCHES = _build.LAUNCHES
 ROWS_LAUNCHES: Counter = Counter()
-NO_SWA_BWD = "ROADMAP A29 (the swa_attention backward)"
-NO_SSD_BWD = "ROADMAP A30 (the ssd_scan backward)"
 NO_SQDIST_BWD = ("no ROADMAP item: the protocol reads distances and "
                  "differentiates none")
 
@@ -151,7 +153,9 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v (B, S, d) or q (B, S, H, d), k/v (B, S, Hkv, d)."""
     if _on_cpu(q, k, v):
         return ref.swa_attention_ref(q, k, v, window=window, scale=scale)
-    _no_backward("swa_attention", NO_SWA_BWD, q, k, v)
+    if wants_grad(q, k, v):
+        return _swa.swa_attention_differentiable(q, k, v, window=window,
+                                                 scale=scale)
     out = _swa.swa_attention(q, k, v, window=window, scale=scale)
     LAUNCHES["swa_attention"] += 1
     return out
@@ -176,8 +180,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         if R > 1:
             b, c = b.repeat_interleave(R, dim=0), c.repeat_interleave(R, dim=0)
         y, h = ref.ssd_scan_ref(x, dt, a, b, c, chunk=chunk)
+    elif wants_grad(x, dt, a, b, c):
+        _ssd.differentiable(x)
+        y, h, _ = _ssd.SSDScanFn.apply(x, dt, a, b, c, chunk)
     else:
-        _no_backward("ssd_scan", NO_SSD_BWD, x, dt, a, b, c)
         y, h = _ssd.ssd_scan(x, dt, a, b, c, chunk=chunk)
         LAUNCHES["ssd_scan"] += 1
     if pad:

@@ -181,23 +181,23 @@ def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                scale=scale)
 
 
-
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor, *, chunk: int = 0):
     """Sequential (non-chunked) SSD reference.
 
     x: (BH, S, P) inputs; dt: (BH, S) step sizes (>0); a: (BH,) negative
     decay rates; b, c: (BH, S, N). Returns (y (BH, S, P) in x's dtype,
-    h (BH, P, N) in f32), in f32 throughout:
+    h (BH, P, N) in f32), in f32 throughout (in float64 where x is
+    float64, for the backward kernel's float64 check):
         h_t = exp(dt_t * a) h_{t-1} + dt_t * x_t b_t^T,   y_t = h_t c_t
     (y_t[p] = sum_n h_t[p, n] c_t[n]). ``chunk`` is ignored, as in the
     reference.
     """
     del chunk
-    xf, dtf, af, bf, cf = (t.float() for t in (x, dt, a, b, c))
+    work = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, dtf, af, bf, cf = (t.to(work) for t in (x, dt, a, b, c))
     BH, S, P = xf.shape
-    h = torch.zeros((BH, P, bf.shape[-1]), dtype=torch.float32,
-                    device=x.device)
+    h = torch.zeros((BH, P, bf.shape[-1]), dtype=work, device=x.device)
     ys = []
     for t in range(S):
         dtt = dtf[:, t, None, None]
@@ -206,3 +206,29 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         ys.append(torch.bmm(h, cf[:, t, :, None])[..., 0])     # (BH, P)
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros((BH, 0, P))
     return y.to(x.dtype), h
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                     dh: torch.Tensor | None = None):
+    """The plain version of the ``ssd_scan_bwd`` kernel: (dx, ddt, da, db,
+    dc), the autograd gradient of ``ssd_scan_ref`` at the cotangents dy
+    of y and dh of the final state (None: zero). b and c may be (BH / R,
+    S, N), head bh reading row ``bh // R``; db and dc then sum each row's
+    R heads in head order. Its autograd keeps two (BH, P, N) tensors a
+    step of S."""
+    R = x.shape[0] // b.shape[0]
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (
+            x, dt, a, b.repeat_interleave(R, 0), c.repeat_interleave(R, 0))]
+        y, h = ssd_scan_ref(*leaves)
+        outs, cots = ([y, h], [dy, dh]) if dh is not None else ([y], [dy])
+        dx, ddt, da, db, dc = torch.autograd.grad(outs, leaves, cots)
+    if R > 1:
+        db, dc = (g.view(b.shape[0], R, *g.shape[1:]) for g in (db, dc))
+        sb, sc = db[:, 0].clone(), dc[:, 0].clone()
+        for i in range(1, R):
+            sb += db[:, i]
+            sc += dc[:, i]
+        db, dc = sb, sc
+    return dx, ddt, da, db, dc

@@ -52,7 +52,6 @@ MAX_D = 65_536          # the wrapper's limit (the stream form has none)
 BWD_THREADS = 512
 BWD_BLOCKS = 264
 MAX_BWD_D = 16_384
-NO_BF16_BWD = "ROADMAP A28 (the bf16 attention and rmsnorm backward)"
 
 
 class Plan(NamedTuple):
@@ -144,7 +143,8 @@ def differentiable(x: torch.Tensor, what: str = "rmsnorm") -> None:
     take x: bf16, or rows wider than ``MAX_BWD_D``."""
     if x.dtype != torch.float32:
         raise NotImplementedError(
-            f"{what} has no backward kernel in {x.dtype}: {NO_BF16_BWD}")
+            f"{what} has no backward kernel in {x.dtype}: "
+            f"{_build.NO_BF16_BWD}")
     if x.shape[-1] > MAX_BWD_D:
         raise NotImplementedError(
             f"{what}'s backward kernel takes D <= {MAX_BWD_D}, got "

@@ -30,6 +30,26 @@ Q, Q) f32; the split B^T images, ``repro_ssd_scan_bt_bytes`` per row and
 chunk; entering states, (BH, S / Q, P, N) f32), launches, and raises on
 a launch error. ``repro_torch.kernels.ops``
 picks it for CUDA tensors and the plain version for CPU tensors.
+
+The gradient. The JAX package has no backward Pallas kernel (its
+training differentiates the jnp SSD), so ``ssd_scan_bwd`` replaces none:
+``csrc/ssd_scan_bwd.cu`` computes (dx, ddt, da, db, dc) in f32 on the
+CUDA cores as an SSD run in reverse time: an ordered walk over the
+chunks from the last that writes the gradient of the state leaving each
+chunk, then every chunk in parallel from it and the state entering the
+chunk, which the forward keeps when asked (``keep_states``); db and dc
+of the R heads that share a row of b and c, and da over the chunks, are
+summed in a fixed order by further launches, no atomics (see the
+source's header). ``SSDScanFn`` is the autograd Function that ``ops``
+routes a CUDA call through when a gradient is wanted (an input requires
+grad, or is a ``torch.func`` transform's tensor): its backward calls
+``SSDScanBwdFn``, and each has a ``vmap`` rule that folds the vmapped
+(learner) axis into BH and into b and c's rows, so m learners are one
+launch. They launch through the module's ``launch_forward`` and
+``launch_backward``, which the CPU tests replace with stand-ins. A bf16
+input under a gradient raises ``NotImplementedError``
+(``differentiable``); the final state's gradient may be absent (the LM
+loss never reads it) and counts as zero.
 """
 from __future__ import annotations
 
@@ -44,11 +64,16 @@ MAX_P, MAX_N = 64, 128
 # walk, the outputs); ops.LAUNCHES counts the call once
 PROGRAM = "sm90_wgmma_tf32x3"
 CUDA_LAUNCHES = 3
+# the backward's program: f32 multiply-adds on the CUDA cores
+BWD_PROGRAM = "sm90_cuda_cores_f32"
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 64):
-    """The chunked SSD on the card -> (y (BH, S, P), h (BH, P, N) f32)."""
+             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 64,
+             keep_states: bool = False):
+    """The chunked SSD on the card -> (y (BH, S, P), h (BH, P, N) f32);
+    with ``keep_states`` also the states entering each chunk, (BH,
+    S / chunk, P, N) f32, which the backward reads."""
     if x.dim() != 3:
         raise ValueError(f"ssd_scan needs x (BH, S, P): got {tuple(x.shape)}")
     BH, S, P = x.shape
@@ -104,4 +129,155 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         cbt.data_ptr(), bt.data_ptr(), states.data_ptr(), BH, S, P, N, R,
         stream)
     _build.check(lib, code, "ssd_scan launch")
-    return y, h
+    return (y, h, states) if keep_states else (y, h)
+
+
+def differentiable(x: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` where the backward kernel does not
+    take these inputs: bf16."""
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"ssd_scan has no backward kernel in {x.dtype}: "
+            f"{_build.NO_BF16_BWD}")
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, states: torch.Tensor,
+                 dy: torch.Tensor, dh: torch.Tensor | None, *, chunk: int):
+    """The backward kernel: (dx, ddt, da, db, dc) of ``ssd_scan`` at the
+    forward's inputs, its entering states (``keep_states``), the output's
+    gradient dy (BH, S, P) and the final state's dh (BH, P, N) or None
+    (zero), all f32 on the card. Three CUDA launches (the reverse state
+    walk, the chunks, da's chunk sum) and, where R > 1, a fourth that sums
+    the R heads' db and dc partials of each row in head order; no atomics:
+    the same inputs give the same bits."""
+    differentiable(x)
+    BH, S, P = x.shape
+    rows, N = b.shape[0], b.shape[-1]
+    nc = S // chunk if chunk in CHUNKS else 0
+    tensors = (x, dt, a, b, c, states, dy) + (() if dh is None else (dh,))
+    if (dt.shape != (BH, S) or a.shape != (BH,) or b.dim() != 3
+            or rows < 1 or BH % rows or b.shape != (rows, S, N)
+            or c.shape != b.shape or dy.shape != x.shape
+            or states.shape != (BH, nc, P, N)
+            or (dh is not None and dh.shape != (BH, P, N))):
+        raise ValueError(
+            f"ssd_scan_bwd needs x, dy (BH, S, P), dt (BH, S), a (BH,), b, "
+            f"c (BH / R, S, N), states (BH, S / chunk, P, N) and dh (BH, P, "
+            f"N) or None: got {[tuple(t.shape) for t in tensors]}")
+    if chunk not in CHUNKS or S % chunk or S < chunk:
+        raise ValueError(f"ssd_scan_bwd takes chunks {CHUNKS} dividing S: "
+                         f"S={S}, chunk={chunk}")
+    if not (0 < P <= MAX_P and 0 < N <= MAX_N):
+        raise ValueError(f"ssd_scan_bwd takes 1 <= P <= {MAX_P}, 1 <= N <= "
+                         f"{MAX_N}: got P={P}, N={N}")
+    if not all(t.is_cuda and t.device == x.device for t in tensors):
+        raise ValueError(
+            f"ssd_scan_bwd runs on one CUDA device: got "
+            f"{[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"ssd_scan_bwd takes float32: got "
+                        f"{[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ssd_scan_bwd needs contiguous inputs")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"ssd_scan_bwd launches on the current device "
+            f"(cuda:{torch.cuda.current_device()}), x is on {x.device}")
+    R = BH // rows
+    lib = _build.library("ssd_scan_bwd")
+    dx, ddt, da, db, dc = (torch.empty_like(t) for t in (x, dt, a, b, c))
+    gstates = torch.empty_like(states)
+    part = x.new_empty((2, BH, S, N)) if R > 1 else None
+    dapart = x.new_empty((BH, nc))
+    code = lib.repro_ssd_scan_bwd(
+        chunk, x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), states.data_ptr(), dy.data_ptr(),
+        None if dh is None else dh.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        gstates.data_ptr(), None if part is None else part[0].data_ptr(),
+        None if part is None else part[1].data_ptr(), dapart.data_ptr(),
+        BH, S, P, N, R, _build.current_stream(x.device.index))
+    _build.check(lib, code, "ssd_scan_bwd launch")
+    return dx, ddt, da, db, dc
+
+
+def launch_forward(x, dt, a, b, c, chunk):
+    """The forward kernel with the entering states: (y, h, states)."""
+    _build.LAUNCHES["ssd_scan"] += 1
+    return ssd_scan(x, dt, a, b, c, chunk=chunk, keep_states=True)
+
+
+def launch_backward(x, dt, a, b, c, states, dy, dh, chunk):
+    """The backward kernel: (dx, ddt, da, db, dc)."""
+    _build.LAUNCHES["ssd_scan_bwd"] += 1
+    return ssd_scan_bwd(x, dt, a, b, c, states, dy, dh, chunk=chunk)
+
+
+class SSDScanFn(torch.autograd.Function):
+    """``ssd_scan`` with its gradient: ``apply(x, dt, a, b, c, chunk) ->
+    (y, h, states)``, states not differentiable. Composes with
+    ``loss.backward()``, ``torch.func.grad`` and ``torch.func.vmap``; the
+    ``vmap`` rule folds the vmapped axis into BH and into b and c's rows
+    (R is unchanged), one launch a call whatever its size."""
+
+    @staticmethod
+    def forward(x, dt, a, b, c, chunk):
+        return launch_forward(x.contiguous(), dt.contiguous(), a.contiguous(),
+                              b.contiguous(), c.contiguous(), chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dt, a, b, c, chunk = inputs
+        ctx.mark_non_differentiable(output[2])
+        ctx.save_for_backward(x, dt, a, b, c, output[2])
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, dy, dh, _dstates):
+        x, dt, a, b, c, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = SSDScanBwdFn.apply(x, dt, a, b, c, states, dy, dh, ctx.chunk)
+        return (*grads, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, a, b, c, chunk):
+        n = info.batch_size
+        args = [_build.fold(_build.batch_first(t, d, n))
+                for t, d in zip((x, dt, a, b, c), in_dims[:5])]
+        out = launch_forward(*args, chunk)
+        return tuple(_build.unfold(t, n) for t in out), (0, 0, 0)
+
+
+class SSDScanBwdFn(torch.autograd.Function):
+    """The backward kernel as a Function, so that it runs once per call
+    under ``torch.func.vmap`` too: ``apply(x, dt, a, b, c, states, dy, dh,
+    chunk) -> (dx, ddt, da, db, dc)``, dh None for zero. It has no
+    gradient of its own."""
+
+    @staticmethod
+    def forward(x, dt, a, b, c, states, dy, dh, chunk):
+        return launch_backward(
+            x.contiguous(), dt.contiguous(), a.contiguous(), b.contiguous(),
+            c.contiguous(), states.contiguous(), dy.contiguous(),
+            None if dh is None else dh.contiguous(), chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "ssd_scan has no second derivative on the card")
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, a, b, c, states, dy, dh, chunk):
+        n = info.batch_size
+        args = [None if t is None else _build.fold(_build.batch_first(t, d, n))
+                for t, d in zip((x, dt, a, b, c, states, dy, dh),
+                                in_dims[:8])]
+        grads = launch_backward(*args, chunk)
+        return tuple(_build.unfold(g, n) for g in grads), (0,) * 5

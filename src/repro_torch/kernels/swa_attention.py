@@ -11,29 +11,58 @@ port tiles q and k at the card's size and bounds the loop by the window
 instead (ROADMAP Queue B 4). Same precondition as the reference:
 ``S % window == 0`` and ``S >= window``.
 
-The wrapper takes CUDA tensors only; ``repro_torch.kernels.ops`` picks
-it for CUDA tensors and the plain version for CPU tensors.
+The gradient (ROADMAP A29): ``swa_attention_differentiable`` routes
+the same layouts through ``flash_attention.AttentionFn`` with
+``causal=True`` and the window, counted under ``"swa_attention"``. The
+f32 forward writes the log-sum-exp, and the backward kernel
+(``csrc/attention_bwd.cu``) bounds both its passes' ranges by the window
+and masks its edge, so the banded gradient reads only the band, as the
+forward does. Widths and dtypes are the backward's
+(``flash_attention.differentiable``): bf16 raises naming A28.
+``repro_torch.kernels.ops`` takes this route for a CUDA call under a
+gradient.
+
+The wrappers take CUDA tensors only; ``repro_torch.kernels.ops`` picks
+them for CUDA tensors and the plain version for CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import attention
+from repro_torch.kernels.flash_attention import (
+    AttentionFn, attention, differentiable,
+)
 from repro_torch.kernels.ref import check_swa_shape
 
 
-def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: int, scale: float | None = None) -> torch.Tensor:
-    """Causal banded attention, on the card: q, k, v (B, S, d), or the GQA
-    layout q (B, S, H, d), k/v (B, S, Hkv, d)."""
+def _gqa_layout(q, k, v, window):
+    """The banded kernel's precondition, and the inputs in the GQA layout
+    with whether they came as (B, S, d)."""
     check_swa_shape(q.shape[1], window)
     if k.shape[1] != q.shape[1]:
         raise ValueError(
             f"swa_attention needs as many keys as queries: q "
             f"{tuple(q.shape)}, k {tuple(k.shape)}")
     if q.dim() == 3:
-        return attention(q[:, :, None], k[:, :, None], v[:, :, None],
-                         causal=True, window=window, scale=scale,
-                         what="swa_attention")[:, :, 0]
-    return attention(q, k, v, causal=True, window=window, scale=scale,
-                     what="swa_attention")
+        return q[:, :, None], k[:, :, None], v[:, :, None], True
+    return q, k, v, False
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int, scale: float | None = None) -> torch.Tensor:
+    """Causal banded attention, on the card: q, k, v (B, S, d), or the GQA
+    layout q (B, S, H, d), k/v (B, S, Hkv, d)."""
+    q, k, v, flat = _gqa_layout(q, k, v, window)
+    out = attention(q, k, v, causal=True, window=window, scale=scale,
+                    what="swa_attention")
+    return out[:, :, 0] if flat else out
+
+
+def swa_attention_differentiable(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, *, window: int,
+                                 scale: float | None = None) -> torch.Tensor:
+    """``swa_attention`` with its gradient, through ``AttentionFn``."""
+    q, k, v, flat = _gqa_layout(q, k, v, window)
+    differentiable(q, k, v, "swa_attention")
+    out = AttentionFn.apply(q, k, v, True, window, scale, "swa_attention")[0]
+    return out[:, :, 0] if flat else out

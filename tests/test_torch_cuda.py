@@ -1315,13 +1315,15 @@ def test_kernels_without_backward_raise_under_grad():
     qm, km, vm = randn(1, 64, 2, 48), randn(1, 64, 2, 48), randn(1, 64, 2, 32)
     x, dt = randn(4, 64, 16), randn(4, 64).abs()
     a, b, c = -randn(4).abs(), randn(4, 64, 8), randn(4, 64, 8)
+    xb, dtb, bb, cb = (t.to(torch.bfloat16) for t in (x, dt, b, c))
     cases = {
         "bf16 attention": (lambda q: ops.flash_attention_gqa(q, kb, vb),
                            qb),
         "MLA widths": (lambda q: ops.flash_attention_gqa(q, km, vm), qm),
-        "swa_attention": (lambda q: ops.swa_attention(q, k, v, window=32),
-                          q),
-        "ssd_scan": (lambda x: ops.ssd_scan(x, dt, a, b, c, chunk=16)[0], x),
+        "bf16 swa_attention": (lambda q: ops.swa_attention(
+            q, kb, vb, window=32), qb),
+        "bf16 ssd_scan": (lambda x: ops.ssd_scan(
+            x, dtb, a, bb, cb, chunk=16)[0], xb),
         "bf16 rmsnorm": (lambda x: ops.rmsnorm(
             x, torch.ones(64, device="cuda", dtype=torch.bfloat16)),
             randn(3, 64, dtype=torch.bfloat16)),
@@ -1355,4 +1357,112 @@ def test_backward_through_ops_matches_plain():
     ref.flash_attention_gqa_ref(*plain).square().sum().backward()
     for got, want in zip(leaves, plain):
         assert float(got.grad.abs().max()) > 0
+        assert _grad_gap(got.grad, want.grad) <= GRAD_REL
+
+
+# ssd_scan_bwd against the autograd gradient of the sequential plain
+# version, both f32, summed in other orders: GRAD_REL of each gradient's
+# largest entry
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,S,P,N,chunk,R,dh,strong", [
+    (3, 64, 8, 4, 16, 1, False, False), (4, 96, 64, 128, 32, 2, True, False),
+    (8, 256, 64, 128, 8, 4, True, False), (6, 128, 32, 64, 16, 1, False, False),
+    (16, 256, 64, 128, 64, 16, False, False),
+    (10, 256, 64, 16, 64, 10, True, False), (3, 72, 37, 20, 8, 3, True, True),
+    (4, 128, 64, 128, 64, 1, False, True)])
+def test_ssd_scan_bwd_matches_plain(BH, S, P, N, chunk, R, dh, strong):
+    """Chunks 8 to 64, R = 1 and R > 1 (b and c summed over a row's
+    heads), P and N up to the kernel's 64 and 128 and odd, with and
+    without the final state's gradient, strong decay (dt |a| about 15 a
+    step); finite and bitwise repeatable."""
+    _need_card()
+    x, dt, a, b, c = _ssd_inputs(BH, S, P, N, "float32", BH + S + N, R)
+    if strong:
+        dt, a = dt * 4 + 1, a * 4
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    dy = torch.randn((BH, S, P), generator=gen, device="cuda")
+    dhv = torch.randn((BH, P, N), generator=gen, device="cuda") if dh \
+        else None
+    _, _, states = ssd_scan.ssd_scan(x, dt, a, b, c, chunk=chunk,
+                                     keep_states=True)
+    got = ssd_scan.ssd_scan_bwd(x, dt, a, b, c, states, dy, dhv, chunk=chunk)
+    again = ssd_scan.ssd_scan_bwd(x, dt, a, b, c, states, dy, dhv,
+                                  chunk=chunk)
+    want = ref.ssd_scan_bwd_ref(x, dt, a, b, c, dy, dhv)
+    torch.cuda.synchronize()
+    for g, g2, w in zip(got, again, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert torch.equal(g, g2)
+        assert _grad_gap(g, w) <= GRAD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3])
+def test_ssd_scan_vmap_grad_is_one_launch_of_per_learner_calls(m):
+    """The learners' vmap folds into BH and b, c's rows: one forward and
+    one backward launch for m learners, bit for bit the per-learner
+    calls."""
+    _need_card()
+    ins = [torch.stack(t) for t in zip(*(
+        _ssd_inputs(8, 128, 64, 128, "float32", i, 4) for i in range(m)))]
+    dy = torch.randn((m, 8, 128, 64), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(m))
+
+    def loss(x, dt, a, b, c, dy):
+        return (ssd_scan.SSDScanFn.apply(x, dt, a, b, c, 32)[0] * dy).sum()
+    ops.reset_launches()
+    got = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2, 3, 4)))(
+        *ins, dy)
+    assert (ops.LAUNCHES["ssd_scan"], ops.LAUNCHES["ssd_scan_bwd"]) == (1, 1)
+    for i in range(m):
+        xi = [t[i] for t in ins]
+        _, _, st = ssd_scan.ssd_scan(*xi, chunk=32, keep_states=True)
+        one = ssd_scan.ssd_scan_bwd(*xi, st, dy[i], None, chunk=32)
+        for g, w in zip(got, one):
+            assert torch.equal(g[i], w)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_backward_through_ops_matches_plain():
+    """A padded S (300, chunk 64) under a gradient through ops.ssd_scan,
+    with both outputs read: one launch of each kernel."""
+    _need_card()
+    ins = _ssd_inputs(4, 300, 64, 128, "float32", 7, 2)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dy = torch.randn((4, 300, 64), generator=gen, device="cuda")
+    dh = torch.randn((4, 64, 128), generator=gen, device="cuda")
+    ops.reset_launches()
+    y, h = ops.ssd_scan(*leaves, chunk=64)
+    torch.autograd.backward((y, h), (dy, dh))
+    assert (ops.LAUNCHES["ssd_scan"], ops.LAUNCHES["ssd_scan_bwd"]) == (1, 1)
+    want = ref.ssd_scan_bwd_ref(*ins, dy, dh)
+    for t, w in zip(leaves, want):
+        assert _grad_gap(t.grad, w) <= GRAD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,d,w", [(1, 512, 25, 5, 64, 128),
+                                           (2, 256, 4, 4, 32, 64),
+                                           (1, 192, 1, 1, 128, 64)])
+def test_swa_attention_backward_through_ops_matches_plain(B, S, H, Hkv, d,
+                                                          w):
+    """The banded route under a gradient: one forward launch counted as
+    swa_attention, one attention_bwd, the gradient within GRAD_REL of the
+    plain banded attention's; H = 1 in the (B, S, d) layout."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(S + H)
+    shapes = [(B, S, H, d), (B, S, Hkv, d), (B, S, Hkv, d)]
+    ins = [torch.randn(sh, generator=gen, device="cuda") for sh in shapes]
+    if H == 1:
+        ins = [t[:, :, 0].contiguous() for t in ins]
+    leaves = [t.clone().requires_grad_() for t in ins]
+    ops.reset_launches()
+    out = ops.swa_attention(*leaves, window=w)
+    out.square().sum().backward()
+    assert {k: n for k, n in ops.LAUNCHES.items() if n} == {
+        "swa_attention": 1, "attention_bwd": 1}
+    plain = [t.clone().requires_grad_() for t in ins]
+    ref.swa_attention_ref(*plain, window=w).square().sum().backward()
+    for got, want in zip(leaves, plain):
         assert _grad_gap(got.grad, want.grad) <= GRAD_REL
