@@ -73,7 +73,11 @@ per call by its clock, and as device time, CUDA launches and the host's
 time inside them per call from ``torch.profiler``
 (``repro_torch/kernels/_timing.py``, always this checkout's); also
 ``sqdist``'s C entry point called alone, so that the wrapper's host
-time and the launches' can be told apart; ``rmsnorm`` at (4, 2048, d)
+time and the launches' can be told apart; ``ssd_scan_bwd`` at the two SSD
+training cells' shapes (mamba2-2.7b's (80, 4096, 64, 128) and
+hymba-1.5b's (50, 4096, 64, 16), chunk 64, one row of b and c), by CUDA
+events and each CUDA launch's device time, naming the tree's
+``BWD_PROGRAM``; ``rmsnorm`` at (4, 2048, d)
 bf16 for every width d a full-size config norms, on inputs that have
 left the L2, and f32 attention at the layouts
 ``chip_smoke.py`` times (llama3-8b's, MLA's, musicgen's, llama3-405b's,
@@ -386,8 +390,10 @@ def _ssd_bwd_launches() -> list:
         def bwd():
             return ssd_scan.ssd_scan_bwd(x, dt, a, b, c, states, dy, None,
                                          chunk=Q)
-        out.append({"case": f"ssd_scan_bwd ({BH}, {S}, {P}, {N}), chunk "
+        out.append({"src": SRC,
+                    "case": f"ssd_scan_bwd ({BH}, {S}, {P}, {N}), chunk "
                             f"{Q}, {BH} heads a row, f32",
+                    "program": getattr(ssd_scan, "BWD_PROGRAM", None),
                     "events_ms": _timing.cuda_ms(bwd, 5, 1),
                     **_timing.profile_calls(bwd, 3)})
         del x, dy, dt, a, b, c, states
@@ -518,6 +524,7 @@ def profile_kernels() -> list:
                     **_timing.profile_calls(fn)})
     del X, xs, dts, b, c
     torch.cuda.empty_cache()
+    out += _ssd_bwd_launches()
     out += profile_norm_and_f32_attention(F, g)
     cfg = get_arch("mamba2-2.7b")
     params = init_lm_params(cfg, seed=0, dtype=torch.bfloat16)

@@ -236,6 +236,13 @@ and drives both of the port's paths:
   adds mamba2-2.7b and hymba-1.5b σ_1 cells beside llama3-8b's (full
   width, 2 layers, f32, S = 4,096, 6 adam steps): step-1 gradient
   against the plain versions', exact launches of every kernel.
+* ``ssd_scan_bwd`` redesigned for Hopper's tensor cores: every product on the
+  tensor cores in split TF32 (``mma.sync``, ``sm90_mma_tf32x3``), C B^T
+  once per (row, chunk), the reverse walk split over blocks of 16-row
+  tiles with its column tile sized to N (``ssd_scan.bwd_plan``).
+  ``lm_train_kernels`` adds its edges to SSD_BWD_CASES (N past a column
+  tile or slab, P past a row tile, R > 1 at chunk 8) and prints with the
+  timed rows the plan and each CUDA launch's device time.
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -443,7 +450,7 @@ def ptxas_line(line: str) -> str:
         at += len(size.group())
         ident, at = name[at:at + int(size.group())], at + int(size.group())
         if "kernel" in ident:
-            args = re.match(r"I\w*?E", name[at:])
+            args = re.match(r"I\w*?E(?:Li\d+E)*", name[at:])
             return "entry " + ident + (args.group() if args else "")
     return line
 
@@ -1337,6 +1344,9 @@ def phase_ssm_kernels(gen) -> tuple:
         "device_ms": dev["device_ms"],
         "cuda_launches_per_call": dev["cuda_launches_per_call"],
         "launch_device_us": dev["kernels_us"]}}
+    del x, dt, a, b, c, br, cr
+    torch.cuda.empty_cache()
+    _profile_ssd_bwd()
     emit({"phase": "ssm_kernels", "checks": len(checks),
           "rmsnorm_max_abs_err": norm_worst,
           "rmsnorm_tolerances": {str(k[1]).split(".")[1]: v
@@ -1352,6 +1362,30 @@ def phase_ssm_kernels(gen) -> tuple:
           "peaks": {"bytes_per_s": mem_rate, "f32_flops": f32_rate,
                     "tf32_flops": tf32_rate}})
     return table, norm_worst
+
+
+# each CUDA launch's device time of ssd_scan_bwd at SSD_BWD_CASES' timed
+# shapes, by label: taken in ssm_kernels, whose process has not yet run
+# the later phases, after which this process's profiler sees no device
+# events, and printed with lm_train_kernels' timed rows
+SSD_BWD_DEVICE: dict = {}
+
+
+def _profile_ssd_bwd() -> None:
+    g = torch.Generator(device="cuda").manual_seed(27)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    for BH, S, P, N, Q, R, _, strong, label in SSD_BWD_CASES[:SSD_BWD_TIMED]:
+        x, dt, a, b, c = _ssd_inputs(randn, BH, S, P, N, R, strong)
+        dy = randn(BH, S, P)
+        _, _, states = ssd_scan.ssd_scan(x, dt, a, b, c, chunk=Q,
+                                         keep_states=True)
+        SSD_BWD_DEVICE[label] = profile_calls(
+            lambda: ssd_scan.ssd_scan_bwd(x, dt, a, b, c, states, dy, None,
+                                          chunk=Q), 3)
+        del x, dt, a, b, c, dy, states
+        torch.cuda.empty_cache()
 
 
 def phase_ssm_agree() -> dict:
@@ -3928,6 +3962,14 @@ SSD_BWD_CASES = [
     (6, 512, 32, 64, 16, 1, False, False, "chunk 16, R 1, P 32, N 64"),
     (4, 384, 64, 16, 32, 2, True, False, "chunk 32, R 2, dh"),
     (3, 200, 48, 20, 8, 3, True, True, "chunk 8, P 48, N 20, strong decay"),
+    # the tiling's edges: a slab of 64 and one of 36, a partial row tile
+    (6, 256, 40, 100, 16, 2, True, False, "chunk 16, R 2, P 40, N 100"),
+    # N 72 past a slab, P 24 (one and a half row tiles), R > 1 at chunk 8
+    (8, 128, 24, 72, 8, 4, False, False, "chunk 8, R 4, P 24, N 72"),
+    # the narrowest tiles, N 8; and the walk's blocks of four warps
+    (2, 64, 64, 8, 32, 1, True, False, "chunk 32, N 8, dh"),
+    (64, 512, 64, 128, 64, 16, False, True,
+     "chunk 64, R 16, walk blocks of two warps, strong decay"),
 ]
 SSD_BWD_TIMED = 2
 # vmap over learners: (m, BH, S, P, N, chunk, R)
@@ -4226,9 +4268,16 @@ def _ssd_bwd_checks(randn, checks, card) -> tuple:
         torch.cuda.empty_cache()
         if len(rows) < SSD_BWD_TIMED:
             shape = [BH, S, P, N, Q, R]
+            dev = SSD_BWD_DEVICE.get(label) or profile_calls(bwd, 3)
             rows.append({
                 "shape": shape, "label": label, "dtype": "float32",
                 "program": ssd_scan.BWD_PROGRAM,
+                "plan": ssd_scan.bwd_plan(
+                    BH, P, N, Q, torch.cuda.get_device_properties(
+                        0).multi_processor_count)._asdict(),
+                "device_ms": dev["device_ms"],
+                "device_us_by_kernel": dev["kernels_us"],
+                "cuda_launches_per_call": dev["cuda_launches_per_call"],
                 **_median_spread("ms", [cuda_ms(bwd, 5, 1)
                                         for _ in range(3)]),
                 "plain_ms": cuda_ms(lambda: ref.ssd_scan_bwd_ref(

@@ -75,7 +75,7 @@ SIGNATURES = {
         **_ERR,
     },
     "ssd_scan_bwd": {
-        "repro_ssd_scan_bwd": (_I, [_I, *[_P] * 17, _I, _I, _I, _I, _I, _P]),
+        "repro_ssd_scan_bwd": (_I, [_I, *[_P] * 19, *[_I] * 9, _P]),
         **_ERR,
     },
 }

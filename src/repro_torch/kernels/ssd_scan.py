@@ -34,10 +34,15 @@ picks it for CUDA tensors and the plain version for CPU tensors.
 The gradient. The JAX package has no backward Pallas kernel (its
 training differentiates the jnp SSD), so ``ssd_scan_bwd`` replaces none:
 ``csrc/ssd_scan_bwd.cu`` computes (dx, ddt, da, db, dc) in f32 on the
-CUDA cores as an SSD run in reverse time: an ordered walk over the
+tensor cores, every product split TF32 on ``mma.sync`` (three TF32
+products a product, each over at most 64 K values summed from zero and
+added in f32), as an SSD run in reverse time: C B^T and the chunks'
+decays once per (row of b and c, chunk); an ordered walk over the
 chunks from the last that writes the gradient of the state leaving each
-chunk, then every chunk in parallel from it and the state entering the
-chunk, which the forward keeps when asked (``keep_states``); db and dc
+chunk, its rows split across blocks and its column tile sized to N
+(``bwd_plan``); then every chunk in parallel from it and the state
+entering the chunk, which the forward keeps when asked
+(``keep_states``), the columns of N in slabs; db and dc
 of the R heads that share a row of b and c, and da over the chunks, are
 summed in a fixed order by further launches, no atomics (see the
 source's header). ``SSDScanFn`` is the autograd Function that ``ops``
@@ -53,6 +58,8 @@ loss never reads it) and counts as zero.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
@@ -64,8 +71,45 @@ MAX_P, MAX_N = 64, 128
 # walk, the outputs); ops.LAUNCHES counts the call once
 PROGRAM = "sm90_wgmma_tf32x3"
 CUDA_LAUNCHES = 3
-# the backward's program: f32 multiply-adds on the CUDA cores
-BWD_PROGRAM = "sm90_cuda_cores_f32"
+# the backward's program: split TF32 on mma.sync m16n8k8
+BWD_PROGRAM = "sm90_mma_tf32x3"
+# the walk's warps a block, widest first (each warp 16 rows of the state)
+WALK_WARPS = (4, 2, 1)
+# the walk's ring of chunk tiles: at most this deep, and within the shared
+# memory of one of two blocks an SM
+WALK_MAX_STAGES, WALK_SMEM = 8, 113 * 1024
+
+
+class BwdPlan(NamedTuple):
+    walk_cols: int      # the reverse walk's column tile: 8, 16, 32 or 64
+    walk_warps: int     # the walk's warps a block: 4, 2 or 1
+    walk_stages: int    # the walk's ring of chunk tiles: 2 to 8
+    slab: int           # the chunk pass's column slab: 16, 32 or 64
+
+
+def walk_stage_bytes(chunk: int, cols: int, warps: int) -> int:
+    """Bytes of one stage of the walk's ring: C (chunk x cols, rows of
+    cols + 8 floats), dY (chunk x 16 warps), the decays."""
+    return 4 * (chunk * (max(cols + 8, 24) + 16 * warps + 8) + chunk + 4)
+
+
+def bwd_plan(BH: int, P: int, N: int, chunk: int, sms: int) -> BwdPlan:
+    """The backward's partition. The column tile of the walk and the
+    slab of the chunk pass are N rounded up to a tile the kernel is built
+    for (no padded column at N = 16), capped at 64. The walk's block is
+    the most warps (each 16 rows of one head's state, sharing one staged
+    tile of C) that still give each of ``sms`` SMs a block; its ring is as
+    deep as two blocks' shared memory an SM allows. The column tile and
+    the slab fix orders of sums and depend on N alone: the walk's split
+    does not change any row's arithmetic, so the bits do not depend on
+    BH or the card."""
+    cols = next(c for c in (8, 16, 32, 64) if min(N, 64) <= c)
+    tiles, ncol = -(-P // 16), -(-N // cols)
+    warps = next((w for w in WALK_WARPS[:-1]
+                  if w <= tiles and BH * ncol * -(-tiles // w) >= sms), 1)
+    stages = WALK_SMEM // walk_stage_bytes(chunk, cols, warps)
+    return BwdPlan(cols, warps, max(2, min(WALK_MAX_STAGES, stages)),
+                   max(16, cols))
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -147,10 +191,10 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """The backward kernel: (dx, ddt, da, db, dc) of ``ssd_scan`` at the
     forward's inputs, its entering states (``keep_states``), the output's
     gradient dy (BH, S, P) and the final state's dh (BH, P, N) or None
-    (zero), all f32 on the card. Three CUDA launches (the reverse state
-    walk, the chunks, da's chunk sum) and, where R > 1, a fourth that sums
-    the R heads' db and dc partials of each row in head order; no atomics:
-    the same inputs give the same bits."""
+    (zero), all f32 on the card. Four CUDA launches (C B^T once per row
+    and chunk, the reverse state walk, the chunks, da's chunk sum) and,
+    where R > 1, a fifth that sums the R heads' db and dc partials of each
+    row in head order; no atomics: the same inputs give the same bits."""
     differentiable(x)
     BH, S, P = x.shape
     rows, N = b.shape[0], b.shape[-1]
@@ -186,8 +230,12 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             f"(cuda:{torch.cuda.current_device()}), x is on {x.device}")
     R = BH // rows
     lib = _build.library("ssd_scan_bwd")
+    plan = bwd_plan(BH, P, N, chunk, torch.cuda.get_device_properties(
+        x.device.index).multi_processor_count)
     dx, ddt, da, db, dc = (torch.empty_like(t) for t in (x, dt, a, b, c))
     gstates = torch.empty_like(states)
+    cbt = x.new_empty((rows, nc, chunk, chunk))
+    dec = x.new_empty((BH, nc, chunk + 4))
     part = x.new_empty((2, BH, S, N)) if R > 1 else None
     dapart = x.new_empty((BH, nc))
     code = lib.repro_ssd_scan_bwd(
@@ -195,9 +243,10 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         c.data_ptr(), states.data_ptr(), dy.data_ptr(),
         None if dh is None else dh.data_ptr(), dx.data_ptr(),
         ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-        gstates.data_ptr(), None if part is None else part[0].data_ptr(),
+        gstates.data_ptr(), cbt.data_ptr(), dec.data_ptr(),
+        None if part is None else part[0].data_ptr(),
         None if part is None else part[1].data_ptr(), dapart.data_ptr(),
-        BH, S, P, N, R, _build.current_stream(x.device.index))
+        BH, S, P, N, R, *plan, _build.current_stream(x.device.index))
     _build.check(lib, code, "ssd_scan_bwd launch")
     return dx, ddt, da, db, dc
 

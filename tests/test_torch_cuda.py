@@ -1369,12 +1369,17 @@ def test_backward_through_ops_matches_plain():
     (8, 256, 64, 128, 8, 4, True, False), (6, 128, 32, 64, 16, 1, False, False),
     (16, 256, 64, 128, 64, 16, False, False),
     (10, 256, 64, 16, 64, 10, True, False), (3, 72, 37, 20, 8, 3, True, True),
-    (4, 128, 64, 128, 64, 1, False, True)])
+    (4, 128, 64, 128, 64, 1, False, True),
+    # the tiling's edges: N 100 (slabs of 64 and 36) with P 40, N 72 with
+    # P 24 and R > 1 at chunk 8, N 8, the walk's blocks of two warps
+    (6, 256, 40, 100, 16, 2, True, False), (8, 128, 24, 72, 8, 4, False, False),
+    (2, 64, 64, 8, 32, 1, True, False), (64, 512, 64, 128, 64, 16, False, True)])
 def test_ssd_scan_bwd_matches_plain(BH, S, P, N, chunk, R, dh, strong):
     """Chunks 8 to 64, R = 1 and R > 1 (b and c summed over a row's
-    heads), P and N up to the kernel's 64 and 128 and odd, with and
-    without the final state's gradient, strong decay (dt |a| about 15 a
-    step); finite and bitwise repeatable."""
+    heads), P and N up to the kernel's 64 and 128 and odd, past a column
+    slab or a row tile, with and without the final state's gradient,
+    strong decay (dt |a| about 15 a step); finite and bitwise
+    repeatable."""
     _need_card()
     x, dt, a, b, c = _ssd_inputs(BH, S, P, N, "float32", BH + S + N, R)
     if strong:
@@ -1394,6 +1399,30 @@ def test_ssd_scan_bwd_matches_plain(BH, S, P, N, chunk, R, dh, strong):
         assert g.shape == w.shape and torch.isfinite(g).all()
         assert torch.equal(g, g2)
         assert _grad_gap(g, w) <= GRAD_REL
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bwd_bits_do_not_depend_on_the_walk_split():
+    """64 heads, 16 a row, take the walk's blocks of two warps; each
+    row's 16 heads alone take blocks of one: the same bits."""
+    _need_card()
+    BH, S, P, N, Q, R = 64, 512, 64, 128, 64, 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {ssd_scan.bwd_plan(n, P, N, Q, sms) for n in (BH, R)}
+    assert len({p.walk_warps for p in plans}) == 2
+    x, dt, a, b, c = _ssd_inputs(BH, S, P, N, "float32", 5, R)
+    dy = torch.randn((BH, S, P), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(6))
+    _, _, st = ssd_scan.ssd_scan(x, dt, a, b, c, chunk=Q, keep_states=True)
+    whole = ssd_scan.ssd_scan_bwd(x, dt, a, b, c, st, dy, None, chunk=Q)
+    for i in range(BH // R):
+        hs, rs = slice(i * R, (i + 1) * R), slice(i, i + 1)
+        one = ssd_scan.ssd_scan_bwd(
+            *(t[hs].contiguous() for t in (x, dt, a)),
+            *(t[rs].contiguous() for t in (b, c)), st[hs].contiguous(),
+            dy[hs].contiguous(), None, chunk=Q)
+        for w, o in zip(whole, one):
+            assert torch.equal(w[rs] if w.shape[0] == BH // R else w[hs], o)
 
 
 @pytest.mark.cuda
