@@ -49,8 +49,9 @@ and the perturbation) and the host-to-device copies a round.
 traces only the LM training cells of ``chip_smoke.py``'s ``lm_train``
 (slice 14): five steps of fleet-llm-100m's dynamic run at m = 4 and one
 σ_1 step each of llama3-8b, mamba2-2.7b and hymba-1.5b at full width (2
-layers, f32, (1, 4096); slice 16 added the last two), each after a
-warm-up, the port's backward kernels among the kinds; then
+layers, f32, (1, 4096); slice 16 added the last two) and of
+deepseek-v2-236b (1 layer, sgd, rematerialized layers; slice 18), each
+after a warm-up, the port's backward kernels among the kinds; then
 ``ssd_scan_bwd`` at the two SSD cells' shapes by CUDA events and, per
 CUDA launch, by ``torch.profiler`` (the walk, the chunks, the sums).
 
@@ -301,11 +302,13 @@ def profile_ssm_serve() -> list:
 
 
 def profile_lm_train() -> list:
-    """The two LM training cells of ``chip_smoke.py``'s ``lm_train``,
-    traced after a warm-up: fleet-llm-100m at m = 4 under
+    """The LM training cells of ``chip_smoke.py``'s ``lm_train``, traced
+    after a warm-up: fleet-llm-100m at m = 4 under
     ``make_dynamic_train_step`` (b = 10, Δ = 5; 3 warm-up steps, then 5
-    traced) and one σ_1 ``make_train_step`` step of llama3-8b at full
-    width, 2 of 32 layers, f32, (1, 4096) (1 warm-up step)."""
+    traced) and one σ_1 ``make_train_step`` step each (1 warm-up step),
+    f32, (1, 4096), at full width: llama3-8b, mamba2-2.7b and hymba-1.5b
+    at 2 layers with adam, deepseek-v2-236b at 1 of 60 with sgd and
+    rematerialized layers."""
     import dataclasses
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "..", "examples"))
@@ -322,9 +325,9 @@ def profile_lm_train() -> list:
     batches = [stacked_batch(streams, prng.fold_in(prng.key(1), t),
                              "cuda") for t in range(8)]
     del streams
-    train = TrainConfig(optimizer="adam", learning_rate=3e-4)
+    train = TrainConfig(optimizer="adam", learning_rate=3e-4, remat=False)
     step = distributed.make_dynamic_train_step(
-        lambda p, b: lm_loss(cfg, p, b),
+        lambda p, b: lm_loss(cfg, p, b, remat=train.remat),
         ProtocolConfig(kind="dynamic", b=10, delta=45.0), train, 4)
     init = init_lm_params(cfg, seed=0, device="cuda")
     state = distributed.init_dynamic_state(
@@ -343,12 +346,18 @@ def profile_lm_train() -> list:
     del state, init, step, batches
     torch.cuda.empty_cache()
 
-    for arch in ("llama3-8b", "mamba2-2.7b", "hymba-1.5b"):
+    adam = TrainConfig(optimizer="adam", learning_rate=1e-3, remat=False)
+    # deepseek-v2-236b: the reference's production train program (sgd,
+    # rematerialized layers), chip_smoke.py's LM_MOE_LAYERS and LM_MOE_LR
+    sgd = TrainConfig(optimizer="sgd", learning_rate=0.1, remat=True)
+    for arch, layers, train in (
+            ("llama3-8b", 2, adam), ("mamba2-2.7b", 2, adam),
+            ("hymba-1.5b", 2, adam), ("deepseek-v2-236b", 1, sgd)):
         full = get_arch(arch)
-        cfg = dataclasses.replace(full, num_layers=2)
+        cfg = dataclasses.replace(full, num_layers=layers)
         init_state, step = make_train_step(
-            lambda p, b, cfg=cfg: lm_loss(cfg, p, b),
-            TrainConfig(optimizer="adam", learning_rate=1e-3))
+            lambda p, b, cfg=cfg, train=train: lm_loss(
+                cfg, p, b, remat=train.remat), train)
         state = init_state(init_lm_params(cfg, seed=0, device="cuda"))
         toks = prng.randint(prng.key(3), (1, 4097), 0,
                             cfg.vocab_size).long()
@@ -360,8 +369,10 @@ def profile_lm_train() -> list:
             nonlocal state
             state, _ = step(state, batch)
 
-        out.append({"cell": f"{arch} train step, 2 of {full.num_layers} "
-                            f"layers, f32, (1, 4096), adam",
+        out.append({"cell": f"{arch} train step, {layers} of "
+                            f"{full.num_layers} layers, f32, (1, 4096), "
+                            f"{train.optimizer}"
+                            + (", remat" if train.remat else ""),
                     **_trace(one_step)})
         del state, init_state, step
         torch.cuda.empty_cache()

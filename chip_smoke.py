@@ -243,6 +243,23 @@ and drives both of the port's paths:
   ``lm_train_kernels`` adds its edges to SSD_BWD_CASES (N past a column
   tile or slab, P past a row tile, R > 1 at chunk 8) and prints with the
   timed rows the plan and each CUDA launch's device time.
+* MoE and MLA LM training on the card (slice 18): ``attention_bwd.cu``
+  at MLA's (query/key, value) widths, (192, 128) and (48, 32), with the
+  f32 forward writing its log-sum-exp at every width pair;
+  ``lm_train_kernels`` adds deepseek-v2-236b's (1, 4096, 128, 192/128)
+  (timed beside SDPA's f32 backward and the bound), the smoke widths
+  with 4 learners folded, and ragged non-causal Sk != Sq cases at both
+  pairs (C1's guard). ``lm_train`` adds the MoE σ_1 cells with the
+  reference's production train program (sgd, ``lm_loss(remat=True)``:
+  each layer's forward kernels launch twice a step): deepseek-v2-236b
+  (MLA, 160 experts, top 6, 2 shared) and mixtral-8x22b (8 experts, top
+  2, window 4,096) at full width, depth cut to one card
+  (``LM_MOE_LAYERS``), their step-1 gradient held against the plain
+  versions' at S = LM_MOE_CHECK_S. ``moe_fleet`` runs the launcher
+  twin's ``--smoke`` dynamic and periodic fleets of both MoE archs on
+  the card: the routing under the learners' vmap, attention at (48, 32)
+  and on the banded route one launch a layer for both learners, the
+  dynamic run both syncing and holding.
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -3925,9 +3942,11 @@ def phase_figures() -> tuple:
 TRAIN_GRAD_REL = 1e-4
 # the forward's log-sum-exp against logsumexp of the plain scores
 LSE_TOL = dict(rtol=1e-5, atol=1e-5)
-# (B, Sq, Sk, H, Hkv, d, causal, window, label); the first two are timed,
+# (B, Sq, Sk, H, Hkv, d, causal, window, label), d the head width or MLA's
+# (query/key, value) widths; the first TRAIN_ATTN_TIMED are timed,
 # TIME_REPEATS times each by CUDA events (median and spread)
 TIME_REPEATS = 7
+TRAIN_ATTN_MLA = "deepseek-v2-236b MLA (1, 4096, 128, 192/128)"
 TRAIN_ATTN_CASES = [
     (1, 4096, 4096, 32, 8, 128, True, 0, "llama3-8b (1, 4096, 32/8, 128)"),
     # fleet-llm-100m keeps llama3-8b's head_dim of 128
@@ -3938,13 +3957,24 @@ TRAIN_ATTN_CASES = [
     # gradient (TRAIN_ATTN_BANDED)
     (1, 4096, 4096, 25, 5, 64, True, 1024,
      "hymba-1.5b banded (1, 4096, 25/5, 64), w 1,024"),
+    # deepseek-v2-236b's MLA at its training shape: 128 heads of 128 + 64
+    # rope by 128
+    (1, 4096, 4096, 128, 128, (192, 128), True, 0, TRAIN_ATTN_MLA),
+    # deepseek-v2-236b-smoke's widths, 4 learners folded, as the fleet's
+    # vmap rule launches them
+    (4, 128, 128, 8, 8, (48, 32), True, 0,
+     "deepseek-v2-236b-smoke, 4 learners folded (4, 128, 8, 48/32)"),
     (16, 128, 128, 12, 4, 64, True, 0, "(16, 128, 12/4, 64)"),
+    # C1's guard at MLA's widths: keys past a ragged Sk masked, no causal
+    (2, 100, 160, 4, 4, (192, 128), False, 0, "MLA non-causal, Sk != Sq"),
+    (1, 70, 130, 4, 2, (48, 32), False, 0,
+     "MLA smoke widths non-causal, Sk != Sq, GQA group 2"),
     (2, 100, 100, 4, 4, 64, True, 0, "ragged S, GQA group 1"),
     (1, 130, 130, 8, 2, 128, True, 0, "ragged S, GQA group 4"),
     (1, 300, 300, 8, 2, 64, True, 64, "a window of 64"),
     (2, 70, 90, 4, 1, 32, False, 0, "non-causal, Sk != Sq"),
 ]
-TRAIN_ATTN_TIMED = 3            # the first cases, each timed
+TRAIN_ATTN_TIMED = 5            # the first cases, each timed
 TRAIN_ATTN_BANDED = "hymba-1.5b banded (1, 4096, 25/5, 64), w 1,024"
 # ssd_scan_bwd: (BH, S, P, N, chunk, R, dh, strong decay, label); the
 # first two are timed. Inputs as ssm_kernels draws them: x, b, c, dy ~
@@ -3991,6 +4021,21 @@ LM_TRAIN_ARCHS = ("llama3-8b", "mamba2-2.7b", "hymba-1.5b")
 # the relative L2 over the whole model (the two differ only in the
 # attention's and the norms' f32 summation orders)
 LM_TRAIN_GRAD_L2 = 1e-4
+# the MoE σ_1 cells: the reference's production train program
+# (src/repro/launch/specs.py: TrainConfig(optimizer="sgd", remat=True)) at
+# full width, f32, B = 1, S = LM_TRAIN_S, sgd at LM_MOE_LR (the six losses
+# fall). Depth: the step holds the weights, the gradient and the new
+# weights (3 x 4 bytes a weight); deepseek-v2-236b has 5.02e9 weights at
+# 1 layer (60 GB) and 8.99e9 at 2 (108 GB), mixtral-8x22b 5.41e9 at 2 (65
+# GB; its step's peak 65.26 GB with remat and without,
+# benchmarks/torch_remat_memory.py) and 7.91e9 at 3 (95 GB)
+LM_MOE_LAYERS = {"deepseek-v2-236b": 1, "mixtral-8x22b": 2}
+LM_MOE_LR = 0.1
+# their step-1 check's S: the plain attention keeps a (heads, S, S) f32
+# score tensor a layer for its backward (8.6 GB at deepseek's 128 heads
+# and S = 4,096) beside the weights and both gradients (60 GB); the
+# attention backward at the full shape is TRAIN_ATTN_MLA's case
+LM_MOE_CHECK_S = 1024
 # Δ among the checked distances (the largest learner's squared distance
 # from the reference) of a run that syncs at every check: 131.7 at the
 # first, falling to 26.3 at the sixth on the H100 at b = 10. fleet_llm.py's
@@ -4060,8 +4105,9 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
         return torch.randn(shape, generator=gen, device="cuda")
 
     for B, Sq, Sk, H, Hkv, d, causal, w, label in TRAIN_ATTN_CASES:
-        q, k, v = randn(B, Sq, H, d), randn(B, Sk, Hkv, d), randn(B, Sk, Hkv, d)
-        do = randn(B, Sq, H, d)
+        d, dv = (d, d) if isinstance(d, int) else d
+        q, k = randn(B, Sq, H, d), randn(B, Sk, Hkv, d)
+        v, do = randn(B, Sk, Hkv, dv), randn(B, Sq, H, dv)
         kw = dict(causal=causal, window=w, scale=None)
         o, lse = flash_attention.attention(q, k, v, with_lse=True, **kw)
         lse_want = ref.attention_lse_ref(q, k, causal=causal, window=w)
@@ -4095,10 +4141,10 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
                 pos = torch.arange(Sq, device="cuda")
                 band = ((pos[None, :] <= pos[:, None])
                         & (pos[None, :] > pos[:, None] - w))
-            out = F.scaled_dot_product_attention(
-                qT, kE, vE, attn_mask=band, is_causal=causal and band is None)
+            out, backend = _sdpa_f32(qT, kE, vE, band, causal)
             doT = do.transpose(1, 2).contiguous()
-            shape = [B, Sq, Sk, H, Hkv, d] + ([w] if w else [])
+            shape = [B, Sq, Sk, H, Hkv, d if d == dv else [d, dv]] + (
+                [w] if w else [])
             bwd = lambda: flash_attention.attention_bwd(  # noqa: E731
                 q, k, v, o, lse, do, **kw)
             lib = lambda: torch.autograd.grad(  # noqa: E731
@@ -4106,7 +4152,7 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
             reps, lib_reps = ([cuda_ms(f, 5, 1) for _ in range(TIME_REPEATS)]
                               for f in (bwd, lib))
             timed[label] = {
-                "shape": shape, "dtype": "float32",
+                "shape": shape, "label": label, "dtype": "float32",
                 "program": flash_attention.BWD_PROGRAM,
                 **_median_spread("ms", reps),
                 # the device's time alone, and the host's time in a call:
@@ -4117,10 +4163,12 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
                 "plain_ms": cuda_ms(lambda: ref.flash_attention_gqa_bwd_ref(
                     q, k, v, do, **kw), 3, 1),
                 **_median_spread("library_ms", lib_reps),
+                "library_backend": backend,
                 "library": "autograd.grad of F.scaled_dot_product_attention"
                            + ("(band mask)" if w else "(is_causal=True)")
                            + ", kv heads expanded, f32 (its forward "
-                           "untimed)",
+                           "untimed)" + ("" if d == dv else
+                                         f", value width {dv} of {d}"),
                 "forward_ms": cuda_ms(lambda: flash_attention.attention(
                     q, k, v, with_lse=True, **kw), 5, 1),
                 **kernel_bound("attention_bwd", shape, torch.float32, card)}
@@ -4196,6 +4244,8 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
                               "max_abs_err": worst["attention_bwd"],
                               "at_fleet_shape": attn_rows[1],
                               "banded": attn_rows[2],
+                              "at_mla_shape": attn_rows[3],
+                              "at_mla_smoke_shape": attn_rows[4],
                               "ptxas_by_kernel": bwd_kernels},
             "rmsnorm_bwd": {**norm_rows[0],
                             "max_abs_err": worst["rmsnorm_bwd"],
@@ -4204,6 +4254,22 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
                              "max_abs_err": worst["ssd_scan_bwd"],
                              "at_hymba_shape": ssd_rows[1],
                              **ssd_extra, "ptxas_by_kernel": ssd_kernels}}
+
+
+def _sdpa_f32(q, k, v, mask, causal) -> tuple:
+    """SDPA's f32 output on (B, H, S, d) leaves for the library timing,
+    and the backend that took it: the memory-efficient one (the default
+    for f32, which the flash and cuDNN backends do not take) where it
+    takes these widths, else the math one."""
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask,
+                    is_causal=causal and mask is None), backend.name
+        except RuntimeError:
+            continue
+    raise SystemExit("no SDPA backend takes the f32 case")
 
 
 def _swa_route(q, k, v, o, do, w, direct) -> dict:
@@ -4351,37 +4417,93 @@ def _lm_batch(cfg, B, S, seed):
             "labels": toks[:, 1:].contiguous()}
 
 
-def _launches_ok(got: dict, cfg, L: int, calls: int) -> bool:
+def _launches_ok(got: dict, cfg, L: int, calls: int, S: int = LM_TRAIN_S,
+                 remat: bool = False) -> bool:
     """Exact launches of ``calls`` training steps of ``cfg`` at L layers
-    and S = LM_TRAIN_S: per step the forward kernels and their backward
-    ones, by the block's family (a hybrid block norms five times, and its
-    attention takes the banded route at S = 4,096, w = 1,024)."""
-    norms = 5 * L + 1 if cfg.family == "hybrid" else 2 * L + 1
+    and S: per step the forward kernels and their backward ones, by the
+    block's family (a hybrid block norms five times, and its attention
+    takes the banded route at S = 4,096, w = 1,024); with ``remat`` each
+    layer's forward kernels launch twice, in the forward and again in
+    the backward's recompute (the final norm, outside the layers, once)."""
+    layer_norms = 5 * L if cfg.family == "hybrid" else 2 * L
+    again = 2 if remat else 1
     attn = 0 if cfg.family == "ssm" else L
-    banded = cfg.family == "hybrid" and takes_band(cfg, LM_TRAIN_S)
+    banded = takes_band(cfg, S)
     ssd = L if cfg.family in ("ssm", "hybrid") else 0
-    per = {"rmsnorm": norms, "rmsnorm_bwd": norms, "attention_bwd": attn,
-           "flash_attention": 0 if banded else attn,
-           "swa_attention": attn if banded else 0,
-           "ssd_scan": ssd, "ssd_scan_bwd": ssd}
+    per = {"rmsnorm": again * layer_norms + 1,
+           "rmsnorm_bwd": layer_norms + 1, "attention_bwd": attn,
+           "flash_attention": 0 if banded else again * attn,
+           "swa_attention": again * attn if banded else 0,
+           "ssd_scan": again * ssd, "ssd_scan_bwd": ssd}
     return all(got[k] == v * calls for k, v in per.items())
 
 
-def _lm_train_cell(arch: str, layers: int) -> dict:
+def _grad_gap(got, want) -> dict:
+    """The kernels' gradient tree (on the host) against the plain
+    versions' (on the card), leaf by leaf in slices of 2^26 weights (one
+    leaf of deepseek-v2's experts holds 1.26e9): the relative L2 over the
+    whole model and the largest |diff|, summed in float64."""
+    n = 1 << 26
+    diff2 = want2 = worst = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.reshape(-1), w.reshape(-1)
+        for c in range(0, g.numel(), n):
+            d = g[c:c + n].to(w.device).double() - w[c:c + n].double()
+            diff2 += float(d.square().sum())
+            want2 += float(w[c:c + n].double().square().sum())
+            worst = max(worst, float(d.abs().max()))
+    return {"rel_l2": math.sqrt(diff2 / want2), "max_abs_err": worst}
+
+
+@contextlib.contextmanager
+def _expandable_segments():
+    """The caching allocator with expandable segments, for the MoE σ_1
+    cells: their steps hold 65 of the card's 80 GB and ask for a 20 GiB
+    row of the gradient after the backward, when the plain allocator
+    keeps ~20 GiB of its cache free only in pieces of segments that the
+    gradient's leaves split, and runs out (mixtral-8x22b at 2 layers, after
+    the llama3-8b and deepseek-v2 cells). Expandable segments map free
+    pages into one range at the same speed; a cap on splitting
+    (``max_split_size_mb:1024``) fits too but slowed the deepseek-v2 step
+    by 17% (benchmarks/torch_lm_allocator.py, PERF.md §6, PR 28). The
+    plain allocator is back afterwards."""
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+        torch.cuda.empty_cache()
+
+
+def _lm_train_cell(arch: str, layers: int, train: TrainConfig = None,
+                   check_s: int = LM_TRAIN_S) -> dict:
     """``arch`` at full width and ``layers`` layers, f32, B = 1, S =
     LM_TRAIN_S: step 1's gradient through the kernels against the plain
-    versions', then LM_TRAIN_STEPS adam steps of
-    ``make_train_step(lm_loss)`` on one batch."""
+    versions' (at S = ``check_s``), then LM_TRAIN_STEPS steps of
+    ``make_train_step(lm_loss)`` on one batch, with ``train`` (adam at lr
+    1e-3 and no rematerialized layers unless given) and
+    ``lm_loss(remat=train.remat)``."""
     from repro_torch.models.model import lm_loss
     from repro_torch.train import make_train_step
+    train = train or TrainConfig(optimizer="adam", learning_rate=1e-3,
+                                 remat=False)
+    remat = train.remat
     full = get_arch(arch)
     cfg = dataclasses.replace(full, num_layers=layers)
     params = init_lm_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     batch = _lm_batch(cfg, 1, LM_TRAIN_S, 3)
-    loss_fn = lambda p, b: lm_loss(cfg, p, b)          # noqa: E731
+    check = batch if check_s == LM_TRAIN_S else _lm_batch(cfg, 1, check_s, 3)
+    loss_fn = lambda p, b: lm_loss(cfg, p, b, remat=remat)  # noqa: E731
     ops.reset_launches()
-    row_k = _row_of(torch.func.grad(loss_fn)(params, batch))
+    # the kernels' gradient waits on the host while the plain one is taken,
+    # so the card holds the weights, one gradient and the plain version's
+    # activations (20 GB each of the first two at deepseek-v2's layer)
+    got = tree_map(lambda g: g.cpu(),
+                   torch.func.grad(loss_fn)(params, check))
     one_grad = dict(ops.LAUNCHES)
+    torch.cuda.empty_cache()
     # the plain versions on the card: every op takes its CPU route. By
     # loss.backward(), which frees each step's saved tensors as it goes:
     # torch.func.grad differentiates with create_graph, which keeps them
@@ -4391,20 +4513,16 @@ def _lm_train_cell(arch: str, layers: int) -> dict:
     on_cpu, ops._on_cpu = ops._on_cpu, lambda *t: True
     try:
         leaves = tree_map(lambda v: v.detach().requires_grad_(), params)
-        loss_fn(leaves, batch).backward()
-        row_p = _row_of(tree_map(lambda v: v.grad, leaves))
+        loss_fn(leaves, check).backward()
+        want = tree_map(lambda v: v.grad, leaves)
         del leaves
     finally:
         ops._on_cpu = on_cpu
-    grad = {"rel_l2": _rel_l2(row_k, row_p),
-            "max_abs_err": float((row_k - row_p).abs().max()),
-            "tolerance_rel_l2": LM_TRAIN_GRAD_L2,
-            "launches": one_grad}
-    del row_k, row_p
+    grad = {**_grad_gap(got, want), "seq": check_s,
+            "tolerance_rel_l2": LM_TRAIN_GRAD_L2, "launches": one_grad}
+    del got, want
     torch.cuda.empty_cache()
-    init_state, step = make_train_step(
-        loss_fn, TrainConfig(optimizer="adam", learning_rate=1e-3),
-        device="cuda")
+    init_state, step = make_train_step(loss_fn, train, device="cuda")
     state = init_state(params)
     del params
     torch.cuda.synchronize()
@@ -4420,23 +4538,39 @@ def _lm_train_cell(arch: str, layers: int) -> dict:
            "weights": cfg.param_count(), "d_model": cfg.d_model,
            "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff,
            "vocab": cfg.vocab_size, "batch": 1, "seq": LM_TRAIN_S,
-           "dtype": "float32", "optimizer": "adam", "lr": 1e-3,
+           "dtype": "float32", "optimizer": train.optimizer,
+           "lr": train.learning_rate, "remat": remat,
            "step1_grad_vs_plain": grad, "losses": losses,
            "ms_per_step_after_warmup": sum(ms[1:]) / (len(ms) - 1),
            "ms_first_step": ms[0],
            "tokens_per_s": LM_TRAIN_S / (sum(ms[1:]) / (len(ms) - 1)) * 1e3,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": launches}
+           "launches": launches,
+           "launches_per_step": {k: n / LM_TRAIN_STEPS
+                                 for k, n in launches.items() if n}}
     if cfg.ssm is not None:
         rec["ssm"] = {"d_state": cfg.ssm.d_state, "head_dim": cfg.ssm.head_dim,
                       "heads": cfg.ssm.expand * cfg.d_model
                       // cfg.ssm.head_dim, "chunk": cfg.ssm.chunk_size}
+    if cfg.moe is not None:
+        m = cfg.moe
+        rec["moe"] = {"experts": m.num_experts, "top_k": m.num_experts_per_tok,
+                      "shared": m.num_shared_experts,
+                      "expert_d_ff": m.expert_d_ff or cfg.d_ff,
+                      "capacity_factor": m.capacity_factor}
+    if cfg.mla is not None:
+        rec["mla"] = {"q_lora_rank": cfg.mla.q_lora_rank,
+                      "kv_lora_rank": cfg.mla.kv_lora_rank,
+                      "widths": [cfg.resolved_head_dim + cfg.mla.rope_head_dim,
+                                 cfg.resolved_head_dim]}
+    if cfg.sliding_window and cfg.attn_type == "sliding":
+        rec["window"] = cfg.sliding_window
     if takes_band(cfg, LM_TRAIN_S):
         rec["banded_window"] = cfg.sliding_window
     del state
     torch.cuda.empty_cache()
-    if not (_launches_ok(launches, cfg, layers, LM_TRAIN_STEPS)
-            and _launches_ok(one_grad, cfg, layers, 1)
+    if not (_launches_ok(launches, cfg, layers, LM_TRAIN_STEPS, remat=remat)
+            and _launches_ok(one_grad, cfg, layers, 1, check_s, remat)
             and grad["rel_l2"] <= LM_TRAIN_GRAD_L2
             and all(math.isfinite(x) for x in losses)
             and losses[-1] < losses[0]):
@@ -4447,8 +4581,8 @@ def _lm_train_cell(arch: str, layers: int) -> dict:
 
 def _fleet_run(cfg, init, batches, kind) -> dict:
     from repro_torch.models.model import lm_loss
-    loss_fn = lambda p, b: lm_loss(cfg, p, b)          # noqa: E731
-    train = TrainConfig(optimizer="adam", learning_rate=3e-4)
+    train = TrainConfig(optimizer="adam", learning_rate=3e-4, remat=False)
+    loss_fn = lambda p, b: lm_loss(cfg, p, b, remat=train.remat)  # noqa: E731
     proto = ProtocolConfig(kind="dynamic", b=FLEET_PERIOD, delta=FLEET_DELTA)
     mk = (distributed.make_dynamic_train_step if kind == "dynamic"
           else distributed.make_periodic_train_step)
@@ -4500,7 +4634,14 @@ def phase_lm_train() -> dict:
     batch: the loss falls, ms a step after the first, tokens/s, peak
     memory, and exact launches (``_launches_ok``: forward rmsnorm 2L + 1,
     5L + 1 for the hybrid, attention or ssd_scan L a step, the backward
-    kernels the same). The plain SSD's autograd keeps two (BH, P, N)
+    kernels the same). The MoE cells (LM_MOE_LAYERS) the same way with
+    sgd and ``lm_loss(remat=True)``: deepseek-v2-236b (d 5,120, MLA 128
+    heads of 192/128 from q and kv ranks 1,536 / 512, 160 experts of
+    1,536, top 6, 2 shared, vocab 102,400; 1 of 60 layers) and
+    mixtral-8x22b (d 6,144, 48/8 heads of 128 in a window of 4,096, 8
+    experts of 16,384, top 2, vocab 32,768; 2 of 56), their forward
+    kernels twice a step (the recompute), the step-1 check at S =
+    LM_MOE_CHECK_S. The plain SSD's autograd keeps two (BH, P, N)
     f32 tensors a step, about 21 GB a layer at mamba2's shape, which
     holds the cell at 2 layers. (b) fleet-llm-100m
     (examples/torch_fleet_llm.py --big) at full width and depth, m = 4 learners of 4 x 128 tokens from
@@ -4516,6 +4657,14 @@ def phase_lm_train() -> dict:
     for arch in LM_TRAIN_ARCHS:
         cells[arch] = _lm_train_cell(arch, LM_TRAIN_LAYERS)
         emit({"phase": "lm_train", arch: cells[arch]})
+    moe_train = TrainConfig(optimizer="sgd", learning_rate=LM_MOE_LR,
+                            remat=True)
+    with _expandable_segments():
+        for arch, layers in LM_MOE_LAYERS.items():
+            cells[arch] = _lm_train_cell(arch, layers, moe_train,
+                                         check_s=LM_MOE_CHECK_S)
+            emit({"phase": "lm_train", arch: cells[arch]})
+            torch.cuda.empty_cache()
 
     cfg = fleet_model(big=True)
     streams = [TokenStream(seed=100 + i, vocab=cfg.vocab_size,
@@ -4692,6 +4841,100 @@ def phase_lm_train_agree() -> dict:
     return out
 
 
+# moe_fleet: the launcher's --smoke dynamic fleet of each MoE arch on the
+# card (m = 2, adam at lr 1e-3, B = 4 x 64 tokens a learner), b = 2 over
+# 20 steps, Δ among the checked distances of its run on the H100 (with no
+# sync they grow: mixtral 8.69, 19.72, 30.95, ...; deepseek 3.50, 7.97,
+# ...), so the run syncs about every other check
+MOE_FLEET_STEPS, MOE_FLEET_B = 20, 2
+MOE_FLEET_DELTA = {"mixtral-8x22b": 14.0, "deepseek-v2-236b": 5.5}
+
+
+def _launcher_run(launcher, argv) -> tuple:
+    """The launcher's events of ``main(argv)`` on the card, its launches,
+    and the ``max_sq_dist`` of each step of a dynamic run (its step's
+    metrics, which the launcher does not log)."""
+    from repro_torch.telemetry import get_logger
+    events, dists = [], []
+    make = launcher.make_dynamic_train_step
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(state, batch):
+            state, metrics = step(state, batch)
+            dists.append(float(metrics.get("max_sq_dist", 0.0)))
+            return state, metrics
+        return run
+    log = get_logger()
+    handler = log.add_handler(events.append)
+    launcher.make_dynamic_train_step = recording
+    ops.reset_launches()
+    try:
+        with contextlib.redirect_stdout(StringIO()):
+            launcher.main(argv)
+    finally:
+        launcher.make_dynamic_train_step = make
+        log.remove_handler(handler)
+    return events, {k: n for k, n in ops.LAUNCHES.items() if n}, dists
+
+
+def phase_moe_fleet() -> dict:
+    """The MoE fleets on the card through the launcher twin's ``main``:
+    ``--smoke --mode train_dynamic`` and ``train_periodic`` for
+    mixtral-8x22b (8 experts, top 2, its window-16 attention on the
+    banded route) and deepseek-v2-236b (MLA at (48, 32), 16 experts, top
+    6, 2 shared), m = 2 learners under the learners' vmap, b =
+    MOE_FLEET_B, MOE_FLEET_STEPS steps: the launcher's events, finite
+    losses, the dynamic run both syncing and holding (0 < syncs < checks,
+    no checked distance within 1e-4·Δ of Δ), ``sqdist_rows`` once a
+    check, and every kernel of the path one launch a layer and step for
+    both learners (the vmap rules)."""
+    from repro_torch.launch import train as launcher
+    out, ok = {}, True
+    for (arch, delta), mode in itertools.product(
+            MOE_FLEET_DELTA.items(), ("train_dynamic", "train_periodic")):
+        cfg = get_arch(arch, smoke=True)
+        events, launches, dists = _launcher_run(launcher, [
+            "--arch", arch, "--smoke", "--mode", mode, "--steps",
+            str(MOE_FLEET_STEPS), "--b", str(MOE_FLEET_B), "--delta",
+            str(delta)])
+        steps = [e for e in events if e["kind"] == "train_step"]
+        synced = [e["synced"] for e in steps]
+        checks = MOE_FLEET_STEPS // MOE_FLEET_B
+        checked = [d for t, d in enumerate(dists)
+                   if (t + 1) % MOE_FLEET_B == 0]
+        got = dict.fromkeys(("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                             "swa_attention", "attention_bwd", "ssd_scan",
+                             "ssd_scan_bwd"), 0)
+        got.update(launches)
+        rec = {"arch": cfg.name, "layers": cfg.num_layers, "m": 2,
+               "b": MOE_FLEET_B, "steps": MOE_FLEET_STEPS,
+               "losses": [e["loss"] for e in steps], "synced": synced,
+               "syncs": sum(synced), "checks": checks, "launches": launches}
+        good = ([e["kind"] for e in events] == ["train_step"]
+                * MOE_FLEET_STEPS + ["train_done"]
+                and all(math.isfinite(e["loss"]) for e in steps)
+                and _launches_ok(got, cfg, cfg.num_layers, MOE_FLEET_STEPS,
+                                 S=64))
+        if mode == "train_dynamic":
+            rec.update(delta=delta, max_sq_dist_checked=checked,
+                       closest_to_delta_rel=min(abs(d - delta) / delta
+                                                for d in checked))
+            good &= (0 < rec["syncs"] < checks
+                     and rec["closest_to_delta_rel"] >= 1e-4
+                     and launches.get("sqdist_rows") == checks)
+        else:
+            good &= rec["syncs"] == checks and "sqdist_rows" not in launches
+        rec["ok"] = good
+        out[f"{arch} {mode}"] = rec
+        ok &= good
+    emit({"phase": "moe_fleet", "runs": out})
+    if not ok:
+        raise SystemExit(f"moe_fleet: {out}")
+    return out
+
+
 def phase_analysis(kernel_rows: list) -> dict:
     """The analysis tools on the card's tree and the card: the lint of the
     port and this script and the contract matrix (``--check-all``'s
@@ -4834,6 +5077,7 @@ def main() -> None:
                     build["ptxas"])
     lm_train = run("lm_train", phase_lm_train)
     run("lm_train_agree", phase_lm_train_agree)
+    moe_fleet = run("moe_fleet", phase_moe_fleet)
     torch.cuda.empty_cache()
     fig_launches, _ = run("figures", phase_figures)
     f32, bf16 = "float32", "bfloat16"
@@ -4960,16 +5204,26 @@ def main() -> None:
     fleet = lm_train["fleet-llm-100m"]
 
     def train_launches(kernel):
-        by_path = {**{f"{a} train ({lm_train[a]['layers']} layers, "
-                      f"{LM_TRAIN_STEPS} steps)":
+        by_path = {**{f"{a} train ({lm_train[a]['layers']} layer"
+                      + "s" * (lm_train[a]["layers"] != 1)
+                      + f", {LM_TRAIN_STEPS} steps"
+                      + (", remat" if lm_train[a]["remat"] else "") + ")":
                       lm_train[a]["launches"][kernel]
-                      for a in LM_TRAIN_ARCHS},
+                      for a in LM_TRAIN_ARCHS + tuple(LM_MOE_LAYERS)},
                    **{f"fleet-llm-100m {k} (m = {FLEET_M}, "
                       f"{FLEET_STEPS} steps)": r["launches"][kernel]
-                      for k, r in fleet["runs"].items()}}
+                      for k, r in fleet["runs"].items()},
+                   **{f"{k} launcher (m = 2, {MOE_FLEET_STEPS} steps)":
+                      r["launches"].get(kernel, 0)
+                      for k, r in moe_fleet.items()}}
         by_path = {k: n for k, n in by_path.items() if n}
         return sum(by_path.values()), by_path
 
+    # the MoE fleets' Δ trigger
+    moe_rows = {f"{k} launcher": r["launches"]["sqdist_rows"]
+                for k, r in moe_fleet.items() if "sqdist_rows" in r["launches"]}
+    kernels[0]["launches"] += sum(moe_rows.values())
+    kernels[0]["launches_by_path"].update(moe_rows)
     for name in ("rmsnorm", "flash_attention", "swa_attention", "ssd_scan"):
         row = next(r for r in kernels if r["name"] == name)
         n, by_path = train_launches(name)

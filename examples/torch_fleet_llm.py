@@ -83,10 +83,11 @@ def main(argv=None):
     print(f"model: {cfg.name} ({n_params/1e6:.1f}M params), "
           f"m={M} learners, batch {B}x{S} tokens each")
 
-    def loss_fn(p, b):
-        return lm_loss(cfg, p, b)
+    train = TrainConfig(optimizer="adam", learning_rate=3e-4, remat=False)
 
-    train = TrainConfig(optimizer="adam", learning_rate=3e-4)
+    def loss_fn(p, b):
+        return lm_loss(cfg, p, b, remat=train.remat)
+
     proto = ProtocolConfig(kind="dynamic", b=args.sync_every,
                            delta=args.delta)
     step = make_dynamic_train_step(loss_fn, proto, train, M)

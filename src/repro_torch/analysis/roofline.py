@@ -322,10 +322,13 @@ def kernel_work(name: str, shape, dtype=torch.float32):
       programs;
     * ``ssd_scan`` (BH, S, P, N, chunk, R): R heads share a row of b and
       c; the products in TF32 on the tensor cores;
-    * ``attention_bwd`` (B, Sq, Sk, H, Hkv, d[, window]), causal, f32: q,
-      k, v, o, do and the (B, H, Sq) log-sum-exp read once, dq, dk and dv
-      written once; 5 products of 2 d flops per kept pair and head (s
-      again, dp, dv, dk, dq), 2.5 times the forward's; as the f32
+    * ``attention_bwd`` (B, Sq, Sk, H, Hkv, d[, window]), d the head
+      width or the (query/key, value) widths (d, dv), causal, f32: q, k,
+      v, o, do and the (B, H, Sq) log-sum-exp read once, dq, dk and dv
+      written once, each at its own width; 5 products per kept pair and
+      head, each at its own width, 2 (3 d + 2 dv) flops (s again, dk and
+      dq over d; dp and dv over dv), 2.5 times the forward's at d = dv;
+      as the f32
       forward's rows, in split TF32 (3 x the flops at the TF32 rate),
       with the CUDA cores' f32 bound beside (``kernel_bound``), on which
       the kernel runs;
@@ -362,12 +365,14 @@ def kernel_work(name: str, shape, dtype=torch.float32):
         return (*ssd_work(BH, S, P, N, BH // R, Q, item), "tf32")
     if name == "attention_bwd":
         B, Sq, Sk, H, Hkv, d, *w = shape
+        d, dv = (d, d) if isinstance(d, int) else d
         nbytes, flops = attention_work(B, Sq, Sk, H, Hkv, d, True,
-                                       w[0] if w else 0, item)
+                                       w[0] if w else 0, item, dv)
         # the forward's bytes (q, k, v in, o out) + o and do in again as
         # the backward reads o, do and lse and writes dq, dk, dv
         nbytes = 2 * nbytes + B * H * Sq * 4
-        return nbytes, 3 * (flops * 5) // 2, "tf32"
+        kept = flops // (2 * (d + dv))      # kept pairs x heads
+        return nbytes, 3 * 2 * (3 * d + 2 * dv) * kept, "tf32"
     if name == "ssd_scan_bwd":
         BH, S, P, N, Q, R = shape
         nbytes, flops = ssd_bwd_work(BH, S, P, N, BH // R, Q, item)

@@ -14,9 +14,10 @@ parallel) and the vision and audio modalities, with
 ``scan_layers`` have no port: every config of the repo leaves the
 period at 1 (its ``block_init`` makes every layer MoE whatever the
 period), and the port's layer loop is a Python loop.
-``TrainConfig`` keeps
-the optimizer settings, ``ProtocolConfig`` the sync protocol, and
-``ShapeConfig`` / ``INPUT_SHAPES`` the launcher's input shapes.
+``TrainConfig`` keeps the optimizer settings and ``remat``, which
+whoever builds the loss passes on (``lm_loss(..., remat=train.remat)``),
+``ProtocolConfig`` the sync protocol, and ``ShapeConfig`` /
+``INPUT_SHAPES`` the launcher's input shapes.
 
 ``ProtocolConfig`` validates exactly as the reference does (the same
 ``ValueError``s for a bad period, fraction, threshold, augmentation,
@@ -598,6 +599,7 @@ class TrainConfig:
     eps: float = 1e-8
     weight_decay: float = 0.0
     micro_batch: int = 0                   # 0 -> no microbatching
+    remat: bool = True                     # activation checkpointing per layer
     seed: int = 0
 
 

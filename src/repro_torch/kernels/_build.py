@@ -63,9 +63,9 @@ SIGNATURES = {
                                  _I, _I, _I, _F, _P]),
         "repro_attention_sm90": (_I, [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _I, _F, _P]),
-        "repro_attention_bwd": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                                     _P]),
+        "repro_attention_bwd": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                     _F, _P]),
         **_ERR,
     },
     "ssd_scan": {

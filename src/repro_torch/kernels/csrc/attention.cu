@@ -435,32 +435,27 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 // (192, 128) and (48, 32). q is (B, Sq, H, dk), k (B, Sk, Hkv, dk), v
 // (B, Sk, Hkv, dv) and o (B, Sq, H, dv), all contiguous and 16-byte
 // aligned, with H % Hkv == 0. lse is null, or (B, H, Sq) f32 that
-// receives each row's log-sum-exp (a gradient's forward; equal widths of
-// 32, 64 and 128 only, the backward's). Returns the CUDA error code of the
-// launch (0 = cudaSuccess).
+// receives each row's log-sum-exp (a gradient's forward, at every width
+// pair: the backward's). Returns the CUDA error code of the launch (0 =
+// cudaSuccess).
 extern "C" int repro_attention(int dk, int dv, const void* q, const void* k,
                                const void* v, void* o, void* lse, int B,
                                int H, int Hkv, int Sq, int Sk, int causal,
                                int window, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_ATTENTION_CASE(DK, DV)                                       \
-  if (dk == DK && dv == DV && lse == nullptr)                              \
-    return launch<DK, DV, false>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,       \
-                                 causal, window, scale, s);
+  if (dk == DK && dv == DV)                                                \
+    return lse == nullptr                                                  \
+               ? launch<DK, DV, false>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, \
+                                       causal, window, scale, s)           \
+               : launch<DK, DV, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,  \
+                                      causal, window, scale, s);
   REPRO_ATTENTION_CASE(32, 32)
   REPRO_ATTENTION_CASE(64, 64)
   REPRO_ATTENTION_CASE(128, 128)
   REPRO_ATTENTION_CASE(192, 128)
   REPRO_ATTENTION_CASE(48, 32)
 #undef REPRO_ATTENTION_CASE
-#define REPRO_ATTENTION_LSE_CASE(D)                                        \
-  if (dk == D && dv == D && lse != nullptr)                                \
-    return launch<D, D, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal,  \
-                              window, scale, s);
-  REPRO_ATTENTION_LSE_CASE(32)
-  REPRO_ATTENTION_LSE_CASE(64)
-  REPRO_ATTENTION_LSE_CASE(128)
-#undef REPRO_ATTENTION_LSE_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

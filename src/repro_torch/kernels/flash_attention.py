@@ -41,9 +41,10 @@ input requires grad, or is a ``torch.func`` transform's tensor): its
 backward calls ``AttentionBwdFn``, and each has a ``vmap`` rule that
 folds the vmapped (learner) axis into the batch, so m learners are one
 launch. They launch through the module's ``launch_forward`` and
-``launch_backward``, which the CPU tests replace with stand-ins. A bf16
-or MLA-width input under a gradient raises ``NotImplementedError``
-(``differentiable``).
+``launch_backward``, which the CPU tests replace with stand-ins. The
+backward takes every f32 width pair of the forward (``BWD_WIDTHS``),
+MLA's wider queries and keys too; a bf16 input under a gradient raises
+``NotImplementedError`` (``differentiable``).
 """
 from __future__ import annotations
 
@@ -63,11 +64,10 @@ WIDTHS = {torch.bfloat16: {(d, d) for d in HEAD_DIMS} | {(192, 128)},
                                                         (48, 32)}}
 
 
-# head dims the backward takes (queries, keys and values alike), f32 only,
-# and its program: split-TF32 mma.sync, as the f32 forward's
-BWD_HEAD_DIMS = (32, 64, 128)
+# the (query/key, value) width pairs the backward takes, f32 only: the f32
+# forward's; and its program: split-TF32 mma.sync, as the f32 forward's
+BWD_WIDTHS = WIDTHS[torch.float32]
 BWD_PROGRAM = "sm90_mma_tf32x3"
-NO_MLA_BWD = "ROADMAP A31 (the attention backward at MLA's widths)"
 
 
 def program(dtype: torch.dtype) -> str:
@@ -145,45 +145,45 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def differentiable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    what: str = "flash_attention") -> None:
     """Raise ``NotImplementedError`` where the backward kernel does not
-    take these inputs: bf16, or widths other than ``BWD_HEAD_DIMS`` with
-    equal query/key and value widths (MLA's)."""
+    take these inputs: bf16. It takes every f32 width pair the forward
+    takes (``BWD_WIDTHS``)."""
     if q.dtype != torch.float32:
         raise NotImplementedError(
             f"{what} has no backward kernel in {q.dtype}: "
             f"{_build.NO_BF16_BWD}")
-    d, dv = q.shape[-1], v.shape[-1]
-    if d != dv or d not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{what} has no backward kernel at (query/key, value) widths "
-            f"({d}, {dv}); it takes equal widths {BWD_HEAD_DIMS}: "
-            f"{NO_MLA_BWD}")
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                   causal: bool, window: int, scale: float | None):
     """The backward kernel: (dq, dk, dv) of ``attention`` at q (B, Sq, H,
-    d), k, v (B, Sk, Hkv, d), o and do (B, Sq, H, d), lse (B, H, Sq), all
-    f32 on the card. Three CUDA launches (delta, dk/dv, dq) and, where H
-    > Hkv, a fourth that sums the query heads' dk and dv partials in head
-    order; no atomics: the same inputs give the same bits."""
+    d), k (B, Sk, Hkv, d), v (B, Sk, Hkv, dv), o and do (B, Sq, H, dv),
+    lse (B, H, Sq), all f32 on the card, (d, dv) one of ``BWD_WIDTHS``.
+    Three CUDA launches (delta, dk/dv, dq) and, where H > Hkv, a fourth
+    that sums the query heads' dk and dv partials in head order; no
+    atomics: the same inputs give the same bits."""
     differentiable(q, k, v, "attention_bwd")
     B, Sq, H, d = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     tensors = (q, k, v, o, lse, do)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(
             f"attention_bwd runs on one CUDA device: got "
             f"{[str(t.device) for t in tensors]}")
-    if (k.shape != (B, Sk, Hkv, d) or v.shape != k.shape
-            or o.shape != q.shape or do.shape != q.shape
+    if (k.shape != (B, Sk, Hkv, d) or v.shape != (B, Sk, Hkv, dv)
+            or o.shape != (B, Sq, H, dv) or do.shape != o.shape
             or lse.shape != (B, H, Sq) or Hkv < 1 or H % Hkv):
         raise ValueError(
-            f"attention_bwd needs q, o, do (B, Sq, H, d), k, v (B, Sk, Hkv, "
-            f"d) and lse (B, H, Sq): got {[tuple(t.shape) for t in tensors]}")
+            f"attention_bwd needs q (B, Sq, H, d), k (B, Sk, Hkv, d), v "
+            f"(B, Sk, Hkv, dv), o, do (B, Sq, H, dv) and lse (B, H, Sq): "
+            f"got {[tuple(t.shape) for t in tensors]}")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"attention_bwd takes float32: got "
                         f"{[t.dtype for t in tensors]}")
+    if (d, dv) not in BWD_WIDTHS:
+        raise ValueError(
+            f"attention_bwd takes (query/key, value) widths "
+            f"{sorted(BWD_WIDTHS)}, got ({d}, {dv})")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("attention_bwd needs contiguous inputs")
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
@@ -197,18 +197,20 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     lib = _build.library("attention")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dvg = (torch.empty_like(q), torch.empty_like(k),
+                   torch.empty_like(v))
     delta = lse.new_empty((B, H, Sq))
-    part = q.new_empty((2, B, Sk, H, d)) if H > Hkv else None
+    # the query heads' dk partials (B, Sk, H, d), then their dv partials
+    part = q.new_empty((B * Sk * H * (d + dv),)) if H > Hkv else None
     code = lib.repro_attention_bwd(
-        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(),
+        dvg.data_ptr(), delta.data_ptr(),
         None if part is None else part.data_ptr(), B, H, Hkv, Sq, Sk,
         int(causal), int(window), ctypes.c_float(scale),
         _build.current_stream(q.device.index))
     _build.check(lib, code, "attention_bwd launch")
-    return dq, dk, dv
+    return dq, dk, dvg
 
 
 def launch_forward(q, k, v, causal, window, scale):

@@ -17,16 +17,17 @@ calls are not counted.
 Gradients. Where a gradient is wanted on the card (an input requires
 grad under grad mode, or is a ``torch.func`` transform's tensor),
 ``rmsnorm``, f32 ``flash_attention(_gqa)`` and ``swa_attention`` at
-equal head widths of 32, 64 or 128, and f32 ``ssd_scan`` run through
+every width pair of the f32 forward (MLA's too), and f32 ``ssd_scan``
+run through
 their autograd Functions (``rmsnorm.RMSNormFn``,
 ``flash_attention.AttentionFn``, the banded route with the window and
 counted under ``"swa_attention"``, and ``ssd_scan.SSDScanFn`` after the
 padding), whose backward is a kernel too (``"rmsnorm_bwd"``,
 ``"attention_bwd"``, ``"ssd_scan_bwd"`` in ``LAUNCHES``) and whose
 ``vmap`` rule makes one launch a call whatever the vmapped size. A bf16
-input, MLA's widths and the distance kernels raise
-``NotImplementedError`` there, naming their ROADMAP item or why none
-is needed, so no gradient is silently missing. On the CPU the plain
+input and the distance kernels raise ``NotImplementedError`` there,
+naming their ROADMAP item or why none is needed, so no gradient is
+silently missing. On the CPU the plain
 versions are differentiated as they are.
 """
 from __future__ import annotations

@@ -92,10 +92,11 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch, smoke=args.smoke)
     shape = smoke_shape(cfg) if args.smoke else INPUT_SHAPES["train_4k"]
-    train = TrainConfig(optimizer="adam", learning_rate=args.lr)
+    # the reference's launcher takes no rematerialized layers either
+    train = TrainConfig(optimizer="adam", learning_rate=args.lr, remat=False)
 
     def loss_fn(p, b):
-        return lm_loss(cfg, p, b)
+        return lm_loss(cfg, p, b, remat=train.remat)
 
     stream = TokenStream(seed=0, vocab=cfg.vocab_size, device=dev)
     key = prng.key(0, dev)

@@ -32,9 +32,25 @@ gradient flows through the kernels' backward kernels
 (``repro_torch.kernels.ops``), under ``loss.backward()``,
 ``torch.func.grad`` and the learners' ``torch.func.vmap`` alike.
 
+``remat=True`` (``lm_apply``, ``lm_forward``, ``lm_loss``; the
+reference's ``jax.checkpoint`` of each layer) runs every layer through
+``RematLayer``, an autograd Function that keeps only the layer's inputs
+and runs the layer again under ``torch.func.vjp`` in its backward. Its
+vmap rule is generated, so it composes with ``loss.backward()``,
+``torch.func.grad`` and the learners' ``vmap``, with the same gradient.
+Under ``loss.backward()`` or ``torch.autograd.grad`` (the σ_1 step's,
+``train/step.py``) a layer's activations then live only while its
+gradient is taken; ``torch.func.grad`` differentiates with
+``create_graph``, which keeps the recomputed activations until the
+gradient returns, so there the peak does not fall (llama3-8b at 4
+layers, S = 4,096, f32 on an H100: 18.67 GB against 23.92 by
+``backward()``, 35.87 against 34.93 by ``torch.func.grad``;
+``benchmarks/torch_remat_memory.py``). On the card
+the second forward launches the layer's kernels again: each forward
+kernel of a layer launches twice a step, its backward kernels once.
+
 Departures: ``lm_apply`` numbers positions from 0 (no ``positions``
-argument) and has no ``remat``, and ``lm_loss(remat=True)`` raises
-(ROADMAP A33); ``lm_decode_step`` updates the cache in place and takes
+argument); ``lm_decode_step`` updates the cache in place and takes
 ``pos`` as a host int. ``init_lm_params`` draws from a
 ``torch.Generator`` seeded with ``seed`` on the target device (the
 reference's ``jax.random`` draws differ; parity tests carry the
@@ -47,7 +63,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import MODALITY_AUDIO, ModelConfig
-from repro_torch.core.flatten import tree_leaves, tree_map
+from repro_torch.core.flatten import (
+    tree_leaves, tree_map, tree_structure, tree_unflatten,
+)
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (
@@ -117,20 +135,67 @@ def _head(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+class RematLayer(torch.autograd.Function):
+    """One layer's ``block_forward`` that saves only its inputs:
+    ``apply(cfg, structure, x, positions, *leaves) -> (x', aux[, keep])``,
+    ``leaves`` the layer's parameters in ``tree_leaves`` order and
+    ``keep`` the MoE layer's kept mask (not differentiable). The backward
+    runs the layer again under ``torch.func.vjp``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(cfg, structure, x, positions, *leaves):
+        y, aux, keep = blk.block_forward(
+            cfg, tree_unflatten(structure, leaves), x, positions)
+        return (y, aux) if keep is None else (y, aux, keep)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        cfg, structure, x, positions, *leaves = inputs
+        ctx.save_for_backward(x, positions, *leaves)
+        ctx.layer = (cfg, structure)
+        if len(output) == 3:
+            ctx.mark_non_differentiable(output[2])
+
+    @staticmethod
+    def backward(ctx, dy, daux, *_):
+        x, positions, *leaves = ctx.saved_tensors
+        cfg, structure = ctx.layer
+
+        def layer(x, *leaves):
+            y, aux, _ = blk.block_forward(
+                cfg, tree_unflatten(structure, leaves), x, positions)
+            return y, aux
+
+        _, vjp = torch.func.vjp(layer, x, *leaves)
+        dx, *dleaves = vjp((dy, daux))
+        return (None, None, dx, None, *dleaves)
+
+
+def _block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+           positions: torch.Tensor, remat: bool):
+    if not remat:
+        return blk.block_forward(cfg, p, x, positions)
+    out = RematLayer.apply(cfg, tree_structure(p), x, positions,
+                           *tree_leaves(p))
+    return out if len(out) == 3 else (*out, None)
+
+
 def lm_apply(cfg: ModelConfig, params: dict, tokens=None, *,
-             prefix_embeds=None):
+             prefix_embeds=None, remat: bool = False):
     """Forward pass -> (logits, aux_loss f32 scalar): tokens (B, S) (audio:
     (B, S, K)); ``prefix_embeds`` (B, S_img, D), the vision stub's patch
     embeddings, prepended to the token embeddings (or alone, without
     tokens). Logits cover the whole (prefix + text) sequence: (B, S, V),
-    audio (B, S, K, V)."""
+    audio (B, S, K, V). ``remat`` recomputes each layer in the backward."""
     logits, aux, _ = lm_forward(cfg, params, tokens,
-                                prefix_embeds=prefix_embeds)
+                                prefix_embeds=prefix_embeds, remat=remat)
     return logits, aux
 
 
 def lm_forward(cfg: ModelConfig, params: dict, tokens=None, *,
-               prefix_embeds=None):
+               prefix_embeds=None, remat: bool = False):
     """``lm_apply`` with the routing: (logits, aux_loss, keeps), ``keeps``
     the MoE layers' kept (token, k) masks in layer order (``moe_apply``),
     empty without experts."""
@@ -144,8 +209,8 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens=None, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     keeps = []
     for i in range(cfg.num_layers):
-        x, a, keep = blk.block_forward(cfg, _layer(params["blocks"], i), x,
-                                       positions)
+        x, a, keep = _block(cfg, _layer(params["blocks"], i), x, positions,
+                            remat)
         aux = aux + a
         if keep is not None:
             keeps.append(keep)
@@ -168,14 +233,11 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: dict,
     (MoE load-balance) loss: ``batch`` holds ``tokens`` and ``labels``
     (audio: (B, S, K) both) and optionally ``prefix_embeds`` (whose
     positions' logits are dropped) and ``loss_mask`` (B, S) (the masked
-    mean, over at least 1)."""
-    if remat:
-        raise NotImplementedError(
-            "lm_loss(remat=True): rematerialized layers are not ported "
-            "(ROADMAP A33)")
+    mean, over at least 1). ``remat`` recomputes each layer in the
+    backward (``RematLayer``)."""
     prefix = batch.get("prefix_embeds")
     logits, aux = lm_apply(cfg, params, batch.get("tokens"),
-                           prefix_embeds=prefix)
+                           prefix_embeds=prefix, remat=remat)
     labels = batch["labels"]
     if cfg.modality == MODALITY_AUDIO:
         nll = torch.mean(_xent(logits, labels))

@@ -31,6 +31,14 @@ CUDA): the only scatter writes integer token ids, each kept slot once.
 The expert products are ``torch.bmm`` over E, as the reference leaves
 them to XLA outside any Pallas kernel.
 
+Every op batches under the learners' ``torch.func.vmap`` (the fleet's
+``vmap(grad_and_value(lm_loss))``): the one-hot of the chosen experts
+is a comparison with ``arange(E)`` (``F.one_hot`` reads its values'
+range on the host, which vmap refuses), and the bucket index is an
+out-of-place ``scatter`` (an in-place one into the unbatched
+``torch.full`` cannot take the learners' values). Both give the same
+values as the ops they replace.
+
 ``moe_apply`` also returns its ``keep`` mask (G, g, K), which
 (token, k) pairs its buckets kept, on the device, so a caller can
 compare kept sets or report the dropped share without a host sync per
@@ -98,7 +106,9 @@ def moe_route(cfg: ModelConfig, params: dict, xt: torch.Tensor) -> dict:
     gate, gate_idx = vals[..., :K], idx[..., :K]
     gate = gate / torch.sum(gate, dim=-1, keepdim=True)
 
-    onehot = F.one_hot(gate_idx, E)                              # (G,g,K,E)
+    # one_hot reads its values' range on the host, which vmap refuses
+    onehot = (gate_idx[..., None] == torch.arange(
+        E, dtype=gate_idx.dtype, device=gate_idx.device)).to(gate_idx.dtype)
     me = torch.mean(probs, dim=(0, 1))
     ce = torch.mean(onehot.sum(dim=2).float(), dim=(0, 1))
     aux = E * torch.sum(me * ce) * m.router_aux_loss_coef
@@ -135,7 +145,7 @@ def moe_apply(cfg: ModelConfig, params: dict, x: torch.Tensor):
     flat = torch.where(keep, r["gate_idx"] * C + r["slot"], E * C)
     tok = torch.arange(g, device=x.device).expand(G, K, g).transpose(1, 2)
     idx = torch.full((G, E * C + 1), g, dtype=torch.long, device=x.device)
-    idx.scatter_(1, flat.reshape(G, g * K), tok.reshape(G, g * K))
+    idx = idx.scatter(1, flat.reshape(G, g * K), tok.reshape(G, g * K))
     idx = idx[:, :E * C]
     x_pad = torch.cat([xt, xt.new_zeros((G, 1, D))], dim=1)
     ein = torch.gather(x_pad, 1, idx[..., None].expand(G, E * C, D))

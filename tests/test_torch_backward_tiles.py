@@ -3,17 +3,21 @@ CPU and held against ``jax.grad`` of the JAX package's jnp attention and
 RMS norm, and the autograd / vmap plumbing around them.
 
 * ``attention_bwd`` (``csrc/attention_bwd.cu``), its split-TF32 program:
-  delta = rowsum(do o); the dk/dv pass, blocks of 96 keys (six warp
-  pairs of 16) of one query head, each walking the 32-row query tiles of
-  the range the kernel bounds, the query heads' partials then summed
-  over each kv head's group in head order; the dq pass, blocks of 96
-  query rows walking the 32-key tiles of the forward's range.
+  delta = rowsum(do o); the dk/dv pass, blocks of 16 P keys (P warp
+  pairs of 16: six where their tiles fit a block's shared memory, else
+  four, as at MLA's (192, 128), ``_plan``) of one query head, each walking the
+  32-row query tiles of the range the kernel bounds, the query heads'
+  partials then summed over each kv head's group in head order; the dq
+  pass, blocks of 16 P query rows walking the 32-key tiles of the
+  forward's range.
   Every product (S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q;
   S, dP and dQ += dS K) in split TF32 with the rounding emulated on the
   f32 bits (hi = v rounded to TF32, to nearest with ties away from zero,
   lo = v - hi read by the tensor cores as TF32, a b = a_lo b_hi + a_hi
   b_lo + a_hi b_hi); S and dP as a pair's two warps sum them, each over
-  half of d, half 0's plus half 1's; each tile's dV, dK and dQ product
+  half of its width (S over the query/key width d, dP over the value
+  width dv: 96 / 64 at (192, 128), 24 / 16 at (48, 32)), half 0's plus
+  half 1's; each tile's dV, dK and dQ product
   added to the running sums in f32; p = exp2(fma(s, scale log2(e), -lse
   log2(e))) with the masks, lse the forward's log-sum-exp (+inf in log2
   units for a row that keeps nothing). On every tile the model checks
@@ -21,7 +25,9 @@ RMS norm, and the autograd / vmap plumbing around them.
   it does not mask keeps every pair) and counts the pairs each pass
   visits: every kept (query, key, head) triple once. Cases: ragged S
   (100, 130), GQA groups 1 and 4, head dims 32, 64 and 128, a window,
-  non-causal with Sk != Sq, a right-aligned diagonal. Tolerance: dq, dk
+  non-causal with Sk != Sq, a right-aligned diagonal; and MLA's width
+  pairs (192, 128) and (48, 32), causal and ragged non-causal, groups 1
+  and 2 (``MLA_CASES``). Tolerance: dq, dk
   and dv within ``GRAD_TOL`` of the largest entry of each (f32 on both
   sides, summed in other orders); one case shows that one TF32 product
   a product misses it.
@@ -60,7 +66,8 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 
 GRAD_TOL = 1e-5
-BR, BT, WARP = 96, 32, 16    # resident rows a block, streamed rows a tile
+BT, WARP = 32, 16    # streamed rows a tile, a warp pair's rows
+SMEM = 232448        # shared-memory bytes a block may opt in to
 LOG2E = 1.4426950408889634
 
 
@@ -73,15 +80,16 @@ def _rand(rng, *shape):
 def _jax_gqa(q, k, v, causal, window):
     """The reference's jnp attention on the GQA layout (its ops' fold)."""
     B, Sq, H, d = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
     qg = q.reshape(B, Sq, Hkv, G, d).transpose(0, 2, 3, 1, 4)
     qg = qg.reshape(B * H, Sq, d)
     kg = jnp.repeat(k.transpose(0, 2, 1, 3), G, axis=1).reshape(B * H, Sk, d)
-    vg = jnp.repeat(v.transpose(0, 2, 1, 3), G, axis=1).reshape(B * H, Sk, d)
+    vg = jnp.repeat(v.transpose(0, 2, 1, 3), G, axis=1).reshape(B * H, Sk,
+                                                                dv)
     o = jref.flash_attention_ref(qg, kg, vg, causal=causal, window=window)
-    return o.reshape(B, Hkv, G, Sq, d).transpose(0, 3, 1, 2, 4).reshape(
-        B, Sq, H, d)
+    return o.reshape(B, Hkv, G, Sq, dv).transpose(0, 3, 1, 2, 4).reshape(
+        B, Sq, H, dv)
 
 
 def _kept(qpos, kpos, Sk, causal, window):
@@ -151,13 +159,25 @@ def _warps(keep, n_real, starts, skip, edge):
     return active
 
 
+def _plan(d, dv):
+    """The kernel's Plan<d, dv>: (warp pairs a block, its shared-memory
+    bytes), 6 pairs where their tiles fit, else 4."""
+    def nbytes(pairs):
+        return 4 * (16 * pairs * (d + dv + 8) + 2 * (BT * (d + dv + 8) + 2 * BT)
+                    + 2 * pairs * 2 * BT * 16)
+    pairs = 6 if nbytes(6) <= SMEM else 4
+    return pairs, nbytes(pairs)
+
+
 def attention_bwd_model(q, k, v, o, lse, do, causal, window, *,
                         split=True):
-    """The kernel's passes on (B, S, heads, d) f32 tensors: (dq, dk, dv)
-    and the visits of each pass, (B, H, Sq, Sk) counts of the pairs it
-    computed that the mask keeps."""
+    """The kernel's passes on f32 tensors q (B, Sq, H, d), k (B, Sk, Hkv,
+    d), v (B, Sk, Hkv, dv), o and do (B, Sq, H, dv): (dq, dk, dv) and the
+    visits of each pass, (B, H, Sq, Sk) counts of the pairs it computed
+    that the mask keeps."""
     B, Sq, H, d = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, dw = k.shape[1], k.shape[2], v.shape[3]
+    BR = WARP * _plan(d, dw)[0]
     G, off = H // Hkv, Sk - Sq
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
     sl2 = scale * torch.tensor(LOG2E, dtype=torch.float32)
@@ -172,15 +192,15 @@ def attention_bwd_model(q, k, v, o, lse, do, causal, window, *,
     prod = lambda a, b: product(a, b, split=split)  # noqa: E731
 
     def pair(a, b):
-        """a @ b^T over d as a warp pair sums it: each warp over its half
-        of d, then half 0's sum plus half 1's."""
-        h = d // 2
+        """a @ b^T over their width as a warp pair sums it: each warp over
+        its half, then half 0's sum plus half 1's."""
+        h = a.shape[-1] // 2
         return (prod(a[..., :h], b[..., :h].transpose(-1, -2))
                 + prod(a[..., h:], b[..., h:].transpose(-1, -2)))
 
     # dk, dv: blocks of BR keys of one query head
     part_k = torch.zeros((B, H, Sk, d))
-    part_v = torch.zeros((B, H, Sk, d))
+    part_v = torch.zeros((B, H, Sk, dw))
     for k0 in range(0, Sk, BR):
         i_lo = max(0, k0 - off) if causal else 0
         i_hi = min(Sq, k0 + BR - 1 + window - off) if window > 0 else Sq
@@ -190,7 +210,7 @@ def attention_bwd_model(q, k, v, o, lse, do, causal, window, *,
         kpos = torch.arange(k0, k0 + BR)[:, None]
         kt, vt = _rows(kf, k0, BR, Sk), _rows(vf, k0, BR, Sk)
         acc_k = torch.zeros((B, H, BR, d))
-        acc_v = torch.zeros((B, H, BR, d))
+        acc_v = torch.zeros((B, H, BR, dw))
         for t in range(t_lo, t_lo + n_t):
             q0 = t * BT
             qt, dot = _rows(qf, q0, BT, Sq), _rows(dof, q0, BT, Sq)
@@ -271,13 +291,23 @@ ATTN_CASES = [  # B, Sq, Sk, H, Hkv, d, causal, window
 ]
 
 
+MLA_CASES = [  # B, Sq, Sk, H, Hkv, d, dv, causal, window
+    (1, 100, 100, 2, 2, 192, 128, True, 0),    # deepseek-v2's widths
+    (2, 70, 100, 2, 2, 192, 128, False, 0),    # ragged non-causal
+    (2, 110, 110, 4, 4, 48, 32, True, 0),      # the smoke config's
+    (1, 60, 130, 4, 2, 48, 32, False, 0),      # group 2, Sk != Sq
+]
+
+
 def _attn_case(case, **kw):
-    """The model's gradients at ``case``, its visits, and the JAX
-    package's gradients."""
-    B, Sq, Sk, H, Hkv, d, causal, window = case
-    rng = np.random.default_rng(sum(case[:6]))
+    """The model's gradients at ``case`` (an ATTN_CASES or MLA_CASES
+    row), its visits, and the JAX package's gradients."""
+    if len(case) == 8:
+        case = case[:6] + (case[5],) + case[6:]
+    B, Sq, Sk, H, Hkv, d, dv, causal, window = case
+    rng = np.random.default_rng(sum(case[:7]))
     q, k, v, do = (_rand(rng, B, Sq, H, d), _rand(rng, B, Sk, Hkv, d),
-                   _rand(rng, B, Sk, Hkv, d), _rand(rng, B, Sq, H, d))
+                   _rand(rng, B, Sk, Hkv, dv), _rand(rng, B, Sq, H, dv))
     o, vjp = jax.vjp(lambda *a: _jax_gqa(*a, causal, window), q, k, v)
     want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
@@ -292,9 +322,9 @@ def _gaps(got, want):
             for g, w in zip(got, want)]
 
 
-@pytest.mark.parametrize("case", ATTN_CASES)
-def test_attention_bwd_model_matches_jax_grad(case):
-    B, Sq, Sk, H, Hkv, d, causal, window = case
+def _check_attn_case(case):
+    B, Sq, Sk, H = case[:4]
+    causal, window = case[-2:]
     got, seen, want = _attn_case(case)
     kept = _kept(torch.arange(Sq)[:, None] + Sk - Sq,
                  torch.arange(Sk)[None, :], Sk, causal, window)
@@ -303,22 +333,49 @@ def test_attention_bwd_model_matches_jax_grad(case):
     assert max(_gaps(got, want)) <= GRAD_TOL
 
 
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_bwd_model_matches_jax_grad(case):
+    _check_attn_case(case)
+
+
+@pytest.mark.parametrize("case", MLA_CASES)
+def test_attention_bwd_model_matches_jax_grad_at_mla_widths(case):
+    """MLA's wider queries and keys: each warp of a pair takes half of
+    each width, and a block of the (192, 128) program holds 64 rows."""
+    _check_attn_case(case)
+
+
 def test_attention_bwd_model_has_the_kernels_geometry():
     """The blocks, tiles and rounding modelled here are the ones the
-    kernel source declares; its products run on the tensor cores and no
-    float sum goes through an atomic."""
+    kernel source declares, for every width pair it is compiled for; its
+    products run on the tensor cores and no float sum goes through an
+    atomic."""
     src = (_build.CSRC / "attention_bwd.cu").read_text()
 
     def const(name):
-        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
-    assert 16 * const("kPairs") == BR and const("kBT") == BT
-    assert "constexpr int kBR = 16 * kPairs;" in src
+        return int(re.search(rf"constexpr \w+ {name} = (\d+);",
+                             src).group(1))
+    assert const("kBT") == BT and const("kMaxPairs") == 6
+    assert const("kMaxSmem") == SMEM and const("kStages") == 2
+    assert "constexpr int kSwap = 2 * kBT * 16;" in src
+    assert "16 * pairs * (ldq + ldv) + kStages * (kBT * (ldq + ldv) + 2 * kBT)" \
+        in src and "2 * pairs * kSwap" in src
+    # 4 pairs where 6 do not fit, unless a build defines another count
+    assert "#define REPRO_BWD_NARROW_PAIRS 4\n" in src
+    assert "constexpr int kNarrowPairs = REPRO_BWD_NARROW_PAIRS;" in src
+    assert ("plan_bytes(LDQ, LDV, kMaxPairs) <= kMaxSmem ? kMaxPairs : "
+            "kNarrowPairs;") in src
+    assert "static constexpr int kBR = 16 * kPairs;" in src
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
     assert "0x1000u) & 0xffffe000u" in src
     assert "exp2f(fmaf(" in src and "1.4426950408889634f" in src
     assert "atomicAdd" not in src and "atom." not in src
-    for d in fa.BWD_HEAD_DIMS:
-        assert f"REPRO_ATTENTION_BWD_CASE({d})" in src
+    assert fa.BWD_WIDTHS == fa.WIDTHS[torch.float32]
+    for d, dv in fa.BWD_WIDTHS:
+        assert f"REPRO_ATTENTION_BWD_CASE({d}, {dv})" in src
+    # the budget the source's comment gives
+    assert _plan(128, 128) == (6, 218624) and _plan(192, 128) == (4, 201216)
+    assert _plan(48, 32)[0] == 6 and _plan(32, 32)[0] == 6
 
 
 def test_attention_bwd_one_tf32_product_misses():

@@ -1312,14 +1312,12 @@ def test_kernels_without_backward_raise_under_grad():
 
     q, k, v = randn(1, 64, 4, 64), randn(1, 64, 2, 64), randn(1, 64, 2, 64)
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-    qm, km, vm = randn(1, 64, 2, 48), randn(1, 64, 2, 48), randn(1, 64, 2, 32)
     x, dt = randn(4, 64, 16), randn(4, 64).abs()
     a, b, c = -randn(4).abs(), randn(4, 64, 8), randn(4, 64, 8)
     xb, dtb, bb, cb = (t.to(torch.bfloat16) for t in (x, dt, b, c))
     cases = {
         "bf16 attention": (lambda q: ops.flash_attention_gqa(q, kb, vb),
                            qb),
-        "MLA widths": (lambda q: ops.flash_attention_gqa(q, km, vm), qm),
         "bf16 swa_attention": (lambda q: ops.swa_attention(
             q, kb, vb, window=32), qb),
         "bf16 ssd_scan": (lambda x: ops.ssd_scan(
@@ -1357,6 +1355,30 @@ def test_backward_through_ops_matches_plain():
     ref.flash_attention_gqa_ref(*plain).square().sum().backward()
     for got, want in zip(leaves, plain):
         assert float(got.grad.abs().max()) > 0
+        assert _grad_gap(got.grad, want.grad) <= GRAD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,d,dv,causal", [
+    (1, 256, 256, 4, 192, 128, True), (2, 70, 100, 2, 192, 128, False),
+    (2, 128, 128, 8, 48, 32, True), (1, 60, 130, 4, 48, 32, False)])
+def test_mla_backward_through_ops_matches_plain(B, Sq, Sk, H, d, dv, causal):
+    """MLA's widths under a gradient: one forward and one backward
+    launch, the gradients within GRAD_REL of the plain version's."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(Sq + d)
+    q = torch.randn((B, Sq, H, d), generator=gen, device="cuda")
+    k = torch.randn((B, Sk, H, d), generator=gen, device="cuda")
+    v = torch.randn((B, Sk, H, dv), generator=gen, device="cuda")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launches()
+    ops.flash_attention_gqa(*leaves, causal=causal).square().sum().backward()
+    assert (ops.LAUNCHES["flash_attention"],
+            ops.LAUNCHES["attention_bwd"]) == (1, 1)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.flash_attention_gqa_ref(*plain, causal=causal).square().sum() \
+        .backward()
+    for got, want in zip(leaves, plain):
         assert _grad_gap(got.grad, want.grad) <= GRAD_REL
 
 

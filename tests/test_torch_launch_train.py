@@ -58,16 +58,23 @@ def _reference(argv, monkeypatch):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_launcher_events_match_reference(mode, monkeypatch, capsys):
-    argv = ["--arch", "llama3-8b", "--smoke", "--mode", mode,
-            "--steps", str(STEPS)]
+    check_launcher("llama3-8b", mode, monkeypatch, capsys)
+
+
+def check_launcher(arch, mode, monkeypatch, capsys, steps=STEPS):
+    """Both launchers' ``--smoke --mode mode`` runs of ``arch`` for
+    ``steps`` steps: the same events, keys, steps, ``mode`` and ``arch``,
+    finite falling losses."""
+    argv = ["--arch", arch, "--smoke", "--mode", mode,
+            "--steps", str(steps)]
     want = _reference(argv, monkeypatch)
     got = _events(get_logger(),
                   lambda: train.main(argv + ["--device", "cpu"]))
     assert [e["kind"] for e in got] == [e["kind"] for e in want] == \
-        ["train_step"] * STEPS + ["train_done"]
+        ["train_step"] * steps + ["train_done"]
     for g, w in zip(got, want):
         assert sorted(g) == sorted(w)
-    assert [e["step"] for e in got[:-1]] == list(range(1, STEPS + 1))
+    assert [e["step"] for e in got[:-1]] == list(range(1, steps + 1))
     for key in ("steps", "mode", "arch"):
         assert got[-1][key] == want[-1][key]
     for events in (got, want):
@@ -77,7 +84,7 @@ def test_launcher_events_match_reference(mode, monkeypatch, capsys):
         if mode != "train":
             assert all(e["synced"] in (0, 1) for e in events[:-1])
     # the console handler printed the same events
-    assert capsys.readouterr().out.count("train_step") == 2 * STEPS
+    assert capsys.readouterr().out.count("train_step") == 2 * steps
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "internvl2-76b",

@@ -15,6 +15,13 @@
   other orders). The text configs run with a ``loss_mask``, the vision
   config with its stub prefix, the audio config on four codebooks.
   ``torch.func.grad`` and ``loss.backward()`` give the same gradient.
+* ``lm_loss(remat=True)`` (``RematLayer``): every smoke config against
+  the reference's ``lm_loss(remat=True)`` (``jax.checkpoint``) under
+  ``torch.func.grad``, ``loss.backward()`` and the learners' vmap at the
+  tolerances above, and against the port's ``remat=False`` in each mode
+  within ``REMAT_TOL``; on the card's routes (stand-in launches) each
+  layer's forward kernels launch twice a step, its backward kernels
+  once, for one learner or two.
 * The step factories with ``lm_loss`` on llama3-8b-smoke (adam, lr 1e-3)
   for 20 steps on ``TokenStream`` batches against the reference's jitted
   steps: ``make_train_step`` with ``micro_batch`` 1 and 2 (B = 4),
@@ -23,7 +30,9 @@
   ``syncs`` and ``checks`` exact, every checked distance at least
   1e-4·Δ away from Δ, ``max_sq_dist`` within rtol 1e-4, and the losses
   and the parameters after 20 steps within the bounds of
-  ``STEP_LOSS_TOL`` / ``PLANE_REL_TOL`` (adam's sensitivity, below).
+  ``STEP_LOSS_TOL`` / ``PLANE_REL_TOL`` (adam's sensitivity, below);
+  the dynamic step also with ``remat=True`` on both sides.
+  ``check_fleet`` serves ``tests/test_torch_moe_fleet.py`` too.
 """
 import numpy as np
 import pytest
@@ -51,6 +60,7 @@ from repro_torch.core.flatten import (  # noqa: E402
     fleet_adapter, tree_leaves, tree_map,
 )
 from repro_torch.data.synthetic import TokenStream  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models.model import AUDIO_CODEBOOKS, lm_loss  # noqa: E402
 from repro_torch.train import make_train_step  # noqa: E402
 
@@ -180,20 +190,151 @@ def test_lm_loss_value_and_grad_match_reference(arch):
             BACKWARD_TOL * float(g.abs().max())
 
 
-def test_lm_loss_remat_raises():
-    cfg = get_arch("llama3-8b", smoke=True)
-    with pytest.raises(NotImplementedError, match="A33"):
-        lm_loss(cfg, {}, {}, remat=True)
+def _port_grads(cfg, params, tb, mode, remat):
+    """(loss, gradient tree) of the port's ``lm_loss`` by ``mode``:
+    ``torch.func.grad``, ``loss.backward()``, or learner 1 of two under
+    the learners' ``torch.func.vmap`` (learner 0 on the weights scaled by
+    1.01)."""
+    def loss_fn(p, b):
+        return lm_loss(cfg, p, b, remat=remat)
+    if mode == "grad":
+        grads, loss = torch.func.grad_and_value(loss_fn)(params, tb)
+        return loss, grads
+    if mode == "backward":
+        leaves = [x.clone().requires_grad_() for x in tree_leaves(params)]
+        it = iter(leaves)
+        loss = loss_fn(tree_map(lambda _: next(it), params), tb)
+        loss.backward()
+        it = iter(leaves)
+        return loss.detach(), tree_map(lambda _: next(it).grad, params)
+    fleet = tree_map(lambda x: torch.stack([x * 1.01, x]), params)
+    fb = {k: torch.stack([v, v]) for k, v in tb.items()}
+    grads, loss = torch.func.vmap(torch.func.grad_and_value(loss_fn))(fleet,
+                                                                     fb)
+    return loss[1], tree_map(lambda g: g[1], grads)
+
+
+REMAT_MODES = ("grad", "backward", "vmap")
+# rematerialized layers against the plain ones in the same mode, as the
+# largest leaf's max |diff| over its max |leaf|: the same operations in
+# the same order (0 seen on torch 2.13 on the CPU)
+REMAT_TOL = 1e-6
+
+
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_lm_loss_remat_matches_reference(arch):
+    """``lm_loss(remat=True)`` against the reference's
+    ``lm_loss(remat=True)`` (``jax.checkpoint`` of each layer) under
+    ``torch.func.grad``, ``loss.backward()`` and the learners' vmap, at
+    the tolerances of the test above."""
+    jcfg = jget_arch(arch, smoke=True)
+    cfg = get_arch(arch, smoke=True)
+    params_np = _np(jinit(jcfg, jax.random.PRNGKey(0)))
+    batch = _np(_loss_batch(jcfg, jax.random.PRNGKey(1)))
+    want_loss, want_grad = jax.jit(jax.value_and_grad(
+        lambda p: jlm_loss(jcfg, p, batch, remat=True)))(
+            jax.tree.map(jnp.asarray, params_np))
+    params = params_from_numpy(params_np, device="cpu")
+    tb = _torch_batch(batch)
+    for mode in REMAT_MODES:
+        loss, grads = _port_grads(cfg, params, tb, mode, remat=True)
+        np.testing.assert_allclose(float(loss), float(want_loss), **LOSS_TOL)
+        gaps = _leaf_gaps(want_grad, grads)
+        worst = max(gaps, key=gaps.get)
+        assert gaps[worst] <= GRAD_TOL, (mode, worst, gaps[worst])
+
+
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_lm_loss_remat_matches_plain_layers(arch):
+    """``remat=True`` against the port's ``remat=False`` in each mode:
+    the same loss and the gradient within REMAT_TOL."""
+    jcfg = jget_arch(arch, smoke=True)
+    cfg = get_arch(arch, smoke=True)
+    params = params_from_numpy(_np(jinit(jcfg, jax.random.PRNGKey(0))),
+                               device="cpu")
+    tb = _torch_batch(_np(_loss_batch(jcfg, jax.random.PRNGKey(1))))
+    for mode in REMAT_MODES:
+        want_loss, want = _port_grads(cfg, params, tb, mode, remat=False)
+        loss, got = _port_grads(cfg, params, tb, mode, remat=True)
+        assert float(loss) == float(want_loss), mode
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            assert float((g - w).abs().max()) <= \
+                REMAT_TOL * float(w.abs().max()), mode
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "mixtral-8x22b",
+                                  "deepseek-v2-236b", "mamba2-2.7b",
+                                  "hymba-1.5b"])
+@pytest.mark.parametrize("mode", ["grad", "vmap"])
+def test_lm_loss_remat_launches(arch, mode, monkeypatch):
+    """The card's routes (``ops._on_cpu`` patched, the launches replaced
+    by their plain versions): under ``remat`` each layer's forward kernels
+    launch twice a step, in the forward and in the backward's recompute,
+    its backward kernels once, the final norm once each way; under the
+    learners' vmap the same counts for two learners. The gradient is
+    ``remat=False``'s through the same routes within REMAT_TOL."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import swa_attention as swa
+    from test_torch_ssd_bwd import StandIns, _kernel_route
+
+    def plain_ssd(x, dt, a, b, c, chunk):
+        R = x.shape[0] // b.shape[0]
+        return ref.ssd_scan_ref(x, dt, a, b.repeat_interleave(R, dim=0),
+                                c.repeat_interleave(R, dim=0), chunk=chunk)
+    # the routes without a gradient (the forward inside RematLayer)
+    for mod, name, fn in ((fa, "flash_attention_gqa",
+                           ref.flash_attention_gqa_ref),
+                          (swa, "swa_attention", ref.swa_attention_ref),
+                          (rn, "rmsnorm", ref.rmsnorm_ref),
+                          (ssd, "ssd_scan", plain_ssd)):
+        monkeypatch.setattr(mod, name, fn)
+    jcfg = jget_arch(arch, smoke=True)
+    cfg = get_arch(arch, smoke=True)
+    params = params_from_numpy(_np(jinit(jcfg, jax.random.PRNGKey(0))),
+                               device="cpu")
+    tb = _torch_batch(_np(_loss_batch(jcfg, jax.random.PRNGKey(1))))
+    if mode == "vmap":
+        params = tree_map(lambda x: torch.stack([x, x * 1.01]), params)
+        tb = {k: torch.stack([v, v]) for k, v in tb.items()}
+    grads = {}
+    for remat in (False, True):
+        fn = torch.func.grad(lambda p, b: lm_loss(cfg, p, b, remat=remat))
+        stand = StandIns(monkeypatch)     # their launches are counted here
+        _kernel_route(monkeypatch)
+        grads[remat] = (torch.func.vmap(fn) if mode == "vmap" else fn)(
+            params, tb)
+        launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+        for call, kernel in (("attn_bwd", "attention_bwd"),
+                             ("norm", "rmsnorm"), ("norm_bwd", "rmsnorm_bwd"),
+                             ("ssd", "ssd_scan"), ("ssd_bwd", "ssd_scan_bwd")):
+            if stand.calls[call]:
+                launches[kernel] = launches.get(kernel, 0) + stand.calls[call]
+    L, again = cfg.num_layers, 2
+    norms = 5 * L if cfg.family == "hybrid" else 2 * L
+    want = {"rmsnorm": again * norms + 1, "rmsnorm_bwd": norms + 1}
+    if cfg.family != "ssm":
+        banded = cfg.attn_type == "sliding" and S % cfg.sliding_window == 0 \
+            and S >= 2 * cfg.sliding_window
+        want["swa_attention" if banded else "flash_attention"] = again * L
+        want["attention_bwd"] = L
+    if cfg.family in ("ssm", "hybrid"):
+        want.update(ssd_scan=again * L, ssd_scan_bwd=L)
+    assert launches == want
+    for g, w in zip(tree_leaves(grads[True]), tree_leaves(grads[False])):
+        assert float((g - w).abs().max()) <= \
+            REMAT_TOL * float(w.abs().max())
 
 
 # ------------------------------------------------------------ the steps
 
-def make_setup():
-    """llama3-8b-smoke's reference weights and STEPS fleet batches (M
-    learners of B from their TokenStreams, drawn by the port's stream,
-    which draws the reference's tokens: the test above) and single
-    batches (M B)."""
-    jcfg = jget_arch("llama3-8b", smoke=True)
+def make_setup(arch="llama3-8b"):
+    """``arch``'s smoke config (llama3-8b's unless asked), its reference
+    weights and STEPS fleet batches (M learners of B from their
+    TokenStreams, drawn by the port's stream, which draws the
+    reference's tokens: the test above) and single batches (M B)."""
+    jcfg = jget_arch(arch, smoke=True)
     params_np = _np(jinit(jcfg, jax.random.PRNGKey(0)))
     streams = [TokenStream(seed=100 + i, vocab=jcfg.vocab_size,
                            device="cpu") for i in range(M)]
@@ -206,7 +347,7 @@ def make_setup():
         fleet.append({k: np.stack([b[k] for b in bs]) for k in bs[0]})
         single.append({k: v.reshape((M * B,) + v.shape[2:])
                        for k, v in fleet[-1].items()})
-    return jcfg, params_np, fleet, single
+    return jcfg, params_np, fleet, single, arch
 
 
 @pytest.fixture(scope="module")
@@ -214,12 +355,21 @@ def setup():
     return make_setup()
 
 
-def _ref_fleet(kind, proto, setup):
-    jcfg, params_np, fleet, _ = setup
-    train = JTrainConfig(optimizer="adam", learning_rate=1e-3)
+# the fleet tests' optimizer: adam at lr 1e-3
+FLEET_TRAIN = dict(optimizer="adam", learning_rate=1e-3)
+
+
+def ref_fleet(kind, proto, setup, remat=False, train=FLEET_TRAIN):
+    """The reference's fleet step of ``kind`` on ``setup`` (M learners,
+    ``train`` the TrainConfig's fields): each step's ``synced``,
+    ``max_sq_dist`` and loss, then syncs, checks and the parameter
+    plane."""
+    jcfg, params_np, fleet, _, _ = setup
+    train = JTrainConfig(**train)
     mk = (jdistributed.make_dynamic_train_step if kind == "dynamic"
           else jdistributed.make_periodic_train_step)
-    step = jax.jit(mk(lambda p, b: jlm_loss(jcfg, p, b), proto, train, M))
+    step = jax.jit(mk(lambda p, b: jlm_loss(jcfg, p, b, remat=remat), proto,
+                      train, M))
     state = jdistributed.init_dynamic_state(
         lambda k: jax.tree.map(jnp.asarray, params_np),
         jax.random.PRNGKey(0), M, train)
@@ -235,13 +385,14 @@ def _ref_fleet(kind, proto, setup):
     return out
 
 
-def _port_fleet(kind, proto, setup):
-    _, params_np, fleet, _ = setup
-    cfg = get_arch("llama3-8b", smoke=True)
-    train = TrainConfig(optimizer="adam", learning_rate=1e-3)
+def port_fleet(kind, proto, setup, remat=False, train=FLEET_TRAIN):
+    """``ref_fleet`` in the port, from the reference's weights."""
+    _, params_np, fleet, _, arch = setup
+    cfg = get_arch(arch, smoke=True)
+    train = TrainConfig(**train)
     mk = (distributed.make_dynamic_train_step if kind == "dynamic"
           else distributed.make_periodic_train_step)
-    step = mk(lambda p, b: lm_loss(cfg, p, b), proto, train, M)
+    step = mk(lambda p, b: lm_loss(cfg, p, b, remat=remat), proto, train, M)
     state = distributed.init_dynamic_state(
         lambda g: params_from_numpy(params_np, device="cpu"),
         torch.Generator().manual_seed(0), M, train, device="cpu")
@@ -256,26 +407,20 @@ def _port_fleet(kind, proto, setup):
     return out
 
 
-def _close_planes(got, want):
+def close_planes(got, want):
     assert np.linalg.norm(got - want) <= PLANE_REL_TOL * np.linalg.norm(want)
     assert np.abs(got - want).max() <= PLANE_ABS_TOL
 
 
-# Δ sits between the checked distances of the reference's run (llama3-8b-
-# smoke, adam at lr 1e-3, b = 2), so the run both syncs and skips
-DYN_B, DYN_DELTA = 2, 1.5
-
-
-@pytest.mark.parametrize("kind", ["dynamic", "periodic"])
-def test_fleet_steps_with_lm_loss_match_reference(kind, setup):
-    if kind == "dynamic":
-        b, delta = DYN_B, DYN_DELTA
-    else:
-        b, delta = 3, 1.0
-    want = _ref_fleet(kind, JProtocolConfig(kind="dynamic", b=b,
-                                            delta=delta), setup)
-    got = _port_fleet(kind, ProtocolConfig(kind="dynamic", b=b, delta=delta),
-                      setup)
+def check_fleet(kind, b, delta, setup, remat=False, train=FLEET_TRAIN):
+    """The port's fleet step of ``kind`` against the reference's on
+    ``setup``: ``synced``, syncs and checks exact, the losses and the
+    plane within STEP_LOSS_TOL / PLANE_*_TOL; a dynamic run must both
+    sync and skip, with no checked distance within DELTA_MARGIN·Δ of Δ."""
+    want = ref_fleet(kind, JProtocolConfig(kind="dynamic", b=b, delta=delta),
+                     setup, remat, train)
+    got = port_fleet(kind, ProtocolConfig(kind="dynamic", b=b, delta=delta),
+                     setup, remat, train)
     assert got["synced"] == want["synced"]
     assert (got["syncs"], got["checks"]) == (want["syncs"], want["checks"])
     if kind == "dynamic":
@@ -291,12 +436,31 @@ def test_fleet_steps_with_lm_loss_match_reference(kind, setup):
     else:
         assert want["syncs"] == STEPS // b
     np.testing.assert_allclose(got["loss"], want["loss"], **STEP_LOSS_TOL)
-    _close_planes(got["plane"], want["plane"])
+    close_planes(got["plane"], want["plane"])
+
+
+# Δ sits between the checked distances of the reference's run (llama3-8b-
+# smoke, adam at lr 1e-3, b = 2), so the run both syncs and skips
+DYN_B, DYN_DELTA = 2, 1.5
+
+
+@pytest.mark.parametrize("kind", ["dynamic", "periodic"])
+def test_fleet_steps_with_lm_loss_match_reference(kind, setup):
+    if kind == "dynamic":
+        check_fleet(kind, DYN_B, DYN_DELTA, setup)
+    else:
+        check_fleet(kind, 3, 1.0, setup)
+
+
+def test_fleet_step_with_remat_matches_reference(setup):
+    """The dynamic fleet with rematerialized layers on both sides: the
+    learners' vmap over ``RematLayer``'s generated rule."""
+    check_fleet("dynamic", DYN_B, DYN_DELTA, setup, remat=True)
 
 
 @pytest.mark.parametrize("micro", [1, 2])
 def test_train_step_with_lm_loss_matches_reference(micro, setup):
-    jcfg, params_np, _, single = setup
+    jcfg, params_np, _, single, _ = setup
     cfg = get_arch("llama3-8b", smoke=True)
     jinit_state, jstep = jmake_train_step(
         lambda p, b: jlm_loss(jcfg, p, b),
@@ -320,4 +484,4 @@ def test_train_step_with_lm_loss_matches_reference(micro, setup):
     want = np.asarray(jfleet_adapter(jstate.params).ravel_model(
         jstate.params))
     got = fleet_adapter(state.params).ravel_model(state.params).numpy()
-    _close_planes(got, want)
+    close_planes(got, want)

@@ -166,6 +166,26 @@ def test_kernel_bound_counts_both_widths():
     assert b["ops"] == flops and b["bound_by"] == "operations"
 
 
+def test_attention_bwd_bound_counts_each_product_at_its_width():
+    """The backward's flops 2 (3 Dqk + 2 Dv) a kept pair and head (s, dk
+    and dq over Dqk; dp and dv over Dv), three TF32 products each; at Dv
+    = Dqk the old 5/2 of the forward's; bytes q, k, v, o, do, dq, dk, dv
+    at their own widths and the log-sum-exp."""
+    B, S, H = 1, 4096, 128
+    pairs = S * (S + 1) // 2
+    b = roofline.kernel_bound("attention_bwd", (B, S, S, H, H, (192, 128)))
+    assert b["ops"] == 3 * 2 * (3 * 192 + 2 * 128) * pairs * B * H
+    assert b["bytes"] == 4 * (2 * B * S * H * 2 * (192 + 128) + B * H * S)
+    assert b["bound_by"] == "operations"
+    assert 10.7 < b["bound_ms"] < 10.9      # ~10.8 ms on an H100 at 700 W
+    fwd = roofline.kernel_work("flash_attention", (B, S, S, H, H, 128),
+                               torch.float32)[1]
+    same = roofline.kernel_bound("attention_bwd", (B, S, S, H, H, 128))
+    assert same == roofline.kernel_bound("attention_bwd",
+                                         (B, S, S, H, H, (128, 128)))
+    assert same["ops"] == fwd * 5 // 2
+
+
 def test_convert_carries_mla_weights_and_cache_both_ways():
     jcfg, cfg, jp, tp = _mla(seed=4)
     assert set(tp) == {"w_dkv", "w_krope", "w_uk", "w_uv", "w_o", "w_dq",

@@ -105,6 +105,23 @@ def test_unequal_steps_match_the_reference_vmapped_optimizer(opt):
                                atol=1e-7)
 
 
+@pytest.mark.parametrize("shape", [(3, 1000), (1000,), (2, 5)])
+def test_sgd_slices_give_one_calls_bits(shape, monkeypatch):
+    """sgd forms ``lr * g`` a slice of columns at a time (``SGD_SLICE``);
+    slices of 7 columns give the bits of one ``X.sub_(lr * G)``, the
+    reference's expression, on a fleet plane and on one row."""
+    from repro_torch.optim import optimizers
+    rng = np.random.default_rng(sum(shape))
+    X = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    G = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    want = X.clone().sub_(0.37 * G)
+    monkeypatch.setattr(optimizers, "SGD_SLICE", 7)
+    opt = make_optimizer(TrainConfig(optimizer="sgd", learning_rate=0.37))
+    got, state = opt.update(X.clone(), G, opt.init(X))
+    assert torch.equal(got, want)
+    assert state.step.tolist() == [1] * (shape[0] if len(shape) > 1 else 1)
+
+
 def test_equal_steps_give_the_fleet_wide_bits():
     """A row's bias correction is its own count's, computed as a lone
     scalar power: equal counts give the bits of one count for the

@@ -10,6 +10,9 @@ Proposition 3.
 * ``micro_batch`` 4 against 1 in the port: the mean of four slices' mean
   gradients is the batch's mean gradient, to f32 rounding (the same
   tolerance).
+* The step's gradient, by ``torch.autograd.grad`` on detached leaves, is
+  ``torch.func.grad``'s bit for bit, under a caller's ``no_grad`` too,
+  with zeros for a leaf the loss does not reach.
 * The twin of tests/test_protocol_theory.py::test_proposition3_exact
   (m = 4, B = 8, η = 0.05): one round of m learners under continuous
   averaging (σ_1, lr ηB: the paper's φ^mSGD steps by η times the summed
@@ -197,3 +200,30 @@ def test_proposition3_exact():
         np.testing.assert_allclose(a, s, **PROP3_TOL)
         np.testing.assert_allclose(a, ja, **PROP3_TOL)
         np.testing.assert_allclose(s, js, **PROP3_TOL)
+
+
+def test_step_gradient_is_torch_func_grads_and_zero_where_unused(setup):
+    """The step's gradient (``torch.autograd.grad`` on detached leaves,
+    without ``create_graph``) is ``torch.func.grad``'s, bit for bit, also
+    when the caller runs under ``torch.no_grad()``; a leaf the loss does
+    not reach gets zeros, as under ``torch.func.grad``, so sgd leaves it
+    as it was."""
+    arch, init, batches = setup
+    cfg = get_arch(arch, smoke=True)
+    lr = OPTS["sgd"]["learning_rate"]
+
+    def loss_fn(p, b):
+        return cnn_loss(cfg, p["model"], b)
+    init_state, step = make_train_step(loss_fn, TrainConfig(**OPTS["sgd"]),
+                                       device="cpu")
+    params = {"model": params_from_numpy(init, device="cpu"),
+              "unused": torch.ones(5)}
+    s0 = init_state(params)
+    batch = {k: torch.from_numpy(v.copy()) for k, v in batches[0].items()}
+    want = torch.func.grad(loss_fn)(s0.params, batch)
+    with torch.no_grad():
+        s1, _ = step(s0, batch)
+    for x, g, y in zip(tree_leaves(s0.params), tree_leaves(want),
+                       tree_leaves(s1.params)):
+        assert torch.equal(y, x - lr * g)
+    assert torch.equal(s1.params["unused"], torch.ones(5))
