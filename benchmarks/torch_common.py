@@ -1,20 +1,24 @@
-"""Shared helpers of the port's figure benchmarks — the twin of
+"""Shared helpers of the port's benchmarks — the twin of
 ``benchmarks/common.py`` on ``repro_torch``.
 
-Every ``benchmarks/torch_fig*.py`` module has the reference module's
-``NAME`` and ``PAPER_REF``, ``run(quick, device) -> rows`` and its own
-copy of the reference's ``check(rows)``; ``benchmarks/torch_run.py``
-runs them and writes their rows under experiments/bench_torch/. The
-settings are the reference's (its quick and full grids), at CPU-study
-scale: the protocol dynamics, not wall-clock, are the object of study.
+Every ``benchmarks/torch_<name>.py`` twin of a reference benchmark has
+the reference module's ``NAME`` and ``PAPER_REF``, ``run(quick, device)
+-> rows`` and its own copy of the reference's ``check(rows)``;
+``benchmarks/torch_run.py`` runs them and writes their rows under
+experiments/bench_torch/. The settings are the reference's (its quick
+and full grids), at CPU-study scale: the protocol dynamics, not
+wall-clock, are the object of study, but for the timing twins
+(``scan_driver``, ``sync_bench``, ``shard_bench``, ``kernel_bench``).
 
 Each twin also names its cut rows, the short runs that the parity tests
 and ``chip_smoke.py`` hold to another run: ``ARCH`` (its smoke model),
 ``CUT`` (cases ``(protocol keywords, m, rounds, helper keywords)``),
 ``cut(case, device, source, init_fn) -> (learner, extra)`` (one case
 through the twin's own helper; ``extra`` holds per-round series where
-the figure has them) and ``default_source(device)`` (the stream the
-twin draws from). The helpers take a ``source`` and an ``init_fn`` so
+the figure has them; the learner is None where the cut is one round or
+the kernels' rows) and ``default_source(device)`` (the stream the twin
+draws from, where it has one); ``cut_init`` gives the cut rows' initial
+model. The helpers take a ``source`` and an ``init_fn`` so
 that a caller can feed fixed draws: ``ReplaySource`` hands out given
 batches in the order the learner streams ask for them, which is how the
 parity tests run a twin on the reference's own batches and initial
@@ -143,6 +147,28 @@ def mnist_cut(case, device="cuda", source=None, init_fn=None):
                                     device=device, source=source,
                                     init_fn=init_fn, **kw)
     return dl, {"accuracy": acc}
+
+
+def cut_init(mod):
+    """The initial model, as numpy, that a twin's cut rows start from in
+    the parity tests and ``chip_smoke.py``: the twin's own ``cut_init()``
+    where it has one, else its smoke ``ARCH`` drawn from
+    ``torch.Generator().manual_seed(0)`` on the CPU; None for a twin
+    without a model."""
+    if hasattr(mod, "cut_init"):
+        return mod.cut_init()
+    if mod.ARCH is None:
+        return None
+    from repro_torch.convert import params_to_numpy
+    return params_to_numpy(init_cnn_params(
+        get_arch(mod.ARCH, smoke=True), torch.Generator().manual_seed(0)))
+
+
+def finish(device) -> None:
+    """Wait for the card's queued work (a no-op on the CPU), so that a
+    host clock read next times the work, not its launches."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def save_rows(name: str, rows: List[dict]) -> str:

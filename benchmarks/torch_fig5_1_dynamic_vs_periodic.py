@@ -22,7 +22,7 @@ PAPER_REF = "Figure 5.1 / Appendix A.1"
 
 ARCH = "mnist_cnn"
 # the cut rows that tests/test_torch_figures.py and chip_smoke.py's
-# figures phase run through cut(): (protocol keywords, m, rounds,
+# twins phase run through cut(): (protocol keywords, m, rounds,
 # run_mnist_protocol keywords)
 CUT = ((dict(kind="dynamic", b=10, delta=0.7), 4, 40, {}),
        (dict(kind="periodic", b=10), 4, 40, {}))

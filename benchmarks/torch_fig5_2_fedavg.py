@@ -18,7 +18,7 @@ PAPER_REF = "Figures 5.2/5.3, Appendix A.2"
 
 ARCH = "mnist_cnn"
 # the cut rows that tests/test_torch_figures.py and chip_smoke.py's
-# figures phase run through cut(): (protocol keywords, m, rounds,
+# twins phase run through cut(): (protocol keywords, m, rounds,
 # run_mnist_protocol keywords)
 CUT = ((dict(kind="fedavg", b=10, fedavg_c=0.5), 4, 40, {}),)
 cut, default_source = mnist_cut, mnist_source

@@ -26,7 +26,7 @@ PROTOS = [
 
 ARCH = "drift_mlp"
 # the cut rows that tests/test_torch_figures.py and chip_smoke.py's
-# figures phase run through cut(): (protocol keywords, m, rounds,
+# twins phase run through cut(): (protocol keywords, m, rounds,
 # _run_one keywords)
 CUT = ((dict(kind="dynamic", b=2, delta=0.3), 4, 30,
         dict(drift_rounds=(10, 20))),

@@ -72,7 +72,7 @@ def custom_loss(t, c, t_line, t_max, c_max):
 
 ARCH = "deepdrive_cnn"
 # the cut rows that tests/test_torch_figures.py and chip_smoke.py's
-# figures phase run through cut(): (protocol keywords, m, rounds, {})
+# twins phase run through cut(): (protocol keywords, m, rounds, {})
 CUT = ((dict(kind="dynamic", b=10, delta=0.1), 3, 20, {}),
        (dict(kind="periodic", b=10), 3, 20, {}))
 

@@ -18,7 +18,7 @@ PAPER_REF = "Figure 6.1, Appendix A.6"
 
 ARCH = "mnist_cnn"
 # the cut rows that tests/test_torch_figures.py and chip_smoke.py's
-# figures phase run through cut(): (protocol keywords, m, rounds,
+# twins phase run through cut(): (protocol keywords, m, rounds,
 # run_mnist_protocol keywords)
 CUT = ((dict(kind="dynamic", b=10, delta=0.7), 8, 30, {}),)
 cut, default_source = mnist_cut, mnist_source

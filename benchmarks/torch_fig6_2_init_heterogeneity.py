@@ -20,7 +20,7 @@ PAPER_REF = "Figure 6.2, Appendix A.7"
 
 ARCH = "mnist_cnn"
 # the cut rows that tests/test_torch_figures.py and chip_smoke.py's
-# figures phase run through cut(): (protocol keywords, m, rounds,
+# twins phase run through cut(): (protocol keywords, m, rounds,
 # run_mnist_protocol keywords)
 CUT = ((dict(kind="dynamic", b=10, delta=0.7), 4, 30,
         dict(init_heterogeneity=2.0)),)

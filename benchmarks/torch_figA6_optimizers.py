@@ -14,7 +14,7 @@ PAPER_REF = "Appendix A.5, Figure A.6"
 
 ARCH = "mnist_cnn"
 # the cut rows that tests/test_torch_figures.py and chip_smoke.py's
-# figures phase run through cut(): (protocol keywords, m, rounds,
+# twins phase run through cut(): (protocol keywords, m, rounds,
 # run_mnist_protocol keywords)
 CUT = ((dict(kind="dynamic", b=10, delta=0.7), 4, 30,
         dict(optimizer="adam", lr=1e-3)),

@@ -23,7 +23,7 @@ FLEET = dict(kind="dynamic", b=5, delta=0.3)
 
 ARCH = "drift_mlp"
 # the cut rows that tests/test_torch_figures.py and chip_smoke.py's
-# figures phase run through cut(): (protocol keywords, m, rounds, {})
+# twins phase run through cut(): (protocol keywords, m, rounds, {})
 CUT = tuple((dict(FLEET, weighted=w), len(SIZES), 30, {})
             for _, w in VARIANTS)
 

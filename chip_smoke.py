@@ -153,13 +153,7 @@ and drives both of the port's paths:
   rtol 1e-4 / atol 1e-6 in float64; in float32 within 1e-5 of the
   norm, which a serial step at (1 + 1/m) times the learning rate must
   miss) and ``micro_batch`` 4 against 1 at batch 1,000, each timed
-  after a warm-up call. ``figures`` runs the eight figure twins at the
-  reference's quick settings on the card (verdicts, rows and seconds
-  beside the reference's quick verdicts on the CPU, and the grids'
-  ``sqdist_rows`` launches, each plane among those ``kernels`` held to
-  the plain version), then each twin's cut rows (``CUT``) on the CPU
-  from its own source and on the card from the same draws: integers
-  identical.
+  after a warm-up call. The eight figure twins run in ``twins`` (below).
 
 * the rest of the serving zoo (slice 12): ``zoo_kernels`` holds the
   kernels against their plain versions at the shapes the zoo gives them
@@ -260,6 +254,21 @@ and drives both of the port's paths:
   the card: the routing under the learners' vmap, attention at (48, 32)
   and on the banded route one launch a layer for both learners, the
   dynamic run both syncing and holding.
+* the reference's other benchmarks (slice 19): ``twins`` runs every
+  twin of ``benchmarks/torch_run.py`` — the eight figures and those of
+  ``dynamic_amortized``, ``scan_driver``, ``fig_network_regimes``,
+  ``fig_hierarchy``, ``sync_bench`` (one round on the full-width CNN's
+  plane at m = 8, 64 and 200, the cohort balancing at exactly m/2),
+  ``async_bench``, ``robust_bench`` and ``kernel_bench`` (the five
+  kernels at the reference's shapes, one launch a call, timed beside
+  ``kernel_bound``) — at the reference's quick settings on the card,
+  but ``shard_bench``, whose sweep of spawned worlds outlasts the
+  phase and runs its cut row only; each verdict beside the reference's
+  quick verdict on the CPU, each row's exactness fields held, every
+  plane it gives ``sqdist_rows`` among those ``kernels`` held to the
+  plain version; then each twin's cut rows (``CUT``) on the CPU from
+  its own source and on the card from the same draws: integers
+  identical.
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -507,23 +516,36 @@ def phase_build() -> dict:
     return rec
 
 
-# the figure twins' planes (benchmarks/torch_fig*.py, their smoke models):
-# m of the quick grids (fig5_1 and fig5_2 10; fig6_1 4, 8 and 16; fig6_2
-# and figA6 6; fig5_4 8; figC 6; fig5_5 5) and of the cut rows the
-# figures phase runs (each twin's CUT: 4 and 8; 4 and 6; 3)
-FIGURE_ROWS = {"mnist_cnn": (4, 6, 8, 10, 16), "drift_mlp": (4, 6, 8),
-               "deepdrive_cnn": (3, 5)}
+# the twins' planes (benchmarks/torch_*.py) in the twins phase, their
+# quick grids and cut rows, on the smoke models: m of the figures' grids
+# (fig5_1 and fig5_2 10; fig6_1 4, 8 and 16; fig6_2 and figA6 6; fig5_4
+# 8; figC 6; fig5_5 5) and cut rows (4 and 8; 4 and 6; 3); scan_driver's
+# and dynamic_amortized's 8; fig_network_regimes', async_bench's and
+# shard_bench's cut 8; fig_hierarchy's 12 learners, whole and in 3 or 4
+# clusters (grouped, (m, g)), and its coordinator tier's 3 and 4 rows
+TWIN_ROWS = {"mnist_cnn": (4, 6, 8, 10, 16),
+             "drift_mlp": (3, 4, 6, 8, 12, (12, 3), (12, 4)),
+             "deepdrive_cnn": (3, 5)}
 
 
-def figure_planes() -> list:
-    """FIGURE_ROWS as ``ops.ROWS_LAUNCHES`` keys ``(m, P, 1)``, P the
-    smoke model's weights."""
+def twin_planes() -> list:
+    """The planes the twins phase gives ``sqdist_rows``, as
+    ``ops.ROWS_LAUNCHES`` keys ``(m, P, g)``: TWIN_ROWS, P the smoke
+    model's weights; the full mnist_cnn at sync_bench's fleets (8, 64 and
+    200; 64 also kernel_bench's row); robust_bench's regression plane;
+    kernel_bench's cut row."""
+    from benchmarks import torch_kernel_bench, torch_robust_bench
+    from benchmarks import torch_sync_bench
     planes = []
-    for arch, rows in FIGURE_ROWS.items():
+    for arch, rows in TWIN_ROWS.items():
         params = init_cnn_params(get_arch(arch, smoke=True),
                                  torch.Generator().manual_seed(0))
         P = sum(x.numel() for x in tree_leaves(params))
-        planes += [(m, P, 1) for m in rows]
+        planes += [(r[0], P, r[1]) if isinstance(r, tuple) else (r, P, 1)
+                   for r in rows]
+    planes += [(m, P_MNIST, 1) for m in torch_sync_bench.M_LIST]
+    planes += [(torch_robust_bench.M, torch_robust_bench.DIM, 1),
+               (*torch_kernel_bench.CUT[0][0]["sqdist_rows"], 1)]
     return planes
 
 
@@ -555,11 +577,12 @@ def phase_kernels(gen) -> dict:
     # P_DEEPDRIVE is odd, so every odd row of that plane starts 4 bytes off
     # an 8-byte boundary
     # (50, P) and (25, P): one rank's rows of a fleet sharded over 2 and 4
-    # ranks (shard_train); then every plane of the figures phase
+    # ranks (shard_train); then every plane of the twins phase
+    twins = twin_planes()
     for m, n in [(1, 1), (17, 515), (1, P_MNIST), (7, P_MNIST),
                  (25, P_MNIST), (50, P_MNIST), (100, P_MNIST),
                  (3, P_DEEPDRIVE), (100, P_DEEPDRIVE)] + [
-                     (m, n) for m, n, _ in figure_planes()]:
+                     (m, n) for m, n, g in twins if g == 1]:
         for dt in (torch.float32, torch.bfloat16):
             X = torch.randn((m, n), generator=gen, device="cuda").to(dt)
             r = torch.randn((n,), generator=gen, device="cuda").to(dt)
@@ -570,9 +593,11 @@ def phase_kernels(gen) -> dict:
             del X, R
 
     # the grouped form (a hierarchy's intra tier): row i against its
-    # cluster's reference R[i // k], g clusters of k rows, odd P included
+    # cluster's reference R[i // k], g clusters of k rows, odd P included;
+    # then the twins phase's grouped planes
     for g, k, n in [(2, 3, 7), (10, 10, 515), (10, 10, P_DEEPDRIVE),
-                    (10, 1, P_MNIST), (4, 25, P_MNIST)]:
+                    (10, 1, P_MNIST), (4, 25, P_MNIST)] + [
+                        (g, m // g, n) for m, n, g in twins if g > 1]:
         for dt in (torch.float32, torch.bfloat16):
             X = torch.randn((g * k, n), generator=gen, device="cuda").to(dt)
             R = torch.randn((g, n), generator=gen, device="cuda").to(dt)
@@ -3840,34 +3865,80 @@ def phase_train_step() -> dict:
     return rec
 
 
-# the reference's quick verdicts (``python -m benchmarks.run``, jax 0.9.0
-# on a CPU): a card verdict that differs is reported, not failed
+# ---------------------------------------------------------------------------
+# the twins of the reference's benchmarks (benchmarks/torch_*.py) on the card
+# ---------------------------------------------------------------------------
+
+# the reference's quick verdicts (each benchmark's ``run(quick=True)`` and
+# ``check``, ``python -m benchmarks.run``, jax 0.9.0 on a CPU): a card
+# verdict that differs is reported, not failed
 REFERENCE_QUICK_VERDICTS = {
-    "fig5_1_dynamic_vs_periodic": "MIXED", "fig5_2_fedavg": "PASS",
+    "scan_driver": "PASS", "fig5_1_dynamic_vs_periodic": "MIXED",
+    "dynamic_amortized": "PASS", "fig5_2_fedavg": "PASS",
     "fig5_4_drift": "PASS", "fig5_5_deepdrive": "PASS",
     "fig6_1_scaleout": "PASS", "fig6_2_init_heterogeneity": "PASS",
-    "figA6_optimizers": "PASS", "figC_unbalanced": "PASS"}
+    "figA6_optimizers": "PASS", "figC_unbalanced": "PASS",
+    "fig_network_regimes": "PASS", "fig_hierarchy": "PASS",
+    "sync_bench": "PASS", "shard_bench": "PASS", "async_bench": "PASS",
+    "robust_bench": "PASS", "kernel_bench": "PASS"}
+# the rows' exactness fields: one that is False fails the phase (None:
+# the field does not apply to that row)
+TWIN_EXACT = ("comm_totals_equal", "counters_equal", "stream_exact",
+              "zero_delay_exact", "fault_off_bitwise", "ledger_balanced",
+              "params_close", "syncs_equal")
+# twins whose quick grid the phase leaves out, each with the reason; their
+# cut rows run all the same
+QUICK_LEFT_OUT = {
+    "shard_bench": ("its sweep is a spawn of ranks a world (1, 2, 4, 8), "
+                    "each ~25 s to reach the card, 136.4 s in all: past "
+                    "the phase's 180 s with the others. Its cut row holds "
+                    "a 2-rank world's counters to the flat run; "
+                    "`python -m benchmarks.torch_run --only shard_bench` "
+                    "runs the sweep")}
 
 
-def _figure_cut(mod, case) -> dict:
+def _cut_integers(dl, extra) -> dict:
+    """A cut row's integers: the learner's counters, bytes and ledger,
+    and every integer, bool or integer array among ``extra``'s values
+    (integers of a dict value too)."""
+    out = {}
+    if dl is not None:
+        out = {"comm": dict(dl.comm_totals), "comm_bytes": dl.comm_bytes(),
+               "ledger": [int(x) for x in dl.per_link_bytes()]}
+    for k, v in extra.items():
+        if v is None or isinstance(v, (bool, int)):
+            out[k] = v
+        elif isinstance(v, dict):
+            out[k] = {a: b for a, b in v.items()
+                      if isinstance(b, (bool, int))}
+        elif isinstance(v, (list, np.ndarray)) and \
+                np.asarray(v).dtype.kind in "iub":
+            out[k] = [int(x) for x in np.asarray(v).ravel()]
+    return out
+
+
+def _twin_cut(mod, case) -> dict:
     """``case`` of the twin's ``CUT`` on the CPU from the twin's own
-    source (recorded), then on the card from the recorded batches, each
-    from the same initial model: each run's integers (comm counters,
-    bytes, ledger; the sync curve of the drift figure)."""
-    from benchmarks.torch_common import RecordSource, ReplaySource
-    init = params_to_numpy(init_cnn_params(get_arch(mod.ARCH, smoke=True),
-                                           torch.Generator().manual_seed(0)))
-    rec = RecordSource(mod.default_source("cpu"))
+    source (recorded), then on the card from the recorded draws, each
+    from the same initial model (``torch_common.cut_init``): each run's
+    integers (comm counters, bytes, ledger; the sync curve of the drift
+    figure; the twin's own counts), whether its loss is finite, and the
+    twin's check on the rows it gives."""
+    from benchmarks.torch_common import RecordSource, ReplaySource, cut_init
+    init = cut_init(mod)
+    make_source = getattr(mod, "default_source", None)
+    rec = RecordSource(make_source("cpu")) if make_source else None
     runs = {}
     for device in ("cpu", "cuda"):
-        src = rec if device == "cpu" else ReplaySource(rec.batches, device)
-        dl, extra = mod.cut(case, device, src,
-                            lambda g: params_from_numpy(init, device=device))
+        src = (rec if device == "cpu" or rec is None
+               else ReplaySource(rec.batches, device))
+        init_fn = None if init is None else (
+            lambda g, d=device: params_from_numpy(init, device=d))
+        dl, extra = mod.cut(case, device, src, init_fn)
         runs[device] = {
-            "comm": dict(dl.comm_totals), "comm_bytes": dl.comm_bytes(),
-            "ledger": [int(x) for x in dl.per_link_bytes()],
-            "syncs": [int(x) for x in extra.get("syncs", [])],
-            "finite": bool(math.isfinite(dl.cumulative_loss))}
+            "integers": _cut_integers(dl, extra),
+            "finite": dl is None or math.isfinite(dl.cumulative_loss),
+            "verdict": mod.check(extra["rows"]) if "rows" in extra else None}
     return runs
 
 
@@ -3876,58 +3947,107 @@ def _finite_row(row: dict) -> bool:
                if isinstance(v, float))
 
 
-def phase_figures() -> tuple:
-    """The eight figure twins (``benchmarks/torch_run.py``) at the
-    reference's quick settings on the card: each figure's verdict, rows
-    and seconds, beside the reference's quick verdict on the CPU (a
-    difference is reported, not failed), with the grids' sqdist_rows
-    launches (zeroed first). Then one cut row per figure on the card and
-    on the CPU from the same draws and initial model: integers
-    identical. Fails on an exception, a non-finite loss or an integer
-    mismatch."""
-    problems, figures = [], {}
+def _twin_problems(name: str, rows: list) -> list:
+    """A twin's rows against the phase's failures: a non-finite value, a
+    False exactness field, sync_bench's cohort off m/2, a kernel_bench
+    error of 0.1 or more, but sqdist's, which is held to TOL's rtol of its
+    value: near 2.4e6 at the reference's shape one f32 step is 0.25, so
+    the reference's absolute 0.1 (its check, reported, not failed) asks
+    for the plain version's summation order."""
+    out = []
+    for r in rows:
+        if not _finite_row(r):
+            out.append(f"{name}: a non-finite value in {r}")
+        out += [f"{name}: {f} is False in {r}" for f in TWIN_EXACT
+                if r.get(f) is False]
+        if name == "sync_bench" and r.get("layout") in ("tree", "flat") \
+                and r["cohort"] != r["m"] // 2:
+            out.append(f"sync_bench: cohort {r['cohort']} at m = {r['m']}")
+        if name == "kernel_bench" and not (
+                r["rel_err_vs_oracle"] <= TOL["rtol"] if "rel_err_vs_oracle"
+                in r else r.get("max_err_vs_oracle", 1) < 0.1):
+            out.append(f"kernel_bench: error past its bound in {r}")
+        if name == "kernel_bench" and r.get("launches") != 1:
+            out.append(f"kernel_bench: {r.get('launches')} launches a call "
+                       f"of {r['kernel']}, not 1")
+    return out
+
+
+def phase_twins() -> tuple:
+    """Every twin of the reference's benchmarks (``torch_run.ALL``: the
+    eight figures and the nine others) at the reference's quick settings
+    on the card, each verdict with its seconds and rows beside the
+    reference's quick verdict on the CPU (a difference is reported, not
+    failed), but for the twins of ``QUICK_LEFT_OUT`` (shard_bench: a
+    world is a spawn of ranks, and its sweep alone outlasts the phase's
+    180 s), with the grids' ``sqdist_rows`` launches, figures and others
+    apart (kernel_bench's are its timed calls, one launch a call of each
+    of its five kernels, timed beside ``kernel_bound``). Then each twin's
+    ``CUT`` cases on the CPU from the twin's own draws and on the card
+    from the same draws and initial model: integers identical, and the
+    twin's check passes where the case gives rows. Fails on an
+    exception, a non-finite value, a False exactness field
+    (``TWIN_EXACT``), sync_bench's cohort off m/2, a kernel_bench error
+    past its bound (``_twin_problems``), a card/CPU integer mismatch, or
+    a ``sqdist_rows`` launch at a plane the kernels phase did not hold to
+    its plain version (``twin_planes``)."""
+    problems, twins, kernel_rows = [], {}, []
+    launches = {"figures": 0, "others": 0}
+    grid_s = {"figures": 0.0, "others": 0.0}
     ops.reset_launches()
-    t0 = time.perf_counter()
     for mod in torch_run.ALL:
-        verdict, rows, sec = torch_run.run_one(mod, True, "cuda")
+        path = "figures" if mod in torch_run.FIGURES else "others"
         want = REFERENCE_QUICK_VERDICTS[mod.NAME]
-        figures[mod.NAME] = {
+        if mod.NAME in QUICK_LEFT_OUT:
+            twins[mod.NAME] = {"verdict": "not run",
+                               "reference_cpu_verdict": want,
+                               "reason": QUICK_LEFT_OUT[mod.NAME]}
+            continue
+        before = ops.LAUNCHES["sqdist_rows"]
+        verdict, rows, sec = torch_run.run_one(mod, True, "cuda")
+        if mod.NAME == "kernel_bench":
+            kernel_rows = rows
+        else:
+            launches[path] += ops.LAUNCHES["sqdist_rows"] - before
+        grid_s[path] += sec
+        twins[mod.NAME] = {
             "verdict": verdict, "reference_cpu_verdict": want,
             "differs": verdict != want, "seconds": sec,
             "rows": [{k: v for k, v in r.items()
                       if not isinstance(v, (list, dict))} for r in rows]}
         if str(verdict).startswith("ERROR"):
             problems.append(f"{mod.NAME}: {verdict}")
-        if not all(_finite_row(r) for r in rows):
-            problems.append(f"{mod.NAME}: a non-finite value in {rows}")
-    grid_s = time.perf_counter() - t0
-    launches = ops.LAUNCHES["sqdist_rows"]
+        problems += _twin_problems(mod.NAME, rows)
+    t0 = time.perf_counter()
     cuts = {}
     for mod in torch_run.ALL:
         for i, case in enumerate(mod.CUT):
-            runs = _figure_cut(mod, case)
+            runs = _twin_cut(mod, case)
             card, cpu = runs["cuda"], runs["cpu"]
             key = f"{mod.NAME} {i}"
             cuts[key] = {"case": _js(case),
-                         "integers_identical": _js(card) == _js(cpu),
-                         "syncs": card["comm"]["syncs"],
-                         "comm_bytes": card["comm_bytes"]}
-            if not (cuts[key]["integers_identical"] and card["finite"]):
+                         "integers_identical":
+                             _js(card["integers"]) == _js(cpu["integers"]),
+                         "integers": card["integers"]}
+            if not (cuts[key]["integers_identical"] and card["finite"]
+                    and card["verdict"] in (None, "PASS")):
                 problems.append(f"{key} cut row: card {card} vs CPU {cpu}")
+    cut_s = time.perf_counter() - t0
     # every plane the grids and the cut rows gave sqdist_rows was held to
     # its plain version in the kernels phase
     shapes = {"x".join(map(str, k)): v for k, v in ops.ROWS_LAUNCHES.items()}
-    unchecked = sorted(set(ops.ROWS_LAUNCHES) - set(figure_planes()))
+    unchecked = sorted(set(ops.ROWS_LAUNCHES) - set(twin_planes()))
     if unchecked:
         problems.append(f"sqdist_rows at planes the kernels phase did not "
                         f"check: {unchecked}")
-    rec = {"phase": "figures", "quick_grid_seconds": grid_s,
-           "sqdist_rows": launches, "sqdist_rows_by_plane": shapes,
-           "figures": figures, "cut_rows": cuts, "problems": problems}
+    rec = {"phase": "twins", "quick_grid_seconds": grid_s,
+           "cut_seconds": cut_s, "sqdist_rows": launches,
+           "sqdist_rows_by_plane": shapes, "twins": twins,
+           "cut_rows": cuts, "problems": problems}
     emit(rec)
     if problems:
-        raise SystemExit(f"figures: {problems}")
-    return launches, rec
+        raise SystemExit(f"twins: {problems}")
+    return launches, {r["kernel"]: r for r in kernel_rows}
 
 
 # ---------------------------------------------------------------------------
@@ -5079,7 +5199,7 @@ def main() -> None:
     run("lm_train_agree", phase_lm_train_agree)
     moe_fleet = run("moe_fleet", phase_moe_fleet)
     torch.cuda.empty_cache()
-    fig_launches, _ = run("figures", phase_figures)
+    twin_launches, twin_kernels = run("twins", phase_twins)
     f32, bf16 = "float32", "bfloat16"
     fa = lm_table["flash_attention"]["shape"]
     timed_rows = [
@@ -5138,7 +5258,7 @@ def main() -> None:
                       + sum(net.values()) + sum(tier.values())
                       + sum(fault.values())
                       + sum(sum(v.values()) for v in sharded.values())
-                      + fig_launches),
+                      + sum(twin_launches.values())),
          "launches_by_path": {"mnist dynamic": launches["sqdist_rows"],
                               **{k: v for k, v in paper.items()
                                  if k in ("deepdrive drift",
@@ -5150,7 +5270,10 @@ def main() -> None:
                               **{"fault " + k: v for k, v in fault.items()},
                               **{"shard " + k: sum(v.values())
                                  for k, v in sharded.items()},
-                              "figures (quick grids)": fig_launches},
+                              "figure twins (quick grids)":
+                                  twin_launches["figures"],
+                              "other twins (quick grids)":
+                                  twin_launches["others"]},
          "launches_by_shape_per_rank": sharded,
          **table["sqdist_rows"],
          "at_deepdrive_width": table["sqdist_rows_deepdrive"],
@@ -5243,6 +5366,10 @@ def main() -> None:
                         "replaces": no_tpu.format(what, fwd),
                         "launches": n, "launches_by_path": by_path,
                         **bwd_table[name]})
+    # kernel_bench's rows: the reference's shapes, one launch a call
+    for row in kernels:
+        if row["name"] in twin_kernels:
+            row["kernel_bench"] = twin_kernels[row["name"]]
     emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

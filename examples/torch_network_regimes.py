@@ -32,11 +32,23 @@ ACT_PROBS = (1.0, 0.7, 0.4)
 TOPOLOGIES = ("star", "ring", "geometric")
 
 
-def _run(proto, network, rounds: int, device: str):
+def network_config(topo: str, act: float) -> NetworkConfig:
+    """The grid's network at overlay ``topo`` and availability ``act``."""
+    return NetworkConfig(topology=topo, act_prob=act, geo_radius=0.6,
+                         redraw_every=20 if topo == "geometric" else 0,
+                         link_classes=("wifi", "lte"))
+
+
+def run_one(proto, network, rounds: int, device: str, source=None,
+            init_fn=None):
+    """One run of the grid: the drift MLP on ``GraphicalModelStream(seed=1)``
+    (or ``source``) from ``init_fn`` (default: the port's own draw)."""
     cfg = get_arch("drift_mlp", smoke=True)
+    src = (GraphicalModelStream(seed=1, drift_prob=0.0, device=device)
+           if source is None else source)
     dl, _ = run_protocol_training(
-        lambda p, b: cnn_loss(cfg, p, b), lambda g: init_cnn_params(cfg, g),
-        GraphicalModelStream(seed=1, drift_prob=0.0, device=device), m=M,
+        lambda p, b: cnn_loss(cfg, p, b),
+        init_fn or (lambda g: init_cnn_params(cfg, g)), src, m=M,
         rounds=rounds, protocol=proto,
         train=TrainConfig(optimizer="sgd", learning_rate=0.05), batch=10,
         seed=0, network=network, device=device)
@@ -53,16 +65,14 @@ def _row(name, topo, act, dl):
 def run(rounds: int, device: str):
     dyn = ProtocolConfig(kind="dynamic", b=5, delta=0.5)
     gsp = ProtocolConfig(kind="gossip", b=5)
-    rows = [_row("dynamic", "none", 1.0, _run(dyn, None, rounds, device))]
+    rows = [_row("dynamic", "none", 1.0,
+                 run_one(dyn, None, rounds, device))]
     for topo in TOPOLOGIES:
         for act in ACT_PROBS:
-            net = NetworkConfig(
-                topology=topo, act_prob=act, geo_radius=0.6,
-                redraw_every=20 if topo == "geometric" else 0,
-                link_classes=("wifi", "lte"))
+            net = network_config(topo, act)
             for name, proto in (("dynamic", dyn), ("gossip", gsp)):
                 rows.append(_row(name, topo, act,
-                                 _run(proto, net, rounds, device)))
+                                 run_one(proto, net, rounds, device)))
     return rows
 
 

@@ -14,7 +14,7 @@ the reference's (``benchmarks/fig*.py``) on the CPU.
   replayed is the same run, as ``chip_smoke.py`` replays it on the card.
 * ``python -m benchmarks.torch_run --list`` runs without a card.
 
-No whole quick grid runs here; ``chip_smoke.py``'s ``figures`` phase
+No whole quick grid runs here; ``chip_smoke.py``'s ``twins`` phase
 runs the eight quick grids on the card.
 """
 import importlib
@@ -50,7 +50,7 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_TOL = dict(rtol=1e-4)
-TWINS = {mod.NAME: mod for mod in torch_run.ALL}
+TWINS = {mod.NAME: mod for mod in torch_run.FIGURES}
 REFERENCE = {
     "fig5_1_dynamic_vs_periodic": "fig5_1_dynamic_vs_periodic",
     "fig5_2_fedavg": "fig5_2_fedavg",
@@ -289,6 +289,9 @@ def test_recorded_cut_row_replays_the_same_run(name):
 
 
 def test_torch_run_lists_without_a_card():
+    """Every registered twin (the figures among the reference's other
+    benchmarks, ``tests/test_torch_bench_twins.py``), in the reference's
+    order, with its paper reference."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-m", "benchmarks.torch_run",
@@ -296,5 +299,6 @@ def test_torch_run_lists_without_a_card():
                        timeout=120, cwd=ROOT)
     assert r.returncode == 0, r.stderr[-2000:]
     lines = [ln.split("\t") for ln in r.stdout.strip().splitlines()]
-    assert [ln[0] for ln in lines] == list(REFERENCE)
-    assert all(ln[1] == TWINS[ln[0]].PAPER_REF for ln in lines)
+    assert [ln[0] for ln in lines] == [m.NAME for m in torch_run.ALL]
+    assert [ln[0] for ln in lines if ln[0] in TWINS] == list(REFERENCE)
+    assert all(ln[1] == m.PAPER_REF for ln, m in zip(lines, torch_run.ALL))
