@@ -87,6 +87,24 @@ in f32) by CUDA events and profiler device time; then mamba2-2.7b prefills at
 B = 4, S = 2,048 in bf16 by CUDA events after a 128-token warm-up: the
 first full-size call (``first_ms``, what ``chip_smoke.py`` reports) and
 two more (``steady_ms``). One JSON line each.
+
+    python3 benchmarks/torch_profile.py --decode [--src DIR]
+
+times the serving phase's decode from the port under ``DIR`` (default:
+this checkout's ``src``), so that two trees can be compared in one run:
+llama3-8b and mamba2-2.7b at full width and depth in bf16, a batch-4
+``ServeEngine`` fed a 32-token prompt, then 32 greedy steps between CUDA
+events (``chip_smoke.py``'s ``decode_ms_per_step``), in seven fresh
+engines after one for the warm-up (median and least); and the host's µs
+in one call of the ``ops`` wrappers, by its clock over 500 calls (fewer
+than the launch queue holds), nine times (median and least), in turns
+with the kernel module's launcher alone (the least of each, and their
+difference, the wrapper's own time): ``rmsnorm`` at (4, 4096) bf16 (a
+decode step's norm), ``flash_attention_gqa`` at (1, 128, 32/8, 128)
+bf16 and ``sqdist_rows`` at (2, 1,199,882) f32. The host's clock is
+shared with other work on a one-card machine, so the least is the
+steadier figure, and a difference within one process the steadiest.
+One JSON line each.
 """
 from __future__ import annotations
 
@@ -105,6 +123,7 @@ KERNELS_ONLY = "--kernels" in sys.argv[1:]
 PAPER_ONLY = "--paper" in sys.argv[1:]
 FAULTS_ONLY = "--faults" in sys.argv[1:]
 LM_TRAIN_ONLY = "--lm-train" in sys.argv[1:]
+DECODE_ONLY = "--decode" in sys.argv[1:]
 OWN_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                        "src")
 SRC = (sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv[1:]
@@ -554,9 +573,83 @@ def profile_kernels() -> list:
     return out
 
 
+def profile_decode() -> list:
+    """``--decode``: the serving decode's ms a step and the wrappers'
+    host µs a call, from the port under ``SRC``."""
+    from repro_torch.kernels import flash_attention, ops, rmsnorm, sqdist
+    prompt, gen, engines, repeats = 32, 32, 7, 9
+    out = []
+    for arch in ("llama3-8b", "mamba2-2.7b"):
+        cfg = get_arch(arch)
+        params = init_lm_params(cfg, seed=0, dtype=torch.bfloat16)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (4, prompt), generator=g,
+                               device="cuda")
+        ms = []
+        for _ in range(engines + 1):
+            eng = ServeEngine(cfg, params, max_seq=prompt + gen + 1,
+                              batch=4, dtype=torch.bfloat16)
+            first = eng.feed(tokens)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            eng.generate(gen, first_logits=first)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end) / gen)
+            del eng, first
+        out.append({"src": SRC, "case": f"{arch} decode batch 4 bf16, "
+                    f"{gen} steps after a {prompt}-token prompt",
+                    "decode_ms_per_step": sorted(ms[1:])[engines // 2],
+                    "decode_ms_per_step_min": min(ms[1:]),
+                    "decode_ms_per_step_each": ms[1:]})
+        del params
+        torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x, s = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+            for shape in ((4, 4096), (4096,)))
+    q = torch.randn((1, 128, 32, 128), generator=g, device="cuda").to(
+        torch.bfloat16)
+    kv = torch.randn((1, 128, 8, 128), generator=g, device="cuda").to(
+        torch.bfloat16)
+    X = torch.randn((2, 1_199_882), generator=g, device="cuda")
+    r = torch.randn((1_199_882,), generator=g, device="cuda")
+    # each ops wrapper and its kernel module's launcher alone, in turns in
+    # one process: the difference is the wrapper's own host time (the
+    # placement checks and the launch count), which the process's state
+    # moves less than either
+    for name, wrapper, alone in (
+            ("rmsnorm (4, 4096) bf16", lambda: ops.rmsnorm(x, s),
+             lambda: rmsnorm.rmsnorm(x, s)),
+            ("flash_attention_gqa (1, 128, 32/8, 128) bf16",
+             lambda: ops.flash_attention_gqa(q, kv, kv),
+             lambda: flash_attention.flash_attention_gqa(q, kv, kv)),
+            ("sqdist_rows (2, 1199882) f32", lambda: ops.sqdist_rows(X, r),
+             lambda: sqdist.sqdist_rows(X, r))):
+        us = {"ops": [], "alone": []}
+        for _ in range(repeats):
+            us["ops"].append(_timing.host_us(wrapper, 500, 20))
+            us["alone"].append(_timing.host_us(alone, 500, 20))
+        out.append({"src": SRC, "case": name,
+                    "host_us": sorted(us["ops"])[repeats // 2],
+                    "host_us_min": min(us["ops"]),
+                    "module_alone_host_us_min": min(us["alone"]),
+                    "wrapper_us": min(us["ops"]) - min(us["alone"]),
+                    "host_us_each": us})
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("torch_profile.py needs a CUDA device")
+    if DECODE_ONLY:
+        for rec in profile_decode():
+            print(json.dumps(rec), flush=True)
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), flush=True)
+        return
     if KERNELS_ONLY:
         for rec in profile_kernels():
             print(json.dumps(rec), flush=True)

@@ -11,9 +11,9 @@ experiments/bench_torch/. ``--list`` names the registered benchmarks and
 their paper references without running anything (no card needed).
 ``--full`` runs the reference's full settings; the default is its quick
 ones. ``--device`` is ``cuda`` unless the caller asks for the CPU.
-``ALL`` is the reference's registry in its order, twin for twin, but for
-``roofline_table``, which reads the records of the reference's dry run
-(``experiments/dryrun/*.json``) and waits for that tool's twin;
+``ALL`` is the reference's registry in its order, twin for twin, the
+last ``roofline_table``, which tabulates the port's dry-run records
+(``python -m repro_torch.launch.dryrun``, ``experiments/torch_dryrun/``);
 ``FIGURES`` are the eight figure twins among them.
 
 ``--protocol`` runs a serialized ``ProtocolSpec`` (the JSON that the
@@ -44,6 +44,7 @@ from benchmarks import (
     torch_fig_network_regimes,
     torch_kernel_bench,
     torch_robust_bench,
+    torch_roofline_table,
     torch_scan_driver,
     torch_shard_bench,
     torch_sync_bench,
@@ -67,6 +68,7 @@ ALL = [
     torch_async_bench,
     torch_robust_bench,
     torch_kernel_bench,
+    torch_roofline_table,
 ]
 FIGURES = [
     torch_fig5_1_dynamic_vs_periodic,

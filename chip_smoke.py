@@ -310,7 +310,7 @@ from repro_torch import prng  # noqa: E402
 from repro_torch.checkpoint import io  # noqa: E402
 from repro_torch.config import (  # noqa: E402
     AsyncConfig, FaultConfig, HierarchyConfig, NetworkConfig, ProtocolConfig,
-    TelemetryConfig, TrainConfig, get_arch, norm_widths,
+    ShapeConfig, TelemetryConfig, TrainConfig, get_arch, norm_widths,
 )
 from repro_torch.analysis.roofline import (  # noqa: E402
     attention_work, kernel_bound, peaks, ssd_work,
@@ -331,6 +331,7 @@ from repro_torch.kernels import (  # noqa: E402
     _build, flash_attention, ops, ref, rmsnorm, sqdist, ssd_scan,
     swa_attention,
 )
+from repro_torch.launch.sharding import map_named  # noqa: E402
 from repro_torch.kernels._timing import (  # noqa: E402
     cold_inputs, cuda_ms, graph_ms, host_us, in_turn, profile_calls,
 )
@@ -3880,7 +3881,8 @@ REFERENCE_QUICK_VERDICTS = {
     "figA6_optimizers": "PASS", "figC_unbalanced": "PASS",
     "fig_network_regimes": "PASS", "fig_hierarchy": "PASS",
     "sync_bench": "PASS", "shard_bench": "PASS", "async_bench": "PASS",
-    "robust_bench": "PASS", "kernel_bench": "PASS"}
+    "robust_bench": "PASS", "kernel_bench": "PASS",
+    "roofline_table": "NO-DATA"}
 # the rows' exactness fields: one that is False fails the phase (None:
 # the field does not apply to that row)
 TWIN_EXACT = ("comm_totals_equal", "counters_equal", "stream_exact",
@@ -3975,7 +3977,9 @@ def _twin_problems(name: str, rows: list) -> list:
 
 def phase_twins() -> tuple:
     """Every twin of the reference's benchmarks (``torch_run.ALL``: the
-    eight figures and the nine others) at the reference's quick settings
+    eight figures and the ten others, ``roofline_table`` last, which finds
+    no records here: the ``launch`` phase writes them) at the reference's
+    quick settings
     on the card, each verdict with its seconds and rows beside the
     reference's quick verdict on the CPU (a difference is reported, not
     failed), but for the twins of ``QUICK_LEFT_OUT`` (shard_bench: a
@@ -4093,6 +4097,10 @@ TRAIN_ATTN_CASES = [
     (1, 130, 130, 8, 2, 128, True, 0, "ragged S, GQA group 4"),
     (1, 300, 300, 8, 2, 64, True, 64, "a window of 64"),
     (2, 70, 90, 4, 1, 32, False, 0, "non-causal, Sk != Sq"),
+    # the launch phase's fleets: llama3-8b, 2 learners folded, one
+    # sequence of 1,024 each
+    (2, 1024, 1024, 32, 8, 128, True, 0,
+     "llama3-8b fleet, 2 learners folded (2, 1024, 32/8, 128)"),
 ]
 TRAIN_ATTN_TIMED = 5            # the first cases, each timed
 TRAIN_ATTN_BANDED = "hymba-1.5b banded (1, 4096, 25/5, 64), w 1,024"
@@ -4133,6 +4141,7 @@ TRAIN_NORM_CASES = [
     (2048, 768, 4, 0, "fleet-llm-100m's (4 x 512, 768), 4 groups"),
     (33, 1601, 1, 1, "rows off 16 bytes"),
     (12, 200, 3, 3, "rows off 16 bytes, 3 groups"),
+    (2048, 4096, 2, 0, "llama3-8b fleet's (2 x 1024, 4096), 2 groups"),
 ]
 LM_TRAIN_LAYERS, LM_TRAIN_S, LM_TRAIN_STEPS = 2, 4096, 6
 # the σ_1 cells, each at full width and LM_TRAIN_LAYERS layers
@@ -4209,7 +4218,8 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
     against the autograd gradient of their plain versions on the card, in
     f32 and float64 (TRAIN_GRAD_REL), bitwise across two launches, at the
     training paths' shapes and the kernels' edges; the f32 forward's
-    log-sum-exp against ``logsumexp`` of the plain scores; the grouped
+    log-sum-exp against ``logsumexp`` of the plain scores and both
+    forwards' outputs against their plain versions (LM_TOL); the grouped
     forward norm against one call per group, bit for bit. Timed at
     llama3-8b's and the fleet's shapes beside the plain version, one
     PyTorch call (SDPA's f32 backward with the kv heads expanded,
@@ -4219,7 +4229,7 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
     forward's) and its kernels' registers and spills (``ptxas``, the
     build phase's lines)."""
     card = peaks(torch.cuda.get_device_name(0))
-    checks, lse_errs, timed = [], [], {}
+    checks, lse_errs, fwd_errs, norm_errs, timed = [], [], [], [], {}
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
@@ -4239,6 +4249,14 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
                 q, k, v, causal=causal, window=w)):
             raise SystemExit(f"the forward with the log-sum-exp gives "
                              f"another output at {label}")
+        o_want = ref.flash_attention_gqa_ref(q, k, v, causal=causal,
+                                             window=w)
+        fwd_errs.append(float((o - o_want).abs().max()))
+        if not torch.allclose(o, o_want,
+                              **LM_TOL["attention", torch.float32]):
+            raise SystemExit(f"the f32 forward at {label} disagrees with "
+                             f"its plain version: {fwd_errs[-1]}")
+        del o_want
         got = flash_attention.attention_bwd(q, k, v, o, lse, do, **kw)
         again = flash_attention.attention_bwd(q, k, v, o, lse, do, **kw)
         want32 = ref.flash_attention_gqa_bwd_ref(q, k, v, do, **kw)
@@ -4314,8 +4332,15 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
                                      1e-5)
         torch.cuda.synchronize()
         _hold_grads(checks, "rmsnorm_bwd", label, got, again, want32, want64)
+        # the forward against its plain version (grouped scales too)
+        y = rmsnorm.rmsnorm(x, s, 1e-5)
+        y_want = ref.rmsnorm_ref(x, s, 1e-5)
+        norm_errs.append(float((y - y_want).abs().max()))
+        if not torch.allclose(y, y_want, **LM_TOL["rmsnorm", torch.float32]):
+            raise SystemExit(f"the f32 rmsnorm at {label} disagrees with "
+                             f"its plain version: {norm_errs[-1]}")
+        del y_want
         if g > 1:   # the grouped forward: one call per group, bit for bit
-            y = rmsnorm.rmsnorm(x, s, 1e-5)
             R = rows // g
             if not all(torch.equal(y[i * R:(i + 1) * R], rmsnorm.rmsnorm(
                     x[i * R:(i + 1) * R].contiguous(), s[i], 1e-5))
@@ -4354,6 +4379,9 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
     ssd_kernels = kernel_resources(ptxas, "ssd_scan_bwd_")
     emit({"phase": "lm_train_kernels", "checks": checks,
           "lse_max_abs_err": max(lse_errs),
+          # each case's forward against its plain version (LM_TOL, f32)
+          "forward_max_abs_err": {"flash_attention": max(fwd_errs),
+                                  "rmsnorm": max(norm_errs)},
           "tolerance_rel_of_max": TRAIN_GRAD_REL, "lse_tolerance": LSE_TOL,
           "timed": {"attention_bwd": attn_rows, "rmsnorm_bwd": norm_rows,
                     "ssd_scan_bwd": ssd_rows},
@@ -5055,6 +5083,369 @@ def phase_moe_fleet() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the launcher's programs (slice 20): launch/specs.py's five modes of
+# llama3-8b at full width, 2 of its 32 layers, on the (1, 1) DeviceMesh of
+# one rank; each counted on meta by launch/dryrun.py and run on the card
+# ---------------------------------------------------------------------------
+
+LAUNCH_ARCH, LAUNCH_LAYERS, LAUNCH_SEED = "llama3-8b", 2, 0
+# (mode, dtype, shape): the σ_1 cell's shape (lm_train), the fleets' one
+# sequence of 1,024 a learner (m = 2), serving's batch 4 at 2,048
+LAUNCH_PROGRAMS = (
+    ("train", "float32", ShapeConfig("sigma1_4k", 4096, 1, "train")),
+    ("train_dynamic", "float32", ShapeConfig("fleet_1k", 1024, 2, "train")),
+    ("train_periodic", "float32", ShapeConfig("fleet_1k", 1024, 2, "train")),
+    ("prefill", "bfloat16", ShapeConfig("prefill_2k", 2048, 4, "prefill")),
+    ("decode", "bfloat16", ShapeConfig("decode_2k", 2048, 4, "decode")))
+LAUNCH_TRAIN = TrainConfig(optimizer="sgd", remat=True)
+# a Δ that one step's drift passes: the card's checked step syncs, the
+# step the dry run counts (the host's decision has no value on meta)
+LAUNCH_PROTO = ProtocolConfig(kind="dynamic", b=10, delta=1e-6)
+# the caching allocator hands out blocks in multiples of 512 bytes
+ALLOC_GRAIN = 512
+LAUNCH_DIR = os.path.join("build", "torch_dryrun")
+EXAMPLE_TWINS = ("async_fleet", "concept_drift", "custom_protocol",
+                 "fedavg_comparison", "hierarchical_fleet", "serve_demo",
+                 "unreliable_fleet")
+
+
+def _bits_equal(a: list, b: list) -> bool:
+    """The same tensors byte for byte."""
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+            x.reshape(-1).contiguous().view(torch.uint8),
+            y.reshape(-1).contiguous().view(torch.uint8))
+        for x, y in zip(a, b))
+
+
+def _program_tensors(mode: str, out) -> list:
+    """The tensors of a program's output, in a fixed order."""
+    if mode == "train":
+        state, metrics = out
+        return list(tree_leaves(state.params)) + [metrics["loss"]]
+    if mode.startswith("train_"):
+        state, metrics = out
+        return [state.plane, state.ref] + [
+            torch.as_tensor(v) for _, v in sorted(metrics.items())]
+    if mode == "prefill":
+        return [out]
+    logits, cache = out
+    return [logits] + list(tree_leaves(cache))
+
+
+def _entry_point_call(mode: str, cfg, shape):
+    """The same call through the entry points the program wraps: the
+    weights by ``init_lm_params`` from the seed, the tokens by
+    ``prng.randint`` (labels the next token)."""
+    from repro_torch.core.distributed import (
+        init_dynamic_state, make_dynamic_train_step, make_periodic_train_step)
+    from repro_torch.models.model import init_lm_cache, lm_loss
+    from repro_torch.serve.engine import make_decode_step
+    from repro_torch.train.step import make_train_step
+    dtype = getattr(torch, cfg.dtype)
+    B, S = shape.global_batch, shape.seq_len
+    seq = 1 if mode == "decode" else S
+    toks = prng.randint(prng.key(LAUNCH_SEED), (B, seq + 1), 0,
+                        cfg.vocab_size)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    loss_fn = lambda p, b: lm_loss(cfg, p, b, remat=True)    # noqa: E731
+    if mode == "train":
+        init_state, step = make_train_step(loss_fn, LAUNCH_TRAIN)
+        return step(init_state(init_lm_params(cfg, LAUNCH_SEED, dtype)),
+                    batch)
+    if mode.startswith("train_"):
+        mk = (make_dynamic_train_step if mode == "train_dynamic"
+              else make_periodic_train_step)
+        state = init_dynamic_state(
+            lambda g: init_lm_params(cfg, LAUNCH_SEED, dtype),
+            torch.Generator(device="cuda"), 2, LAUNCH_TRAIN)._replace(
+                step=LAUNCH_PROTO.b - 1)
+        fleet = {k: v.reshape(2, B // 2, S) for k, v in batch.items()}
+        return mk(loss_fn, LAUNCH_PROTO, LAUNCH_TRAIN, 2)(state, fleet)
+    params = init_lm_params(cfg, LAUNCH_SEED, dtype)
+    if mode == "prefill":
+        return make_prefill(cfg)(params, batch["tokens"])
+    return make_decode_step(cfg)(params, init_lm_cache(cfg, B, S, dtype),
+                                 batch["tokens"].reshape(B), S - 1)
+
+
+def _launch_expected(mode: str, L: int) -> dict:
+    """The kernel launches of one call of ``mode`` at L layers of
+    llama3-8b: a training step's forward kernels twice (remat), its
+    backward ones once; the dynamic step's one ``sqdist_rows``."""
+    if mode.startswith("train"):
+        want = {"rmsnorm": 4 * L + 1, "flash_attention": 2 * L,
+                "rmsnorm_bwd": 2 * L + 1, "attention_bwd": L}
+        if mode == "train_dynamic":
+            want["sqdist_rows"] = 1
+        return want
+    return ({"rmsnorm": 2 * L + 1, "flash_attention": L}
+            if mode == "prefill" else {"rmsnorm": 2 * L + 1})
+
+
+def _storages(args) -> int:
+    """Distinct allocations among a program's arguments (views are their
+    base's)."""
+    seen = set()
+    map_named(lambda _n, t: seen.add(
+        (t._base if t._base is not None else t).data_ptr())
+        if isinstance(t, torch.Tensor) else None, args)
+    return len(seen)
+
+
+def _run_program(mode: str, dtype: str, shape, mesh, problems) -> dict:
+    """One program: its dry run on meta, then on the card materialized
+    (the arguments' memory), observed by ``analyze`` under a tally,
+    timed by CUDA events on a second copy, and called again through the
+    entry points; the outputs bit for bit, the launches and the counts
+    against the dry run's."""
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.launch import dryrun, specs
+    cfg = dataclasses.replace(get_arch(LAUNCH_ARCH),
+                              num_layers=LAUNCH_LAYERS, dtype=dtype)
+    proto = LAUNCH_PROTO if mode.startswith("train_") else None
+    t0 = time.perf_counter()
+    prog, counted = dryrun.count_program(cfg, shape, mesh, mode,
+                                         LAUNCH_TRAIN, proto)
+    dry_s = time.perf_counter() - t0
+    arg_bytes = dryrun.argument_bytes(prog, mesh)
+    rec = dryrun.roofline_of(cfg, shape, mesh, mode, prog, counted)
+    os.makedirs(LAUNCH_DIR, exist_ok=True)
+    with open(os.path.join(LAUNCH_DIR, f"{cfg.name}_{shape.name}_one_card_"
+                           f"{mode}.json"), "w") as f:
+        json.dump({"arch": cfg.name, "shape": shape.name,
+                   "mesh": "one_card", "mode": mode, "num_devices": 1,
+                   "compile_s": round(dry_s, 2), "ok": True,
+                   "calibrated": True, "roofline": rec,
+                   "per_chip_rule": "even_split", "layers": LAUNCH_LAYERS,
+                   "dtype": dtype, "kernels": counted["kernels"]},
+                  f, indent=1, default=str)
+
+    # A: materialized, observed by analyze under a tally (also the warm-up)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    real = specs.materialize(prog, LAUNCH_SEED, "cuda")
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - base
+    storages = _storages(real.args)
+    ops.reset_launches()
+    outs, calls = [], []
+    plain_call = ops.sqdist_rows
+
+    def keep(X, r):
+        # the main path's own call, copies of its inputs kept (the step
+        # writes the plane in place after it) to hold it to the plain
+        # version once the observed run is over; the observers count a
+        # copy as a free move, so the counts below are the program's
+        out = plain_call(X, r)
+        calls.append((X.clone(), r.clone(), out))
+        return out
+
+    ops.sqdist_rows = keep
+    try:
+        with _build.tally() as tally:
+            report = rl.analyze(prog.name, lambda *a: outs.append(
+                real.fn(*a)), *real.args)
+    finally:
+        ops.sqdist_rows = plain_call
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    rows = dict(ops.ROWS_LAUNCHES)
+    card_kernels = dryrun.kernel_totals(tally.calls)
+    first = _program_tensors(mode, outs[0])
+    small = [t.clone() for t in first if t.numel() < 1 << 20]
+    serving = not mode.startswith("train")
+    kept = first if serving else small
+    del real, outs, first
+    torch.cuda.empty_cache()
+    # each sqdist_rows call of the run against its plain version on the
+    # same inputs (TOL)
+    held = []
+    for X, r, got in calls:
+        want = ref.sqdist_rows_ref(X, r)
+        held.append({"plane": list(X.shape), "got": got.tolist(),
+                     "max_abs_err": float((got - want).abs().max()),
+                     "ok": bool(torch.allclose(got, want, **TOL))})
+        del X, r, got, want
+    del calls
+    torch.cuda.empty_cache()
+
+    # B: a second copy, timed by CUDA events, its peak read
+    real = specs.materialize(prog, LAUNCH_SEED, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    out = real.fn(*real.args)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1)
+    peak = torch.cuda.max_memory_allocated()
+    fleet = ({"synced": int(out[1]["synced"]),
+              **({"max_sq_dist": float(out[1]["max_sq_dist"])}
+                 if mode == "train_dynamic" else {})}
+             if mode.startswith("train_") else {})
+    timed = _program_tensors(mode, out)
+    del real, out
+    # C: the entry points' own call
+    entry = _program_tensors(mode, _entry_point_call(mode, cfg, shape))
+    same_entry = _bits_equal(timed, entry)
+    same_repeat = _bits_equal(
+        kept, timed if serving else [t for t in timed
+                                     if t.numel() < 1 << 20])
+    del timed, entry, kept
+    torch.cuda.empty_cache()
+
+    want = _launch_expected(mode, LAUNCH_LAYERS)
+    dry_kernels = {f: {k: v for k, v in row.items()}
+                   for f, row in counted["kernels"].items()}
+    checks = {
+        "outputs_bit_for_bit_entry_points": same_entry,
+        "outputs_repeat_bit_for_bit": same_repeat,
+        "launches_exact": launches == want,
+        "products_flops_equal": report.flops_per_chip == counted["flops"],
+        "bytes_outside_kernels_equal":
+            report.bytes_per_chip == counted["bytes"],
+        "kernels_equal_kernel_work_of_launches": card_kernels == dry_kernels,
+        "argument_bytes_equal_memory_rise":
+            arg_bytes <= rise <= arg_bytes + ALLOC_GRAIN * storages}
+    if mode.startswith("train_"):
+        checks["synced"] = fleet["synced"] == 1
+    if mode == "train_dynamic":
+        P = prog.args[0].plane.shape[1]
+        checks["sqdist_rows_at_2_P"] = rows == {(2, P, 1): 1}
+        checks["sqdist_rows_held_to_plain"] = (
+            len(held) == 1 and held[0]["plane"] == [2, P]
+            and held[0]["ok"])
+    problems += [f"launch {mode}: {k}" for k, v in checks.items() if not v]
+    return {"mode": mode, "dtype": dtype, "program": prog.name,
+            "shape": [shape.global_batch, shape.seq_len],
+            "layers": LAUNCH_LAYERS, "ms": ms, "peak_bytes": peak, **fleet,
+            "dry_run_s": dry_s, "launches": launches,
+            "launches_expected": want, "sqdist_rows_by_plane":
+                {"x".join(map(str, k)): v for k, v in rows.items()},
+            "sqdist_rows_vs_plain": {"calls": held, "tolerance": TOL},
+            "products_flops": {"card": report.flops_per_chip,
+                               "dry_run": counted["flops"]},
+            "bytes_outside_kernels": {"card": report.bytes_per_chip,
+                                      "dry_run": counted["bytes"]},
+            "kernels": {"card": card_kernels, "dry_run": dry_kernels},
+            "argument_bytes": {"dry_run": arg_bytes, "memory_rise": rise,
+                               "allocations": storages},
+            "roofline": {k: rec[k] for k in (
+                "compute_s", "memory_s", "collective_s", "bottleneck",
+                "model_flops", "useful_fraction")},
+            "checks": checks}
+
+
+def _example_twins(problems) -> dict:
+    """Each example twin's ``main(["--smoke"])`` on the card, in this
+    process, with every ``sqdist_rows`` call held to its plain version on
+    the same inputs (TOL); their launches by kernel."""
+    import importlib.util
+    plain_call = ops.sqdist_rows
+    held = {"calls": 0, "off_tolerance": 0}
+
+    def checked(X, r):
+        out = plain_call(X, r)
+        held["calls"] += 1
+        held["off_tolerance"] += int((~torch.isclose(
+            out, ref.sqdist_rows_ref(X, r), **TOL)).sum())
+        return out
+
+    ops.reset_launches()
+    ops.sqdist_rows = checked
+    runs = {}
+    try:
+        for name in EXAMPLE_TWINS:
+            path = os.path.join("examples", f"torch_{name}.py")
+            spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                          path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            t0 = time.perf_counter()
+            mod.main(["--smoke"])
+            torch.cuda.synchronize()
+            runs[name] = time.perf_counter() - t0
+    finally:
+        ops.sqdist_rows = plain_call
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if held["off_tolerance"] or held["calls"] != launches.get(
+            "sqdist_rows", 0):
+        problems.append(f"example twins: sqdist_rows {held} against the "
+                        f"plain version, {launches}")
+    for kernel in ("sqdist_rows", "rmsnorm", "flash_attention", "ssd_scan"):
+        if not launches.get(kernel):
+            problems.append(f"example twins: no {kernel} launch")
+    return {"seconds": runs, "launches": launches,
+            "sqdist_rows_held": held}
+
+
+def phase_launch() -> tuple:
+    """The launcher's programs on the card (slice 20): the five modes of
+    ``launch/specs.py::build_program`` for llama3-8b at full width (d
+    4,096, 32/8 heads of 128, vocab 128,256), 2 of 32 layers, on the (1,
+    1) ``DeviceMesh`` of one rank (one NCCL rank, ``launch/mesh.py``):
+    ``train`` (f32, B 1, S 4,096, sgd, remat), ``train_dynamic`` and
+    ``train_periodic`` (f32, m = 2, one sequence of 1,024 a learner,
+    from step b - 1: one checked step that syncs), ``prefill`` (bf16, (4,
+    2,048)) and ``decode`` (bf16, batch 4 against a 2,048-deep cache).
+    Each is counted on meta by the dry run (``launch/dryrun.py``, its
+    record written to ``build/torch_dryrun/``), then ``materialize``d and
+    run three times (``_run_program``). Fails unless every output is bit
+    for bit the entry points' and the repeat's, the launches are exact
+    by family (remat's forward kernels twice, one ``sqdist_rows`` at (2,
+    P)), the fleets synced, and the dry run equals ``analyze`` of the
+    card's run: the products' FLOPs, the bytes outside the kernels, the
+    kernels' work (``kernel_work`` of every launch) and the argument
+    bytes (the memory's rise while materializing, each allocation
+    rounded up to ``ALLOC_GRAIN``). Then ``torch_roofline_table`` over
+    the records (every one compiled) and the seven example twins at
+    ``--smoke`` (``_example_twins``). An OOM fails the phase."""
+    import torch.distributed as dist
+    from benchmarks import torch_roofline_table as table
+    from repro_torch.launch.mesh import axis_sizes, device_mesh
+    problems, programs = [], {}
+    t0 = time.perf_counter()
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    started = not dist.is_initialized()
+    if started:
+        os.makedirs("build", exist_ok=True)
+        init = os.path.abspath(os.path.join("build", "launch_pg"))
+        if os.path.exists(init):
+            os.remove(init)
+        dist.init_process_group("nccl", init_method=f"file://{init}",
+                                world_size=1, rank=0)
+    try:
+        mesh = device_mesh((1, 1), ("data", "model"))
+        for mode, dtype, shape in LAUNCH_PROGRAMS:
+            programs[mode] = _run_program(mode, dtype, shape, mesh,
+                                          problems)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    rows = table.run(dryrun_dir=LAUNCH_DIR)
+    verdict = table.check(rows)
+    n = len(LAUNCH_PROGRAMS)
+    if verdict != f"{n}/{n} compiled":
+        problems.append(f"roofline table: {verdict}")
+    programs_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    examples = _example_twins(problems)
+    rec = {"phase": "launch", "arch": LAUNCH_ARCH, "layers": LAUNCH_LAYERS,
+           "mesh": axis_sizes(mesh), "programs": programs,
+           "roofline_table": verdict, "programs_seconds": programs_s,
+           "examples": examples,
+           "examples_seconds": time.perf_counter() - t1,
+           "problems": problems}
+    emit(rec)
+    print(table.format_markdown(table.load_records(LAUNCH_DIR)), flush=True)
+    if problems:
+        raise SystemExit(f"launch: {problems}")
+    return programs, examples
+
+
 def phase_analysis(kernel_rows: list) -> dict:
     """The analysis tools on the card's tree and the card: the lint of the
     port and this script and the contract matrix (``--check-all``'s
@@ -5200,6 +5591,8 @@ def main() -> None:
     moe_fleet = run("moe_fleet", phase_moe_fleet)
     torch.cuda.empty_cache()
     twin_launches, twin_kernels = run("twins", phase_twins)
+    torch.cuda.empty_cache()
+    launch, examples = run("launch", phase_launch)
     f32, bf16 = "float32", "bfloat16"
     fa = lm_table["flash_attention"]["shape"]
     timed_rows = [
@@ -5366,6 +5759,20 @@ def main() -> None:
                         "replaces": no_tpu.format(what, fwd),
                         "launches": n, "launches_by_path": by_path,
                         **bwd_table[name]})
+    # the launcher's five programs (one observed call each, the launches
+    # the dry run is held to) and the example twins at --smoke
+    for row in kernels:
+        by_path = row.setdefault("launches_by_path", {})
+        for mode, prog in launch.items():
+            n = prog["launches"].get(row["name"], 0)
+            if n:
+                row["launches"] += n
+                by_path[f"launch {mode} ({LAUNCH_ARCH}, {LAUNCH_LAYERS} "
+                        f"layers, one call)"] = n
+        n = examples["launches"].get(row["name"], 0)
+        if n:
+            row["launches"] += n
+            by_path["example twins (--smoke)"] = n
     # kernel_bench's rows: the reference's shapes, one launch a call
     for row in kernels:
         if row["name"] in twin_kernels:

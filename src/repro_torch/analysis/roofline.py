@@ -103,9 +103,10 @@ class RooflineReport:
 
 def model_flops_for(cfg, shape, mode: str) -> float:
     """6·N·D rule. Train counts fwd+bwd (6ND); prefill 2ND; decode 2N·B.
-    The port has no mixture of experts, so N is every parameter."""
-    count = getattr(cfg, "active_param_count", None) or cfg.param_count
-    n = count()
+    N is ``cfg.active_param_count()``: for a mixture of experts the
+    weights a token touches (the routed top-k and the shared experts),
+    as the reference counts it."""
+    n = cfg.active_param_count()
     if mode in ("train", "train_dynamic", "train_periodic"):
         return 6.0 * n * shape.global_batch * shape.seq_len
     if mode == "prefill":
@@ -145,6 +146,7 @@ _FREE = frozenset({
     "lift_fresh", "lift_fresh_copy", "scalar_tensor", "_local_scalar_dense",
     "split", "split_with_sizes", "unbind", "flip", "roll", "repeat",
     "constant_pad_nd", "resize_", "set_", "diagonal", "narrow",
+    "_pin_memory", "pin_memory", "is_pinned",
     "split_with_sizes_copy", "unsqueeze_copy", "view_copy", "_reshape_alias",
 })
 
@@ -192,6 +194,16 @@ class WorkMode(TorchDispatchMode):
         return out
 
 
+def observers():
+    """The FLOP counter and the work mode ``analyze`` observes a call
+    with (enter both): products by ``FLOP_FORMULAS``, bytes and
+    first-order FLOPs by ``WorkMode``. The launcher's dry run counts its
+    programs on ``meta`` with the same two."""
+    return (FlopCounterMode(display=False, custom_mapping={
+        torch.ops.aten.convolution_backward: _conv_backward_flops}),
+        WorkMode())
+
+
 def analyze(name: str, fn, *args, num_devices: int = 1,
             model_flops: Optional[float] = None,
             card: Optional[Peaks] = None, peak_flops: Optional[float] = None,
@@ -210,9 +222,8 @@ def analyze(name: str, fn, *args, num_devices: int = 1,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-    with FlopCounterMode(display=False, custom_mapping={
-            torch.ops.aten.convolution_backward: _conv_backward_flops}) \
-            as counter, WorkMode() as work:
+    counter, work = observers()
+    with counter, work:
         fn(*args, **kwargs)
     mem = {}
     if torch.cuda.is_available():

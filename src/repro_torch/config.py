@@ -9,11 +9,13 @@ experts, and optionally ``mla=MLAConfig(...)``), the Mamba2 SSM decoder
 (``ssm=SSMConfig(...)`` with ``block_type="ssm"``), the Hymba-style
 hybrid decoder (``block_type="hybrid"``: attention and SSM heads in
 parallel) and the vision and audio modalities, with
-``resolved_head_dim``, ``is_moe``, ``is_attention_free`` and
-``param_count()``. The reference's ``moe_layer_period`` and
-``scan_layers`` have no port: every config of the repo leaves the
-period at 1 (its ``block_init`` makes every layer MoE whatever the
-period), and the port's layer loop is a Python loop.
+``resolved_head_dim``, ``is_moe``, ``is_attention_free``,
+``param_count()`` and ``active_param_count()``. The reference's
+``moe_layer_period`` and ``scan_layers`` have no port: every config of
+the repo leaves the period at 1 (its ``block_init`` makes every layer
+MoE whatever the period; ``MOE_LAYER_PERIOD`` keeps the reference's
+split of the active count), and the port's layer loop is a Python
+loop.
 ``TrainConfig`` keeps the optimizer settings and ``remat``, which
 whoever builds the loss passes on (``lm_loss(..., remat=train.remat)``),
 ``ProtocolConfig`` the sync protocol, and ``ShapeConfig`` /
@@ -54,6 +56,11 @@ ATTN_SLIDING = "sliding"
 MODALITY_TEXT = "text"
 MODALITY_VISION = "vision"
 MODALITY_AUDIO = "audio"
+
+# every k-th layer is MoE (the reference's ``moe_layer_period``, 1 in every
+# config of the repo)
+MOE_LAYER_PERIOD = 1
+
 
 @dataclass(frozen=True)
 class MoEConfig:
@@ -211,6 +218,22 @@ class ModelConfig:
         if self.d_ff:
             per_layer += 3 * d * self.d_ff                  # swiglu
         return n + L * per_layer
+
+    def active_param_count(self) -> int:
+        """Weights a token touches: for a mixture of experts only the
+        routed top-k and the shared experts of each MoE layer, term for
+        term ``repro.config.ModelConfig.active_param_count``; every
+        weight otherwise."""
+        if not self.is_moe:
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        eff = self.moe.expert_d_ff or self.d_ff
+        n_moe_layers = L // MOE_LAYER_PERIOD
+        all_exp = ((self.moe.num_experts + self.moe.num_shared_experts)
+                   * 3 * d * eff)
+        act_exp = ((self.moe.num_experts_per_tok
+                    + self.moe.num_shared_experts) * 3 * d * eff)
+        return self.param_count() - n_moe_layers * (all_exp - act_exp)
 
 
 # ---------------------------------------------------------------------------

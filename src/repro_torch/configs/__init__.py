@@ -18,3 +18,18 @@ from repro_torch.configs import (  # noqa: F401  (registers)
     paper_models,
     qwen1_5_110b,
 )
+
+# the configs the launcher's dry run covers (``--all``), in the
+# reference's order
+ASSIGNED_ARCHS = (
+    "internvl2-76b",
+    "minitron-4b",
+    "musicgen-large",
+    "mixtral-8x22b",
+    "qwen1.5-110b",
+    "mamba2-2.7b",
+    "llama3-405b",
+    "llama3-8b",
+    "hymba-1.5b",
+    "deepseek-v2-236b",
+)

@@ -11,11 +11,31 @@ deterministic algorithms: for the deep-driving CNN it would otherwise
 pick weight-gradient kernels that add with float atomics, and a run's
 sync decisions, which compare distances with Delta, would change from
 run to run.
+
+``meta`` is refused too, except inside ``shapes_only()``: the launcher
+(``repro_torch.launch``) builds and counts its programs on ``meta``
+tensors, which hold shapes and no values, and only it enters the block.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import numpy as np
 import torch
+
+_SHAPES_ONLY = contextvars.ContextVar("repro_torch_shapes_only",
+                                      default=False)
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Let ``resolve_device`` take ``"meta"`` inside the block."""
+    token = _SHAPES_ONLY.set(True)
+    try:
+        yield
+    finally:
+        _SHAPES_ONLY.reset(token)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -28,7 +48,8 @@ def resolve_device(device="cuda") -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
-    elif dev.type != "cpu":
+    elif dev.type != "cpu" and not (dev.type == "meta"
+                                    and _SHAPES_ONLY.get()):
         raise ValueError(f"the port runs on 'cuda' or 'cpu', got {device!r}")
     return dev
 

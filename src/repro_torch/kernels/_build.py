@@ -13,18 +13,29 @@ nothing needs ``ninja``. A missing card, a missing ``nvcc`` or a failed
 build raises: no caller falls back to the plain versions.
 
 It also holds what the wrappers share: ``LAUNCHES``, the launch counts
-(``ops.LAUNCHES``), and ``batch_first``, ``fold`` and ``unfold`` for
-the autograd Functions' vmap rules.
+(``ops.LAUNCHES``), ``launched``, which counts a call, ``tally``, which
+lists the calls of a block with their work, and ``batch_first``,
+``fold`` and ``unfold`` for the autograd Functions' vmap rules.
+
+Meta calls. A wrapper given tensors on the ``meta`` device (the
+launcher's dry run, ``repro_torch.launch.dryrun``, counts a program
+there) checks the shapes it checks on the card and returns empty
+``meta`` tensors of its outputs' shapes: it loads no library and
+launches nothing. ``launched`` lists such a call in the active tallies
+but leaves ``LAUNCHES`` as it is.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -92,6 +103,62 @@ NO_BF16_BWD = ("ROADMAP A28 (the bf16 attention, rmsnorm and ssd_scan "
 LAUNCHES = {"sqdist_rows": 0, "sqdist": 0, "rmsnorm": 0,
             "flash_attention": 0, "swa_attention": 0, "ssd_scan": 0,
             "attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0}
+
+
+class Call(NamedTuple):
+    """One kernel call: its family (a ``LAUNCHES`` key), the name and
+    shape that ``repro_torch.analysis.roofline.kernel_work`` takes, its
+    dtype, and whether it was counted on ``meta`` (else it launched)."""
+    family: str
+    work: str
+    shape: tuple
+    dtype: torch.dtype
+    meta: bool
+
+
+class KernelTally:
+    """The kernel calls made while ``tally()`` keeps it active."""
+
+    def __init__(self):
+        self.calls = []
+
+    def launches(self) -> Counter:
+        """Calls by family."""
+        return Counter(c.family for c in self.calls)
+
+
+_TALLIES: list = []
+
+
+@contextlib.contextmanager
+def tally():
+    """A ``KernelTally`` of every kernel call made inside the block,
+    launches on the card and meta calls alike."""
+    t = KernelTally()
+    _TALLIES.append(t)
+    try:
+        yield t
+    finally:
+        _TALLIES.remove(t)
+
+
+def launched(family: str, meta: bool, work, *args) -> None:
+    """Count one call of kernel ``family``: in ``LAUNCHES`` where it
+    launched (``meta`` False), and in every active tally with
+    ``work(*args)``, the (name, shape, dtype) that ``kernel_work``
+    takes. ``work`` runs only while a tally is active, so a launch
+    outside one costs the wrapper no more host time than the count."""
+    if not meta:
+        LAUNCHES[family] += 1
+    if _TALLIES:
+        name, shape, dtype = work(*args)
+        for t in _TALLIES:
+            t.calls.append(Call(family, name, tuple(shape), dtype, meta))
+
+
+def given(name: str, shape, dtype: torch.dtype) -> tuple:
+    """A ``launched`` work whose (name, shape, dtype) are at hand."""
+    return name, shape, dtype
 
 
 def batch_first(x: torch.Tensor, dim, n: int) -> torch.Tensor:

@@ -81,8 +81,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch the kernel on the GQA layout: q (B, Sq, H, d), k
     (B, Sk, Hkv, d), v (B, Sk, Hkv, dv) -> (B, Sq, H, dv); with
     ``with_lse`` (f32 only) -> (o, lse (B, H, Sq) f32), lse each row's
-    log-sum-exp of its scaled kept scores, -inf where it keeps none."""
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+    log-sum-exp of its scaled kept scores, -inf where it keeps none. On
+    ``meta``: the shapes checked, empty outputs, no launch."""
+    meta = q.is_meta
+    if not ((q.is_cuda or meta) and k.device == q.device
+            and v.device == q.device):
         raise ValueError(
             f"{what} runs on one CUDA device: q on {q.device}, k on "
             f"{k.device}, v on {v.device}")
@@ -106,6 +109,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(
             f"{what} takes (query/key, value) head dims "
             f"{sorted(WIDTHS[q.dtype])} in {q.dtype}, got ({d}, {dv})")
+    if meta:
+        o = q.new_empty((B, Sq, H, dv))
+        return (o, q.new_empty((B, H, Sq), dtype=torch.float32)) \
+            if with_lse else o
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what} needs contiguous q, k and v")
     if min(B, Sq, Sk) < 1 or window < 0:
@@ -146,8 +153,9 @@ def differentiable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    what: str = "flash_attention") -> None:
     """Raise ``NotImplementedError`` where the backward kernel does not
     take these inputs: bf16. It takes every f32 width pair the forward
-    takes (``BWD_WIDTHS``)."""
-    if q.dtype != torch.float32:
+    takes (``BWD_WIDTHS``). A dry run on ``meta`` counts the bf16
+    backward (A28)."""
+    if q.dtype != torch.float32 and not q.is_meta:
         raise NotImplementedError(
             f"{what} has no backward kernel in {q.dtype}: "
             f"{_build.NO_BF16_BWD}")
@@ -166,7 +174,9 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, H, d = q.shape
     Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     tensors = (q, k, v, o, lse, do)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
+    meta = q.is_meta
+    if not all((t.is_cuda or meta) and t.device == q.device
+               for t in tensors):
         raise ValueError(
             f"attention_bwd runs on one CUDA device: got "
             f"{[str(t.device) for t in tensors]}")
@@ -177,6 +187,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"attention_bwd needs q (B, Sq, H, d), k (B, Sk, Hkv, d), v "
             f"(B, Sk, Hkv, dv), o, do (B, Sq, H, dv) and lse (B, H, Sq): "
             f"got {[tuple(t.shape) for t in tensors]}")
+    if meta:
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"attention_bwd takes float32: got "
                         f"{[t.dtype for t in tensors]}")
@@ -213,6 +225,30 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dvg
 
 
+def work(q, k, v, window: int) -> tuple:
+    """``kernel_work``'s (name, shape, dtype) of one causal forward call
+    on the GQA layout, or on (B, S, d) (one head): the banded form where
+    the window drops keys (Sq = Sk), else the full one."""
+    if q.dim() == 3:
+        B, Sq, d = q.shape
+        Sk, dv = k.shape[1], v.shape[2]
+        H = Hkv = 1
+    else:
+        B, Sq, H, d = q.shape
+        Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if 0 < window < Sk and Sq == Sk and d == dv:
+        return "swa_attention", (B, Sq, H, Hkv, d, window), q.dtype
+    return "flash_attention", (B, Sq, Sk, H, Hkv, d, dv), q.dtype
+
+
+def bwd_work(q, k, v, window: int) -> tuple:
+    """``kernel_work``'s (name, shape, dtype) of one causal backward
+    call."""
+    B, Sq, H, d = q.shape
+    return "attention_bwd", (B, Sq, k.shape[1], H, k.shape[2],
+                             (d, v.shape[3]), window), q.dtype
+
+
 def launch_forward(q, k, v, causal, window, scale):
     """The forward kernel with the log-sum-exp: (o, lse); ``AttentionFn``
     counts the launch under the kernel it was called as."""
@@ -222,7 +258,7 @@ def launch_forward(q, k, v, causal, window, scale):
 
 def launch_backward(q, k, v, o, lse, do, causal, window, scale):
     """The backward kernel: (dq, dk, dv)."""
-    _build.LAUNCHES["attention_bwd"] += 1
+    _build.launched("attention_bwd", q.is_meta, bwd_work, q, k, v, window)
     return attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
                          scale=scale)
 
@@ -238,7 +274,7 @@ class AttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, causal, window, scale, kernel="flash_attention"):
-        _build.LAUNCHES[kernel] += 1
+        _build.launched(kernel, q.is_meta, work, q, k, v, window)
         return launch_forward(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal, window, scale)
 
@@ -260,9 +296,9 @@ class AttentionFn(torch.autograd.Function):
     def vmap(info, in_dims, q, k, v, causal, window, scale,
              kernel="flash_attention"):
         n = info.batch_size
-        _build.LAUNCHES[kernel] += 1
         q, k, v = (_build.fold(_build.batch_first(x, d, n))
                    for x, d in zip((q, k, v), in_dims[:3]))
+        _build.launched(kernel, q.is_meta, work, q, k, v, window)
         o, lse = launch_forward(q, k, v, causal, window, scale)
         return (_build.unfold(o, n), _build.unfold(lse, n)), (0, 0)
 

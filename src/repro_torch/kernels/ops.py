@@ -9,7 +9,11 @@ fallback: a kernel that fails to build or launch raises.
 ``LAUNCHES`` counts kernel launches by kernel, so a run can show that
 its main path went through the kernels, and ``ROWS_LAUNCHES`` splits the
 ``sqdist_rows`` count by ``(m, P, g)`` (g reference rows: 1, or a
-hierarchy's clusters); ``reset_launches`` zeroes both.
+hierarchy's clusters); ``reset_launches`` zeroes both. A ``meta`` tensor
+takes the kernel's route without a launch (``_build``, "Meta calls"):
+the wrapper checks its shapes and returns empty ``meta`` outputs, and
+the call is listed in the active ``_build.tally`` blocks, with its work,
+but counted in neither dict.
 ``flash_attention`` and its GQA front end ``flash_attention_gqa`` launch
 the same kernel and count under ``"flash_attention"``. Plain-version
 calls are not counted.
@@ -85,8 +89,11 @@ def sqdist_rows(X: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return ref.sqdist_rows_ref(X, r)
     _no_backward("sqdist_rows", NO_SQDIST_BWD, X, r)
     out = _sqdist.sqdist_rows(X, r)
-    LAUNCHES["sqdist_rows"] += 1
-    ROWS_LAUNCHES[(*X.shape, 1 if r.dim() == 1 else r.shape[0])] += 1
+    shape = (*X.shape, 1 if r.dim() == 1 else r.shape[0])
+    _build.launched("sqdist_rows", X.is_meta, _build.given, "sqdist_rows",
+                    shape, X.dtype)
+    if not X.is_meta:
+        ROWS_LAUNCHES[shape] += 1
     return out
 
 
@@ -96,7 +103,8 @@ def sqdist(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return ref.sqdist_ref(x, r)
     _no_backward("sqdist", NO_SQDIST_BWD, x, r)
     out = _sqdist.sqdist(x, r)
-    LAUNCHES["sqdist"] += 1
+    _build.launched("sqdist", x.is_meta, _build.given, "sqdist",
+                    (x.numel(),), x.dtype)
     return out
 
 
@@ -109,7 +117,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
         _rmsnorm.differentiable(x)
         return _rmsnorm.RMSNormFn.apply(x, scale, eps)
     out = _rmsnorm.rmsnorm(x, scale, eps)
-    LAUNCHES["rmsnorm"] += 1
+    _build.launched("rmsnorm", x.is_meta, _rmsnorm.work, x)
     return out
 
 
@@ -127,7 +135,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    window=window, scale=scale)[:, :, 0]
     out = _flash.flash_attention(q, k, v, causal=causal, window=window,
                                  scale=scale)
-    LAUNCHES["flash_attention"] += 1
+    _build.launched("flash_attention", q.is_meta, _flash.work, q, k, v,
+                    window)
     return out
 
 
@@ -144,7 +153,8 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _flash.AttentionFn.apply(q, k, v, causal, window, scale)[0]
     out = _flash.flash_attention_gqa(q, k, v, causal=causal, window=window,
                                      scale=scale)
-    LAUNCHES["flash_attention"] += 1
+    _build.launched("flash_attention", q.is_meta, _flash.work, q, k, v,
+                    window)
     return out
 
 
@@ -158,7 +168,8 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _swa.swa_attention_differentiable(q, k, v, window=window,
                                                  scale=scale)
     out = _swa.swa_attention(q, k, v, window=window, scale=scale)
-    LAUNCHES["swa_attention"] += 1
+    _build.launched("swa_attention", q.is_meta, _flash.work, q, k, v,
+                    window)
     return out
 
 
@@ -186,7 +197,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         y, h, _ = _ssd.SSDScanFn.apply(x, dt, a, b, c, chunk)
     else:
         y, h = _ssd.ssd_scan(x, dt, a, b, c, chunk=chunk)
-        LAUNCHES["ssd_scan"] += 1
+        _build.launched("ssd_scan", x.is_meta, _ssd.work, x, b, chunk)
     if pad:
         y = y[:, :S]
     return y, h

@@ -82,8 +82,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     (D,), or (g, D) for g equal groups of x's rows. The checks read plain
     ints where they can: at (4, 2048, 1,600) bf16 the kernel takes ~19 µs
     on an H100 and the call's host time is about as long (PERF.md §6)."""
-    dev = x.get_device()                     # -1 for a CPU tensor
-    if dev < 0 or scale.get_device() != dev:
+    dev = x.get_device()              # -1 for a CPU or a meta tensor
+    if (dev < 0 or scale.get_device() != dev) and not (x.is_meta
+                                                       and scale.is_meta):
         raise ValueError(
             f"rmsnorm runs on one CUDA device: x on {x.device}, scale on "
             f"{scale.device}")
@@ -101,6 +102,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
         raise TypeError(
             f"rmsnorm takes float32 or bfloat16, x and scale alike: got "
             f"{x.dtype} and {scale.dtype}")
+    if dev < 0:                       # meta: the shapes checked
+        return torch.empty_like(x)
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("rmsnorm needs contiguous x and scale")
     n = x.numel()
@@ -141,6 +144,8 @@ def bwd_plan(rows: int, D: int, g: int = 1) -> BwdPlan:
 def differentiable(x: torch.Tensor, what: str = "rmsnorm") -> None:
     """Raise ``NotImplementedError`` where the backward kernel does not
     take x: bf16, or rows wider than ``MAX_BWD_D``."""
+    if x.is_meta:               # a dry run counts the bf16 backward (A28)
+        return
     if x.dtype != torch.float32:
         raise NotImplementedError(
             f"{what} has no backward kernel in {x.dtype}: "
@@ -159,8 +164,9 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     a dscale partial a block, then each group's partials summed in
     order), no atomics."""
     differentiable(x, "rmsnorm_bwd")
-    dev = x.get_device()
-    if dev < 0 or scale.get_device() != dev or dy.get_device() != dev:
+    dev = x.get_device()              # -1 for a CPU or a meta tensor
+    if (dev < 0 or scale.get_device() != dev or dy.get_device() != dev) \
+            and not (x.is_meta and scale.is_meta and dy.is_meta):
         raise ValueError(
             f"rmsnorm_bwd runs on one CUDA device: x on {x.device}, scale "
             f"on {scale.device}, dy on {dy.device}")
@@ -173,6 +179,8 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
             f"rmsnorm_bwd needs x and dy (..., D) and scale (D,) or (g, D) "
             f"with g dividing the rows: got {tuple(x.shape)}, "
             f"{tuple(dy.shape)}, {tuple(scale.shape)}")
+    if dev < 0:                       # meta: the shapes checked
+        return torch.empty_like(x), torch.empty_like(scale)
     if scale.dtype != torch.float32 or dy.dtype != torch.float32:
         raise TypeError(f"rmsnorm_bwd takes float32: got {x.dtype}, "
                         f"{scale.dtype}, {dy.dtype}")
@@ -198,13 +206,26 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
 
 def launch_forward(x, scale, eps):
     """The forward kernel (scale (D,) or grouped (g, D))."""
-    _build.LAUNCHES["rmsnorm"] += 1
+    _build.launched("rmsnorm", x.is_meta, work, x)
     return rmsnorm(x, scale, eps)
+
+
+def work(x) -> tuple:
+    """``kernel_work``'s (name, shape, dtype) of the forward."""
+    return "rmsnorm", x.shape, x.dtype
+
+
+def bwd_work(x, scale) -> tuple:
+    """``kernel_work``'s (name, shape, dtype) of the backward; the
+    shape (rows, D, g)."""
+    D = x.shape[-1]
+    return "rmsnorm_bwd", (x.numel() // D, D, scale.shape[0]
+                           if scale.dim() == 2 else 1), x.dtype
 
 
 def launch_backward(x, scale, dy, eps):
     """The backward kernel: (dx, dscale)."""
-    _build.LAUNCHES["rmsnorm_bwd"] += 1
+    _build.launched("rmsnorm_bwd", x.is_meta, bwd_work, x, scale)
     return rmsnorm_bwd(x, scale, dy, eps)
 
 

@@ -88,7 +88,10 @@ def _launch(name: str, X: torch.Tensor, r: torch.Tensor, m: int, P: int,
             shape: tuple, k: int) -> torch.Tensor:
     """Check what the kernel cannot take, then launch it once on
     ``m`` rows of ``P``, ``k`` rows per reference row, into a new f32
-    tensor of ``shape`` (m elements)."""
+    tensor of ``shape`` (m elements); on ``meta`` an empty one, with no
+    launch."""
+    if X.is_meta and r.is_meta:
+        return torch.empty(shape, dtype=torch.float32, device=X.device)
     if not (X.is_cuda and r.is_cuda and X.device == r.device):
         raise ValueError(
             f"{name} runs on one CUDA device: inputs on {X.device} and "

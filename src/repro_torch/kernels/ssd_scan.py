@@ -141,10 +141,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             f"ssd_scan takes 1 <= P <= {MAX_P}, 1 <= N <= {MAX_N} and "
             f"S > 0: got P={P}, N={N}, S={S}")
     tensors = (x, dt, a, b, c)
-    if not all(t.is_cuda and t.device == x.device for t in tensors):
+    meta = x.is_meta
+    if not all((t.is_cuda or meta) and t.device == x.device
+               for t in tensors):
         raise ValueError(
             f"ssd_scan runs on one CUDA device: got "
             f"{[str(t.device) for t in tensors]}")
+    if meta:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        out = (torch.empty_like(x), torch.empty((BH, P, N), **f32))
+        return out + (torch.empty((BH, S // chunk, P, N), **f32),) \
+            if keep_states else out
     if (x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (dt, b, c))
             or a.dtype != torch.float32):
         raise TypeError(
@@ -178,8 +185,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 def differentiable(x: torch.Tensor) -> None:
     """Raise ``NotImplementedError`` where the backward kernel does not
-    take these inputs: bf16."""
-    if x.dtype != torch.float32:
+    take these inputs: bf16. A dry run on ``meta`` counts the bf16
+    backward (A28)."""
+    if x.dtype != torch.float32 and not x.is_meta:
         raise NotImplementedError(
             f"ssd_scan has no backward kernel in {x.dtype}: "
             f"{_build.NO_BF16_BWD}")
@@ -215,10 +223,14 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if not (0 < P <= MAX_P and 0 < N <= MAX_N):
         raise ValueError(f"ssd_scan_bwd takes 1 <= P <= {MAX_P}, 1 <= N <= "
                          f"{MAX_N}: got P={P}, N={N}")
-    if not all(t.is_cuda and t.device == x.device for t in tensors):
+    meta = x.is_meta
+    if not all((t.is_cuda or meta) and t.device == x.device
+               for t in tensors):
         raise ValueError(
             f"ssd_scan_bwd runs on one CUDA device: got "
             f"{[str(t.device) for t in tensors]}")
+    if meta:
+        return tuple(torch.empty_like(t) for t in (x, dt, a, b, c))
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"ssd_scan_bwd takes float32: got "
                         f"{[t.dtype for t in tensors]}")
@@ -251,15 +263,23 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return dx, ddt, da, db, dc
 
 
+def work(x, b, chunk: int, name: str = "ssd_scan") -> tuple:
+    """``kernel_work``'s (name, shape, dtype) of one call of ``name``;
+    the shape (BH, S, P, N, chunk, R)."""
+    BH, S, P = x.shape
+    return name, (BH, S, P, b.shape[-1], chunk, BH // b.shape[0]), x.dtype
+
+
 def launch_forward(x, dt, a, b, c, chunk):
     """The forward kernel with the entering states: (y, h, states)."""
-    _build.LAUNCHES["ssd_scan"] += 1
+    _build.launched("ssd_scan", x.is_meta, work, x, b, chunk)
     return ssd_scan(x, dt, a, b, c, chunk=chunk, keep_states=True)
 
 
 def launch_backward(x, dt, a, b, c, states, dy, dh, chunk):
     """The backward kernel: (dx, ddt, da, db, dc)."""
-    _build.LAUNCHES["ssd_scan_bwd"] += 1
+    _build.launched("ssd_scan_bwd", x.is_meta, work, x, b, chunk,
+                    "ssd_scan_bwd")
     return ssd_scan_bwd(x, dt, a, b, c, states, dy, dh, chunk=chunk)
 
 

@@ -2,9 +2,10 @@
 (``benchmarks/torch_*.py`` beside ``benchmarks/*.py``) and
 ``benchmarks/torch_run.py --protocol``, on the CPU.
 
-* ``torch_run.ALL`` is the reference's ``run.ALL``, name for name and in
-  order, but for ``roofline_table`` (it reads the reference's dry-run
-  records); ``FIGURES`` are the eight figure twins among them.
+* ``torch_run.ALL`` is the reference's ``run.ALL``, name for name,
+  paper reference for paper reference and in order, ``roofline_table``
+  last (it tabulates the port's dry-run records); ``FIGURES`` are the
+  eight figure twins among them.
 * Each twin has the reference module's ``NAME`` and ``PAPER_REF``, and a
   ``CUT`` of one or two cases.
 * Each twin's ``check`` gives the reference's verdict on the same rows:
@@ -62,13 +63,15 @@ def _ref(name):
     return importlib.import_module(f"benchmarks.{name}")
 
 
-def test_registry_is_the_references_but_roofline_table():
-    want = [m.NAME for m in jrun.ALL if m.NAME != "roofline_table"]
+def test_registry_is_the_references():
+    want = [m.NAME for m in jrun.ALL]
     assert [m.NAME for m in torch_run.ALL] == want
-    assert len(want) == len(jrun.ALL) - 1
+    assert [m.PAPER_REF for m in torch_run.ALL] == [
+        m.PAPER_REF for m in jrun.ALL]
+    assert want[-1] == "roofline_table"
     assert [m.NAME for m in torch_run.FIGURES] == [
-        n for n in want if n not in NEW]
-    assert list(TWINS) == [n for n in want if n in NEW]
+        n for n in want if n not in NEW + ("roofline_table",)]
+    assert list(TWINS) == [n for n in want if n in NEW + ("roofline_table",)]
     for mod in torch_run.ALL:
         assert mod.__name__ == f"benchmarks.torch_{mod.NAME}"
 

@@ -1,9 +1,7 @@
 """The port stands apart from the JAX package.
 
 ``src/repro_torch``, ``chip_smoke.py``, the port's examples
-(``examples/torch_quickstart.py``, ``examples/torch_network_regimes.py``,
-``examples/torch_faulty_fleet.py``, ``examples/torch_fleet_llm.py``)
-and the port's benchmarks
+(``examples/torch_*.py``) and the port's benchmarks
 (``benchmarks/torch_*.py``: the figure twins, their runner and helpers,
 ``torch_profile.py``) import torch and numpy, never jax and nothing of
 ``repro``; the port's entry points run on the card by
@@ -33,11 +31,8 @@ from repro_torch.train.loop import run_protocol_training  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
-    ROOT / "examples" / "torch_network_regimes.py",
-    ROOT / "examples" / "torch_faulty_fleet.py",
-    ROOT / "examples" / "torch_fleet_llm.py"] + sorted(
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "examples").glob("torch_*.py")) + sorted(
     (ROOT / "benchmarks").glob("torch_*.py"))
 
 
