@@ -269,6 +269,19 @@ and drives both of the port's paths:
   plain version; then each twin's cut rows (``CUT``) on the CPU from
   its own source and on the card from the same draws: integers
   identical.
+* bf16 LM training on the card (slice 21, ROADMAP A28): the bf16
+  ``wgmma`` forward writes its log-sum-exp when a gradient asks for it,
+  ``attention_bwd_bf16.cu`` is the bf16 attention backward (one bf16
+  ``mma.sync`` a product, P and dS rounded to bf16 as the reference
+  rounds its probabilities) and ``rmsnorm_bwd.cu`` takes bf16; a direct
+  bf16 ``ssd_scan`` takes the f32 backward upcast.
+  ``lm_train_kernels`` holds them against the f32 gradient of their
+  plain versions on the same bf16 inputs within twice what SDPA's or
+  ``F.rms_norm``'s bf16 backward reaches (BF16_VS_LIBRARY), timed
+  beside those calls; ``launch`` adds the launcher's ``train`` program
+  in bf16 at LAUNCH_BF16_LAYERS layers, held as the other five, and its
+  step-1 gradient against the f32 gradient of the same weights
+  (LAUNCH_BF16_GAP).
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -291,6 +304,7 @@ import subprocess
 import sys
 import time
 import warnings
+from collections import Counter
 from io import StringIO
 
 import numpy as np
@@ -4143,6 +4157,37 @@ TRAIN_NORM_CASES = [
     (12, 200, 3, 3, "rows off 16 bytes, 3 groups"),
     (2048, 4096, 2, 0, "llama3-8b fleet's (2 x 1024, 4096), 2 groups"),
 ]
+# bf16 (A28): the backward kernels against the f32 gradient of their plain
+# versions on the same bf16 inputs (the yardstick), each gradient's max
+# |diff| over its max at most BF16_VS_LIBRARY times what one PyTorch call
+# (SDPA's bf16 backward, F.rms_norm's) reaches against the same yardstick,
+# printed beside it: both round the gradients to bf16 once, and SDPA also
+# rounds P and dS to bf16 where the kernel does
+BF16_VS_LIBRARY = 2.0
+# (B, Sq, Sk, H, Hkv, d, causal, window, label); the first
+# TRAIN_ATTN_BF16_TIMED timed, TIME_REPEATS times each (median and spread)
+TRAIN_ATTN_BF16_CASES = [
+    (1, 4096, 4096, 32, 8, 128, True, 0, "llama3-8b (1, 4096, 32/8, 128)"),
+    (1, 4096, 4096, 128, 128, (192, 128), True, 0, TRAIN_ATTN_MLA),
+    (1, 4096, 4096, 25, 5, 64, True, 1024, TRAIN_ATTN_BANDED),
+    (2, 1024, 1024, 32, 8, 128, True, 0,
+     "llama3-8b fleet, 2 learners folded (2, 1024, 32/8, 128)"),
+    # C1's guard: keys past a ragged Sk masked, no causal
+    (2, 70, 90, 4, 1, 32, False, 0, "non-causal, Sk != Sq"),
+    (2, 100, 160, 4, 4, (192, 128), False, 0, "MLA non-causal, Sk != Sq"),
+]
+TRAIN_ATTN_BF16_TIMED = 4
+# (rows, D, groups, label), both timed
+TRAIN_NORM_BF16_CASES = [
+    (4096, 4096, 1, "(4096, 4096), one scale"),
+    (2048, 4096, 2, "llama3-8b fleet's (2 x 1024, 4096), 2 groups"),
+]
+# a direct bf16 ops.ssd_scan under a gradient, the f32 route: (BH, S, P, N,
+# chunk, R); its gradients are the f32 kernel's (within TRAIN_GRAD_REL)
+# rounded to bf16 once: within one bf16 step of each gradient's max of the
+# plain version's in f32 on the same inputs
+SSD_BF16_CASE = (16, 512, 64, 128, 64, 16)
+SSD_BF16_REL = 2.0 ** -8
 LM_TRAIN_LAYERS, LM_TRAIN_S, LM_TRAIN_STEPS = 2, 4096, 6
 # the σ_1 cells, each at full width and LM_TRAIN_LAYERS layers
 LM_TRAIN_ARCHS = ("llama3-8b", "mamba2-2.7b", "hymba-1.5b")
@@ -4227,9 +4272,13 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
     ``kernel_bound`` (split TF32 and the CUDA cores' f32). The
     attention rows name the program (split-TF32 ``mma.sync``, as the f32
     forward's) and its kernels' registers and spills (``ptxas``, the
-    build phase's lines)."""
+    build phase's lines). Then bf16 (A28): ``attention_bwd`` in bf16
+    (``_bf16_attention_bwd``), ``rmsnorm_bwd`` in bf16
+    (``_bf16_norm_bwd``) and a direct bf16 ``ops.ssd_scan`` gradient
+    (``_bf16_ssd_route``)."""
     card = peaks(torch.cuda.get_device_name(0))
     checks, lse_errs, fwd_errs, norm_errs, timed = [], [], [], [], {}
+    t0 = time.perf_counter()
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
@@ -4291,7 +4340,7 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
                               for f in (bwd, lib))
             timed[label] = {
                 "shape": shape, "label": label, "dtype": "float32",
-                "program": flash_attention.BWD_PROGRAM,
+                "program": flash_attention.bwd_program(torch.float32),
                 **_median_spread("ms", reps),
                 # the device's time alone, and the host's time in a call:
                 # the larger of the two sets the back-to-back time
@@ -4373,9 +4422,22 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
         del x, s, dy, got, again, want32, want64
     norm_rows = list(timed.values())
     ssd_rows, ssd_extra = _ssd_bwd_checks(randn, checks, card)
-    worst = {n: max(c["max_abs_err"] for c in checks if c["kernel"] == n)
+    worst = {n: max(c["max_abs_err"] for c in checks if c["kernel"] == n
+                    and "dtype" not in c)
              for n in ("attention_bwd", "rmsnorm_bwd", "ssd_scan_bwd")}
-    bwd_kernels = kernel_resources(ptxas, "attention_bwd_")
+    # bf16 (A28)
+    t1 = time.perf_counter()
+    attn_bf16 = _bf16_attention_bwd(randn, checks, card)
+    norm_bf16 = _bf16_norm_bwd(randn, checks, card)
+    ssd_bf16 = _bf16_ssd_route(randn)
+    seconds = {"float32": t1 - t0, "bfloat16": time.perf_counter() - t1}
+    worst_bf16 = {n: max(c["max_abs_err"] for c in checks
+                         if c["kernel"] == n and "dtype" in c)
+                  for n in ("attention_bwd", "rmsnorm_bwd")}
+    bwd_kernels = {k: v for k, v in kernel_resources(
+        ptxas, "attention_bwd_").items()
+        if not k.startswith("attention_bwd_bf16_")}
+    bf16_kernels = kernel_resources(ptxas, "attention_bwd_bf16_")
     ssd_kernels = kernel_resources(ptxas, "ssd_scan_bwd_")
     emit({"phase": "lm_train_kernels", "checks": checks,
           "lse_max_abs_err": max(lse_errs),
@@ -4384,9 +4446,15 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
                                   "rmsnorm": max(norm_errs)},
           "tolerance_rel_of_max": TRAIN_GRAD_REL, "lse_tolerance": LSE_TOL,
           "timed": {"attention_bwd": attn_rows, "rmsnorm_bwd": norm_rows,
-                    "ssd_scan_bwd": ssd_rows},
+                    "ssd_scan_bwd": ssd_rows,
+                    "attention_bwd_bf16": attn_bf16,
+                    "rmsnorm_bwd_bf16": norm_bf16},
+          "bf16_tolerance": f"<= {BF16_VS_LIBRARY} x the library's error "
+                            f"against the f32 yardstick",
           "ssd_scan_bwd_vmap_and_padded": ssd_extra,
+          "ssd_scan_bf16_route": ssd_bf16, "seconds": seconds,
           "attention_bwd_ptxas": bwd_kernels,
+          "attention_bwd_bf16_ptxas": bf16_kernels,
           "ssd_scan_bwd_ptxas": ssd_kernels})
     return {"attention_bwd": {**attn_rows[0],
                               "max_abs_err": worst["attention_bwd"],
@@ -4397,11 +4465,21 @@ def phase_lm_train_kernels(gen, ptxas: list) -> dict:
                               "ptxas_by_kernel": bwd_kernels},
             "rmsnorm_bwd": {**norm_rows[0],
                             "max_abs_err": worst["rmsnorm_bwd"],
-                            "other_shapes": norm_rows[1:]},
+                            "other_shapes": norm_rows[1:],
+                            "bf16": {**norm_bf16[0],
+                                     "max_abs_err": worst_bf16["rmsnorm_bwd"],
+                                     "other_shapes": norm_bf16[1:]}},
             "ssd_scan_bwd": {**ssd_rows[0],
                              "max_abs_err": worst["ssd_scan_bwd"],
                              "at_hymba_shape": ssd_rows[1],
-                             **ssd_extra, "ptxas_by_kernel": ssd_kernels}}
+                             **ssd_extra, "ptxas_by_kernel": ssd_kernels,
+                             "bf16_route": ssd_bf16},
+            "attention_bwd_bf16": {**attn_bf16[0],
+                                   "max_abs_err": worst_bf16["attention_bwd"],
+                                   "at_mla_shape": attn_bf16[1],
+                                   "banded": attn_bf16[2],
+                                   "at_fleet_shape": attn_bf16[3],
+                                   "ptxas_by_kernel": bf16_kernels}}
 
 
 def _sdpa_f32(q, k, v, mask, causal) -> tuple:
@@ -4418,6 +4496,232 @@ def _sdpa_f32(q, k, v, mask, causal) -> tuple:
         except RuntimeError:
             continue
     raise SystemExit("no SDPA backend takes the f32 case")
+
+
+def _sdpa_bf16(q, k, v, mask, causal) -> tuple:
+    """SDPA's bf16 output on (B, H, S, d) tensors for the library's
+    error and timing, and the backend that took it: flash where it takes
+    the case (equal widths, no mask), else the memory-efficient one."""
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask,
+                    is_causal=causal and mask is None), backend.name
+        except RuntimeError:
+            continue
+    raise SystemExit("no SDPA backend takes the bf16 case")
+
+
+def _bf16_failed(rec: dict, what: str) -> None:
+    emit({"phase": "lm_train_kernels", "failed": rec})
+    raise SystemExit(f"{what}: {rec}")
+
+
+def _bf16_attention_bwd(randn, checks, card) -> list:
+    """The bf16 attention backward (``csrc/attention_bwd_bf16.cu``) at
+    TRAIN_ATTN_BF16_CASES: the bf16 forward's log-sum-exp against
+    ``logsumexp`` of the plain scores (LSE_TOL), its output bit for bit
+    the serving launch's; dq, dk and dv in bf16, bitwise across two
+    launches, against the f32 yardstick within BF16_VS_LIBRARY times
+    SDPA's bf16 backward (kv heads expanded in its graph, so its dk and dv
+    sum the group); the banded case also through ``ops.swa_attention``
+    under a gradient. The first TRAIN_ATTN_BF16_TIMED timed beside SDPA's
+    backward (its forward untimed), the plain version and
+    ``kernel_bound``'s bf16 bound, with the forward that writes the
+    log-sum-exp beside the serving launch."""
+    rows = []
+    for i, (B, Sq, Sk, H, Hkv, d, causal, w, label) in enumerate(
+            TRAIN_ATTN_BF16_CASES):
+        d, dv = (d, d) if isinstance(d, int) else d
+        q, k = randn(B, Sq, H, d).bfloat16(), randn(B, Sk, Hkv, d).bfloat16()
+        v = randn(B, Sk, Hkv, dv).bfloat16()
+        do = randn(B, Sq, H, dv).bfloat16()
+        kw = dict(causal=causal, window=w, scale=None)
+        o, lse = flash_attention.attention(q, k, v, with_lse=True, **kw)
+        lse_want = ref.attention_lse_ref(q, k, causal=causal, window=w)
+        lse_err = float((lse - lse_want).abs().max())
+        if not torch.allclose(lse, lse_want, **LSE_TOL):
+            _bf16_failed({"inputs": label, "lse_max_abs_err": lse_err},
+                         "the bf16 forward's log-sum-exp")
+        if not torch.equal(o, flash_attention.flash_attention_gqa(
+                q, k, v, causal=causal, window=w)):
+            _bf16_failed({"inputs": label}, "the bf16 forward with the "
+                         "log-sum-exp gives another output than serving's")
+        got = flash_attention.attention_bwd(q, k, v, o, lse, do, **kw)
+        again = flash_attention.attention_bwd(q, k, v, o, lse, do, **kw)
+        want = ref.flash_attention_gqa_bwd_ref(
+            q.float(), k.float(), v.float(), do.float(), **kw)
+        G = H // Hkv
+        qT = q.transpose(1, 2).contiguous().requires_grad_()
+        kT, vT = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (k, v))
+        kE, vE = (t.repeat_interleave(G, dim=1) for t in (kT, vT))
+        mask = None
+        if w or (causal and Sq != Sk):
+            qp = torch.arange(Sq, device="cuda")[:, None] + Sk - Sq
+            kp = torch.arange(Sk, device="cuda")[None, :]
+            mask = kp <= qp
+            if w:
+                mask = mask & (kp > qp - w)
+        out, backend = _sdpa_bf16(qT, kE, vE, mask, causal)
+        doT = do.transpose(1, 2).contiguous()
+        lib = [g.transpose(1, 2) for g in torch.autograd.grad(
+            out, (qT, kT, vT), doT, retain_graph=True)]
+        torch.cuda.synchronize()
+        err = [_rel_max(a, x) for a, x in zip(got, want)]
+        lib_err = [_rel_max(a, x) for a, x in zip(lib, want)]
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = (repeat and all(g.dtype == torch.bfloat16 for g in got)
+              and all(e <= BF16_VS_LIBRARY * e_lib
+                      for e, e_lib in zip(err, lib_err)))
+        checks.append({"kernel": "attention_bwd", "dtype": "bfloat16",
+                       "inputs": label, "rel_err_vs_f32_yardstick": err,
+                       "library_rel_err_vs_f32_yardstick": lib_err,
+                       "library_backend": backend,
+                       "max_abs_err": max(float((a.float() - x).abs().max())
+                                          for a, x in zip(got, want)),
+                       "lse_max_abs_err": lse_err, "bitwise_repeat": repeat,
+                       "ok": ok})
+        if not ok:
+            _bf16_failed(checks[-1], "the bf16 attention_bwd disagrees")
+        del again, want, lib
+        rec = None
+        if i < TRAIN_ATTN_BF16_TIMED:
+            shape = [B, Sq, Sk, H, Hkv, d if d == dv else [d, dv]] + (
+                [w] if w else [])
+            bwd = lambda: flash_attention.attention_bwd(  # noqa: E731
+                q, k, v, o, lse, do, **kw)
+            sdpa = lambda: torch.autograd.grad(  # noqa: E731
+                out, (qT, kE, vE), doT, retain_graph=True)
+            reps, lib_reps = ([cuda_ms(f, 5, 1) for _ in range(TIME_REPEATS)]
+                              for f in (bwd, sdpa))
+            rec = {"shape": shape, "label": label, "dtype": "bfloat16",
+                   "program": flash_attention.bwd_program(torch.bfloat16),
+                   **_median_spread("ms", reps),
+                   "plain_ms": cuda_ms(
+                       lambda: ref.flash_attention_gqa_bwd_ref(
+                           q, k, v, do, **kw), 3, 1),
+                   **_median_spread("library_ms", lib_reps),
+                   "library_backend": backend,
+                   "library": "autograd.grad of F.scaled_dot_product_attention"
+                              + ("(band mask)" if w else "(is_causal=True)")
+                              + ", kv heads expanded, bf16 (its forward "
+                              "untimed)",
+                   "forward_lse_ms": cuda_ms(lambda: flash_attention.attention(
+                       q, k, v, with_lse=True, **kw), 5, 1),
+                   "forward_serving_ms": cuda_ms(
+                       lambda: flash_attention.attention(q, k, v, **kw), 5, 1),
+                   **kernel_bound("attention_bwd", shape, torch.bfloat16,
+                                  card)}
+            if label == TRAIN_ATTN_BANDED:
+                rec["through_ops_swa_attention"] = _swa_route(
+                    q, k, v, o, do, w, got)
+            rows.append(rec)
+        del q, k, v, do, o, lse, got, qT, kT, vT, kE, vE, out, doT, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _bf16_norm_bwd(randn, checks, card) -> list:
+    """The bf16 ``rmsnorm_bwd`` at TRAIN_NORM_BF16_CASES: dx and dscale in
+    bf16, bitwise across two launches, against the f32 yardstick within
+    BF16_VS_LIBRARY times ``F.rms_norm``'s bf16 backward (one call a group
+    of the grouped scale), timed beside it (one scale), the plain version
+    and ``kernel_bound``'s 2-byte bound."""
+    rows = []
+    for R_all, D, g, label in TRAIN_NORM_BF16_CASES:
+        x, dy = randn(R_all, D).bfloat16(), randn(R_all, D).bfloat16()
+        s = (1.0 + 0.1 * (randn(g, D) if g > 1 else randn(D))).bfloat16()
+        got = rmsnorm.rmsnorm_bwd(x, s, dy, 1e-5)
+        again = rmsnorm.rmsnorm_bwd(x, s, dy, 1e-5)
+        want = ref.rmsnorm_bwd_ref(x.float(), s.float(), dy.float(), 1e-5)
+        R = R_all // g
+        leaves = [(x[j * R:(j + 1) * R].clone().requires_grad_(),
+                   (s[j] if g > 1 else s).clone().requires_grad_())
+                  for j in range(g)]
+        outs = [F.rms_norm(xg, (D,), weight=sg, eps=1e-5)
+                for xg, sg in leaves]
+        parts = [torch.autograd.grad(y, xs, dy[j * R:(j + 1) * R],
+                                     retain_graph=True)
+                 for j, (y, xs) in enumerate(zip(outs, leaves))]
+        lib = (torch.cat([a for a, _ in parts]),
+               torch.stack([b for _, b in parts]) if g > 1 else parts[0][1])
+        torch.cuda.synchronize()
+        err = [_rel_max(a, w) for a, w in zip(got, want)]
+        lib_err = [_rel_max(a, w) for a, w in zip(lib, want)]
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = (repeat and all(t.dtype == torch.bfloat16 for t in got)
+              and all(e <= BF16_VS_LIBRARY * e_lib
+                      for e, e_lib in zip(err, lib_err)))
+        checks.append({"kernel": "rmsnorm_bwd", "dtype": "bfloat16",
+                       "inputs": label, "rel_err_vs_f32_yardstick": err,
+                       "library_rel_err_vs_f32_yardstick": lib_err,
+                       "max_abs_err": max(float((a.float() - w).abs().max())
+                                          for a, w in zip(got, want)),
+                       "bitwise_repeat": repeat, "ok": ok})
+        if not ok:
+            _bf16_failed(checks[-1], "the bf16 rmsnorm_bwd disagrees")
+        shape = [R_all, D] + ([g] if g > 1 else [])
+        reps = [cuda_ms(lambda: rmsnorm.rmsnorm_bwd(x, s, dy, 1e-5))
+                for _ in range(TIME_REPEATS)]
+        rec = {"shape": shape, "label": label, "dtype": "bfloat16",
+               **_median_spread("ms", reps),
+               "plain_ms": cuda_ms(lambda: ref.rmsnorm_bwd_ref(
+                   x, s, dy, 1e-5), 5, 1),
+               **kernel_bound("rmsnorm_bwd", shape, torch.bfloat16, card)}
+        if g == 1:
+            y = outs[0]
+            rec.update({
+                **_median_spread("library_ms", [cuda_ms(
+                    lambda: torch.autograd.grad(y, leaves[0], dy,
+                                                retain_graph=True))
+                    for _ in range(TIME_REPEATS)]),
+                "library": "autograd.grad of F.rms_norm, bf16 (its forward "
+                           "untimed)"})
+        else:
+            rec.update({"library_ms": None,
+                        "library": "none: no PyTorch call takes grouped "
+                                   "scales"})
+        rows.append(rec)
+        del x, dy, s, got, again, want, leaves, outs, parts, lib
+    return rows
+
+
+def _bf16_ssd_route(randn) -> dict:
+    """A direct bf16 ``ops.ssd_scan`` under a gradient (SSD_BF16_CASE):
+    the bf16 forward and the f32 ``ssd_scan_bwd`` on its inputs upcast,
+    one launch each, the gradients in the inputs' dtypes within
+    SSD_BF16_REL of the f32 plain version's on the same inputs."""
+    BH, S, P, N, chunk, R = SSD_BF16_CASE
+    x, dt, a, b, c = _ssd_inputs(randn, BH, S, P, N, R)
+    x, dt, b, c = (t.bfloat16() for t in (x, dt, b, c))
+    leaves = [t.clone().requires_grad_() for t in (x, dt, a, b, c)]
+    dy = randn(BH, S, P).bfloat16()
+    before = dict(ops.LAUNCHES)
+    y, _ = ops.ssd_scan(*leaves, chunk=chunk)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    launches = {k: n - before[k] for k, n in ops.LAUNCHES.items()
+                if n != before[k]}
+    want = ref.ssd_scan_bwd_ref(x.float(), dt.float(), a, b.float(),
+                                c.float(), dy.float())
+    err = [_rel_max(g, w) for g, w in zip(grads, want)]
+    rec = {"shape": [BH, S, P, N, chunk, R], "dtype": "bfloat16",
+           "route": "bf16 forward kernel, f32 ssd_scan_bwd on inputs upcast",
+           "launches": launches,
+           "grad_dtypes": [str(g.dtype).replace("torch.", "")
+                           for g in grads],
+           "rel_err_vs_plain_f32": err, "tolerance_rel_of_max": SSD_BF16_REL,
+           "max_abs_err": max(float((g.float() - w).abs().max())
+                              for g, w in zip(grads, want))}
+    if (launches != {"ssd_scan": 1, "ssd_scan_bwd": 1}
+            or any(g.dtype != t.dtype for g, t in zip(grads, leaves))
+            or max(err) > SSD_BF16_REL):
+        _bf16_failed({"ssd_bf16_route": rec}, "the bf16 ssd_scan gradient")
+    return rec
 
 
 def _swa_route(q, k, v, o, do, w, direct) -> dict:
@@ -5092,12 +5396,33 @@ def phase_moe_fleet() -> dict:
 LAUNCH_ARCH, LAUNCH_LAYERS, LAUNCH_SEED = "llama3-8b", 2, 0
 # (mode, dtype, shape): the σ_1 cell's shape (lm_train), the fleets' one
 # sequence of 1,024 a learner (m = 2), serving's batch 4 at 2,048
+# bf16 training's program (A28), the reference's production program at
+# published dtype: its own depth, 8 of 32 layers (2.80e9 weights, 5.6 GB in
+# bf16; weights, gradient and new weights 16.8 GB), the first card check
+# of the dry run's L^2 extrapolation away from a counted depth (1, 2, 3)
+LAUNCH_BF16_LAYERS = 8
+# (key, mode, dtype, shape, layers)
 LAUNCH_PROGRAMS = (
-    ("train", "float32", ShapeConfig("sigma1_4k", 4096, 1, "train")),
-    ("train_dynamic", "float32", ShapeConfig("fleet_1k", 1024, 2, "train")),
-    ("train_periodic", "float32", ShapeConfig("fleet_1k", 1024, 2, "train")),
-    ("prefill", "bfloat16", ShapeConfig("prefill_2k", 2048, 4, "prefill")),
-    ("decode", "bfloat16", ShapeConfig("decode_2k", 2048, 4, "decode")))
+    ("train", "train", "float32", ShapeConfig("sigma1_4k", 4096, 1, "train"),
+     LAUNCH_LAYERS),
+    ("train_dynamic", "train_dynamic", "float32",
+     ShapeConfig("fleet_1k", 1024, 2, "train"), LAUNCH_LAYERS),
+    ("train_periodic", "train_periodic", "float32",
+     ShapeConfig("fleet_1k", 1024, 2, "train"), LAUNCH_LAYERS),
+    ("prefill", "prefill", "bfloat16",
+     ShapeConfig("prefill_2k", 2048, 4, "prefill"), LAUNCH_LAYERS),
+    ("decode", "decode", "bfloat16",
+     ShapeConfig("decode_2k", 2048, 4, "decode"), LAUNCH_LAYERS),
+    ("train_bf16", "train", "bfloat16",
+     ShapeConfig("sigma1_4k", 4096, 1, "train"), LAUNCH_BF16_LAYERS))
+# the bf16 program's step-1 gradient through the kernels against the f32
+# gradient of the same weights, upcast, through the f32 kernels: the worst
+# leaf's max |diff| over its max within LAUNCH_BF16_GAP times the gap of the
+# plain versions' bf16 gradient against the same f32 gradient, at S =
+# LAUNCH_BF16_CHECK_S (the plain attention keeps (heads, S, S) f32 scores a
+# layer for its backward)
+LAUNCH_BF16_GAP = 1.5
+LAUNCH_BF16_CHECK_S = 1024
 LAUNCH_TRAIN = TrainConfig(optimizer="sgd", remat=True)
 # a Δ that one step's drift passes: the card's checked step syncs, the
 # step the dry run counts (the host's decision has no value on meta)
@@ -5195,16 +5520,17 @@ def _storages(args) -> int:
     return len(seen)
 
 
-def _run_program(mode: str, dtype: str, shape, mesh, problems) -> dict:
-    """One program: its dry run on meta, then on the card materialized
-    (the arguments' memory), observed by ``analyze`` under a tally,
-    timed by CUDA events on a second copy, and called again through the
-    entry points; the outputs bit for bit, the launches and the counts
-    against the dry run's."""
+def _run_program(mode: str, dtype: str, shape, mesh, problems,
+                 layers: int = LAUNCH_LAYERS) -> dict:
+    """One program at ``layers`` layers: its dry run on meta, then on the
+    card materialized (the arguments' memory), observed by ``analyze``
+    under a tally, timed by CUDA events on a second copy, and called again
+    through the entry points; the outputs bit for bit, the launches and
+    the counts against the dry run's."""
     from repro_torch.analysis import roofline as rl
     from repro_torch.launch import dryrun, specs
-    cfg = dataclasses.replace(get_arch(LAUNCH_ARCH),
-                              num_layers=LAUNCH_LAYERS, dtype=dtype)
+    cfg = dataclasses.replace(get_arch(LAUNCH_ARCH), num_layers=layers,
+                              dtype=dtype)
     proto = LAUNCH_PROTO if mode.startswith("train_") else None
     t0 = time.perf_counter()
     prog, counted = dryrun.count_program(cfg, shape, mesh, mode,
@@ -5214,12 +5540,12 @@ def _run_program(mode: str, dtype: str, shape, mesh, problems) -> dict:
     rec = dryrun.roofline_of(cfg, shape, mesh, mode, prog, counted)
     os.makedirs(LAUNCH_DIR, exist_ok=True)
     with open(os.path.join(LAUNCH_DIR, f"{cfg.name}_{shape.name}_one_card_"
-                           f"{mode}.json"), "w") as f:
+                           f"{mode}_{dtype}.json"), "w") as f:
         json.dump({"arch": cfg.name, "shape": shape.name,
                    "mesh": "one_card", "mode": mode, "num_devices": 1,
                    "compile_s": round(dry_s, 2), "ok": True,
                    "calibrated": True, "roofline": rec,
-                   "per_chip_rule": "even_split", "layers": LAUNCH_LAYERS,
+                   "per_chip_rule": "even_split", "layers": layers,
                    "dtype": dtype, "kernels": counted["kernels"]},
                   f, indent=1, default=str)
 
@@ -5253,6 +5579,12 @@ def _run_program(mode: str, dtype: str, shape, mesh, problems) -> dict:
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     rows = dict(ops.ROWS_LAUNCHES)
     card_kernels = dryrun.kernel_totals(tally.calls)
+    # the launches by the kernels line's names: the bf16 attention
+    # backward is its own program (csrc/attention_bwd_bf16.cu)
+    by_kernel = Counter()
+    for c in tally.calls:
+        by_kernel["attention_bwd_bf16" if c.family == "attention_bwd"
+                  and c.dtype == torch.bfloat16 else c.family] += 1
     first = _program_tensors(mode, outs[0])
     small = [t.clone() for t in first if t.numel() < 1 << 20]
     serving = not mode.startswith("train")
@@ -5297,7 +5629,7 @@ def _run_program(mode: str, dtype: str, shape, mesh, problems) -> dict:
     del timed, entry, kept
     torch.cuda.empty_cache()
 
-    want = _launch_expected(mode, LAUNCH_LAYERS)
+    want = _launch_expected(mode, layers)
     dry_kernels = {f: {k: v for k, v in row.items()}
                    for f, row in counted["kernels"].items()}
     checks = {
@@ -5321,8 +5653,9 @@ def _run_program(mode: str, dtype: str, shape, mesh, problems) -> dict:
     problems += [f"launch {mode}: {k}" for k, v in checks.items() if not v]
     return {"mode": mode, "dtype": dtype, "program": prog.name,
             "shape": [shape.global_batch, shape.seq_len],
-            "layers": LAUNCH_LAYERS, "ms": ms, "peak_bytes": peak, **fleet,
+            "layers": layers, "ms": ms, "peak_bytes": peak, **fleet,
             "dry_run_s": dry_s, "launches": launches,
+            "launches_by_kernel": dict(by_kernel),
             "launches_expected": want, "sqdist_rows_by_plane":
                 {"x".join(map(str, k)): v for k, v in rows.items()},
             "sqdist_rows_vs_plain": {"calls": held, "tolerance": TOL},
@@ -5337,6 +5670,70 @@ def _run_program(mode: str, dtype: str, shape, mesh, problems) -> dict:
                 "compute_s", "memory_s", "collective_s", "bottleneck",
                 "model_flops", "useful_fraction")},
             "checks": checks}
+
+
+def _worst_leaf(got: list, want: list, names: list) -> dict:
+    """The worst leaf's max |got - want| over max |want| (float64, in
+    slices of 2^26 values), and which leaf."""
+    n, gaps = 1 << 26, {}
+    for g, w, name in zip(got, want, names):
+        g, w = g.reshape(-1), w.reshape(-1)
+        diff = top = 0.0
+        for c in range(0, w.numel(), n):
+            wc = w[c:c + n].double()
+            diff = max(diff, float((g[c:c + n].double() - wc).abs().max()))
+            top = max(top, float(wc.abs().max()))
+        gaps[name] = diff / max(top, 1e-30)
+    worst = max(gaps, key=gaps.get)
+    return {"gap": gaps[worst], "leaf": worst}
+
+
+def _bf16_step1(problems) -> dict:
+    """The bf16 program's step-1 gradient (``lm_loss(remat=True)`` at
+    LAUNCH_BF16_LAYERS, its weights, a batch of S = LAUNCH_BF16_CHECK_S)
+    through the kernels against the f32 gradient of the same weights
+    upcast (through the f32 kernels), held within LAUNCH_BF16_GAP times
+    the gap of the plain versions' bf16 gradient (``ops._on_cpu``
+    patched) against the same f32 gradient; the kernels' launches exact
+    (remat: the forward kernels twice)."""
+    from repro_torch.models.model import lm_loss
+    cfg = dataclasses.replace(get_arch(LAUNCH_ARCH),
+                              num_layers=LAUNCH_BF16_LAYERS, dtype="bfloat16")
+    batch = _lm_batch(cfg, 1, LAUNCH_BF16_CHECK_S, LAUNCH_SEED)
+    params = init_lm_params(cfg, LAUNCH_SEED, torch.bfloat16)
+    names = tree_leaves(map_named(lambda n, _t: "/".join(n), params))
+
+    def grad(p):
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
+        it = iter(leaves)
+        loss = lm_loss(cfg, tree_map(lambda _: next(it), p), batch,
+                       remat=True)
+        return list(torch.autograd.grad(loss, leaves))
+
+    ops.reset_launches()
+    got = grad(params)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    want = grad(tree_map(lambda t: t.float(), params))
+    on_cpu, ops._on_cpu = ops._on_cpu, lambda *t: True
+    try:
+        plain = grad(params)
+    finally:
+        ops._on_cpu = on_cpu
+    kernels, plain_gap = (_worst_leaf(g, want, names) for g in (got, plain))
+    rec = {"layers": LAUNCH_BF16_LAYERS, "seq": LAUNCH_BF16_CHECK_S,
+           "kernels_vs_f32": kernels, "plain_bf16_vs_f32": plain_gap,
+           "bound": f"<= {LAUNCH_BF16_GAP} x the plain versions' gap",
+           "launches": launches,
+           "launches_expected": _launch_expected("train",
+                                                 LAUNCH_BF16_LAYERS)}
+    if kernels["gap"] > LAUNCH_BF16_GAP * plain_gap["gap"]:
+        problems.append(f"launch train_bf16 step 1: {rec}")
+    if launches != rec["launches_expected"]:
+        problems.append(f"launch train_bf16 step 1 launches: {launches}")
+    del got, want, plain, params
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _example_twins(problems) -> dict:
@@ -5390,7 +5787,10 @@ def phase_launch() -> tuple:
     ``train`` (f32, B 1, S 4,096, sgd, remat), ``train_dynamic`` and
     ``train_periodic`` (f32, m = 2, one sequence of 1,024 a learner,
     from step b - 1: one checked step that syncs), ``prefill`` (bf16, (4,
-    2,048)) and ``decode`` (bf16, batch 4 against a 2,048-deep cache).
+    2,048)) and ``decode`` (bf16, batch 4 against a 2,048-deep cache);
+    and (slice 21) ``train`` in bf16 at LAUNCH_BF16_LAYERS layers, the
+    reference's production program at published dtype, whose step-1
+    gradient ``_bf16_step1`` holds against the f32 gradient.
     Each is counted on meta by the dry run (``launch/dryrun.py``, its
     record written to ``build/torch_dryrun/``), then ``materialize``d and
     run three times (``_run_program``). Fails unless every output is bit
@@ -5419,9 +5819,11 @@ def phase_launch() -> tuple:
                                 world_size=1, rank=0)
     try:
         mesh = device_mesh((1, 1), ("data", "model"))
-        for mode, dtype, shape in LAUNCH_PROGRAMS:
-            programs[mode] = _run_program(mode, dtype, shape, mesh,
-                                          problems)
+        for key, mode, dtype, shape, layers in LAUNCH_PROGRAMS:
+            programs[key] = _run_program(mode, dtype, shape, mesh, problems,
+                                         layers)
+            torch.cuda.empty_cache()
+        step1 = _bf16_step1(problems)
     finally:
         if started:
             dist.destroy_process_group()
@@ -5435,6 +5837,7 @@ def phase_launch() -> tuple:
     examples = _example_twins(problems)
     rec = {"phase": "launch", "arch": LAUNCH_ARCH, "layers": LAUNCH_LAYERS,
            "mesh": axis_sizes(mesh), "programs": programs,
+           "train_bf16_step1": step1,
            "roofline_table": verdict, "programs_seconds": programs_s,
            "examples": examples,
            "examples_seconds": time.perf_counter() - t1,
@@ -5622,7 +6025,11 @@ def main() -> None:
         ("ssd_scan_bwd", bwd_table["ssd_scan_bwd"]["shape"], f32,
          bwd_table["ssd_scan_bwd"]),
         ("ssd_scan_bwd", bwd_table["ssd_scan_bwd"]["at_hymba_shape"]["shape"],
-         f32, bwd_table["ssd_scan_bwd"]["at_hymba_shape"])]
+         f32, bwd_table["ssd_scan_bwd"]["at_hymba_shape"]),
+        ("attention_bwd", bwd_table["attention_bwd_bf16"]["shape"], bf16,
+         bwd_table["attention_bwd_bf16"]),
+        ("rmsnorm_bwd", bwd_table["rmsnorm_bwd"]["bf16"]["shape"], bf16,
+         bwd_table["rmsnorm_bwd"]["bf16"])]
     run("analysis", phase_analysis, [
         {"kernel": k, "shape": list(shape), "dtype": dt, "ms": t["ms"],
          "bound_ms": t["bound_ms"]} for k, shape, dt, t in timed_rows])
@@ -5759,15 +6166,24 @@ def main() -> None:
                         "replaces": no_tpu.format(what, fwd),
                         "launches": n, "launches_by_path": by_path,
                         **bwd_table[name]})
+    # the bf16 attention backward (A28), a program of its own, launched by
+    # the launcher's bf16 train program below
+    kernels.append({"name": "attention_bwd_bf16", "route": "cuda",
+                    "source": csrc + "attention_bwd_bf16.cu",
+                    "replaces": no_tpu.format(
+                        "attention", "src/repro/kernels/flash_attention.py:77"
+                        " in bf16"),
+                    "launches": 0, "launches_by_path": {},
+                    **bwd_table["attention_bwd_bf16"]})
     # the launcher's five programs (one observed call each, the launches
     # the dry run is held to) and the example twins at --smoke
     for row in kernels:
         by_path = row.setdefault("launches_by_path", {})
-        for mode, prog in launch.items():
-            n = prog["launches"].get(row["name"], 0)
+        for key, prog in launch.items():
+            n = prog["launches_by_kernel"].get(row["name"], 0)
             if n:
                 row["launches"] += n
-                by_path[f"launch {mode} ({LAUNCH_ARCH}, {LAUNCH_LAYERS} "
+                by_path[f"launch {key} ({LAUNCH_ARCH}, {prog['layers']} "
                         f"layers, one call)"] = n
         n = examples["launches"].get(row["name"], 0)
         if n:

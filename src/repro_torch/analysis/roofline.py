@@ -334,18 +334,20 @@ def kernel_work(name: str, shape, dtype=torch.float32):
     * ``ssd_scan`` (BH, S, P, N, chunk, R): R heads share a row of b and
       c; the products in TF32 on the tensor cores;
     * ``attention_bwd`` (B, Sq, Sk, H, Hkv, d[, window]), d the head
-      width or the (query/key, value) widths (d, dv), causal, f32: q, k,
-      v, o, do and the (B, H, Sq) log-sum-exp read once, dq, dk and dv
-      written once, each at its own width; 5 products per kept pair and
-      head, each at its own width, 2 (3 d + 2 dv) flops (s again, dk and
-      dq over d; dp and dv over dv), 2.5 times the forward's at d = dv;
-      as the f32
-      forward's rows, in split TF32 (3 x the flops at the TF32 rate),
-      with the CUDA cores' f32 bound beside (``kernel_bound``), on which
-      the kernel runs;
-    * ``rmsnorm_bwd`` (rows, D) or (rows, D, g), f32: x and dy read, dx
-      written, the (g, D) scale read and dscale written; 12 operations an
-      element (the two row sums, dx and the dscale term), f32;
+      width or the (query/key, value) widths (d, dv), causal: q, k, v, o,
+      do (at the dtype's width) and the (B, H, Sq) f32 log-sum-exp read
+      once, dq, dk and dv written once, each at its own width; 5 products
+      per kept pair and head, each at its own width, 2 (3 d + 2 dv)
+      flops (s again, dk and dq over d; dp and dv over dv), 2.5 times the
+      forward's at d = dv; bf16 on the tensor cores at the bf16 rate
+      (``csrc/attention_bwd_bf16.cu``, one bf16 product a product); f32
+      as the f32 forward's rows, in split TF32 (3 x the flops at the
+      TF32 rate), with the CUDA cores' f32 bound beside
+      (``kernel_bound``), on which the kernel runs;
+    * ``rmsnorm_bwd`` (rows, D) or (rows, D, g), f32 or bf16: x and dy
+      read, dx written, the (g, D) scale read and dscale written, each at
+      the dtype's width (2 bytes in bf16); 12 operations an element (the
+      two row sums, dx and the dscale term), f32;
     * ``ssd_scan_bwd`` (BH, S, P, N, chunk, R), f32 (``ssd_bwd_work``):
       as the f32 attention rows, in split TF32 (3 x the flops at the
       TF32 rate), with the CUDA cores' f32 bound beside
@@ -383,7 +385,7 @@ def kernel_work(name: str, shape, dtype=torch.float32):
         # the backward reads o, do and lse and writes dq, dk, dv
         nbytes = 2 * nbytes + B * H * Sq * 4
         kept = flops // (2 * (d + dv))      # kept pairs x heads
-        return nbytes, 3 * 2 * (3 * d + 2 * dv) * kept, "tf32"
+        return nbytes, split * 2 * (3 * d + 2 * dv) * kept, tensor_rate
     if name == "ssd_scan_bwd":
         BH, S, P, N, Q, R = shape
         nbytes, flops = ssd_bwd_work(BH, S, P, N, BH // R, Q, item)

@@ -49,6 +49,7 @@ SOURCES = {"sqdist": ("sqdist.cu",),
            "rmsnorm": ("rmsnorm.cu", "rmsnorm_bwd.cu"),
            "attention": ("attention.cu", "attention_sm90.cu",
                          "attention_bwd.cu"),
+           "attention_bwd_bf16": ("attention_bwd_bf16.cu",),
            "ssd_scan": ("ssd_scan.cu",),
            "ssd_scan_bwd": ("ssd_scan_bwd.cu",)}
 
@@ -65,18 +66,23 @@ SIGNATURES = {
     "rmsnorm": {
         "repro_rmsnorm": (_I, [_I, _I, _I, _I, _P, _P, _P, _LL, _I, _LL,
                                _F, _P]),
-        "repro_rmsnorm_bwd": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I,
-                                   _I, _F, _P]),
+        "repro_rmsnorm_bwd": (_I, [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _LL,
+                                   _I, _I, _F, _P]),
         **_ERR,
     },
     "attention": {
         "repro_attention": (_I, [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _F, _P]),
-        "repro_attention_sm90": (_I, [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _I, _I, _I, _F, _P]),
+        "repro_attention_sm90": (_I, [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _I, _I, _F, _P]),
         "repro_attention_bwd": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                      _F, _P]),
+        **_ERR,
+    },
+    "attention_bwd_bf16": {
+        "repro_attention_bwd_bf16": (_I, [_I, _I, *[_P] * 11, *[_I] * 7, _F,
+                                          _P]),
         **_ERR,
     },
     "ssd_scan": {
@@ -92,10 +98,6 @@ SIGNATURES = {
 }
 
 _LOADED: dict = {}
-
-# what a bf16 input under a gradient raises with, whichever kernel
-NO_BF16_BWD = ("ROADMAP A28 (the bf16 attention, rmsnorm and ssd_scan "
-               "backward)")
 
 # launches by kernel (``ops.LAUNCHES`` is this dict): the wrappers in
 # ``ops`` and the autograd Functions of ``flash_attention``, ``rmsnorm``

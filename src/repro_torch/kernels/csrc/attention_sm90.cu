@@ -66,6 +66,13 @@
 //   * Output. Each warpgroup writes its normalized rows as bf16 into its
 //     half of the Q tile (swizzled as the map expects) and stores them by
 //     TMA, which clips rows >= Sq.
+//   * Log-sum-exp. A gradient's forward (kLse, a non-null lse) also writes
+//     each row's log-sum-exp of its scaled kept scores to (B, H, Sq) f32,
+//     natural log, -inf for a row that keeps no key: the convention of
+//     attention.cu, which the backward kernels read. The running max m is
+//     in log2 units of the scaled scores, so lse = (m + log2(l)) ln 2 from
+//     the quad's reduced denominator l. The serving path passes no lse and
+//     runs the kLse = false instance, unchanged.
 // No atomics, fixed reduction orders: a given card gives the same bits on
 // every run.
 
@@ -83,6 +90,7 @@ constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
 constexpr int kStages = 2;                  // the K ring and the V ring
 constexpr float kNegBig = -1e30f;           // the running max's start
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // the box geometry of a bf16 row of D columns, as TMA loads it
 template <int D>
@@ -445,14 +453,14 @@ __device__ __forceinline__ void softmax_tile(
   for (int r = 0; r < 2; ++r) lsum[r] = lsum[r] * alpha[r] + ps[r];
 }
 
-template <int DK, int DV>
+template <int DK, int DV, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ CUtensorMap to, int H,
-                          int Hkv, int Sq, int Sk, int causal, int window,
-                          float scale) {
+                          const __grid_constant__ CUtensorMap to,
+                          float* __restrict__ lse, int H, int Hkv, int Sq,
+                          int Sk, int causal, int window, float scale) {
   using T = Tile<DK, DV>;
   using QK = typename T::QK;
   using VO = typename T::VO;
@@ -622,8 +630,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int r = 0; r < 2; ++r) {
     lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
     lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
-    lsum[r] = fmaxf(lsum[r], 1e-30f);
   }
+  // the rows' log-sum-exp, natural log, for the backward; -inf for a row
+  // that keeps no key (its denominator is 0)
+  if (kLse && cq == 0) {
+    float* lr = lse + static_cast<int64_t>(bh) * Sq + q0 + kHalf * g;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (q0 + kHalf * g + r0 + 8 * r < Sq)
+        lr[r0 + 8 * r] = lsum[r] > 0.0f ? (m[r] + log2f(lsum[r])) * kLn2
+                                        : -__uint_as_float(0x7f800000u);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) lsum[r] = fmaxf(lsum[r], 1e-30f);
   warpgroup_sync(g);  // every warp of the half is done reading its Q rows
   const uint32_t sOg = sQ + g * kHalf * VO::ROW;
   uint8_t* base = smem_raw + (sOg - smem_addr(smem_raw));
@@ -701,9 +720,9 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DK, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hkv, int Sq, int Sk, int causal, int window,
+template <int DK, int DV, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int H, int Hkv, int Sq, int Sk, int causal, int window,
            float scale, cudaStream_t s) {
   using T = Tile<DK, DV>;
   const EncodeTiled encode = encode_tiled();
@@ -718,12 +737,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<long long>((Sq + kBQ - 1) / kBQ) * B * H;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel_sm90<DK, DV>,
+      attention_kernel_sm90<DK, DV, kLse>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_kernel_sm90<DK, DV><<<static_cast<unsigned>(blocks), kThreads,
-                                  T::SMEM, s>>>(mq, mk, mv, mo, H, Hkv, Sq,
-                                                Sk, causal, window, scale);
+  attention_kernel_sm90<DK, DV, kLse>
+      <<<static_cast<unsigned>(blocks), kThreads, T::SMEM, s>>>(
+          mq, mk, mv, mo, static_cast<float*>(lse), H, Hkv, Sq, Sk, causal,
+          window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -732,18 +752,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // bf16 q, k, v and o; (dk, dv) one of (32, 32), (64, 64), (128, 128) and
 // (192, 128). q is (B, Sq, H, dk), k (B, Sk, Hkv, dk), v (B, Sk, Hkv, dv)
 // and o (B, Sq, H, dv), all contiguous and 16-byte aligned, with
-// H % Hkv == 0. Returns the CUDA error code of the launch
-// (0 = cudaSuccess).
+// H % Hkv == 0. lse is null (serving), or (B, H, Sq) f32 that receives
+// each row's log-sum-exp (a gradient's forward). Returns the CUDA error
+// code of the launch (0 = cudaSuccess).
 extern "C" int repro_attention_sm90(int dk, int dv, const void* q,
                                     const void* k, const void* v, void* o,
-                                    int B, int H, int Hkv, int Sq, int Sk,
-                                    int causal, int window, float scale,
-                                    void* stream) {
+                                    void* lse, int B, int H, int Hkv, int Sq,
+                                    int Sk, int causal, int window,
+                                    float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_ATTENTION_CASE(DK, DV)                                       \
-  if (dk == DK && dv == DV)                                                \
-    return launch<DK, DV>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,  \
-                          scale, s);
+#define REPRO_ATTENTION_CASE(DK, DV)                                        \
+  if (dk == DK && dv == DV)                                                 \
+    return lse == nullptr                                                   \
+               ? launch<DK, DV, false>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,  \
+                                       causal, window, scale, s)            \
+               : launch<DK, DV, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,   \
+                                      causal, window, scale, s);
   REPRO_ATTENTION_CASE(32, 32)
   REPRO_ATTENTION_CASE(64, 64)
   REPRO_ATTENTION_CASE(128, 128)

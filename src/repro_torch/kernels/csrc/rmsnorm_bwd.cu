@@ -1,5 +1,5 @@
-// The gradient of the RMS norm over the last axis, in f32, for Hopper
-// (sm_90a):
+// The gradient of the RMS norm over the last axis, for Hopper (sm_90a), in
+// f32 or bf16 (the math f32 in both):
 //
 //   y[i]  = x[i] * r[i] * scale[i / R],  r[i] = 1 / sqrt(mean(x[i]^2) + eps)
 //   dx[i] = r[i] * dy[i] * s - x[i] * r[i]^3 / D * sum(dy[i] * s * x[i])
@@ -7,14 +7,18 @@
 //
 // x, dy, dx (rows, D); scale, dscale (g, D), g groups of R = rows / g
 // consecutive rows (g = 1 for a model's norm, g = m for m learners' norms
-// under the learners' vmap, as the forward's grouped scale).
+// under the learners' vmap, as the forward's grouped scale). All five in
+// one dtype, f32 or bf16: bf16 values are read into f32, every sum and
+// product is f32, and dx and dscale are rounded to bf16 once, as the
+// reference's norm (src/repro/models/layers.py, rms_norm) computes in f32
+// and casts its result; the dscale partials stay f32.
 //
 // Replaces no TPU kernel: the JAX package has no backward Pallas kernel
 // (its training path differentiates a jnp norm). On the card the port's
 // forward is rmsnorm.cu, so its gradient is a kernel too.
 //
 // Bound: device-memory bytes (x and dy read, dx written, the scale read and
-// dscale written; ~9 flops an element).
+// dscale written, each at its dtype's width; ~9 flops an element).
 //
 // Design: two launches, no atomics, fixed orders, so a given card gives the
 // same bits on every run.
@@ -31,6 +35,7 @@
 //      chunk order, one thread a column.
 // Loads are scalar and coalesced, so any row offset and any D work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,17 +44,33 @@ namespace {
 constexpr int kMaxThreads = 512;
 constexpr int kScaleThreads = 256;
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-    rmsnorm_bwd_rows_kernel(const float* __restrict__ x,
-                            const float* __restrict__ scales,
-                            const float* __restrict__ dy,
-                            float* __restrict__ dx,
+    rmsnorm_bwd_rows_kernel(const T* __restrict__ x,
+                            const T* __restrict__ scales,
+                            const T* __restrict__ dy,
+                            T* __restrict__ dx,
                             float* __restrict__ partial, int D,
                             int group_rows, int chunk_rows,
                             int chunks_per_group, float eps) {
@@ -64,17 +85,17 @@ __global__ void __launch_bounds__(kMaxThreads)
       static_cast<long long>(gi) * group_rows +
       static_cast<long long>(ci) * chunk_rows;
   const int nr = min(chunk_rows, group_rows - ci * chunk_rows);
-  const float* s = scales + static_cast<long long>(gi) * D;
+  const T* s = scales + static_cast<long long>(gi) * D;
   for (int j = t; j < D; j += n) sp[j] = 0.0f;
 
   for (int rr = 0; rr < nr; ++rr) {
     const long long row = r0 + rr;
-    const float* xr = x + row * D;
-    const float* gr = dy + row * D;
+    const T* xr = x + row * D;
+    const T* gr = dy + row * D;
     float a = 0.0f, b = 0.0f;
     for (int j = t; j < D; j += n) {
-      const float xv = xr[j];
-      a = fmaf(gr[j] * s[j], xv, a);
+      const float xv = to_f32(xr[j]);
+      a = fmaf(to_f32(gr[j]) * to_f32(s[j]), xv, a);
       b = fmaf(xv, xv, b);
     }
     a = warp_sum(a);
@@ -92,10 +113,10 @@ __global__ void __launch_bounds__(kMaxThreads)
     __syncthreads();  // the warp sums are read before the next row's
     const float r = 1.0f / sqrtf(sb / static_cast<float>(D) + eps);
     const float coef = sa * (r * r * r) / static_cast<float>(D);
-    float* dr = dx + row * D;
+    T* dr = dx + row * D;
     for (int j = t; j < D; j += n) {
-      const float xv = xr[j], gv = gr[j];
-      dr[j] = gv * s[j] * r - xv * coef;
+      const float xv = to_f32(xr[j]), gv = to_f32(gr[j]);
+      dr[j] = from_f32<T>(gv * to_f32(s[j]) * r - xv * coef);
       sp[j] = fmaf(gv, xv * r, sp[j]);
     }
   }
@@ -103,9 +124,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int j = t; j < D; j += n) pr[j] = sp[j];
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kScaleThreads)
     rmsnorm_bwd_scale_kernel(const float* __restrict__ partial,
-                             float* __restrict__ dscale, int D,
+                             T* __restrict__ dscale, int D,
                              int chunks_per_group) {
   const int col = blockIdx.x * kScaleThreads + threadIdx.x;
   const int gi = blockIdx.y;
@@ -115,24 +137,48 @@ __global__ void __launch_bounds__(kScaleThreads)
   float acc = 0.0f;
   for (int k = 0; k < chunks_per_group; ++k)
     acc += p[static_cast<long long>(k) * D];
-  dscale[static_cast<long long>(gi) * D + col] = acc;
+  dscale[static_cast<long long>(gi) * D + col] = from_f32<T>(acc);
+}
+
+template <typename T>
+int launch(const T* x, const T* scale, const T* dy, T* dx, T* dscale,
+           float* partial, int D, long long groups, long long group_rows,
+           int chunk_rows, long long cpg, int threads, float eps,
+           cudaStream_t s) {
+  const int smem = static_cast<int>(sizeof(float) * D);
+  cudaError_t err = cudaFuncSetAttribute(
+      rmsnorm_bwd_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_bwd_rows_kernel<T><<<static_cast<unsigned>(groups * cpg), threads,
+                               smem, s>>>(
+      x, scale, dy, dx, partial, D, static_cast<int>(group_rows), chunk_rows,
+      static_cast<int>(cpg), eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((D + kScaleThreads - 1) / kScaleThreads,
+                  static_cast<unsigned>(groups));
+  rmsnorm_bwd_scale_kernel<T><<<grid, kScaleThreads, 0, s>>>(
+      partial, dscale, D, static_cast<int>(cpg));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// float32 throughout. x, dy and dx are (rows, D) contiguous; scale and
-// dscale (rows / group_rows, D); partial scratch of
-// (rows / group_rows) * ceil(group_rows / chunk_rows) rows of D floats.
-// threads: a multiple of 32 up to 512. D * 4 bytes of shared memory a
-// block. Two launches on `stream`; returns the CUDA error code of the first
-// that fails (0 = cudaSuccess).
-extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale,
+// dtype 0: float32, 1: bfloat16, for x, scale, dy, dx and dscale alike. x,
+// dy and dx are (rows, D) contiguous; scale and dscale (rows / group_rows,
+// D); partial f32 scratch of (rows / group_rows) * ceil(group_rows /
+// chunk_rows) rows of D floats. threads: a multiple of 32 up to 512. D * 4
+// bytes of shared memory a block. Two launches on `stream`; returns the
+// CUDA error code of the first that fails (0 = cudaSuccess).
+extern "C" int repro_rmsnorm_bwd(int dtype, const void* x, const void* scale,
                                  const void* dy, void* dx, void* dscale,
                                  void* partial, long long rows, int D,
                                  long long group_rows, int chunk_rows,
                                  int threads, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D < 1 || rows < 1 || group_rows < 1 || rows % group_rows ||
+      (dtype != 0 && dtype != 1) ||
       group_rows > 0x7fffffffLL || chunk_rows < 1 || threads < 32 ||
       threads > kMaxThreads || threads % 32)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -140,23 +186,16 @@ extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale,
   const long long cpg = (group_rows + chunk_rows - 1) / chunk_rows;
   if (groups * cpg > 0x7fffffffLL || groups > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(sizeof(float) * D);
-  cudaError_t err = cudaFuncSetAttribute(
-      rmsnorm_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_bwd_rows_kernel<<<static_cast<unsigned>(groups * cpg), threads,
-                            smem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(dy), static_cast<float*>(dx),
-      static_cast<float*>(partial), D, static_cast<int>(group_rows),
-      chunk_rows, static_cast<int>(cpg), eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((D + kScaleThreads - 1) / kScaleThreads,
-                  static_cast<unsigned>(groups));
-  rmsnorm_bwd_scale_kernel<<<grid, kScaleThreads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dscale), D,
-      static_cast<int>(cpg));
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return launch<float>(
+        static_cast<const float*>(x), static_cast<const float*>(scale),
+        static_cast<const float*>(dy), static_cast<float*>(dx),
+        static_cast<float*>(dscale), static_cast<float*>(partial), D, groups,
+        group_rows, chunk_rows, cpg, threads, eps, s);
+  using bf16 = __nv_bfloat16;
+  return launch<bf16>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
+      static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
+      static_cast<bf16*>(dscale), static_cast<float*>(partial), D, groups,
+      group_rows, chunk_rows, cpg, threads, eps, s);
 }

@@ -31,20 +31,23 @@ tensors and the plain versions for CPU tensors.
 
 The gradient. The JAX package has no backward Pallas kernel (its
 training differentiates jnp attention), so ``attention_bwd`` replaces
-none: ``csrc/attention_bwd.cu`` computes dq, dk and dv in f32 on the
-tensor cores in split TF32 (``mma.sync``, as the f32 forward) from q, k,
-v, o, do and the per-row log-sum-exp that the f32 program writes when
+none. It has a program per dtype (``BWD_PROGRAMS``), each reading q, k,
+v, o, do and the per-row log-sum-exp that its forward writes when
 ``with_lse`` asks for it (the serving path asks for none and launches as
-before). ``AttentionFn`` is the autograd Function
+before): f32 runs ``csrc/attention_bwd.cu`` (dq, dk and dv in f32 on the
+tensor cores in split TF32, ``mma.sync`` m16n8k8, as the f32 forward),
+bf16 runs ``csrc/attention_bwd_bf16.cu`` (one bf16 ``mma.sync`` m16n8k16
+a product with f32 sums, P and dS rounded to bf16 as operands, where the
+reference rounds its probabilities; dq, dk and dv written in bf16 once).
+``AttentionFn`` is the autograd Function
 that ``ops`` routes a CUDA call through when a gradient is wanted (an
 input requires grad, or is a ``torch.func`` transform's tensor): its
 backward calls ``AttentionBwdFn``, and each has a ``vmap`` rule that
 folds the vmapped (learner) axis into the batch, so m learners are one
 launch. They launch through the module's ``launch_forward`` and
-``launch_backward``, which the CPU tests replace with stand-ins. The
-backward takes every f32 width pair of the forward (``BWD_WIDTHS``),
-MLA's wider queries and keys too; a bf16 input under a gradient raises
-``NotImplementedError`` (``differentiable``).
+``launch_backward``, which the CPU tests replace with stand-ins. Each
+backward program takes every width pair of its dtype's forward
+(``BWD_WIDTHS``), MLA's wider queries and keys too.
 """
 from __future__ import annotations
 
@@ -64,10 +67,15 @@ WIDTHS = {torch.bfloat16: {(d, d) for d in HEAD_DIMS} | {(192, 128)},
                                                         (48, 32)}}
 
 
-# the (query/key, value) width pairs the backward takes, f32 only: the f32
-# forward's; and its program: split-TF32 mma.sync, as the f32 forward's
-BWD_WIDTHS = WIDTHS[torch.float32]
-BWD_PROGRAM = "sm90_mma_tf32x3"
+# the backward by dtype: (its program's name, its library, its C entry
+# point); f32 in split TF32 on mma.sync, as the f32 forward, bf16 one bf16
+# mma.sync a product
+BWD_PROGRAMS = {
+    torch.bfloat16: ("sm90_mma_bf16", "attention_bwd_bf16",
+                     "repro_attention_bwd_bf16"),
+    torch.float32: ("sm90_mma_tf32x3", "attention", "repro_attention_bwd")}
+# the (query/key, value) width pairs each backward takes: its forward's
+BWD_WIDTHS = {t: WIDTHS[t] for t in BWD_PROGRAMS}
 
 
 def program(dtype: torch.dtype) -> str:
@@ -75,14 +83,19 @@ def program(dtype: torch.dtype) -> str:
     return PROGRAMS[dtype][0]
 
 
+def bwd_program(dtype: torch.dtype) -> str:
+    """The name of the program that runs the backward in ``dtype``."""
+    return BWD_PROGRAMS[dtype][0]
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, window: int, scale: float | None,
               what: str = "flash_attention", with_lse: bool = False):
     """Launch the kernel on the GQA layout: q (B, Sq, H, d), k
     (B, Sk, Hkv, d), v (B, Sk, Hkv, dv) -> (B, Sq, H, dv); with
-    ``with_lse`` (f32 only) -> (o, lse (B, H, Sq) f32), lse each row's
-    log-sum-exp of its scaled kept scores, -inf where it keeps none. On
-    ``meta``: the shapes checked, empty outputs, no launch."""
+    ``with_lse`` -> (o, lse (B, H, Sq) f32), lse each row's log-sum-exp
+    of its scaled kept scores, -inf where it keeps none. On ``meta``: the
+    shapes checked, empty outputs, no launch."""
     meta = q.is_meta
     if not ((q.is_cuda or meta) and k.device == q.device
             and v.device == q.device):
@@ -128,37 +141,33 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"(cuda:{torch.cuda.current_device()}), q is on {q.device}")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    if with_lse:        # the f32 program writes it at the backward's widths
+    if with_lse:        # both programs write it at the backward's widths
         differentiable(q, k, v, what)
     lib = _build.library("attention")
     o = q.new_empty((B, Sq, H, dv))
-    stream = _build.current_stream(q.device.index)
+    lse = q.new_empty((B, H, Sq), dtype=torch.float32) if with_lse else None
     name, entry = PROGRAMS[q.dtype]
-    if q.dtype == torch.float32:
-        lse = q.new_empty((B, H, Sq)) if with_lse else None
-        code = lib.repro_attention(
-            d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if lse is None else lse.data_ptr(), B, H, Hkv, Sq, Sk,
-            int(causal), int(window), ctypes.c_float(scale), stream)
-    else:
-        code = getattr(lib, entry)(
-            d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
-            H, Hkv, Sq, Sk, int(causal), int(window), ctypes.c_float(scale),
-            stream)
+    code = getattr(lib, entry)(
+        d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, H, Hkv, Sq, Sk,
+        int(causal), int(window), ctypes.c_float(scale),
+        _build.current_stream(q.device.index))
     _build.check(lib, code, f"{what} launch ({name})")
     return (o, lse) if with_lse else o
 
 
 def differentiable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    what: str = "flash_attention") -> None:
-    """Raise ``NotImplementedError`` where the backward kernel does not
-    take these inputs: bf16. It takes every f32 width pair the forward
-    takes (``BWD_WIDTHS``). A dry run on ``meta`` counts the bf16
-    backward (A28)."""
-    if q.dtype != torch.float32 and not q.is_meta:
+    """Raise ``NotImplementedError`` where no backward program takes
+    these inputs: a dtype or a (query/key, value) width pair outside
+    ``BWD_WIDTHS``. Each program takes every width pair its dtype's
+    forward takes."""
+    widths = (q.shape[-1], v.shape[-1])
+    if widths not in BWD_WIDTHS.get(q.dtype, ()):
         raise NotImplementedError(
-            f"{what} has no backward kernel in {q.dtype}: "
-            f"{_build.NO_BF16_BWD}")
+            f"{what} has no backward kernel at (query/key, value) widths "
+            f"{widths} in {q.dtype}; it takes "
+            f"{sorted(BWD_WIDTHS.get(q.dtype, ()))}")
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -166,10 +175,12 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, window: int, scale: float | None):
     """The backward kernel: (dq, dk, dv) of ``attention`` at q (B, Sq, H,
     d), k (B, Sk, Hkv, d), v (B, Sk, Hkv, dv), o and do (B, Sq, H, dv),
-    lse (B, H, Sq), all f32 on the card, (d, dv) one of ``BWD_WIDTHS``.
-    Three CUDA launches (delta, dk/dv, dq) and, where H > Hkv, a fourth
-    that sums the query heads' dk and dv partials in head order; no
-    atomics: the same inputs give the same bits."""
+    all f32 or all bf16 on the card, and lse (B, H, Sq) f32, (d, dv) one
+    of ``BWD_WIDTHS[dtype]``; the gradients in the inputs' dtype. f32:
+    three CUDA launches (delta, dk/dv, dq) and, where H > Hkv, a fourth
+    that sums the query heads' dk and dv partials in head order; bf16:
+    the same four, the fourth at every H (it sums the f32 partials and
+    writes bf16). No atomics: the same inputs give the same bits."""
     differentiable(q, k, v, "attention_bwd")
     B, Sq, H, d = q.shape
     Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -189,13 +200,11 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"got {[tuple(t.shape) for t in tensors]}")
     if meta:
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"attention_bwd takes float32: got "
+    if (q.dtype not in BWD_PROGRAMS or lse.dtype != torch.float32
+            or any(t.dtype != q.dtype for t in (k, v, o, do))):
+        raise TypeError(f"attention_bwd takes q, k, v, o and do in float32 "
+                        f"or bfloat16 alike and lse in float32: got "
                         f"{[t.dtype for t in tensors]}")
-    if (d, dv) not in BWD_WIDTHS:
-        raise ValueError(
-            f"attention_bwd takes (query/key, value) widths "
-            f"{sorted(BWD_WIDTHS)}, got ({d}, {dv})")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("attention_bwd needs contiguous inputs")
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
@@ -208,20 +217,23 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention_bwd: a negative window {window}")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    lib = _build.library("attention")
+    name, library, entry = BWD_PROGRAMS[q.dtype]
+    lib = _build.library(library)
     dq, dk, dvg = (torch.empty_like(q), torch.empty_like(k),
                    torch.empty_like(v))
     delta = lse.new_empty((B, H, Sq))
-    # the query heads' dk partials (B, Sk, H, d), then their dv partials
-    part = q.new_empty((B * Sk * H * (d + dv),)) if H > Hkv else None
-    code = lib.repro_attention_bwd(
+    # the query heads' dk partials (B, Sk, H, d), then their dv partials,
+    # f32; bf16 sums them at every H (and casts)
+    part = (lse.new_empty((B * Sk * H * (d + dv),))
+            if H > Hkv or q.dtype == torch.bfloat16 else None)
+    code = getattr(lib, entry)(
         d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dvg.data_ptr(), delta.data_ptr(),
         None if part is None else part.data_ptr(), B, H, Hkv, Sq, Sk,
         int(causal), int(window), ctypes.c_float(scale),
         _build.current_stream(q.device.index))
-    _build.check(lib, code, "attention_bwd launch")
+    _build.check(lib, code, f"attention_bwd launch ({name})")
     return dq, dk, dvg
 
 

@@ -20,19 +20,20 @@ calls are not counted.
 
 Gradients. Where a gradient is wanted on the card (an input requires
 grad under grad mode, or is a ``torch.func`` transform's tensor),
-``rmsnorm``, f32 ``flash_attention(_gqa)`` and ``swa_attention`` at
-every width pair of the f32 forward (MLA's too), and f32 ``ssd_scan``
-run through
-their autograd Functions (``rmsnorm.RMSNormFn``,
+``rmsnorm``, ``flash_attention(_gqa)`` and ``swa_attention`` at every
+width pair of the forward (MLA's too) and ``ssd_scan``, in f32 and in
+bf16, run through their autograd Functions (``rmsnorm.RMSNormFn``,
 ``flash_attention.AttentionFn``, the banded route with the window and
 counted under ``"swa_attention"``, and ``ssd_scan.SSDScanFn`` after the
 padding), whose backward is a kernel too (``"rmsnorm_bwd"``,
-``"attention_bwd"``, ``"ssd_scan_bwd"`` in ``LAUNCHES``) and whose
-``vmap`` rule makes one launch a call whatever the vmapped size. A bf16
-input and the distance kernels raise ``NotImplementedError`` there,
-naming their ROADMAP item or why none is needed, so no gradient is
-silently missing. On the CPU the plain
-versions are differentiated as they are.
+``"attention_bwd"``, ``"ssd_scan_bwd"`` in ``LAUNCHES``; bf16 attention
+has its own backward program, a bf16 ``ssd_scan`` takes the f32 kernel
+upcast, ``ssd_scan``'s docstring) and whose ``vmap`` rule makes one
+launch a call whatever the vmapped size. The distance kernels raise
+``NotImplementedError`` there, saying why none is needed, and so do a
+norm past the backward's widest row, so no gradient is silently
+missing. On the CPU the plain versions are differentiated as they
+are.
 """
 from __future__ import annotations
 
@@ -193,7 +194,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             b, c = b.repeat_interleave(R, dim=0), c.repeat_interleave(R, dim=0)
         y, h = ref.ssd_scan_ref(x, dt, a, b, c, chunk=chunk)
     elif wants_grad(x, dt, a, b, c):
-        _ssd.differentiable(x)
         y, h, _ = _ssd.SSDScanFn.apply(x, dt, a, b, c, chunk)
     else:
         y, h = _ssd.ssd_scan(x, dt, a, b, c, chunk=chunk)

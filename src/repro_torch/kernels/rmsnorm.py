@@ -22,8 +22,11 @@ tensors and the plain version for CPU tensors.
 
 The gradient. The JAX package has no backward Pallas kernel, so
 ``rmsnorm_bwd`` replaces none: ``csrc/rmsnorm_bwd.cu`` computes dx and
-the grouped dscale in f32 (bf16 raises, ``differentiable``), with no
-atomics (``bwd_plan`` fixes its partition from the shapes alone).
+the grouped dscale in f32 or bf16 (x, dy and the scale read into f32,
+the math and the dscale partials f32, dx and dscale written in the
+inputs' dtype once, as the reference's norm computes in f32 and casts),
+with no atomics (``bwd_plan`` fixes its partition from the shapes
+alone); rows wider than ``MAX_BWD_D`` raise (``differentiable``).
 ``RMSNormFn`` is the autograd Function ``ops`` routes a CUDA call
 through when a gradient is wanted; its backward calls ``RMSNormBwdFn``;
 each has a ``vmap`` rule that folds the vmapped (learner) axis into the
@@ -143,13 +146,7 @@ def bwd_plan(rows: int, D: int, g: int = 1) -> BwdPlan:
 
 def differentiable(x: torch.Tensor, what: str = "rmsnorm") -> None:
     """Raise ``NotImplementedError`` where the backward kernel does not
-    take x: bf16, or rows wider than ``MAX_BWD_D``."""
-    if x.is_meta:               # a dry run counts the bf16 backward (A28)
-        return
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{what} has no backward kernel in {x.dtype}: "
-            f"{_build.NO_BF16_BWD}")
+    take x: rows wider than ``MAX_BWD_D``."""
     if x.shape[-1] > MAX_BWD_D:
         raise NotImplementedError(
             f"{what}'s backward kernel takes D <= {MAX_BWD_D}, got "
@@ -159,10 +156,10 @@ def differentiable(x: torch.Tensor, what: str = "rmsnorm") -> None:
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                 eps: float = 1e-5):
     """The backward kernel: (dx (..., D), dscale shaped as scale) of
-    ``rmsnorm(x, scale, eps)`` at the output gradient dy, f32 on the
-    card; scale (D,) or grouped (g, D). Two CUDA launches (the rows with
-    a dscale partial a block, then each group's partials summed in
-    order), no atomics."""
+    ``rmsnorm(x, scale, eps)`` at the output gradient dy, all f32 or all
+    bf16 on the card (the math f32); scale (D,) or grouped (g, D). Two
+    CUDA launches (the rows with an f32 dscale partial a block, then each
+    group's partials summed in order), no atomics."""
     differentiable(x, "rmsnorm_bwd")
     dev = x.get_device()              # -1 for a CPU or a meta tensor
     if (dev < 0 or scale.get_device() != dev or dy.get_device() != dev) \
@@ -181,9 +178,11 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
             f"{tuple(dy.shape)}, {tuple(scale.shape)}")
     if dev < 0:                       # meta: the shapes checked
         return torch.empty_like(x), torch.empty_like(scale)
-    if scale.dtype != torch.float32 or dy.dtype != torch.float32:
-        raise TypeError(f"rmsnorm_bwd takes float32: got {x.dtype}, "
-                        f"{scale.dtype}, {dy.dtype}")
+    dtype = _DTYPES.get(x.dtype)
+    if dtype is None or scale.dtype != x.dtype or dy.dtype != x.dtype:
+        raise TypeError(f"rmsnorm_bwd takes float32 or bfloat16, x, scale "
+                        f"and dy alike: got {x.dtype}, {scale.dtype}, "
+                        f"{dy.dtype}")
     if not (x.is_contiguous() and scale.is_contiguous()
             and dy.is_contiguous()):
         raise ValueError("rmsnorm_bwd needs contiguous x, scale and dy")
@@ -195,9 +194,9 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     lib = _build.library("rmsnorm")
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
-    partial = x.new_empty((g * chunks, D))
+    partial = x.new_empty((g * chunks, D), dtype=torch.float32)
     code = lib.repro_rmsnorm_bwd(
-        x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        dtype, x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         dscale.data_ptr(), partial.data_ptr(), rows, D, rows // g, chunk,
         threads, eps, _build.current_stream(dev))
     _build.check(lib, code, "rmsnorm_bwd launch")

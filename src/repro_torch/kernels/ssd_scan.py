@@ -51,10 +51,20 @@ grad, or is a ``torch.func`` transform's tensor): its backward calls
 ``SSDScanBwdFn``, and each has a ``vmap`` rule that folds the vmapped
 (learner) axis into BH and into b and c's rows, so m learners are one
 launch. They launch through the module's ``launch_forward`` and
-``launch_backward``, which the CPU tests replace with stand-ins. A bf16
-input under a gradient raises ``NotImplementedError``
-(``differentiable``); the final state's gradient may be absent (the LM
-loss never reads it) and counts as zero.
+``launch_backward``, which the CPU tests replace with stand-ins. The
+final state's gradient may be absent (the LM loss never reads it) and
+counts as zero.
+
+bf16 under a gradient takes a stated route, not a kernel of its own: the
+forward is the bf16 forward kernel it runs without a gradient (its
+entering states are f32), and ``SSDScanBwdFn`` casts x, dt, b, c, dy
+and dh to f32, runs the f32 ``ssd_scan_bwd.cu`` (``launch_backward``),
+and casts each gradient to its input's dtype (``backward_f32``). No
+model reaches it: the SSM layers (``models/mamba.py``, as the
+reference's ``models/mamba.py``) cast x, dt, B and C to f32 before
+``ops.ssd_scan``, so a bf16 mamba2 or hymba step already runs the f32
+backward; only a direct bf16 ``ops.ssd_scan`` call under a gradient
+takes this route (ROADMAP A28).
 """
 from __future__ import annotations
 
@@ -183,16 +193,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return (y, h, states) if keep_states else (y, h)
 
 
-def differentiable(x: torch.Tensor) -> None:
-    """Raise ``NotImplementedError`` where the backward kernel does not
-    take these inputs: bf16. A dry run on ``meta`` counts the bf16
-    backward (A28)."""
-    if x.dtype != torch.float32 and not x.is_meta:
-        raise NotImplementedError(
-            f"ssd_scan has no backward kernel in {x.dtype}: "
-            f"{_build.NO_BF16_BWD}")
-
-
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor, states: torch.Tensor,
                  dy: torch.Tensor, dh: torch.Tensor | None, *, chunk: int):
@@ -203,7 +203,6 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     and chunk, the reverse state walk, the chunks, da's chunk sum) and,
     where R > 1, a fifth that sums the R heads' db and dc partials of each
     row in head order; no atomics: the same inputs give the same bits."""
-    differentiable(x)
     BH, S, P = x.shape
     rows, N = b.shape[0], b.shape[-1]
     nc = S // chunk if chunk in CHUNKS else 0
@@ -283,6 +282,17 @@ def launch_backward(x, dt, a, b, c, states, dy, dh, chunk):
     return ssd_scan_bwd(x, dt, a, b, c, states, dy, dh, chunk=chunk)
 
 
+def backward_f32(x, dt, a, b, c, states, dy, dh, chunk):
+    """``launch_backward``, which is f32, at any input dtype: a bf16
+    call's inputs reach it upcast and its gradients come back cast to
+    each input's dtype (the module's docstring); an f32 call's pass as
+    they are."""
+    dtypes = [t.dtype for t in (x, dt, a, b, c)]
+    grads = launch_backward(*(None if t is None else t.float() for t in (
+        x, dt, a, b, c, states, dy, dh)), chunk)
+    return tuple(g.to(t) for g, t in zip(grads, dtypes))
+
+
 class SSDScanFn(torch.autograd.Function):
     """``ssd_scan`` with its gradient: ``apply(x, dt, a, b, c, chunk) ->
     (y, h, states)``, states not differentiable. Composes with
@@ -328,7 +338,7 @@ class SSDScanBwdFn(torch.autograd.Function):
 
     @staticmethod
     def forward(x, dt, a, b, c, states, dy, dh, chunk):
-        return launch_backward(
+        return backward_f32(
             x.contiguous(), dt.contiguous(), a.contiguous(), b.contiguous(),
             c.contiguous(), states.contiguous(), dy.contiguous(),
             None if dh is None else dh.contiguous(), chunk)
@@ -348,5 +358,5 @@ class SSDScanBwdFn(torch.autograd.Function):
         args = [None if t is None else _build.fold(_build.batch_first(t, d, n))
                 for t, d in zip((x, dt, a, b, c, states, dy, dh),
                                 in_dims[:8])]
-        grads = launch_backward(*args, chunk)
+        grads = backward_f32(*args, chunk)
         return tuple(_build.unfold(g, n) for g in grads), (0,) * 5

@@ -11,14 +11,14 @@ port tiles q and k at the card's size and bounds the loop by the window
 instead (ROADMAP Queue B 4). Same precondition as the reference:
 ``S % window == 0`` and ``S >= window``.
 
-The gradient (ROADMAP A29): ``swa_attention_differentiable`` routes
-the same layouts through ``flash_attention.AttentionFn`` with
-``causal=True`` and the window, counted under ``"swa_attention"``. The
-f32 forward writes the log-sum-exp, and the backward kernel
-(``csrc/attention_bwd.cu``) bounds both its passes' ranges by the window
-and masks its edge, so the banded gradient reads only the band, as the
-forward does. Widths and dtypes are the backward's
-(``flash_attention.differentiable``): bf16 raises naming A28.
+The gradient (ROADMAP A29, bf16 A28): ``swa_attention_differentiable``
+routes the same layouts through ``flash_attention.AttentionFn`` with
+``causal=True`` and the window, counted under ``"swa_attention"``. Both
+forwards write the log-sum-exp, and both backward programs
+(``csrc/attention_bwd.cu`` in f32, ``csrc/attention_bwd_bf16.cu`` in
+bf16) bound both their passes' ranges by the window and mask its edge,
+so the banded gradient reads only the band, as the forward does. Widths
+and dtypes are the backward's (``flash_attention.differentiable``).
 ``repro_torch.kernels.ops`` takes this route for a CUDA call under a
 gradient.
 

@@ -61,14 +61,14 @@ which needs the distances' values, is taken as "sync" (``SyncOnMeta``;
 The rates are the H100's (``PEAKS["H100"]``) at the arithmetic the
 program runs: the products on the bf16 tensor cores for a bf16 program,
 on the CUDA cores' f32 rate for an f32 one (TF32 off), each kernel at
-its own (``kernel_work``). A bf16 training program, which the card
-cannot run yet (its backward kernels are f32 only), is counted at bf16
-sizes and its record says ``"waits_on": "A28"``.
+its own (``kernel_work``): a bf16 training program's backward kernels
+at bf16 sizes, the attention backward at the bf16 tensor cores' rate,
+as the card runs them.
 
 Records keep the reference's keys (``arch, shape, mesh, mode,
 num_devices, compile_s, ok, calibrated, roofline{...}``) and add the
-port's (``per_chip_rule``, ``rates``, ``kernels``, ``host_decision``,
-``waits_on``). They go to ``experiments/torch_dryrun/`` by default.
+port's (``per_chip_rule``, ``rates``, ``kernels``, ``host_decision``).
+They go to ``experiments/torch_dryrun/`` by default.
 """
 from __future__ import annotations
 
@@ -374,7 +374,6 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, mode: str = "auto",
     seconds = time.perf_counter() - t0
     mode = prog.meta["mode"]
     report = roofline_of(cfg, shape, mesh, mode, prog, counted)
-    bf16_train = mode in TRAIN_MODES and cfg.dtype == "bfloat16"
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
            "mode": mode, "num_devices": report["num_devices"],
            "compile_s": round(seconds, 2), "ok": True,
@@ -391,8 +390,6 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, mode: str = "auto",
         rec["host_decision"] = ("sync: the counted step is a checked step "
                                 "that syncs (the distances have no value "
                                 "on meta)")
-    if bf16_train:
-        rec["waits_on"] = "A28"
     if verbose:
         # structured events: the CLI attaches the text formatter
         get_logger().event(

@@ -370,8 +370,8 @@ def test_attention_bwd_model_has_the_kernels_geometry():
     assert "0x1000u) & 0xffffe000u" in src
     assert "exp2f(fmaf(" in src and "1.4426950408889634f" in src
     assert "atomicAdd" not in src and "atom." not in src
-    assert fa.BWD_WIDTHS == fa.WIDTHS[torch.float32]
-    for d, dv in fa.BWD_WIDTHS:
+    assert fa.BWD_WIDTHS[torch.float32] == fa.WIDTHS[torch.float32]
+    for d, dv in fa.BWD_WIDTHS[torch.float32]:
         assert f"REPRO_ATTENTION_BWD_CASE({d}, {dv})" in src
     # the budget the source's comment gives
     assert _plan(128, 128) == (6, 218624) and _plan(192, 128) == (4, 201216)

@@ -1304,27 +1304,19 @@ def test_grouped_rmsnorm_is_m_single_scale_calls(m, rows, D, dtype):
 
 @pytest.mark.cuda
 def test_kernels_without_backward_raise_under_grad():
+    """The distance kernels and a norm past the backward's widest row
+    raise under a gradient; bf16 attention, swa_attention, ssd_scan and
+    rmsnorm have a backward (``test_bf16_backward_through_ops``)."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    q, k, v = randn(1, 64, 4, 64), randn(1, 64, 2, 64), randn(1, 64, 2, 64)
-    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-    x, dt = randn(4, 64, 16), randn(4, 64).abs()
-    a, b, c = -randn(4).abs(), randn(4, 64, 8), randn(4, 64, 8)
-    xb, dtb, bb, cb = (t.to(torch.bfloat16) for t in (x, dt, b, c))
+    D = rmsnorm.MAX_BWD_D + 1
     cases = {
-        "bf16 attention": (lambda q: ops.flash_attention_gqa(q, kb, vb),
-                           qb),
-        "bf16 swa_attention": (lambda q: ops.swa_attention(
-            q, kb, vb, window=32), qb),
-        "bf16 ssd_scan": (lambda x: ops.ssd_scan(
-            x, dtb, a, bb, cb, chunk=16)[0], xb),
-        "bf16 rmsnorm": (lambda x: ops.rmsnorm(
-            x, torch.ones(64, device="cuda", dtype=torch.bfloat16)),
-            randn(3, 64, dtype=torch.bfloat16)),
+        "rmsnorm past MAX_BWD_D": (lambda x: ops.rmsnorm(
+            x, torch.ones(D, device="cuda")), randn(2, D)),
         "sqdist_rows": (lambda x: ops.sqdist_rows(x, x[0].detach()),
                         randn(3, 40)),
     }
@@ -1335,6 +1327,55 @@ def test_kernels_without_backward_raise_under_grad():
             fn(arg.clone().requires_grad_()).float().sum().backward()
         # without a gradient the kernel runs as before
         fn(arg)
+
+
+# a bf16 gradient through the kernels against the plain versions' bf16
+# gradient on the card: both within a few bf16 steps of the f32 gradient
+# (the kernel rounds P and dS to bf16, both round the gradient once)
+BF16_GRAD_REL = 2.0 ** -6
+
+
+@pytest.mark.cuda
+def test_bf16_backward_through_ops():
+    """bf16 attention, its banded route, a direct ssd_scan (the f32
+    kernel upcast) and rmsnorm under ``loss.backward()``: one forward and
+    one backward launch each, the gradients in the inputs' dtypes within
+    BF16_GRAD_REL of the plain versions'."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = randn(1, 64, 4, 64), randn(1, 64, 2, 64), randn(1, 64, 2, 64)
+    x, dt = randn(4, 64, 16), randn(4, 64).abs()
+    a, b, c = -randn(4, dtype=torch.float32).abs(), randn(2, 64, 8), randn(
+        2, 64, 8)
+    cases = {
+        "flash_attention": (lambda q, k, v: ops.flash_attention_gqa(
+            q, k, v), (q, k, v), "attention_bwd"),
+        "swa_attention": (lambda q, k, v: ops.swa_attention(
+            q, k, v, window=32), (q, k, v), "attention_bwd"),
+        "ssd_scan": (lambda x, dt, a, b, c: ops.ssd_scan(
+            x, dt, a, b, c, chunk=16)[0], (x, dt, a, b, c), "ssd_scan_bwd"),
+        "rmsnorm": (lambda x, s: ops.rmsnorm(x, s),
+                    (randn(3, 64), 1 + 0.1 * randn(64)), "rmsnorm_bwd"),
+    }
+    for name, (fn, args, bwd) in cases.items():
+        leaves = [t.clone().requires_grad_() for t in args]
+        ops.reset_launches()
+        fn(*leaves).float().square().sum().backward()
+        assert (ops.LAUNCHES[name], ops.LAUNCHES[bwd]) == (1, 1), name
+        plain = [t.clone().requires_grad_() for t in args]
+        on_cpu, ops._on_cpu = ops._on_cpu, lambda *t: True
+        try:
+            fn(*plain).float().square().sum().backward()
+        finally:
+            ops._on_cpu = on_cpu
+        for got, want in zip(leaves, plain):
+            assert got.grad.dtype == got.dtype, name
+            assert _grad_gap(got.grad.float(), want.grad.float()) <= \
+                BF16_GRAD_REL, name
 
 
 @pytest.mark.cuda

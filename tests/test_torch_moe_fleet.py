@@ -19,7 +19,9 @@ learners' ``torch.func.vmap`` over ``lm_loss`` of mixtral-8x22b-smoke
   ``STEP_LOSS_TOL`` / ``PLANE_*_TOL``, Δ between the reference's checked
   distances (``0 < syncs < checks``, none within ``DELTA_MARGIN``·Δ of
   Δ); the dynamic fleets with rematerialized layers too.
-* The launchers' MoE runs are in ``tests/test_torch_moe_launch.py``.
+* The launchers' MoE runs are in ``tests/test_torch_moe_launch.py``
+  (mixtral-8x22b) and ``tests/test_torch_moe_launch_deepseek.py``
+  (deepseek-v2-236b).
 """
 import pytest
 

@@ -26,7 +26,8 @@ and held against the JAX package.
   ``torch.func.grad`` equal the plain version's gradient; under
   ``vmap(grad)`` one forward and one backward call whatever m; an unread
   final state arrives as None; ``ops.ssd_scan`` pads S to a chunk
-  multiple and differentiates through the pad; bf16 raises naming A28,
+  multiple and differentiates through the pad; bf16 takes the f32 kernel
+  on its inputs upcast, gradients cast back to each input's dtype,
   a second derivative raises.
 * ``ops.swa_attention`` under a gradient, with the attention stand-ins:
   it goes through ``AttentionFn`` with the window, counts
@@ -397,13 +398,43 @@ def test_ops_ssd_scan_pads_and_differentiates(monkeypatch):
 
 
 def test_ssd_bf16_and_second_derivative_raise(monkeypatch):
-    StandIns(monkeypatch)
+    """A bf16 ``ops.ssd_scan`` under a gradient: the bf16 forward, then
+    the f32 backward kernel on its inputs upcast (the stand-in receives
+    f32 only), each gradient cast to its input's dtype, within one bf16
+    step of the largest entry of the plain version's gradient at the same
+    (bf16) values in f32, its output rounded to bf16 as the kernel's. A
+    second derivative still raises; it alone now raises (the name is
+    from when bf16 raised too)."""
+    stand = StandIns(monkeypatch)
     _kernel_route(monkeypatch)
     p = _ssd_params(np.random.default_rng(4))
     pb = {k: v.to(torch.bfloat16) if k != "a" else v for k, v in p.items()}
-    with pytest.raises(NotImplementedError, match="A28"):
-        torch.func.grad(lambda p: ops.ssd_scan(
-            *p.values(), chunk=8)[0].float().sum())(pb)
+    seen, plain_fwd, plain_bwd = [], stand.ssd, stand.ssd_bwd
+
+    def ssd_fwd(x, dt, a, b, c, chunk):
+        # the bf16 forward kernel: bf16 in, f32 inside, y in bf16
+        y, h, states = plain_fwd(*(t.float() for t in (x, dt, a, b, c)),
+                                 chunk)
+        return y.to(x.dtype), h, states
+
+    def ssd_bwd(*args):
+        seen.extend(t.dtype for t in args[:-1] if t is not None)
+        return plain_bwd(*args)
+    monkeypatch.setattr(ssd, "launch_forward", ssd_fwd)
+    monkeypatch.setattr(ssd, "launch_backward", ssd_bwd)
+
+    def loss(p):
+        return ops.ssd_scan(*p.values(), chunk=8)[0].float().square().sum()
+    got = torch.func.grad(loss)(pb)
+    assert stand.calls["ssd"] == stand.calls["ssd_bwd"] == 1
+    assert seen and all(t == torch.float32 for t in seen)
+    # y rounded to bf16, as the kernel writes it (so dy is the route's)
+    want = torch.func.grad(lambda p: _plain_ssd(*p.values())[0]
+                           .to(torch.bfloat16).float().square().sum())(
+        {k: v.float() for k, v in pb.items()})
+    for k in p:
+        assert got[k].dtype == pb[k].dtype, k
+        assert _rel(got[k].float(), want[k]) <= 2.0 ** -8, k
     with pytest.raises(NotImplementedError, match="second derivative"):
         torch.func.grad(lambda p: torch.func.grad(lambda q: _ssd_loss(
             q, _kernel_ssd))(p)["x"].sum())(p)
