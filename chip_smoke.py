@@ -282,6 +282,18 @@ and drives both of the port's paths:
   in bf16 at LAUNCH_BF16_LAYERS layers, held as the other five, and its
   step-1 gradient against the f32 gradient of the same weights
   (LAUNCH_BF16_GAP).
+* the bf16 backward kernels redesigned for Hopper (slice 22):
+  ``attention_bwd_bf16.cu`` on TMA-fed ``wgmma`` with a producer warp and
+  two consumer warpgroups, as the bf16 forward (``sm90_common.cuh``
+  holds their shared parts), three launches, dk and dv summed over the
+  kv head's group in registers (no f32 partial, no group-sum launch);
+  ``rmsnorm_bwd.cu``'s bf16 rows in 16-byte vectors through a
+  ``cp.async`` ring, with a scalar head and tail. ``lm_kernels`` profiles
+  each launch of both at their timed shapes (``BWD_BF16_DEVICE``, the
+  profiler's device time; later phases leave it no device events), which
+  ``lm_train_kernels`` prints with their timed rows beside the
+  kernels' registers and spills; TRAIN_NORM_BF16_CASES adds (4096,
+  4100), rows off 16 bytes.
 
 Each phase prints one JSON line with its seconds. The last three lines
 are the kernel table, the card's name and power limit as ``nvidia-smi``
@@ -1073,6 +1085,7 @@ def phase_lm_kernels(gen) -> dict:
     del kfE, vfE
     for name in ("flash_attention", "swa_attention"):
         table[name]["f32"] = table.pop(name + " f32")
+    _profile_bwd_bf16()
     emit({"phase": "lm_kernels", "checks": len(checks),
           "all_ok": all(c["ok"] for c in checks),
           "tolerances": {f"{k[0]} {str(k[1]).split('.')[1]}": v
@@ -1081,6 +1094,52 @@ def phase_lm_kernels(gen) -> dict:
           "peaks": {"bytes_per_s": mem_rate, "f32_flops": f32_rate,
                     "bf16_flops": bf16_rate, "tf32_flops": tf32_rate}})
     return table
+
+
+# each CUDA launch's device time of the bf16 backward kernels at their
+# timed shapes (TRAIN_ATTN_BF16_CASES' first TRAIN_ATTN_BF16_TIMED,
+# TRAIN_NORM_BF16_CASES), by label: taken in lm_kernels, whose process
+# has not yet run the later phases, after which this process's profiler
+# sees no device events, and printed with lm_train_kernels' bf16 rows
+BWD_BF16_DEVICE: dict = {}
+
+
+def _profile_bwd_bf16() -> None:
+    g = torch.Generator(device="cuda").manual_seed(32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+    for B, Sq, Sk, H, Hkv, d, causal, w, label in TRAIN_ATTN_BF16_CASES[
+            :TRAIN_ATTN_BF16_TIMED]:
+        d, dv = (d, d) if isinstance(d, int) else d
+        q, k, v = randn(B, Sq, H, d), randn(B, Sk, Hkv, d), randn(B, Sk, Hkv,
+                                                                  dv)
+        do = randn(B, Sq, H, dv)
+        kw = dict(causal=causal, window=w, scale=None)
+        o, lse = flash_attention.attention(q, k, v, with_lse=True, **kw)
+        BWD_BF16_DEVICE[label] = profile_calls(
+            lambda: flash_attention.attention_bwd(q, k, v, o, lse, do, **kw),
+            3)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    for R, D, gr, label in TRAIN_NORM_BF16_CASES:
+        x, dy = randn(R, D), randn(R, D)
+        s = (1.0 + 0.1 * randn(*((gr, D) if gr > 1 else (D,))).float()
+             ).bfloat16()
+        BWD_BF16_DEVICE[label] = profile_calls(
+            lambda: rmsnorm.rmsnorm_bwd(x, s, dy, 1e-5), 5)
+        del x, dy, s
+
+
+def _by_launch(label: str) -> dict:
+    """A timed bf16 row's device time by launch, from BWD_BF16_DEVICE."""
+    dev = BWD_BF16_DEVICE.get(label)
+    if not dev or not dev["kernels_us"]:
+        return {"device_ms_by_launch": "not measured (the profiler saw no "
+                                       "device events)"}
+    return {"device_ms": dev["device_ms"],
+            "device_ms_by_launch": {k: v / 1e3 for k, v in
+                                    dev["kernels_us"].items()}}
 
 
 def phase_lm_agree() -> dict:
@@ -4177,10 +4236,13 @@ TRAIN_ATTN_BF16_CASES = [
     (2, 100, 160, 4, 4, (192, 128), False, 0, "MLA non-causal, Sk != Sq"),
 ]
 TRAIN_ATTN_BF16_TIMED = 4
-# (rows, D, groups, label), both timed
+# (rows, D, groups, label), all timed; the last's D is no multiple of 8,
+# so every other row starts 8 bytes past a 16-byte boundary: the vector
+# form's scalar head and tail
 TRAIN_NORM_BF16_CASES = [
     (4096, 4096, 1, "(4096, 4096), one scale"),
     (2048, 4096, 2, "llama3-8b fleet's (2 x 1024, 4096), 2 groups"),
+    (4096, 4100, 1, "(4096, 4100), rows off 16 bytes"),
 ]
 # a direct bf16 ops.ssd_scan under a gradient, the f32 route: (BH, S, P, N,
 # chunk, R); its gradients are the f32 kernel's (within TRAIN_GRAD_REL)
@@ -4614,6 +4676,7 @@ def _bf16_attention_bwd(randn, checks, card) -> list:
                        q, k, v, with_lse=True, **kw), 5, 1),
                    "forward_serving_ms": cuda_ms(
                        lambda: flash_attention.attention(q, k, v, **kw), 5, 1),
+                   **_by_launch(label),
                    **kernel_bound("attention_bwd", shape, torch.bfloat16,
                                   card)}
             if label == TRAIN_ATTN_BANDED:
@@ -4671,6 +4734,7 @@ def _bf16_norm_bwd(randn, checks, card) -> list:
                **_median_spread("ms", reps),
                "plain_ms": cuda_ms(lambda: ref.rmsnorm_bwd_ref(
                    x, s, dy, 1e-5), 5, 1),
+               **_by_launch(label),
                **kernel_bound("rmsnorm_bwd", shape, torch.bfloat16, card)}
         if g == 1:
             y = outs[0]

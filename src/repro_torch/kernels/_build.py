@@ -5,7 +5,9 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 with a plain C interface, at first use, into ``build/torch_ext/`` at the
 root of the checkout (listed in ``.gitignore``). The library's file name
 carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. It is loaded with
+rebuilt and a stale library is never loaded; the headers under
+``csrc/`` (``sm90_common.cuh``, the bf16 attention programs' TMA and
+``wgmma`` parts) are hashed into every library's name. It is loaded with
 ``ctypes``; wrappers pass ``data_ptr()`` and the current stream's handle.
 
 Nothing here includes PyTorch's headers, so a build takes seconds, and
@@ -81,7 +83,7 @@ SIGNATURES = {
         **_ERR,
     },
     "attention_bwd_bf16": {
-        "repro_attention_bwd_bf16": (_I, [_I, _I, *[_P] * 11, *[_I] * 7, _F,
+        "repro_attention_bwd_bf16": (_I, [_I, _I, *[_P] * 10, *[_I] * 7, _F,
                                           _P]),
         **_ERR,
     },
@@ -196,8 +198,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where library ``name`` is built: its file name hashes the flags,
+    its sources and every header under ``csrc/`` (a source may include
+    any of them)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES[name]:
+    for src in (*SOURCES[name], *sorted(p.name for p in CSRC.glob("*.cuh"))):
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -209,13 +214,14 @@ def _require_cuda() -> None:
             "visible (torch.cuda.is_available() is False)")
 
 
-def build_all() -> dict:
-    """Compile every library that is not built yet, one ``nvcc`` per
-    library, all started together. Returns ``{name: {"seconds": s,
-    "log": compiler output}}`` for the libraries it built (an empty dict
-    when all were built already). Raises if any build fails."""
+def build_all(names=None) -> dict:
+    """Compile every library (or those ``names``) not built yet, one
+    ``nvcc`` per library, all started together. Returns ``{name:
+    {"seconds": s, "log": compiler output}}`` for the libraries it built
+    (an empty dict when all were built already). Raises if any build
+    fails."""
     _require_cuda()
-    todo = {n: library_path(n) for n in SOURCES
+    todo = {n: library_path(n) for n in (names or SOURCES)
             if not library_path(n).exists()}
     if not todo:
         return {}

@@ -28,248 +28,129 @@
 // Bound: the arithmetic, 5 products per kept query-key pair and query head,
 // 2 (3 DQK + 2 DV) flops, at the bf16 tensor-core rate (989 TFLOP/s); bf16
 // inputs are exact in bf16, so each product is one bf16 product with f32
-// accumulation (the f32 program, attention_bwd.cu, needs three TF32 ones).
-// This design, two passes and no atomics, computes s and dp in both passes:
-// 2 (5 DQK + 4 DV) flops, 7/5 of that bound at equal widths.
+// accumulation. This design, two passes and no atomics, computes s and dp
+// in both passes: 2 (5 DQK + 4 DV) flops, 7/5 of that bound at equal
+// widths.
 //
-// Design: the f32 program's (attention_bwd.cu) passes, tiles and sums, with
-// bf16 tiles in shared memory and every product one
-// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32. P and dS stay f32 on the
-// accumulator fragments and are rounded to bf16 once, as the A operand of
-// dV += P^T dO, dK += dS^T Q and dQ += dS K (where the reference rounds
-// the probabilities); the running sums are f32. Four launches, no atomics,
-// every sum in a fixed order, so a given card gives the same bits on every
-// run (gradients feed the divergence trigger through the parameter plane).
-//   1. delta: one warp a row, lanes over bf16 pairs of D, f32 sums, an xor
-//      butterfly.
-//   2. dk, dv: a block of P warp pairs owns 16 P keys of one (batch, query
-//      head), a pair 16 (mma's M), and walks query tiles of 32 rows. With
-//      the keys as rows it computes S^T = K Q^T and dP^T = V dO^T: K and V
-//      rows are the A operand, the Q and dO tiles' rows the B operand, each
-//      a 32-bit load of two neighbouring columns. P^T = exp2(S^T scale
-//      log2(e) - lse log2(e)) with the masks and dS^T = P^T (dP^T - delta)
-//      on the fragments; a pair of query n-tiles of the accumulator is one
-//      k-step's A fragment as it stands (no shuffle). dO and Q are the B
-//      operand of dV and dK with the queries as k: ldmatrix .trans reads
-//      them from their row-major tiles, nothing is transposed in memory.
-//      Q, dO, lse and delta arrive by a two-stage cp.async ring. The block
-//      writes its query head's dk and dv as f32 partials to a (B, Sk, H,
-//      DQK + DV) scratch.
-//   3. dq: a block of P warp pairs owns 16 P query rows of one (batch,
-//      head) and walks the 32-key tiles of the forward's key range on a
-//      two-stage K / V ring, the last query tile first: S = Q K^T, dP = dO
-//      V^T, dS = P (dP - delta), dQ += dS K (K by ldmatrix .trans); dq is
-//      written in bf16 once.
-//   4. sum: each kv head's G partials summed in head order in f32, dk
-//      scaled, both written in bf16 once (G = 1 is the cast alone).
-// The two warps of a pair split both widths, as in the f32 program: each
-// computes the S product over its half of DQK and the dP product over its
-// half of DV (a half is whole 16-column k-steps), the pair swaps the
-// partials through shared memory, and each computes dK and dQ for its half
-// of DQK's columns and dV for its half of DV's. Each tile's dV, dK and dQ
-// products are summed from zero over the tile's two k-steps and then added
-// to the running sums in f32. A pair skips a tile none of its pairs keeps
-// and masks only a tile that crosses Sk, the causal diagonal or the
-// window's edge. Every tile row is its width + 8 bf16 (16 bytes), so the
-// 32-bit fragment loads (row g, column pair t) and ldmatrix's eight 16-byte
-// rows each hit distinct banks.
-// Budget (Plan): 6 pairs (12 warps, at most 168 registers a thread) at
-// equal widths up to 128, 4 pairs (8 warps, 255) at (192, 128), whose dK
-// accumulators take 48 registers a thread; one block an SM.
-// Later speed work (ROADMAP Queue B): wgmma with TMA-fed tiles and a
-// warp-specialized pipeline, as the forward has.
+// Design: the forward's parts (sm90_common.cuh: TMA on 4-D tensor maps
+// over (D, heads, S, B) with 128-byte swizzle, 64-byte at D = 32; wgmma
+// with shared-memory descriptors; a producer warp and two consumer
+// warpgroups of 64 rows, setmaxnreg 24 / 240). P and dS are formed on the
+// f32 accumulator fragments and rounded to bf16 once, as the register A
+// operand of the next product (where the reference rounds its
+// probabilities); every running sum is f32 in the tensor cores'
+// accumulators. Three launches, no atomics, every sum in a fixed order, so
+// a given card gives the same bits on every run (gradients feed the
+// divergence trigger through the parameter plane).
+//   1. delta: DV / 8 lanes a row, a 16-byte vector of o and of do a lane,
+//      f32 sums, an xor butterfly over the row's lanes.
+//   2. dk, dv: a block owns kBKV = 128 keys of one (batch, kv head), 64 a
+//      consumer warpgroup (wgmma's M), and walks the group's G query heads
+//      in head order and, for each, the query tiles of BQ rows that the
+//      causal diagonal, the window and Sq leave alive. K and V arrive once;
+//      the producer warp streams Q and dO by TMA on a ring of kKvStages,
+//      with the tile's lse (in log2 units, +inf past Sq) and delta, which
+//      its lanes copy into the stage and announce on the stage's barrier.
+//      With the keys as rows each consumer issues S^T = K Q^T and dP^T =
+//      V dO^T (SS, all four tiles K-major: D is contiguous, each its own
+//      wgmma group), forms P^T on the fragments while dP^T runs (a tile
+//      that crosses Sk, the diagonal or the window's edge is masked; one
+//      that no row keeps is skipped), then dS^T, then dV += P^T dO and dK
+//      += dS^T Q with the packed fragments as the A operand and dO and Q
+//      as B through the transpose bit (MN-major, nothing transposed in
+//      memory). dK and dV stay in registers over the whole group and are
+//      written once, in bf16, dK scaled, by TMA store (which clips keys >=
+//      Sk) from the warpgroup's own rows of the K and V tiles. So no f32
+//      partial and no group-sum launch. The grid is (batch, kv head)
+//      fastest, the first key tile first: under the causal mask the first
+//      key tiles have the most query rows.
+//   3. dq: the forward's skeleton with one more product. A block owns 128
+//      query rows of one (batch, head), the last query tile first; the
+//      producer streams K and V tiles of BK keys over the forward's key
+//      range on a ring of kQStages. Each consumer issues S = Q K^T and dP
+//      = dO V^T (SS, a wgmma group each), forms P while dP runs, then dS,
+//      then dQ += dS K (RS, K MN-major through the transpose bit), and
+//      writes dq once, in bf16, scaled, by TMA store from its own rows of
+//      the Q tile (rows >= Sq clipped).
+// Tiles. BQ, the dk/dv pass's query tile: 64 at equal widths; 32 at (192,
+// 128), where the consumer holds dK (96 registers a thread) and dV (64)
+// and a 64-query S^T and dP^T would overflow its 240 registers. BK, the
+// dq pass's key tile: 128 at (128, 128), so S and dP are m64n128 wgmmas;
+// 64 at the other widths. At DQK = 192 the dK and dQ products are an n128
+// and an n64 wgmma over the B tile's first two boxes and its third.
+// Overlap. The two consumer warpgroups keep the tensor cores busy for each
+// other; within a warpgroup only P's exponentials overlap a product (dP or
+// dP^T). Deeper overlap inside a warpgroup (the forward's pipeline with
+// two dS buffers in the dq pass; dV issued before dS^T is formed in the
+// dk/dv pass) made both passes slower on the H100 (PERF.md §6, PR 32).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBT = 32;             // streamed rows a tile
-constexpr int kStages = 2;          // the ring of streamed tiles
-constexpr int kSwap = 2 * kBT * 16; // floats a warp's slot: its two partials
-constexpr int kMaxPairs = 6;        // warp pairs a block at equal widths
-constexpr int kNarrowPairs = 4;     // warp pairs a block at (192, 128)
-constexpr size_t kMaxSmem = 232448; // bytes a block may opt in to
-constexpr int kFlatThreads = 384;   // the delta and group-sum kernels' blocks
+constexpr int kHalf = 64;                   // rows a consumer warpgroup
+constexpr int kConsumers = 256;             // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kKvStages = 3;                // the dk/dv pass's Q/dO ring
+constexpr int kQStages = 2;                 // the dq pass's K/V ring
+constexpr int kBKV = 128;                   // keys a dk/dv block
+constexpr int kBQ = 128;                    // query rows a dq block
+constexpr int kFlatThreads = 384;           // the delta kernel's blocks
 constexpr float kLog2e = 1.4426950408889634f;
 
-// a block's shared memory with rows of ldq and ldv bf16 and `pairs` warp
-// pairs: two resident bf16 tiles of 16 rows a pair; a ring of two streamed
-// bf16 tiles; then f32: the ring's lse and delta rows, a slot a warp for
-// its partial sums
-constexpr size_t plan_bytes(int ldq, int ldv, int pairs) {
-  return 2 * (16 * pairs * (ldq + ldv) + kStages * kBT * (ldq + ldv)) +
-         4 * (kStages * 2 * kBT + 2 * pairs * kSwap);
-}
-
+// the dk/dv pass's tiles at query/key width DQK and value width DV: K and
+// V resident (kBKV rows), then the ring's stages, each a Q and a dO tile of
+// BQ rows; then each stage's lse and delta rows (f32), then the barriers
 template <int DQK, int DV>
-struct Plan {
-  static constexpr int LDQ = DQK + 8;  // bf16 a row of a q / k tile
-  static constexpr int LDV = DV + 8;   // bf16 a row of a v / do tile
-  static constexpr int kPairs = DQK + DV <= 256 ? kMaxPairs : kNarrowPairs;
-  static constexpr int kThreads = 64 * kPairs;  // a pair's warps split widths
-  static constexpr int kBR = 16 * kPairs;  // resident rows (keys or queries)
-  // the f32 region: lse and delta of the ring, then the swap slots
-  static constexpr int kHalfs = 16 * kPairs * (LDQ + LDV) +
-                                kStages * kBT * (LDQ + LDV);
-  static constexpr size_t kBytes = plan_bytes(LDQ, LDV, kPairs);
-  static_assert(kBytes <= kMaxSmem, "a block's tiles exceed shared memory");
-  static_assert(DQK % 32 == 0 && DV % 32 == 0,
-                "each warp of a pair takes whole 16-column k-steps of both "
-                "widths");
+struct KvTile {
+  using QK = Box<DQK>;
+  using VO = Box<DV>;
+  static constexpr int BQ = DQK + DV <= 256 ? 64 : 32;
+  static constexpr int K_BYTES = kBKV * DQK * 2;
+  static constexpr int V_BYTES = kBKV * DV * 2;
+  static constexpr int Q_BYTES = BQ * DQK * 2;
+  static constexpr int O_BYTES = BQ * DV * 2;
+  static constexpr int STAGE = Q_BYTES + O_BYTES;
+  static constexpr int ROWS = K_BYTES + V_BYTES + kKvStages * STAGE;
+  static constexpr int BARS = ROWS + kKvStages * 2 * BQ * 4;
+  static constexpr int SMEM = BARS + 8 * (1 + 2 * kKvStages) + 1024;  // align
 };
 
-// 16 bytes from global to shared memory without registers; zeros when
-// !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool valid) {
-  asm volatile(
-      "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-          static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-      "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// ROWS x D bf16 of a (.., rows, heads, D) tensor (row stride `stride`
-// values, from `src`, the head's first row) into shared memory with rows
-// of D + 8 values, by THREADS threads; rows >= valid are zero-filled
-template <int ROWS, int D, int THREADS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int64_t stride, int valid,
-                                          int tid) {
-  constexpr int C8 = D / 8;
-#pragma unroll 4
-  for (int e = tid; e < ROWS * C8; e += THREADS) {
-    const int r = e / C8, c = (e - r * C8) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + r * (D + 8) + c, ok ? src + r * stride + c : src, ok);
-  }
-}
+// the dq pass's tiles: Q and dO resident (kBQ rows), then the ring's
+// stages, each a K and a V tile of BK rows; then the barriers. BK: 128
+// keys at (128, 128), S and dP one m64n128 wgmma wide; 64 at (192, 128),
+// where dQ takes 96 of a consumer's registers, and at the narrow widths,
+// where a banded window masks more of a wider tile
+template <int DQK, int DV>
+struct QTile {
+  using QK = Box<DQK>;
+  using VO = Box<DV>;
+  static constexpr int BK = DQK == 128 && DV == 128 ? 128 : 64;
+  static constexpr int Q_BYTES = kBQ * DQK * 2;
+  static constexpr int O_BYTES = kBQ * DV * 2;
+  static constexpr int K_BYTES = BK * DQK * 2;
+  static constexpr int V_BYTES = BK * DV * 2;
+  static constexpr int STAGE = K_BYTES + V_BYTES;
+  static constexpr int BARS = Q_BYTES + O_BYTES + kQStages * STAGE;
+  static constexpr int SMEM = BARS + 8 * (1 + 2 * kQStages) + 1024;  // align
+};
 
 // a row's lse in log2 units: +inf where the row keeps nothing, so its p is 0
 __device__ __forceinline__ float lse2_of(float v) {
   return isinf(v) ? INFINITY : v * kLog2e;
 }
 
-// two neighbouring bf16 of shared memory as one register
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 // (lo, hi) rounded to bf16, to nearest even, as one register
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// four 8 x 8 bf16 matrices, transposed: lanes 8i .. 8i + 7 give the rows of
-// matrix i; register i holds (2t, g) and (2t + 1, g) of matrix i
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p)))
-      : "memory");
-}
-// d (16 x 8) += a (16 x 16, row) b (16 x 8, col): bf16 in, f32 sums
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// The m16n8k16 fragments (PTX ISA, "Matrix Fragments for mma.m16n8k16"),
-// with g = lane / 4 and t = lane % 4, each register two bf16, the lower
-// column in the low half: A (16 x 16) holds (g, 2t | 2t + 1), (g + 8, 2t
-// | 2t + 1), (g, 2t + 8 | 2t + 9), (g + 8, 2t + 8 | 2t + 9); B (16 x 8)
-// holds (2t | 2t + 1, g), (2t + 8 | 2t + 9, g); the f32 accumulator holds
-// (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1), as m16n8k8's.
-
-// the A fragment of a warp's 16 resident rows at k-step kk; `w` points at
-// row g, column 2t
-__device__ __forceinline__ void a_rows(const bf16* w, int ld, int kk,
-                                       uint32_t (&a)[4]) {
-  a[0] = ld32(w + 16 * kk);
-  a[1] = ld32(w + 8 * ld + 16 * kk);
-  a[2] = ld32(w + 16 * kk + 8);
-  a[3] = ld32(w + 8 * ld + 16 * kk + 8);
-}
-
-// acc (16 x 8 NN) += c (16 x kBT, accumulator n-tiles, rounded to bf16) b
-// (kBT x 8 NN of a row-major tile): n-tiles 2j and 2j + 1 of c are k-step
-// j's A fragment; `b` is this lane's ldmatrix row, (lane & 7) + 8 ((lane
-// >> 3) & 1) of the tile, column 8 (lane >> 4) of the warp's columns. Each
-// n-tile's product over the tile's kBT / 16 k-steps is summed from zero by
-// the tensor cores, then added to acc in f32 (the tensor cores' adds
-// truncate, so a running sum over thousands of rows kept in their
-// accumulator would drift; this way each truncates over one tile only).
-template <int NN, int LD>
-__device__ __forceinline__ void tile_product(float (&acc)[NN][4],
-                                             const float (&c)[kBT / 8][4],
-                                             const bf16* b) {
-  static_assert(NN % 2 == 0, "ldmatrix .x4 reads two n-tiles");
-  uint32_t a[kBT / 16][4];
-#pragma unroll
-  for (int j = 0; j < kBT / 16; ++j) {
-    a[j][0] = pack(c[2 * j][0], c[2 * j][1]);
-    a[j][1] = pack(c[2 * j][2], c[2 * j][3]);
-    a[j][2] = pack(c[2 * j + 1][0], c[2 * j + 1][1]);
-    a[j][3] = pack(c[2 * j + 1][2], c[2 * j + 1][3]);
-  }
-#pragma unroll
-  for (int n = 0; n < NN; n += 2) {
-    float x0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, x1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < kBT / 16; ++j) {
-      uint32_t r[4];
-      ldsm_x4_trans(r, b + 16 * j * LD + 8 * n);
-      mma(x0, a[j], r[0], r[1]);
-      mma(x1, a[j], r[2], r[3]);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc[n][e] += x0[e];
-      acc[n + 1][e] += x1[e];
-    }
-  }
-}
-
-// The two warps of a pair share 16 rows and split D: each sums the S and
-// dP products over its half of D, then the pair swaps partials through
-// shared memory so that both hold the whole sums, half 0's plus half 1's
-// (the same bits in both warps: f32 addition commutes).
-__device__ __forceinline__ void pair_sync(int pair) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
-}
-__device__ __forceinline__ void pair_sum(float (&s)[kBT / 8][4],
-                                         float (&d)[kBT / 8][4], float* mine,
-                                         const float* other, int pair,
-                                         int lane) {
-#pragma unroll
-  for (int j = 0; j < kBT / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      mine[(4 * j + e) * 32 + lane] = s[j][e];
-      mine[(kBT / 2 + 4 * j + e) * 32 + lane] = d[j][e];
-    }
-  pair_sync(pair);
-#pragma unroll
-  for (int j = 0; j < kBT / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[j][e] += other[(4 * j + e) * 32 + lane];
-      d[j][e] += other[(kBT / 2 + 4 * j + e) * 32 + lane];
-    }
+  return bf16x2_bits(__floats2bfloat162_rn(lo, hi));
 }
 
 __device__ __forceinline__ bool keeps(int qpos, int kpos, int Sk, int causal,
@@ -278,28 +159,141 @@ __device__ __forceinline__ bool keeps(int qpos, int kpos, int Sk, int causal,
          (window <= 0 || kpos > qpos - window);
 }
 
-// delta[b, h, i] = do[b, i, h] . o[b, i, h] over the D = DV columns: one
-// warp a row, two columns a lane a step
+// the K-major descriptor of k-step kk (16 columns, 32 bytes) of a tile of
+// D-column rows stored as boxes of `rows` rows: the step's box, then its
+// offset in the swizzled row
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int kk) {
+  using X = Box<D>;
+  const uint32_t box = (kk * 32) / X::ROW, in = (kk * 32) % X::ROW;
+  return smem_desc(tile + box * rows * X::ROW + in, 16, 8 * X::ROW,
+                   X::LAYOUT);
+}
+
+// the MN-major descriptor of k-step kk (16 rows) of such a tile, read as
+// a B operand whose N is the tile's columns: the next box `rows` rows on
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int kk) {
+  using X = Box<D>;
+  return smem_desc(tile + kk * 16 * X::ROW, rows * X::ROW, 8 * X::ROW,
+                   X::LAYOUT);
+}
+
+// d (64 x 128, f32) = (accumulate 0) or += A (64 x 16, smem) . B (128 x
+// 16, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N) = or += A (64 x 16, smem) . B (N x 16, smem, K-major)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         bool first) {
+  static_assert(N == 32 || N == 64 || N == 128, "a score tile's columns");
+  if constexpr (N == 32) {
+    if (first) wgmma_ss_n32_first(d, da, db);
+    else wgmma_ss_n32(d, da, db);
+  } else if constexpr (N == 64) {
+    if (first) wgmma_ss_n64_first(d, da, db);
+    else wgmma_ss_n64(d, da, db);
+  } else {
+    wgmma_ss_n128(d, da, db, !first);
+  }
+}
+
+// d (64 x N) += A (64 x 16, registers) . B (16 x N, smem, MN-major) with N
+// a tile's width D; at D = 192 an n128 over its first two boxes and an n64
+// over its third, `box` bytes on
+template <int D>
+__device__ __forceinline__ void wgmma_rs_wide(float* d, const uint32_t* a,
+                                              uint64_t db, uint32_t box) {
+  if constexpr (D == 192) {
+    wgmma_rs<128>(d, a, db);
+    wgmma_rs<64>(d + 64, a, db + ((2 * box) >> 4));
+  } else {
+    wgmma_rs<D>(d, a, db);
+  }
+}
+
+// a warpgroup's 64 rows of f32 accumulator columns (x factor) written as
+// bf16 into its rows of a tile of D-column boxes of `rows` rows (at
+// `base`, its first row), swizzled as the tensor map expects
+template <int D>
+__device__ __forceinline__ void stage_rows(uint8_t* base, const float* acc,
+                                           float factor, int rows, int r0,
+                                           int cq) {
+  using X = Box<D>;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + cq;
+    const uint32_t box = col / X::COLS, cc = col % X::COLS;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t off = box * rows * X::ROW +
+                           swizzle<X::ROW>((r0 + 8 * r) * X::ROW + 2 * cc);
+      *reinterpret_cast<__nv_bfloat162*>(base + off) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] * factor, acc[4 * j + 2 * r + 1] * factor);
+    }
+  }
+}
+
+// delta[b, h, i] = do[b, i, h] . o[b, i, h] over the DV columns: DV / 8
+// lanes a row, a 16-byte vector of each a lane, f32 sums in column order
+// within a lane, then an xor butterfly over the row's lanes
+template <int DV>
 __global__ void __launch_bounds__(kFlatThreads)
-    attention_bwd_bf16_delta_kernel(const __nv_bfloat162* __restrict__ o,
-                                    const __nv_bfloat162* __restrict__ dO,
+    attention_bwd_bf16_delta_kernel(const uint4* __restrict__ o,
+                                    const uint4* __restrict__ dO,
                                     float* __restrict__ delta,
-                                    long long rows, int Sq, int H, int D2) {
-  const long long row = static_cast<long long>(blockIdx.x) *
-                            (kFlatThreads / 32) + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat162* a = o + row * D2;
-  const __nv_bfloat162* g = dO + row * D2;
+                                    long long rows, int Sq, int H) {
+  constexpr int L = DV / 8;  // lanes a row
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * kFlatThreads + threadIdx.x) / L;
+  const int part = threadIdx.x % L;
   float acc = 0.0f;
-  for (int d = lane; d < D2; d += 32) {
-    const float2 x = __bfloat1622float2(a[d]), y = __bfloat1622float2(g[d]);
-    acc = fmaf(x.x, y.x, acc);
-    acc = fmaf(x.y, y.y, acc);
+  if (row < rows) {
+    const uint4 a = o[row * L + part], g = dO[row * L + part];
+    const uint32_t wa[4] = {a.x, a.y, a.z, a.w};
+    const uint32_t wg[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&wa[e]));
+      const float2 y = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&wg[e]));
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
   }
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-  if (lane == 0) {
+  for (int m = L / 2; m > 0; m >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (row < rows && part == 0) {
     // row = (b Sq + i) H + h -> delta[(b H + h) Sq + i]
     const long long h = row % H, bi = row / H;
     const long long i = bi % Sq, b = bi / Sq;
@@ -307,481 +301,480 @@ __global__ void __launch_bounds__(kFlatThreads)
   }
 }
 
-// dk, dv. A block owns keys [k0, k0 + kBR) of one (batch, query head) and
-// writes its unscaled dk and its dv as f32 partials: pk (B, Sk, H, DQK),
-// pv (B, Sk, H, DV).
+// dk, dv. A block owns keys [k0, k0 + kBKV) of one (batch, kv head) and
+// writes their dk and dv in bf16.
 template <int DQK, int DV>
-__global__ void __launch_bounds__(Plan<DQK, DV>::kThreads, 1)
-    attention_bwd_bf16_dkv_kernel(const bf16* __restrict__ q,
-                                  const bf16* __restrict__ k,
-                                  const bf16* __restrict__ v,
-                                  const bf16* __restrict__ dO,
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_bwd_bf16_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ CUtensorMap tdo,
+                                  const __grid_constant__ CUtensorMap tdk,
+                                  const __grid_constant__ CUtensorMap tdv,
                                   const float* __restrict__ lse,
-                                  const float* __restrict__ delta,
-                                  float* __restrict__ pk,
-                                  float* __restrict__ pv, int BH, int H,
+                                  const float* __restrict__ delta, int H,
                                   int Hkv, int Sq, int Sk, int causal,
                                   int window, float scale) {
-  using P = Plan<DQK, DV>;
-  constexpr int LDQ = P::LDQ, LDV = P::LDV, kBR = P::kBR;
-  constexpr int kThreads = P::kThreads;
-  constexpr int KQ = DQK / 32;  // a half's k-steps of S^T
-  constexpr int KV = DV / 32;   // a half's k-steps of dP^T
-  constexpr int KM = KQ > KV ? KQ : KV;
-  constexpr int NQ = DQK / 16;  // a half's n-tiles of dK
-  constexpr int NV = DV / 16;   // a half's n-tiles of dV
-  constexpr int NJ = kBT / 8;   // query n-tiles of S^T
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // kBR x LDQ
-  bf16* sV = sK + kBR * LDQ;                     // kBR x LDV
-  bf16* sQ = sV + kBR * LDV;                     // kStages x kBT x LDQ
-  bf16* sdO = sQ + kStages * kBT * LDQ;          // kStages x kBT x LDV
-  float* sL = reinterpret_cast<float*>(sK + P::kHalfs);  // kStages x kBT
-  float* sDl = sL + kStages * kBT;               // kStages x kBT, delta
-  float* sX = sDl + kStages * kBT;               // 2 kPairs x kSwap
+  using T = KvTile<DQK, DV>;
+  using QK = typename T::QK;
+  using VO = typename T::VO;
+  constexpr int BQ = T::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sK = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sV = sK + T::K_BYTES;
+  // stage s: Q at sS + s STAGE, dO right after it
+  const uint32_t sS = sV + T::V_BYTES;
+  uint8_t* const base = smem_raw + (sK - smem_addr(smem_raw));
+  // stage s: lse2 at sL + 2 s BQ, delta right after it
+  float* const sL = reinterpret_cast<float*>(base + T::ROWS);
+  const uint32_t kv_full = sK + T::BARS;
+  const uint32_t full = kv_full + 8;            // + 8 s, likewise below
+  const uint32_t empty = full + 8 * kKvStages;
 
-  const int bh = static_cast<int>(blockIdx.x % BH);
-  const int k0 = static_cast<int>(blockIdx.x / BH) * kBR;
-  const int b = bh / H, h = bh - b * H;
-  const int hk = h / (H / Hkv);
+  // (batch, kv head) fastest, the first key tile first
+  const int n_kt = (Sk + kBKV - 1) / kBKV;
+  const int BHk = gridDim.x / n_kt;
+  const int bh = blockIdx.x % BHk;
+  const int k0 = static_cast<int>(blockIdx.x / BHk) * kBKV;
+  const int b = bh / Hkv, hk = bh - b * Hkv;
+  const int G = H / Hkv;
+
+  // the query tiles any key of this block may be kept by
   const int off = Sk - Sq;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t q_stride = static_cast<int64_t>(H) * DQK;
-  const int64_t o_stride = static_cast<int64_t>(H) * DV;
-  const int64_t k_stride = static_cast<int64_t>(Hkv) * DQK;
-  const int64_t v_stride = static_cast<int64_t>(Hkv) * DV;
-  const int64_t kvr = static_cast<int64_t>(b) * Sk * Hkv + hk;
-
-  // the query rows that may keep a key of [k0, k0 + kBR)
   int i_lo = 0, i_hi = Sq;
   if (causal) i_lo = max(0, k0 - off);
-  if (window > 0) i_hi = min(Sq, k0 + kBR - 1 + window - off);
-  const int t_lo = i_lo / kBT;
-  const int n_t = i_hi > i_lo ? (i_hi + kBT - 1) / kBT - t_lo : 0;
-  const int64_t qr = static_cast<int64_t>(b) * Sq * H + h;
+  if (window > 0) i_hi = min(Sq, k0 + kBKV - 1 + window - off);
+  const int t_lo = i_lo / BQ;
+  const int n_t = i_hi > i_lo ? (i_hi + BQ - 1) / BQ - t_lo : 0;
+  const int n_iter = G * n_t;  // head hh's tiles are iterations hh n_t ..
 
-  auto load_step = [&](int s, int stage) {
-    const int q0 = (t_lo + s) * kBT;
-    const int valid = min(kBT, Sq - q0);
-    load_tile<kBT, DQK, kThreads>(sQ + stage * kBT * LDQ,
-                                  q + qr * DQK + q0 * q_stride, q_stride,
-                                  valid, tid);
-    load_tile<kBT, DV, kThreads>(sdO + stage * kBT * LDV,
-                                 dO + qr * DV + q0 * o_stride, o_stride,
-                                 valid, tid);
-    if (tid < kBT) {
-      const int i = q0 + tid;
-      const int64_t at = static_cast<int64_t>(bh) * Sq + i;
-      sL[stage * kBT + tid] = i < Sq ? lse2_of(lse[at]) : INFINITY;
-      sDl[stage * kBT + tid] = i < Sq ? delta[at] : 0.0f;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kKvStages; ++s) {
+      mbar_init(full + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(empty + 8 * s, kConsumers);
     }
-  };
-  const int kvalid = min(kBR, Sk - k0);
-  load_tile<kBR, DQK, kThreads>(sK, k + kvr * DQK + k0 * k_stride, k_stride,
-                                kvalid, tid);
-  load_tile<kBR, DV, kThreads>(sV, v + kvr * DV + k0 * v_stride, v_stride,
-                               kvalid, tid);
-  if (n_t > 0) load_step(0, 0);
-  cp_async_commit();
-
-  // this warp's keys, kw + g and kw + g + 8, and columns [cq, cq + DQK / 2)
-  // of the q / k tiles and [cv, cv + DV / 2) of the v / do tiles
-  const int pair = warp >> 1;
-  const int cq = (warp & 1) * (DQK / 2), cv = (warp & 1) * (DV / 2);
-  const int kw = k0 + 16 * pair;
-  const bf16* wk = sK + (16 * pair + g) * LDQ + cq + 2 * t;
-  const bf16* wv = sV + (16 * pair + g) * LDV + cv + 2 * t;
-  // this lane's ldmatrix row of a streamed tile
-  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
-  float* mine = sX + warp * kSwap;
-  const float* other = sX + (warp ^ 1) * kSwap;
-  const float sl2 = scale * kLog2e;   // scores in log2 units
-
-  float acc_v[NV][4], acc_k[NQ][4];
-#pragma unroll
-  for (int n = 0; n < NV; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_v[n][e] = 0.0f;
-#pragma unroll
-  for (int n = 0; n < NQ; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = 0.0f;
-
-  for (int s = 0; s < n_t; ++s) {
-    cp_async_wait_all();
-    // this step's copies have landed, and no warp still reads the stage
-    // the next copies overwrite
-    __syncthreads();
-    if (s + 1 < n_t) load_step(s + 1, (s + 1) % kStages);
-    cp_async_commit();
-
-    const int stage = s % kStages;
-    const int q0 = (t_lo + s) * kBT;
-    const int pos_lo = q0 + off, pos_hi = pos_lo + kBT - 1;
-    if (kw >= Sk || (causal && kw > pos_hi) ||
-        (window > 0 && kw + 15 <= pos_lo - window))
-      continue;  // no key of this pair is kept by a row of this tile
-    const bf16* tQ = sQ + stage * kBT * LDQ;
-    const bf16* tdO = sdO + stage * kBT * LDV;
-
-    // S^T = K Q^T over this warp's half of DQK, dP^T = V dO^T over its
-    // half of DV: keys as rows, the tile's queries as columns; then the
-    // pair's sums
-    float st[NJ][4], dt[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dt[j][e] = 0.0f;
-    const bf16* bq = tQ + g * LDQ + cq + 2 * t;
-    const bf16* bo = tdO + g * LDV + cv + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < KM; ++kk) {
-      if (kk < KQ) {
-        uint32_t a[4];
-        a_rows(wk, LDQ, kk, a);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          mma(st[j], a, ld32(bq + 8 * j * LDQ + 16 * kk),
-              ld32(bq + 8 * j * LDQ + 16 * kk + 8));
-      }
-      if (kk < KV) {
-        uint32_t a[4];
-        a_rows(wv, LDV, kk, a);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          mma(dt[j], a, ld32(bo + 8 * j * LDV + 16 * kk),
-              ld32(bo + 8 * j * LDV + 16 * kk + 8));
-      }
-    }
-    pair_sum(st, dt, mine, other, pair, lane);
-
-    // P^T and dS^T on the fragments, in both warps of the pair: element e
-    // of n-tile j is key kw + g + 8 (e / 2), query q0 + 8j + 2t + e % 2
-    const bool edge = kw + 15 >= Sk || (causal && kw + 15 > pos_lo) ||
-                      (window > 0 && kw <= pos_hi - window);
-    const float* tl = sL + stage * kBT + 2 * t;
-    const float* tdl = sDl + stage * kBT + 2 * t;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float2 l = *reinterpret_cast<const float2*>(tl + 8 * j);
-      const float2 dl = *reinterpret_cast<const float2*>(tdl + 8 * j);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(fmaf(st[j][e], sl2, -(e & 1 ? l.y : l.x)));
-        if (edge && !keeps(pos_lo + 8 * j + 2 * t + (e & 1),
-                           kw + g + 8 * (e >> 1), Sk, causal, window))
-          p = 0.0f;
-        st[j][e] = p;
-        dt[j][e] = p * (dt[j][e] - (e & 1 ? dl.y : dl.x));
-      }
-    }
-
-    // dV += P^T dO over DV's half, then dK += dS^T Q over DQK's: the
-    // queries are the k order; P^T and dS^T rounded to bf16 there
-    tile_product<NV, LDV>(acc_v, st, tdO + lrow * LDV + cv + lcol);
-    tile_product<NQ, LDQ>(acc_k, dt, tQ + lrow * LDQ + cq + lcol);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait_all();
+  __syncthreads();
 
-  const int64_t orow = static_cast<int64_t>(b) * Sk * H + h;
-  const int64_t ok_stride = static_cast<int64_t>(H) * DQK;
-  const int64_t ov_stride = static_cast<int64_t>(H) * DV;
-  float* ok = pk + orow * DQK + cq + 2 * t;
-  float* ov = pv + orow * DV + cv + 2 * t;
-  const int j0 = kw + g, j1 = j0 + 8;
-#pragma unroll
-  for (int n = 0; n < NV; ++n) {
-    if (j0 < Sk)
-      *reinterpret_cast<float2*>(ov + j0 * ov_stride + 8 * n) =
-          make_float2(acc_v[n][0], acc_v[n][1]);
-    if (j1 < Sk)
-      *reinterpret_cast<float2*>(ov + j1 * ov_stride + 8 * n) =
-          make_float2(acc_v[n][2], acc_v[n][3]);
+  if (tid >= kConsumers) {  // the producer warpgroup; its first warp loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid < kConsumers + 32) {
+      const int lane = tid - kConsumers;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, T::K_BYTES + T::V_BYTES);
+        for (int c = 0; c < QK::CHUNKS; ++c)
+          tma_load(sK + c * kBKV * QK::ROW, &tk, kv_full, c * QK::COLS, hk,
+                   k0, b);
+        for (int c = 0; c < VO::CHUNKS; ++c)
+          tma_load(sV + c * kBKV * VO::ROW, &tv, kv_full, c * VO::COLS, hk,
+                   k0, b);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % kKvStages, hh = it / n_t;
+        const int h = hk * G + hh, q0 = (t_lo + it - hh * n_t) * BQ;
+        if (it >= kKvStages)
+          mbar_wait(empty + 8 * s, ((it / kKvStages) & 1) ^ 1);
+        const float* lr = lse + (static_cast<int64_t>(b) * H + h) * Sq;
+        const float* dr = delta + (static_cast<int64_t>(b) * H + h) * Sq;
+        float* ls = sL + 2 * BQ * s;
+        for (int e = lane; e < BQ; e += 32) {
+          const int i = q0 + e;
+          ls[e] = i < Sq ? lse2_of(lr[i]) : INFINITY;
+          ls[BQ + e] = i < Sq ? dr[i] : 0.0f;
+        }
+        if (lane == 0) {  // its arrival carries the tiles' bytes
+          const uint32_t sQ = sS + s * T::STAGE;
+          mbar_expect_tx(full + 8 * s, T::STAGE);
+          for (int c = 0; c < QK::CHUNKS; ++c)
+            tma_load(sQ + c * BQ * QK::ROW, &tq, full + 8 * s, c * QK::COLS,
+                     h, q0, b);
+          for (int c = 0; c < VO::CHUNKS; ++c)
+            tma_load(sQ + T::Q_BYTES + c * BQ * VO::ROW, &tdo, full + 8 * s,
+                     c * VO::COLS, h, q0, b);
+        } else {
+          mbar_arrive(full + 8 * s);
+        }
+      }
+    }
+    return;
   }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+
+  // consumer warpgroup g owns keys kg .. kg + 63; a thread holds keys
+  // kg + r0 and kg + r0 + 8, query columns 8j + cq + {0, 1} of each S^T
+  // fragment
+  const int g = tid / 128, lt = tid % 128;
+  const int lane = lt % 32;
+  const int r0 = 16 * (lt / 32) + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int kg = k0 + kHalf * g;
+  const int kpos[2] = {kg + r0, kg + r0 + 8};
+  const uint32_t sKg = sK + g * kHalf * QK::ROW;
+  const uint32_t sVg = sV + g * kHalf * VO::ROW;
+  const float sl2 = scale * kLog2e;  // scores in log2 units
+
+  float dk[DQK / 2], dv[DV / 2];
 #pragma unroll
-  for (int n = 0; n < NQ; ++n) {
-    if (j0 < Sk)
-      *reinterpret_cast<float2*>(ok + j0 * ok_stride + 8 * n) =
-          make_float2(acc_k[n][0], acc_k[n][1]);
-    if (j1 < Sk)
-      *reinterpret_cast<float2*>(ok + j1 * ok_stride + 8 * n) =
-          make_float2(acc_k[n][2], acc_k[n][3]);
+  for (int i = 0; i < DQK / 2; ++i) dk[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dv[i] = 0.0f;
+  float st[BQ / 2], dpt[BQ / 2];
+  uint32_t pa[BQ / 4], da[BQ / 4];  // P^T and dS^T as bf16 A fragments
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kKvStages, hh = it / n_t;
+    const int q0 = (t_lo + it - hh * n_t) * BQ;
+    const int pos_lo = q0 + off, pos_hi = pos_lo + BQ - 1;
+    mbar_wait(full + 8 * s, (it / kKvStages) & 1);
+    // no key of this warpgroup is kept by a row of this tile: skip it
+    const bool skip = kg >= Sk || (causal && kg > pos_hi) ||
+                      (window > 0 && kg + kHalf - 1 <= pos_lo - window);
+    if (!skip) {
+      const uint32_t sQ = sS + s * T::STAGE, sO = sQ + T::Q_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQK / 16; ++kk)
+        wgmma_ss<BQ>(st, kmajor<DQK>(sKg, kBKV, kk), kmajor<DQK>(sQ, BQ, kk),
+                     kk == 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk)
+        wgmma_ss<BQ>(dpt, kmajor<DV>(sVg, kBKV, kk), kmajor<DV>(sO, BQ, kk),
+                     kk == 0);
+      wgmma_commit();
+
+      // P^T while dP^T runs: element (r, c) of n-tile j is key kpos[r],
+      // query q0 + 8j + cq + c; pair (4j + 2r, +1) is A register 2j + r
+      wgmma_wait<1>();
+      fence_regs<BQ / 2>(st);
+      const bool edge = kg + kHalf - 1 >= Sk ||
+                        (causal && kg + kHalf - 1 > pos_lo) ||
+                        (window > 0 && kg <= pos_hi - window);
+      const float* ls = sL + 2 * BQ * s;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(ls + 8 * j + cq);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * r + c;
+            float p = ex2(fmaf(st[e], sl2, -(c ? l.y : l.x)));
+            if (edge && !keeps(pos_lo + 8 * j + cq + c, kpos[r], Sk, causal,
+                               window))
+              p = 0.0f;
+            st[e] = p;
+          }
+          pa[2 * j + r] = pack(st[4 * j + 2 * r], st[4 * j + 2 * r + 1]);
+        }
+      }
+      fence_regs<BQ / 4>(pa);
+
+      // dS^T once dP^T has landed
+      wgmma_wait<0>();
+      fence_regs<BQ / 2>(dpt);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(ls + BQ + 8 * j + cq);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 4 * j + 2 * r;
+          da[2 * j + r] = pack(st[e] * (dpt[e] - dl.x),
+                               st[e + 1] * (dpt[e + 1] - dl.y));
+        }
+      }
+      fence_regs<BQ / 4>(da);
+
+      // dV += P^T dO, dK += dS^T Q: the tile's queries are the k order
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        wgmma_rs_wide<DV>(dv, pa + 4 * kk, mnmajor<DV>(sO, BQ, kk),
+                          BQ * VO::ROW);
+        wgmma_rs_wide<DQK>(dk, da + 4 * kk, mnmajor<DQK>(sQ, BQ, kk),
+                           BQ * QK::ROW);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<DV / 2>(dv);
+      fence_regs<DQK / 2>(dk);
+    }
+    mbar_arrive(empty + 8 * s);
+  }
+
+  // dk (scaled) and dv in bf16 into this warpgroup's rows of the K and V
+  // tiles, which only it reads, then to memory by TMA (keys >= Sk clipped)
+  warpgroup_sync(g);
+  stage_rows<DQK>(base + g * kHalf * QK::ROW, dk, scale, kBKV, r0, cq);
+  stage_rows<DV>(base + T::K_BYTES + g * kHalf * VO::ROW, dv, 1.0f, kBKV, r0,
+                 cq);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  warpgroup_sync(g);
+  if (lt == 0 && kg < Sk) {
+    for (int c = 0; c < QK::CHUNKS; ++c)
+      tma_store(&tdk, sKg + c * kBKV * QK::ROW, c * QK::COLS, hk, kg, b);
+    for (int c = 0; c < VO::CHUNKS; ++c)
+      tma_store(&tdv, sVg + c * kBKV * VO::ROW, c * VO::COLS, hk, kg, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
-// dq. A block owns query rows [q0, q0 + kBR) of one (batch, head).
+// dq. A block owns query rows [q0, q0 + kBQ) of one (batch, head).
 template <int DQK, int DV>
-__global__ void __launch_bounds__(Plan<DQK, DV>::kThreads, 1)
-    attention_bwd_bf16_dq_kernel(const bf16* __restrict__ q,
-                                 const bf16* __restrict__ k,
-                                 const bf16* __restrict__ v,
-                                 const bf16* __restrict__ dO,
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap tdo,
+                                 const __grid_constant__ CUtensorMap tdq,
                                  const float* __restrict__ lse,
-                                 const float* __restrict__ delta,
-                                 bf16* __restrict__ dq, int BH, int H,
+                                 const float* __restrict__ delta, int H,
                                  int Hkv, int Sq, int Sk, int causal,
                                  int window, float scale) {
-  using P = Plan<DQK, DV>;
-  constexpr int LDQ = P::LDQ, LDV = P::LDV, kBR = P::kBR;
-  constexpr int kThreads = P::kThreads;
-  constexpr int KQ = DQK / 32;  // a half's k-steps of S
-  constexpr int KV = DV / 32;   // a half's k-steps of dP
-  constexpr int KM = KQ > KV ? KQ : KV;
-  constexpr int NQ = DQK / 16;  // a half's n-tiles of dQ
-  constexpr int NJ = kBT / 8;   // key n-tiles of S
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // kBR x LDQ
-  bf16* sdO = sQ + kBR * LDQ;                    // kBR x LDV
-  bf16* sK = sdO + kBR * LDV;                    // kStages x kBT x LDQ
-  bf16* sV = sK + kStages * kBT * LDQ;           // kStages x kBT x LDV
-  // 2 kPairs x kSwap, past the (unused) lse and delta rows of the plan
-  float* sX = reinterpret_cast<float*>(sQ + P::kHalfs) + kStages * 2 * kBT;
+  using T = QTile<DQK, DV>;
+  using QK = typename T::QK;
+  using VO = typename T::VO;
+  constexpr int kBK = T::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sO = sQ + T::Q_BYTES;
+  // stage s: K at sS + s STAGE, V right after it
+  const uint32_t sS = sO + T::O_BYTES;
+  uint8_t* const base = smem_raw + (sQ - smem_addr(smem_raw));
+  const uint32_t q_full = sQ + T::BARS;
+  const uint32_t full = q_full + 8;             // + 8 s, likewise below
+  const uint32_t empty = full + 8 * kQStages;
 
-  const int n_qt = (Sq + kBR - 1) / kBR;
-  const int bh = static_cast<int>(blockIdx.x % BH);
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x / BH)) * kBR;
+  // the last query tile first, (batch, head) fastest
+  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  const int BH = gridDim.x / n_qt;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / BH) * kBQ;
   const int b = bh / H, h = bh - b * H;
   const int hk = h / (H / Hkv);
-  const int off = Sk - Sq;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t q_stride = static_cast<int64_t>(H) * DQK;
-  const int64_t o_stride = static_cast<int64_t>(H) * DV;
-  const int64_t k_stride = static_cast<int64_t>(Hkv) * DQK;
-  const int64_t v_stride = static_cast<int64_t>(Hkv) * DV;
-  const int64_t qr = static_cast<int64_t>(b) * Sq * H + h;
-  const int64_t kvr = static_cast<int64_t>(b) * Sk * Hkv + hk;
 
-  // the key tiles any row of this tile may keep, as the forward's
-  const int q_last = min(q0 + kBR, Sq) - 1;
+  // the key tiles any row of this query tile may keep, as the forward's
+  const int off = Sk - Sq;
+  const int q_last = min(q0 + kBQ, Sq) - 1;
   int k_lo = 0, k_hi = Sk;
   if (causal) k_hi = min(Sk, off + q_last + 1);
   if (window > 0) k_lo = max(0, off + q0 - window + 1);
-  const int t_lo = k_lo / kBT;
-  const int n_t = k_hi > k_lo ? (k_hi + kBT - 1) / kBT - t_lo : 0;
+  const int t_begin = k_lo / kBK;
+  const int n_tiles =
+      max(0, (k_hi > 0 ? (k_hi + kBK - 1) / kBK : 0) - t_begin);
 
-  auto load_step = [&](int s, int stage) {
-    const int k0 = (t_lo + s) * kBT;
-    const int valid = min(kBT, Sk - k0);
-    load_tile<kBT, DQK, kThreads>(sK + stage * kBT * LDQ,
-                                  k + kvr * DQK + k0 * k_stride, k_stride,
-                                  valid, tid);
-    load_tile<kBT, DV, kThreads>(sV + stage * kBT * LDV,
-                                 v + kvr * DV + k0 * v_stride, v_stride,
-                                 valid, tid);
-  };
-  const int qvalid = min(kBR, Sq - q0);
-  load_tile<kBR, DQK, kThreads>(sQ, q + qr * DQK + q0 * q_stride, q_stride,
-                                qvalid, tid);
-  load_tile<kBR, DV, kThreads>(sdO, dO + qr * DV + q0 * o_stride, o_stride,
-                               qvalid, tid);
-  if (n_t > 0) load_step(0, 0);
-  cp_async_commit();
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kQStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // this warp's rows, r0 + g and r0 + g + 8, and columns [cq, cq + DQK / 2)
-  // of the q / k tiles and [cv, cv + DV / 2) of the v / do tiles
-  const int pair = warp >> 1;
-  const int cq = (warp & 1) * (DQK / 2), cv = (warp & 1) * (DV / 2);
-  const int r0 = q0 + 16 * pair;
-  const int pos0 = off + r0;
-  const int qp0 = pos0 + g, qp1 = qp0 + 8;
-  const float* lr = lse + static_cast<int64_t>(bh) * Sq;
-  const float* dr = delta + static_cast<int64_t>(bh) * Sq;
-  const float l0 = r0 + g < Sq ? lse2_of(lr[r0 + g]) : INFINITY;
-  const float l1 = r0 + g + 8 < Sq ? lse2_of(lr[r0 + g + 8]) : INFINITY;
-  const float dl0 = r0 + g < Sq ? dr[r0 + g] : 0.0f;
-  const float dl1 = r0 + g + 8 < Sq ? dr[r0 + g + 8] : 0.0f;
-  const bf16* wq = sQ + (16 * pair + g) * LDQ + cq + 2 * t;
-  const bf16* wo = sdO + (16 * pair + g) * LDV + cv + 2 * t;
-  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
-  float* mine = sX + warp * kSwap;
-  const float* other = sX + (warp ^ 1) * kSwap;
-  const float sl2 = scale * kLog2e;
-
-  float acc[NQ][4];
-#pragma unroll
-  for (int n = 0; n < NQ; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-
-  for (int s = 0; s < n_t; ++s) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (s + 1 < n_t) load_step(s + 1, (s + 1) % kStages);
-    cp_async_commit();
-
-    const int k0 = (t_lo + s) * kBT;
-    if (r0 >= Sq || (causal && k0 > pos0 + 15) ||
-        (window > 0 && k0 + kBT - 1 <= pos0 - window))
-      continue;  // no row of this pair keeps a key of this tile
-    const bf16* tK = sK + (s % kStages) * kBT * LDQ;
-    const bf16* tV = sV + (s % kStages) * kBT * LDV;
-
-    // S = Q K^T over this warp's half of DQK, dP = dO V^T over its half of
-    // DV, then the pair's sums
-    float sc[NJ][4], dp[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.0f;
-    const bf16* bk = tK + g * LDQ + cq + 2 * t;
-    const bf16* bv = tV + g * LDV + cv + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < KM; ++kk) {
-      if (kk < KQ) {
-        uint32_t a[4];
-        a_rows(wq, LDQ, kk, a);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          mma(sc[j], a, ld32(bk + 8 * j * LDQ + 16 * kk),
-              ld32(bk + 8 * j * LDQ + 16 * kk + 8));
-      }
-      if (kk < KV) {
-        uint32_t a[4];
-        a_rows(wo, LDV, kk, a);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          mma(dp[j], a, ld32(bv + 8 * j * LDV + 16 * kk),
-              ld32(bv + 8 * j * LDV + 16 * kk + 8));
+  if (tid >= kConsumers) {  // the producer warpgroup; one thread issues
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == kConsumers) {
+      mbar_expect_tx(q_full, T::Q_BYTES + T::O_BYTES);
+      for (int c = 0; c < QK::CHUNKS; ++c)
+        tma_load(sQ + c * kBQ * QK::ROW, &tq, q_full, c * QK::COLS, h, q0, b);
+      for (int c = 0; c < VO::CHUNKS; ++c)
+        tma_load(sO + c * kBQ * VO::ROW, &tdo, q_full, c * VO::COLS, h, q0,
+                 b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kQStages, k0 = (t_begin + i) * kBK;
+        const uint32_t sK = sS + s * T::STAGE;
+        if (i >= kQStages) mbar_wait(empty + 8 * s, ((i / kQStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, T::STAGE);
+        for (int c = 0; c < QK::CHUNKS; ++c)
+          tma_load(sK + c * kBK * QK::ROW, &tk, full + 8 * s, c * QK::COLS,
+                   hk, k0, b);
+        for (int c = 0; c < VO::CHUNKS; ++c)
+          tma_load(sK + T::K_BYTES + c * kBK * VO::ROW, &tv, full + 8 * s,
+                   c * VO::COLS, hk, k0, b);
       }
     }
-    pair_sum(sc, dp, mine, other, pair, lane);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
 
-    // P and dS: element e of n-tile j is row r0 + g + 8 (e / 2), key
-    // k0 + 8j + 2t + e % 2
-    const bool edge = k0 + kBT > Sk || (causal && k0 + kBT - 1 > pos0) ||
-                      (window > 0 && k0 <= pos0 + 15 - window);
+  // consumer warpgroup g owns rows q0 + 64g .. + 63; a thread holds rows
+  // r0 and r0 + 8 of them, key columns 8j + cq + {0, 1} of each fragment
+  const int g = tid / 128, lt = tid % 128;
+  const int lane = lt % 32;
+  const int r0 = 16 * (lt / 32) + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int qg = q0 + kHalf * g;
+  const int pos0 = off + qg;  // position of the warpgroup's first row
+  const int qpos[2] = {pos0 + r0, pos0 + r0 + 8};
+  const uint32_t sQg = sQ + g * kHalf * QK::ROW;
+  const uint32_t sOg = sO + g * kHalf * VO::ROW;
+  const float sl2 = scale * kLog2e;
+  const float* lr = lse + static_cast<int64_t>(bh) * Sq;
+  const float* dr = delta + static_cast<int64_t>(bh) * Sq;
+  float l2[2], dl[2];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+  for (int r = 0; r < 2; ++r) {
+    const int i = qg + r0 + 8 * r;
+    l2[r] = i < Sq ? lse2_of(lr[i]) : INFINITY;
+    dl[r] = i < Sq ? dr[i] : 0.0f;
+  }
+
+  float dq[DQK / 2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(fmaf(sc[j][e], sl2, -(e < 2 ? l0 : l1)));
-        if (edge && !keeps(e < 2 ? qp0 : qp1, k0 + 8 * j + 2 * t + (e & 1),
-                           Sk, causal, window))
-          p = 0.0f;
-        sc[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1));
+  for (int i = 0; i < DQK / 2; ++i) dq[i] = 0.0f;
+  float sc[kBK / 2], dp[kBK / 2];
+  uint32_t da[kBK / 4];  // dS as bf16 A fragments
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kQStages, k0 = (t_begin + i) * kBK;
+    mbar_wait(full + 8 * s, (i / kQStages) & 1);
+    // no row of this warpgroup keeps a key of this tile: skip it
+    const bool skip = qg >= Sq || (causal && k0 > pos0 + kHalf - 1) ||
+                      (window > 0 && k0 + kBK - 1 <= pos0 - window);
+    if (!skip) {
+      const uint32_t sK = sS + s * T::STAGE, sV = sK + T::K_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQK / 16; ++kk)
+        wgmma_ss<kBK>(sc, kmajor<DQK>(sQg, kBQ, kk), kmajor<DQK>(sK, kBK, kk),
+                      kk == 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk)
+        wgmma_ss<kBK>(dp, kmajor<DV>(sOg, kBQ, kk), kmajor<DV>(sV, kBK, kk),
+                      kk == 0);
+      wgmma_commit();
+
+      // P while dP runs: element (r, c) of n-tile j is row qpos[r], key
+      // k0 + 8j + cq + c
+      wgmma_wait<1>();
+      fence_regs<kBK / 2>(sc);
+      const bool edge = k0 + kBK > Sk ||
+                        (causal && k0 + kBK - 1 > pos0) ||
+                        (window > 0 && k0 <= pos0 + kHalf - 1 - window);
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * r + c;
+            float p = ex2(fmaf(sc[e], sl2, -l2[r]));
+            if (edge && !keeps(qpos[r], k0 + 8 * j + cq + c, Sk, causal,
+                               window))
+              p = 0.0f;
+            sc[e] = p;
+          }
+        }
       }
-
-    // dQ += dS K over DQK's half: the keys are the k order; dS rounded to
-    // bf16 there
-    tile_product<NQ, LDQ>(acc, sc, tK + lrow * LDQ + cq + lcol);
-  }
-  cp_async_wait_all();
-
-  const int i0 = r0 + g, i1 = i0 + 8;
-  bf16* ob = dq + qr * DQK + cq + 2 * t;
+      // dS once dP has landed
+      wgmma_wait<0>();
+      fence_regs<kBK / 2>(dp);
 #pragma unroll
-  for (int n = 0; n < NQ; ++n) {
-    if (i0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + i0 * q_stride + 8 * n) =
-          __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
-    if (i1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + i1 * q_stride + 8 * n) =
-          __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 4 * j + 2 * r;
+          da[2 * j + r] = pack(sc[e] * (dp[e] - dl[r]),
+                               sc[e + 1] * (dp[e + 1] - dl[r]));
+        }
+      }
+      fence_regs<kBK / 4>(da);
+
+      // dQ += dS K: the tile's keys are the k order
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_rs_wide<DQK>(dq, da + 4 * kk, mnmajor<DQK>(sK, kBK, kk),
+                           kBK * QK::ROW);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<DQK / 2>(dq);
+    }
+    mbar_arrive(empty + 8 * s);
   }
-}
 
-// row r's G partials of a (rows G, D4) float4 array, summed in head order:
-// partial hh of row r, column c is at (r G + hh) D4 + c
-__device__ __forceinline__ float4 group_sum(const float4* __restrict__ p,
-                                            long long r, long long c, int G,
-                                            int D4) {
-  const long long at = r * G * D4 + c;
-  float4 a = p[at];
-  for (int hh = 1; hh < G; ++hh) {
-    const float4 x = p[at + hh * D4];
-    a.x += x.x;
-    a.y += x.y;
-    a.z += x.z;
-    a.w += x.w;
-  }
-  return a;
-}
-
-// four values rounded to bf16 once, stored as 8 bytes
-__device__ __forceinline__ void store4(bf16* p, float4 a, float s) {
-  const uint2 w = make_uint2(pack(a.x * s, a.y * s), pack(a.z * s, a.w * s));
-  *reinterpret_cast<uint2*>(p) = w;
-}
-
-// dk (B, Sk, Hkv, DQK) and dv (B, Sk, Hkv, DV) in bf16 from the query
-// heads' f32 partials (B, Sk, H, DQK) and (B, Sk, H, DV): each kv head's G
-// partials summed in head order, dk times scale; 4 values a thread, dk's
-// nk4 groups of four first, then dv's
-__global__ void __launch_bounds__(kFlatThreads)
-    attention_bwd_bf16_sum_kernel(const float4* __restrict__ pk,
-                                  const float4* __restrict__ pv,
-                                  bf16* __restrict__ dk,
-                                  bf16* __restrict__ dv, long long nk4,
-                                  long long n4, int G, int DK4, int DV4,
-                                  float scale) {
-  const long long e = static_cast<long long>(blockIdx.x) * kFlatThreads +
-                      threadIdx.x;
-  if (e >= n4) return;
-  // e = ((b Sk + j) Hkv + hk) D4 + c reads ((b Sk + j) H + hk G + hh) D4 + c
-  if (e < nk4) {
-    const long long r = e / DK4;
-    store4(dk + 4 * e, group_sum(pk, r, e - r * DK4, G, DK4), scale);
-  } else {
-    const long long f = e - nk4, r = f / DV4;
-    store4(dv + 4 * f, group_sum(pv, r, f - r * DV4, G, DV4), 1.0f);
+  // dq (scaled) in bf16 into this warpgroup's rows of the Q tile, which
+  // only it reads, then to memory by TMA (rows >= Sq clipped)
+  warpgroup_sync(g);
+  stage_rows<DQK>(base + g * kHalf * QK::ROW, dq, scale, kBQ, r0, cq);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  warpgroup_sync(g);
+  if (lt == 0 && qg < Sq) {
+    for (int c = 0; c < QK::CHUNKS; ++c)
+      tma_store(&tdq, sQg + c * kBQ * QK::ROW, c * QK::COLS, h, qg, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
 template <int DQK, int DV>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
            const float* lse, const bf16* dO, bf16* dq, bf16* dk, bf16* dv,
-           float* delta, float* part, int B, int H, int Hkv, int Sq, int Sk,
-           int causal, int window, float scale, cudaStream_t s) {
-  using P = Plan<DQK, DV>;
-  constexpr size_t smem = P::kBytes;
-  const int G = H / Hkv;
-  if (part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+           float* delta, int B, int H, int Hkv, int Sq, int Sk, int causal,
+           int window, float scale, cudaStream_t s) {
+  using KT = KvTile<DQK, DV>;
+  using QT = QTile<DQK, DV>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  // the dk/dv pass's maps: Q and dO by BQ rows, K and V by kBKV, dk and
+  // dv stored by a warpgroup's kHalf; the dq pass's: Q and dO by kBQ, K
+  // and V by BK, dq stored by kHalf
+  CUtensorMap kq, kk, kv, kdo, kdk, kdv, qq, qk, qv, qdo, qdq;
+  if (!make_map<DQK>(encode, &kq, q, H, Sq, B, KT::BQ) ||
+      !make_map<DQK>(encode, &kk, k, Hkv, Sk, B, kBKV) ||
+      !make_map<DV>(encode, &kv, v, Hkv, Sk, B, kBKV) ||
+      !make_map<DV>(encode, &kdo, dO, H, Sq, B, KT::BQ) ||
+      !make_map<DQK>(encode, &kdk, dk, Hkv, Sk, B, kHalf) ||
+      !make_map<DV>(encode, &kdv, dv, Hkv, Sk, B, kHalf) ||
+      !make_map<DQK>(encode, &qq, q, H, Sq, B, kBQ) ||
+      !make_map<DQK>(encode, &qk, k, Hkv, Sk, B, QT::BK) ||
+      !make_map<DV>(encode, &qv, v, Hkv, Sk, B, QT::BK) ||
+      !make_map<DV>(encode, &qdo, dO, H, Sq, B, kBQ) ||
+      !make_map<DQK>(encode, &qdq, dq, H, Sq, B, kHalf))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(B) * Sq * H;
-  const long long d_blocks = (rows + kFlatThreads / 32 - 1) / (kFlatThreads / 32);
+  const long long d_blocks =
+      (rows * (DV / 8) + kFlatThreads - 1) / kFlatThreads;
   const long long kv_blocks =
-      static_cast<long long>(B) * H * ((Sk + P::kBR - 1) / P::kBR);
+      static_cast<long long>(B) * Hkv * ((Sk + kBKV - 1) / kBKV);
   const long long q_blocks =
-      static_cast<long long>(B) * H * ((Sq + P::kBR - 1) / P::kBR);
-  const long long kv_rows = static_cast<long long>(B) * Sk * Hkv;
-  const long long nk4 = kv_rows * (DQK / 4), n4 = nk4 + kv_rows * (DV / 4);
-  const long long s_blocks = (n4 + kFlatThreads - 1) / kFlatThreads;
+      static_cast<long long>(B) * H * ((Sq + kBQ - 1) / kBQ);
   if (d_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL ||
-      q_blocks > 0x7fffffffLL || s_blocks > 0x7fffffffLL)
+      q_blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       attention_bwd_bf16_dkv_kernel<DQK, DV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      cudaFuncAttributeMaxDynamicSharedMemorySize, KT::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(attention_bwd_bf16_dq_kernel<DQK, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+                             QT::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_bf16_delta_kernel<<<static_cast<unsigned>(d_blocks),
-                                    kFlatThreads, 0, s>>>(
-      reinterpret_cast<const __nv_bfloat162*>(o),
-      reinterpret_cast<const __nv_bfloat162*>(dO), delta, rows, Sq, H,
-      DV / 2);
+  attention_bwd_bf16_delta_kernel<DV><<<static_cast<unsigned>(d_blocks),
+                                        kFlatThreads, 0, s>>>(
+      reinterpret_cast<const uint4*>(o), reinterpret_cast<const uint4*>(dO),
+      delta, rows, Sq, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  float* pk = part;
-  float* pv = part + static_cast<size_t>(B) * Sk * H * DQK;
   attention_bwd_bf16_dkv_kernel<DQK, DV>
-      <<<static_cast<unsigned>(kv_blocks), P::kThreads, smem, s>>>(
-          q, k, v, dO, lse, delta, pk, pv, B * H, H, Hkv, Sq, Sk, causal,
+      <<<static_cast<unsigned>(kv_blocks), kThreads, KT::SMEM, s>>>(
+          kq, kk, kv, kdo, kdk, kdv, lse, delta, H, Hkv, Sq, Sk, causal,
           window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   attention_bwd_bf16_dq_kernel<DQK, DV>
-      <<<static_cast<unsigned>(q_blocks), P::kThreads, smem, s>>>(
-          q, k, v, dO, lse, delta, dq, B * H, H, Hkv, Sq, Sk, causal, window,
+      <<<static_cast<unsigned>(q_blocks), kThreads, QT::SMEM, s>>>(
+          qq, qk, qv, qdo, qdq, lse, delta, H, Hkv, Sq, Sk, causal, window,
           scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_bf16_sum_kernel<<<static_cast<unsigned>(s_blocks),
-                                  kFlatThreads, 0, s>>>(
-      reinterpret_cast<const float4*>(pk), reinterpret_cast<const float4*>(pv),
-      dk, dv, nk4, n4, G, DQK / 4, DV / 4, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -791,18 +784,16 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
 // (query/key, value) widths, one of (32, 32), (64, 64), (128, 128) and
 // (192, 128). q and dq are (B, Sq, H, d); k and dk (B, Sk, Hkv, d); o and
 // dO (B, Sq, H, dv); v and dv (B, Sk, Hkv, dv); lse and delta (B, H, Sq),
-// delta scratch the launcher fills; `part` is f32 scratch of B Sk H (d +
-// dv) values for the query heads' dk partials, then their dv partials,
-// which the fourth launch sums over each group. All contiguous and 16-byte
-// aligned, H % Hkv == 0. Four launches on `stream`; returns the CUDA error
-// code of the first that fails (0 = cudaSuccess).
+// delta scratch the launcher fills. All contiguous and 16-byte aligned, H %
+// Hkv == 0. Three launches on `stream`; returns the CUDA error code of the
+// first that fails (0 = cudaSuccess).
 extern "C" int repro_attention_bwd_bf16(int d, int dv, const void* q,
                                         const void* k, const void* v,
                                         const void* o, const void* lse,
                                         const void* dO, void* dq, void* dk,
-                                        void* dV, void* delta, void* part,
-                                        int B, int H, int Hkv, int Sq, int Sk,
-                                        int causal, int window, float scale,
+                                        void* dV, void* delta, int B, int H,
+                                        int Hkv, int Sq, int Sk, int causal,
+                                        int window, float scale,
                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv)
@@ -814,9 +805,8 @@ extern "C" int repro_attention_bwd_bf16(int d, int dv, const void* q,
         static_cast<const bf16*>(v), static_cast<const bf16*>(o),            \
         static_cast<const float*>(lse), static_cast<const bf16*>(dO),        \
         static_cast<bf16*>(dq), static_cast<bf16*>(dk),                      \
-        static_cast<bf16*>(dV), static_cast<float*>(delta),                  \
-        static_cast<float*>(part), B, H, Hkv, Sq, Sk, causal, window, scale, \
-        s);
+        static_cast<bf16*>(dV), static_cast<float*>(delta), B, H, Hkv, Sq,   \
+        Sk, causal, window, scale, s);
   REPRO_ATTENTION_BWD_BF16_CASE(32, 32)
   REPRO_ATTENTION_BWD_BF16_CASE(64, 64)
   REPRO_ATTENTION_BWD_BF16_CASE(128, 128)

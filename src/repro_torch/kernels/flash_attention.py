@@ -36,9 +36,11 @@ v, o, do and the per-row log-sum-exp that its forward writes when
 ``with_lse`` asks for it (the serving path asks for none and launches as
 before): f32 runs ``csrc/attention_bwd.cu`` (dq, dk and dv in f32 on the
 tensor cores in split TF32, ``mma.sync`` m16n8k8, as the f32 forward),
-bf16 runs ``csrc/attention_bwd_bf16.cu`` (one bf16 ``mma.sync`` m16n8k16
+bf16 runs ``csrc/attention_bwd_bf16.cu`` (TMA-fed ``wgmma``, a producer
+warp and two consumer warpgroups, as the bf16 forward: one bf16 product
 a product with f32 sums, P and dS rounded to bf16 as operands, where the
-reference rounds its probabilities; dq, dk and dv written in bf16 once).
+reference rounds its probabilities; dq, dk and dv written in bf16 once,
+dk and dv summed over the kv head's group in the kernel's registers).
 ``AttentionFn`` is the autograd Function
 that ``ops`` routes a CUDA call through when a gradient is wanted (an
 input requires grad, or is a ``torch.func`` transform's tensor): its
@@ -68,10 +70,10 @@ WIDTHS = {torch.bfloat16: {(d, d) for d in HEAD_DIMS} | {(192, 128)},
 
 
 # the backward by dtype: (its program's name, its library, its C entry
-# point); f32 in split TF32 on mma.sync, as the f32 forward, bf16 one bf16
-# mma.sync a product
+# point); f32 in split TF32 on mma.sync, as the f32 forward, bf16 on
+# TMA-fed wgmma, as the bf16 forward
 BWD_PROGRAMS = {
-    torch.bfloat16: ("sm90_mma_bf16", "attention_bwd_bf16",
+    torch.bfloat16: ("sm90_wgmma_tma", "attention_bwd_bf16",
                      "repro_attention_bwd_bf16"),
     torch.float32: ("sm90_mma_tf32x3", "attention", "repro_attention_bwd")}
 # the (query/key, value) width pairs each backward takes: its forward's
@@ -179,8 +181,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of ``BWD_WIDTHS[dtype]``; the gradients in the inputs' dtype. f32:
     three CUDA launches (delta, dk/dv, dq) and, where H > Hkv, a fourth
     that sums the query heads' dk and dv partials in head order; bf16:
-    the same four, the fourth at every H (it sums the f32 partials and
-    writes bf16). No atomics: the same inputs give the same bits."""
+    three (delta, dk/dv, dq), a dk/dv block walking its kv head's query
+    heads in order. No atomics: the same inputs give the same bits."""
     differentiable(q, k, v, "attention_bwd")
     B, Sq, H, d = q.shape
     Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -207,8 +209,9 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("attention_bwd needs contiguous inputs")
-    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
-        raise ValueError("attention_bwd needs 16-byte aligned q, k, v, do")
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("attention_bwd needs 16-byte aligned q, k, v, o "
+                         "and do")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(
             f"attention_bwd launches on the current device "
@@ -222,17 +225,20 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dvg = (torch.empty_like(q), torch.empty_like(k),
                    torch.empty_like(v))
     delta = lse.new_empty((B, H, Sq))
-    # the query heads' dk partials (B, Sk, H, d), then their dv partials,
-    # f32; bf16 sums them at every H (and casts)
-    part = (lse.new_empty((B * Sk * H * (d + dv),))
-            if H > Hkv or q.dtype == torch.bfloat16 else None)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dvg.data_ptr(), delta.data_ptr()]
+    part = None
+    if q.dtype == torch.float32:
+        # the query heads' dk partials (B, Sk, H, d), then their dv
+        # partials, where H > Hkv; the bf16 program sums each group in its
+        # registers and takes no scratch
+        if H > Hkv:
+            part = lse.new_empty((B * Sk * H * (d + dv),))
+        ptrs.append(None if part is None else part.data_ptr())
     code = getattr(lib, entry)(
-        d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dvg.data_ptr(), delta.data_ptr(),
-        None if part is None else part.data_ptr(), B, H, Hkv, Sq, Sk,
-        int(causal), int(window), ctypes.c_float(scale),
-        _build.current_stream(q.device.index))
+        d, dv, *ptrs, B, H, Hkv, Sq, Sk, int(causal), int(window),
+        ctypes.c_float(scale), _build.current_stream(q.device.index))
     _build.check(lib, code, f"attention_bwd launch ({name})")
     return dq, dk, dvg
 

@@ -24,8 +24,9 @@ The gradient. The JAX package has no backward Pallas kernel, so
 ``rmsnorm_bwd`` replaces none: ``csrc/rmsnorm_bwd.cu`` computes dx and
 the grouped dscale in f32 or bf16 (x, dy and the scale read into f32,
 the math and the dscale partials f32, dx and dscale written in the
-inputs' dtype once, as the reference's norm computes in f32 and casts),
-with no atomics (``bwd_plan`` fixes its partition from the shapes
+inputs' dtype once, as the reference's norm computes in f32 and casts;
+bf16 rows in 16-byte vectors, read once, as the forward's), with no
+atomics (``bwd_plan`` fixes its partition from the shapes and the dtype
 alone); rows wider than ``MAX_BWD_D`` raise (``differentiable``).
 ``RMSNormFn`` is the autograd Function ``ops`` routes a CUDA call
 through when a gradient is wanted; its backward calls ``RMSNormBwdFn``;
@@ -55,6 +56,7 @@ MAX_D = 65_536          # the wrapper's limit (the stream form has none)
 BWD_THREADS = 512
 BWD_BLOCKS = 264
 MAX_BWD_D = 16_384
+BWD_VECTORS = (2, 4)     # bf16: 16-byte vectors a thread takes at most
 
 
 class Plan(NamedTuple):
@@ -134,12 +136,22 @@ class BwdPlan(NamedTuple):
     chunks: int         # blocks a group
 
 
-def bwd_plan(rows: int, D: int, g: int = 1) -> BwdPlan:
-    """The backward's partition, from the shapes alone (so the same
-    shapes give the same bits on every card): one thread per 4 columns
-    up to ``BWD_THREADS``, and chunks of rows that make about
-    ``BWD_BLOCKS`` blocks, none across a group's edge."""
-    threads = min(BWD_THREADS, 32 * max(1, -(-D // 128)))
+def bwd_plan(rows: int, D: int, g: int = 1,
+             dtype: torch.dtype = torch.float32) -> BwdPlan:
+    """The backward's partition, from the shapes and the dtype alone (so
+    the same inputs give the same bits on every card): in f32 one thread
+    per 4 columns up to ``BWD_THREADS``; in bf16 as few as take the
+    row's whole 16-byte vectors (D // 8 of them) 2, then 4 a thread
+    (``BWD_VECTORS``), within ``BWD_THREADS``; and chunks
+    of rows that make about ``BWD_BLOCKS`` blocks, none across a group's
+    edge."""
+    if dtype == torch.bfloat16:
+        n = D // _PER_VECTOR[dtype]
+        v = next((v for v in BWD_VECTORS if n <= BWD_THREADS * v),
+                 BWD_VECTORS[-1])
+        threads = 32 * max(1, -(-n // (32 * v)))
+    else:
+        threads = min(BWD_THREADS, 32 * max(1, -(-D // 128)))
     chunk = min(max(1, -(-rows // BWD_BLOCKS)), rows // g)
     return BwdPlan(threads, chunk, -(-(rows // g) // chunk))
 
@@ -190,7 +202,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
         raise ValueError(
             f"rmsnorm_bwd launches on the current device "
             f"(cuda:{torch.cuda.current_device()}), x is on {x.device}")
-    threads, chunk, chunks = bwd_plan(rows, D, g)
+    threads, chunk, chunks = bwd_plan(rows, D, g, x.dtype)
     lib = _build.library("rmsnorm")
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)

@@ -32,8 +32,10 @@ RMS norm, and the autograd / vmap plumbing around them.
   sides, summed in other orders); one case shows that one TF32 product
   a product misses it.
 * ``rmsnorm_bwd`` (``csrc/rmsnorm_bwd.cu``): ``rmsnorm.bwd_plan``'s
-  partition (chunks of rows within a group, threads of 4 columns), each
-  thread's strided column sums in order with f32 multiply-adds, the
+  partition (chunks of rows within a group; in f32 threads of 4 columns,
+  in bf16 a thread's scalar head column, its 16-byte vectors and its
+  scalar tail column, ``_thread_columns``), each
+  thread's column sums in order with f32 multiply-adds, the
   warps' xor butterflies and the warp sums in warp order, the chunk's
   dscale partial and each group's partials summed in chunk order,
   against ``jax.grad`` of the reference's jnp norm with a scale per
@@ -141,21 +143,22 @@ def _rows(x, r0, n, n_rows, fill=0.0):
     return out
 
 
-def _warps(keep, n_real, starts, skip, edge):
+def _warps(keep, n_real, starts, skip, edge, rows=WARP):
     """The kernel's per-warp shortcuts on one tile: ``keep`` (rows, cols)
-    over the block's 16-row warps, whose flags ``skip`` and ``edge``
-    come from their first row ``starts``; rows from ``n_real`` on lie
-    past the tensor. Returns the rows the kernel computes."""
+    over the block's warps of ``rows`` rows (16; 64 for a warpgroup of
+    the bf16 program), whose flags ``skip`` and ``edge`` come from their
+    first row ``starts``; rows from ``n_real`` on lie past the tensor.
+    Returns the rows the kernel computes."""
     active = torch.zeros(keep.shape[0], dtype=torch.bool)
     for w, r in enumerate(starts):
-        kw = keep[WARP * w:WARP * (w + 1)]
+        kw = keep[rows * w:rows * (w + 1)]
         if skip(r):
-            assert not bool(kw[:max(0, n_real - WARP * w)].any()), \
+            assert not bool(kw[:max(0, n_real - rows * w)].any()), \
                 "a skipped warp keeps a pair"
             continue
         if not edge(r):
             assert bool(kw.all()), "an unmasked tile drops a pair"
-        active[WARP * w:WARP * (w + 1)] = True
+        active[rows * w:rows * (w + 1)] = True
     return active
 
 
@@ -400,16 +403,37 @@ def _butterfly(v):
     return v
 
 
-def rmsnorm_bwd_model(x, scale, dy, eps):
-    """dx and dscale (g, D) as the kernel partitions and orders them."""
+def _thread_columns(D, threads, dtype, h=0):
+    """Each thread's columns of a row in the order it sums them, (threads,
+    L), and which are real: f32 columns t, t + threads, ...; bf16 (a row
+    whose first h values lie before its first 16-byte boundary) the
+    head's column t, then the columns of vectors t, t + threads, ...
+    (8 each), then the tail's column t."""
+    t = torch.arange(threads)[:, None]
+    if dtype != torch.bfloat16:
+        idx = t + threads * torch.arange(-(-D // threads))
+        return idx.clamp(max=D - 1), idx < D
+    nb = (D - h) // 8
+    tail = h + 8 * nb
+    nv = -(-(D // 8) // threads)
+    j = t + threads * torch.arange(nv)                   # (threads, nv)
+    body = (h + 8 * j[..., None] + torch.arange(8)).reshape(threads, -1)
+    body_on = (j < nb)[..., None].expand(threads, nv, 8).reshape(threads, -1)
+    idx = torch.cat([t, body, tail + t], 1)
+    on = torch.cat([t < h, body_on, t < D - tail], 1)
+    return idx.clamp(max=D - 1), on
+
+
+def rmsnorm_bwd_model(x, scale, dy, eps, dtype=torch.float32):
+    """dx and dscale (g, D) as the kernel partitions and orders them for
+    rows of ``dtype`` (the values given in f32): a row's columns split
+    among the threads by ``_thread_columns``, a bf16 row at its own offset
+    from a 16-byte boundary (x's first row on one)."""
     rows, D = x.shape
     g = scale.shape[0]
     R = rows // g
-    threads, chunk, chunks = rn.bwd_plan(rows, D, g)
-    cols = -(-D // threads)
-    idx = torch.arange(threads)[:, None] + threads * torch.arange(cols)
-    valid = idx < D
-    idx = idx.clamp(max=D - 1)
+    threads, chunk, chunks = rn.bwd_plan(rows, D, g, dtype)
+    heads = {}                       # a row's head -> its threads' columns
     eps32 = torch.tensor(eps, dtype=torch.float32)
     dx = torch.empty_like(x)
     partial = torch.zeros((g * chunks, D))
@@ -417,10 +441,16 @@ def rmsnorm_bwd_model(x, scale, dy, eps):
         gi, ci = divmod(c, chunks)
         s = scale[gi]
         for r in range(gi * R + ci * chunk, gi * R + min(R, (ci + 1) * chunk)):
+            mis = r * D % 8
+            h = min(D, 8 - mis if mis else 0) if dtype == torch.bfloat16 \
+                else 0
+            if h not in heads:
+                heads[h] = _thread_columns(D, threads, dtype, h)
+            idx, valid = heads[h]
             xv, gv, sv = x[r][idx], dy[r][idx], s[idx]
             a = torch.zeros(threads)
             b = torch.zeros(threads)
-            for j in range(cols):
+            for j in range(idx.shape[1]):
                 on = valid[:, j]
                 a = torch.where(on, _fma(gv[:, j] * sv[:, j], xv[:, j], a), a)
                 b = torch.where(on, _fma(xv[:, j], xv[:, j], b), b)
@@ -465,12 +495,23 @@ def test_rmsnorm_bwd_model_matches_jax_grad(rows, D, g):
 
 def test_bwd_plan_partitions_the_rows():
     for rows, D, g in [(1, 7, 1), (4096, 4096, 1), (4096, 4096, 4),
-                       (2048, 768, 4), (300, 100, 3), (8, 16_384, 8)]:
-        threads, chunk, chunks = rn.bwd_plan(rows, D, g)
-        assert threads % 32 == 0 and 32 <= threads <= rn.BWD_THREADS
-        R = rows // g
-        assert 1 <= chunk <= R and (chunks - 1) * chunk < R <= chunks * chunk
-        assert g * chunks <= rn.BWD_BLOCKS * 2
+                       (2048, 768, 4), (300, 100, 3), (8, 16_384, 8),
+                       (4096, 4100, 1)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            threads, chunk, chunks = rn.bwd_plan(rows, D, g, dtype)
+            assert threads % 32 == 0 and 32 <= threads <= rn.BWD_THREADS
+            R = rows // g
+            assert 1 <= chunk <= R and \
+                (chunks - 1) * chunk < R <= chunks * chunk
+            assert g * chunks <= rn.BWD_BLOCKS * 2
+            if dtype == torch.bfloat16:
+                # every whole 16-byte vector a thread's, at most 4 a
+                # thread, and each column of a row one thread's once,
+                # whatever its offset from a 16-byte boundary
+                assert D // 8 <= max(rn.BWD_VECTORS) * threads
+                for h in range(min(D, 8)):
+                    idx, on = _thread_columns(D, threads, dtype, h)
+                    assert sorted(idx[on].tolist()) == list(range(D))
 
 
 # ------------------------------------------------------------- plumbing

@@ -2,30 +2,33 @@
 CPU, against the JAX package.
 
 * ``attention_bwd`` in bf16 (``csrc/attention_bwd_bf16.cu``), modelled
-  in plain PyTorch: the f32 program's passes and tiles (delta; the dk/dv
-  pass, blocks of 16 P keys of one query head walking the 32-row query
-  tiles of the range the kernel bounds, P = 6 warp pairs at equal widths,
-  4 at MLA's (192, 128), the query heads' f32 partials then summed over
-  each kv head's group in head order; the dq pass, blocks of 16 P query
-  rows walking the 32-key tiles of the forward's range), every product
-  one bf16 product with f32 sums: S and dP from the bf16 inputs, each
-  warp of a pair over half of each width; P and dS rounded to bf16 once,
-  to nearest even, as the A operand of dV, dK and dQ, each tile's product
-  added to the running sums in f32; dq, dk and dv rounded to bf16 once.
-  The per-pair shortcuts are checked on every tile and every kept (query,
-  key, head) triple is visited once per pass. Held against ``jax.vjp`` of
-  the reference's bf16 attention (``repro.models.attention._sdpa``, which
-  rounds the scores and the probabilities to bf16): dq, dk and dv within
-  ``BF16_REF_FACTOR`` times the reference's own gap, its bf16 gradient
-  against its f32 gradient at the same (bf16) inputs, each gradient's max
-  |diff| over its max. Cases: ragged S, GQA groups 1 and 4, head widths
-  32, 64 and 128, a window, non-causal with Sk != Sq, a right-aligned
-  diagonal, MLA's (192, 128).
-* ``rmsnorm_bwd`` in bf16: the f32 kernel's arithmetic
-  (``test_torch_backward_tiles.rmsnorm_bwd_model``) on the bf16 values,
-  dx and dscale rounded to bf16 once, against ``jax.vjp`` of the
-  reference's norm (``repro.models.layers.rmsnorm_apply``, f32 inside,
-  the result cast) in bf16: within one bf16 step of each gradient's max.
+  in plain PyTorch as its passes walk the tiles: delta; the dk/dv pass,
+  blocks of 128 keys of one kv head (two warpgroups of 64) walking the
+  group's query heads in head order and, for each, the query tiles of BQ
+  rows (64, 32 at MLA's (192, 128)) of the range the kernel bounds, dK
+  and dV summed over the whole group in one accumulator; the dq pass,
+  blocks of 128 query rows (two warpgroups of 64) walking the key tiles
+  (128 keys at (128, 128), else 64) of the forward's range. Every product one bf16 product with f32
+  sums: S^T and dP^T (S and dP) from the bf16 inputs; P and dS rounded
+  to bf16 once, to nearest even, as the A operand of dV, dK and dQ, whose
+  running sums take each 16-wide k-step's product in turn (a wgmma
+  chain's order); dq, dk and dv rounded to bf16 once, dk and dq scaled.
+  The per-warpgroup shortcuts are checked on every tile and every kept
+  (query, key, head) triple is visited once per pass. Held against
+  ``jax.vjp`` of the reference's bf16 attention
+  (``repro.models.attention._sdpa``, which rounds the scores and the
+  probabilities to bf16): dq, dk and dv within ``BF16_REF_FACTOR`` times
+  the reference's own gap, its bf16 gradient against its f32 gradient at
+  the same (bf16) inputs, each gradient's max |diff| over its max. Cases:
+  ragged S, GQA groups 1 and 4, head widths 32, 64 and 128, a window,
+  non-causal with Sk != Sq, a right-aligned diagonal, MLA's (192, 128).
+* ``rmsnorm_bwd`` in bf16: the kernel's arithmetic in its bf16 form
+  (``test_torch_backward_tiles.rmsnorm_bwd_model``: each row's scalar
+  head, 16-byte vectors and scalar tail, as ``bwd_plan`` partitions them)
+  on the bf16 values, dx and dscale rounded to bf16 once, against
+  ``jax.vjp`` of the reference's norm
+  (``repro.models.layers.rmsnorm_apply``, f32 inside, the result cast) in
+  bf16: within one bf16 step of each gradient's max.
 * The routes, with stand-in launches (the plain versions) that refuse
   wrapped tensors and count their calls (``test_torch_ssd_bwd.StandIns``)
   and ``ops`` taking the card's routes: a bf16 block through
@@ -53,8 +56,7 @@ from repro.models.layers import rmsnorm_apply  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from test_torch_backward_tiles import (  # noqa: E402
-    BT, LOG2E, SMEM, WARP, _fma_f32, _kept, _rows, _warps,
-    rmsnorm_bwd_model,
+    LOG2E, SMEM, _fma_f32, _kept, _rows, _warps, rmsnorm_bwd_model,
 )
 from test_torch_ssd_bwd import StandIns, _kernel_route  # noqa: E402
 
@@ -70,14 +72,42 @@ def _bf16(x):
     return x.to(BF16).float()
 
 
-def _plan(d, dv):
-    """The kernel's Plan<d, dv>: (warp pairs a block, its shared-memory
-    bytes): 6 pairs at equal widths up to 128, 4 at (192, 128)."""
-    pairs = 6 if d + dv <= 256 else 4
-    ldq, ldv = d + 8, dv + 8
-    nbytes = (2 * (16 * pairs * (ldq + ldv) + 2 * BT * (ldq + ldv))
-              + 4 * (2 * 2 * BT + 2 * pairs * 2 * BT * 16))
-    return pairs, nbytes
+# the kernel's geometry: keys a dk/dv block, query rows a dq block, rows a
+# consumer warpgroup (wgmma's M), the two rings' stages, and the k-step of
+# a bf16 wgmma
+KV_KEYS, Q_ROWS, HALF = 128, 128, 64
+KV_STAGES, Q_STAGES, KSTEP = 3, 2, 16
+
+
+def _bq(d, dv):
+    """The dk/dv pass's query tile: 64 rows at equal widths, 32 at (192,
+    128), where dK and dV take 160 of a consumer's registers."""
+    return 64 if d + dv <= 256 else 32
+
+
+def _bk(d, dv):
+    """The dq pass's key tile: 128 keys at (128, 128), else 64."""
+    return 128 if (d, dv) == (128, 128) else 64
+
+
+def _smem(d, dv):
+    """Each pass's shared-memory bytes (tiles, lse and delta rows,
+    barriers, and 1,024 to align the first tile)."""
+    bq, bk = _bq(d, dv), _bk(d, dv)
+    kv = (2 * KV_KEYS * (d + dv) + KV_STAGES * 2 * bq * (d + dv)
+          + KV_STAGES * 2 * bq * 4 + 8 * (1 + 2 * KV_STAGES) + 1024)
+    q = (2 * Q_ROWS * (d + dv) + Q_STAGES * 2 * bk * (d + dv)
+         + 8 * (1 + 2 * Q_STAGES) + 1024)
+    return kv, q
+
+
+def _chain(acc, a, b):
+    """acc + a @ b as a wgmma chain sums it into its accumulator: one
+    16-wide k-step's product at a time (each an f32 sum of exact bf16
+    products)."""
+    for k0 in range(0, a.shape[-1], KSTEP):
+        acc = acc + a[..., k0:k0 + KSTEP] @ b[..., k0:k0 + KSTEP, :]
+    return acc
 
 
 def attention_bwd_bf16_model(q, k, v, o, lse, do, causal, window):
@@ -87,105 +117,104 @@ def attention_bwd_bf16_model(q, k, v, o, lse, do, causal, window):
     counts of the pairs it computed that the mask keeps."""
     B, Sq, H, d = q.shape
     Sk, Hkv, dw = k.shape[1], k.shape[2], v.shape[3]
-    BR = WARP * _plan(d, dw)[0]
+    BQ, BK = _bq(d, dw), _bk(d, dw)
     G, off = H // Hkv, Sk - Sq
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
     sl2 = scale * torch.tensor(LOG2E, dtype=torch.float32)
     qf, of, dof = (x.float().permute(0, 2, 1, 3) for x in (q, o, do))
-    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
-    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    kg, vg = (x.float().permute(0, 2, 1, 3) for x in (k, v))  # kv heads
     delta = (dof * of).sum(-1)                                 # (B, H, Sq)
     lse2 = torch.where(torch.isinf(lse), torch.tensor(math.inf),
                        lse * torch.tensor(LOG2E, dtype=torch.float32))
     seen_kv = torch.zeros((B, H, Sq, Sk), dtype=torch.int32)
     seen_q = torch.zeros_like(seen_kv)
 
-    def pair(a, b):
-        """a @ b^T over their width as a warp pair sums it: each warp over
-        its half (bf16 values, exact products, f32 sums), half 0's plus
-        half 1's."""
-        h = a.shape[-1] // 2
-        return (a[..., :h] @ b[..., :h].transpose(-1, -2)
-                + a[..., h:] @ b[..., h:].transpose(-1, -2))
+    def head(x, hh):
+        """Query head hh of every kv head's group: (B, Hkv, ...)."""
+        return x.reshape(B, Hkv, G, *x.shape[2:])[:, :, hh]
 
-    # dk, dv: blocks of BR keys of one query head, f32 partials
-    part_k = torch.zeros((B, H, Sk, d))
-    part_v = torch.zeros((B, H, Sk, dw))
-    for k0 in range(0, Sk, BR):
+    # dk, dv: blocks of KV_KEYS keys of one kv head, the group's query
+    # heads in order, one accumulator over all of them
+    dk = torch.zeros((B, Hkv, Sk, d), dtype=BF16)
+    dv = torch.zeros((B, Hkv, Sk, dw), dtype=BF16)
+    for k0 in range(0, Sk, KV_KEYS):
         i_lo = max(0, k0 - off) if causal else 0
-        i_hi = min(Sq, k0 + BR - 1 + window - off) if window > 0 else Sq
-        t_lo = i_lo // BT
-        n_t = -(-i_hi // BT) - t_lo if i_hi > i_lo else 0
-        nk = min(BR, Sk - k0)
-        kpos = torch.arange(k0, k0 + BR)[:, None]
-        kt, vt = _rows(kf, k0, BR, Sk), _rows(vf, k0, BR, Sk)
-        acc_k = torch.zeros((B, H, BR, d))
-        acc_v = torch.zeros((B, H, BR, dw))
-        for t in range(t_lo, t_lo + n_t):
-            q0 = t * BT
-            qt, dot = _rows(qf, q0, BT, Sq), _rows(dof, q0, BT, Sq)
-            l2 = _rows(lse2[..., None], q0, BT, Sq, math.inf)[..., 0]
-            dl = _rows(delta[..., None], q0, BT, Sq)[..., 0]
-            lo, hi = q0 + off, q0 + off + BT - 1
-            keep = _kept(torch.arange(lo, hi + 1)[None, :], kpos, Sk, causal,
-                         window)
-            active = _warps(
-                keep, nk, range(k0, k0 + BR, WARP),
-                lambda r: r >= Sk or (causal and r > hi) or (
-                    window > 0 and r + WARP - 1 <= lo - window),
-                lambda r: r + WARP - 1 >= Sk or (
-                    causal and r + WARP - 1 > lo) or (
-                    window > 0 and r <= hi - window))
-            on = keep & active[:, None]
-            st, dpt = pair(kt, qt), pair(vt, dot)
-            p = torch.exp2(_fma_f32(st, sl2, -l2[..., None, :]))
-            p = torch.where(on, p, torch.zeros(()))
-            ds = p * (dpt - dl[..., None, :])
-            acc_v = acc_v + _bf16(p) @ dot
-            acc_k = acc_k + _bf16(ds) @ qt
-            nq = min(BT, Sq - q0)
-            seen_kv[:, :, q0:q0 + nq, k0:k0 + nk] += on[:nk, :nq].T.int()
-        part_k[:, :, k0:k0 + nk] = acc_k[:, :, :nk]
-        part_v[:, :, k0:k0 + nk] = acc_v[:, :, :nk]
-    # the fourth launch: each group's partials summed in head order, dk
-    # scaled, both rounded to bf16 once
-    dk, dv = part_k[:, ::G].clone(), part_v[:, ::G].clone()
-    for hh in range(1, G):
-        dk = dk + part_k[:, hh::G]
-        dv = dv + part_v[:, hh::G]
-    dk, dv = (dk * scale).to(BF16), dv.to(BF16)
+        i_hi = (min(Sq, k0 + KV_KEYS - 1 + window - off) if window > 0
+                else Sq)
+        t_lo = i_lo // BQ
+        n_t = -(-i_hi // BQ) - t_lo if i_hi > i_lo else 0
+        nk = min(KV_KEYS, Sk - k0)
+        kpos = torch.arange(k0, k0 + KV_KEYS)[:, None]
+        kt, vt = _rows(kg, k0, KV_KEYS, Sk), _rows(vg, k0, KV_KEYS, Sk)
+        acc_k = torch.zeros((B, Hkv, KV_KEYS, d))
+        acc_v = torch.zeros((B, Hkv, KV_KEYS, dw))
+        for hh in range(G):
+            for t in range(t_lo, t_lo + n_t):
+                q0 = t * BQ
+                qt = _rows(head(qf, hh), q0, BQ, Sq)
+                dot = _rows(head(dof, hh), q0, BQ, Sq)
+                l2 = _rows(head(lse2, hh)[..., None], q0, BQ, Sq,
+                           math.inf)[..., 0]
+                dl = _rows(head(delta, hh)[..., None], q0, BQ, Sq)[..., 0]
+                lo, hi = q0 + off, q0 + off + BQ - 1
+                keep = _kept(torch.arange(lo, hi + 1)[None, :], kpos, Sk,
+                             causal, window)
+                active = _warps(
+                    keep, nk, range(k0, k0 + KV_KEYS, HALF),
+                    lambda r: r >= Sk or (causal and r > hi) or (
+                        window > 0 and r + HALF - 1 <= lo - window),
+                    lambda r: r + HALF - 1 >= Sk or (
+                        causal and r + HALF - 1 > lo) or (
+                        window > 0 and r <= hi - window), rows=HALF)
+                on = keep & active[:, None]
+                st = kt @ qt.transpose(-1, -2)
+                dpt = vt @ dot.transpose(-1, -2)
+                p = torch.exp2(_fma_f32(st, sl2, -l2[..., None, :]))
+                p = torch.where(on, p, torch.zeros(()))
+                ds = p * (dpt - dl[..., None, :])
+                acc_v = _chain(acc_v, _bf16(p), dot)
+                acc_k = _chain(acc_k, _bf16(ds), qt)
+                nq = min(BQ, Sq - q0)
+                head(seen_kv, hh)[:, :, q0:q0 + nq, k0:k0 + nk] += \
+                    on[:nk, :nq].T.int()
+        dk[:, :, k0:k0 + nk] = (acc_k[:, :, :nk] * scale).to(BF16)
+        dv[:, :, k0:k0 + nk] = acc_v[:, :, :nk].to(BF16)
 
-    # dq: blocks of BR query rows walking BT-key tiles
+    # dq: blocks of Q_ROWS query rows walking tiles of BK keys
+    kf, vf = (x.repeat_interleave(G, dim=1) for x in (kg, vg))
     dq = torch.zeros((B, H, Sq, d), dtype=BF16)
-    for q0 in range(0, Sq, BR):
-        q_last = min(q0 + BR, Sq) - 1
+    for q0 in range(0, Sq, Q_ROWS):
+        q_last = min(q0 + Q_ROWS, Sq) - 1
         k_hi = min(Sk, off + q_last + 1) if causal else Sk
         k_lo = max(0, off + q0 - window + 1) if window > 0 else 0
-        t_lo = k_lo // BT
-        n_t = -(-k_hi // BT) - t_lo if k_hi > k_lo else 0
-        nq = min(BR, Sq - q0)
-        qt, dot = _rows(qf, q0, BR, Sq), _rows(dof, q0, BR, Sq)
-        l2 = _rows(lse2[..., None], q0, BR, Sq, math.inf)
-        dl = _rows(delta[..., None], q0, BR, Sq)
-        qpos = torch.arange(q0, q0 + BR)[:, None] + off
-        acc = torch.zeros((B, H, BR, d))
+        t_lo = k_lo // BK
+        n_t = max(0, (-(-k_hi // BK) if k_hi > 0 else 0) - t_lo)
+        nq = min(Q_ROWS, Sq - q0)
+        qt, dot = _rows(qf, q0, Q_ROWS, Sq), _rows(dof, q0, Q_ROWS, Sq)
+        l2 = _rows(lse2[..., None], q0, Q_ROWS, Sq, math.inf)
+        dl = _rows(delta[..., None], q0, Q_ROWS, Sq)
+        qpos = torch.arange(q0, q0 + Q_ROWS)[:, None] + off
+        acc = torch.zeros((B, H, Q_ROWS, d))
         for t in range(t_lo, t_lo + n_t):
-            k0 = t * BT
-            kt, vt = _rows(kf, k0, BT, Sk), _rows(vf, k0, BT, Sk)
-            keep = _kept(qpos, torch.arange(k0, k0 + BT)[None, :], Sk,
+            k0 = t * BK
+            kt, vt = _rows(kf, k0, BK, Sk), _rows(vf, k0, BK, Sk)
+            keep = _kept(qpos, torch.arange(k0, k0 + BK)[None, :], Sk,
                          causal, window)
             active = _warps(
-                keep, nq, range(q0, q0 + BR, WARP),
-                lambda r: r >= Sq or (causal and k0 > r + off + WARP - 1) or (
-                    window > 0 and k0 + BT - 1 <= r + off - window),
-                lambda r: k0 + BT > Sk or (causal and k0 + BT - 1 > r + off)
-                or (window > 0 and k0 <= r + off + WARP - 1 - window))
+                keep, nq, range(q0, q0 + Q_ROWS, HALF),
+                lambda r: r >= Sq or (
+                    causal and k0 > r + off + HALF - 1) or (
+                    window > 0 and k0 + BK - 1 <= r + off - window),
+                lambda r: k0 + BK > Sk or (
+                    causal and k0 + BK - 1 > r + off) or (
+                    window > 0 and k0 <= r + off + HALF - 1 - window),
+                rows=HALF)
             on = keep & active[:, None]
-            s, dp = pair(qt, kt), pair(dot, vt)
-            p = torch.where(on, torch.exp2(_fma_f32(s, sl2, -l2)),
+            s_, dp = qt @ kt.transpose(-1, -2), dot @ vt.transpose(-1, -2)
+            p = torch.where(on, torch.exp2(_fma_f32(s_, sl2, -l2)),
                             torch.zeros(()))
-            acc = acc + _bf16(p * (dp - dl)) @ kt
-            nk = min(BT, Sk - k0)
+            acc = _chain(acc, _bf16(p * (dp - dl)), kt)
+            nk = min(BK, Sk - k0)
             seen_q[:, :, q0:q0 + nq, k0:k0 + nk] += on[:nq, :nk].int()
         dq[:, :, q0:q0 + nq] = (acc[:, :, :nq] * scale).to(BF16)
     grads = (dq.permute(0, 2, 1, 3), dk.permute(0, 2, 1, 3),
@@ -260,30 +289,41 @@ def test_attention_bwd_bf16_model_within_the_references_bf16_noise(case):
 def test_attention_bwd_bf16_model_has_the_kernels_geometry():
     """The blocks, tiles, products and roundings modelled here are the
     ones the bf16 source declares, for every width pair the bf16 forward
-    takes; no float sum goes through an atomic."""
+    takes: TMA-fed wgmma with a producer warp and two consumer
+    warpgroups, every sum in the tensor cores' accumulators, no float sum
+    through an atomic and no f32 partial for the group."""
     src = (_build.CSRC / "attention_bwd_bf16.cu").read_text()
+    common = (_build.CSRC / "sm90_common.cuh").read_text()
 
     def const(name):
         return int(re.search(rf"constexpr \w+ {name} = (\d+);",
                              src).group(1))
-    assert const("kBT") == BT and const("kStages") == 2
-    assert const("kMaxPairs") == 6 and const("kNarrowPairs") == 4
-    assert const("kMaxSmem") == SMEM
-    assert "constexpr int kSwap = 2 * kBT * 16;" in src
-    assert ("DQK + DV <= 256 ? kMaxPairs : kNarrowPairs" in src
-            and "static constexpr int LDQ = DQK + 8;" in src)
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
-    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in src
-    assert "__floats2bfloat162_rn" in src
-    assert "exp2f(fmaf(" in src and "1.4426950408889634f" in src
+    assert (const("kBKV"), const("kBQ"), const("kHalf")) == (
+        KV_KEYS, Q_ROWS, HALF)
+    assert (const("kKvStages"), const("kQStages")) == (KV_STAGES, Q_STAGES)
+    assert "static constexpr int BQ = DQK + DV <= 256 ? 64 : 32;" in src
+    assert ("static constexpr int BK = DQK == 128 && DV == 128 ? 128 : 64;"
+            in src)
+    assert '#include "sm90_common.cuh"' in src
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in common
+    assert "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16" in common
+    assert "cp.async.bulk.tensor.4d.shared::cluster.global" in common
+    assert "setmaxnreg.dec.sync.aligned.u32 24" in src
+    assert "setmaxnreg.inc.sync.aligned.u32 240" in src
+    assert "wgmma_ss<BQ>" in src and "wgmma_ss<kBK>" in src
+    assert "m64n128k16.f32.bf16.bf16" in src    # S and dP at BK = 128
+    assert src.count("wgmma_rs_wide<") >= 3   # dV, dK and dQ, from registers
+    assert "bf16x2_bits(__floats2bfloat162_rn(lo, hi))" in src
+    assert "ex2(fmaf(" in src and "1.4426950408889634f" in src
     assert "atomicAdd" not in src and "atom." not in src
+    assert "part" not in re.sub(r"//.*", "", src.split('extern "C"')[1])
     assert fa.BWD_WIDTHS[BF16] == fa.WIDTHS[BF16]
     for d, dv in fa.BWD_WIDTHS[BF16]:
         assert f"REPRO_ATTENTION_BWD_BF16_CASE({d}, {dv})" in src
-        assert _plan(d, dv)[1] <= SMEM
+        assert max(_smem(d, dv)) <= SMEM
     assert _build.SOURCES["attention_bwd_bf16"] == ("attention_bwd_bf16.cu",)
-    assert fa.BWD_PROGRAMS[BF16][1:] == ("attention_bwd_bf16",
-                                         "repro_attention_bwd_bf16")
+    assert fa.BWD_PROGRAMS[BF16] == ("sm90_wgmma_tma", "attention_bwd_bf16",
+                                     "repro_attention_bwd_bf16")
     assert "repro_attention_bwd_bf16" in _build.SIGNATURES[
         "attention_bwd_bf16"]
 
@@ -306,7 +346,8 @@ def test_rmsnorm_bwd_bf16_matches_the_references_bf16_norm(rows, D, g):
                    for t in (x, dy, scale))
     _, vjp = jax.vjp(f, jx, js)
     want = [np.asarray(t).astype(np.float32) for t in vjp(jdy)]
-    dx, ds = rmsnorm_bwd_model(x.float(), scale.float(), dy.float(), 1e-5)
+    dx, ds = rmsnorm_bwd_model(x.float(), scale.float(), dy.float(), 1e-5,
+                               BF16)
     for got, w in zip((dx.to(BF16), ds.to(BF16)), want):
         assert float(np.abs(got.float().numpy() - w).max()) <= \
             2.0 ** -8 * float(np.abs(w).max())

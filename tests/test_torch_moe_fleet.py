@@ -19,9 +19,14 @@ learners' ``torch.func.vmap`` over ``lm_loss`` of mixtral-8x22b-smoke
   ``STEP_LOSS_TOL`` / ``PLANE_*_TOL``, Δ between the reference's checked
   distances (``0 < syncs < checks``, none within ``DELTA_MARGIN``·Δ of
   Δ); the dynamic fleets with rematerialized layers too.
-* The launchers' MoE runs are in ``tests/test_torch_moe_launch.py``
-  (mixtral-8x22b) and ``tests/test_torch_moe_launch_deepseek.py``
-  (deepseek-v2-236b).
+* The launchers' MoE runs are in ``tests/test_torch_moe_launch.py``,
+  ``tests/test_torch_moe_launch_periodic.py`` (mixtral-8x22b) and
+  ``tests/test_torch_moe_launch_deepseek.py`` (deepseek-v2-236b).
+
+This file runs mixtral-8x22b-smoke; ``tests/test_torch_moe_fleet_deepseek.py``
+runs the same tests on deepseek-v2-236b-smoke (its ``setup``), a file
+each so that the test runner's ``--dist loadfile`` spreads them over two
+workers.
 """
 import pytest
 
@@ -35,6 +40,9 @@ from repro_torch.models.model import lm_loss  # noqa: E402
 from test_torch_lm_train import check_fleet, make_setup  # noqa: E402
 
 MOE_ARCHS = ("mixtral-8x22b", "deepseek-v2-236b")
+# this file's arch; deepseek-v2-236b's fleets run the same tests in
+# tests/test_torch_moe_fleet_deepseek.py
+FLEET_ARCHS = MOE_ARCHS[:1]
 # the fleets train with the reference's production program's optimizer,
 # sgd, under which the port stays within 2.2e-5 of the reference
 # (mixtral; deepseek 2.2e-7) on jax 0.9.0 and torch 2.13. Under adam at
@@ -52,7 +60,7 @@ PERIODIC_B = 3
 VMAP_TOL = 1e-5
 
 
-@pytest.fixture(scope="module", params=MOE_ARCHS)
+@pytest.fixture(scope="module", params=FLEET_ARCHS)
 def setup(request):
     return make_setup(request.param)
 
